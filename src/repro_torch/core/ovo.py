@@ -1,0 +1,85 @@
+"""One-versus-one multi-class handling, following LIBSVM (PyTorch port of
+``repro.core.ovo``).
+
+Task construction is host-side numpy index bookkeeping; the resulting
+`TaskBatch` of tensors is solved by `dual_solver.solve_batch`.  For the pair
+(a, b) with a < b, class a maps to +1.  Prediction is a majority vote with
+ties broken towards the smaller class index.
+"""
+from __future__ import annotations
+
+import itertools
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.dual_solver import TaskBatch
+from repro_torch.core.kernel_fn import full_fp32
+
+PAD_MULTIPLE = 8     # tasks are padded to the largest pair, rounded up to this
+
+
+def class_pairs(n_classes: int) -> List[Tuple[int, int]]:
+    return list(itertools.combinations(range(n_classes), 2))
+
+
+def build_ovo_tasks(
+    labels: np.ndarray,
+    n_classes: int,
+    C: float,
+    *,
+    alpha0: Optional[Sequence[np.ndarray]] = None,
+    device="cuda",
+) -> Tuple[TaskBatch, List[Tuple[int, int]]]:
+    """Build the padded one-vs-one task batch on ``device``.
+
+    labels:  (n,) integer class labels, referring to rows of the shared G
+    alpha0:  optional warm starts, one (task_size,) array per pair
+
+    Every task is padded to the largest pair's size, rounded up to
+    ``PAD_MULTIPLE``; padding rows have c = 0 and are inert.
+    """
+    labels = np.asarray(labels)
+    pairs = class_pairs(n_classes)
+    sel = [np.where((labels == a) | (labels == b))[0] for a, b in pairs]
+    max_n = max((len(s) for s in sel), default=1)
+    n_pad = -(-max_n // PAD_MULTIPLE) * PAD_MULTIPLE
+
+    T = len(pairs)
+    idx = np.zeros((T, n_pad), dtype=np.int32)
+    y = np.ones((T, n_pad), dtype=np.float32)
+    c = np.zeros((T, n_pad), dtype=np.float32)
+    a0 = np.zeros((T, n_pad), dtype=np.float32)
+    for t, ((a, _), rows) in enumerate(zip(pairs, sel)):
+        m = len(rows)
+        idx[t, :m] = rows
+        y[t, :m] = np.where(labels[rows] == a, 1.0, -1.0)
+        c[t, :m] = C
+        if alpha0 is not None and alpha0[t] is not None:
+            a0[t, :m] = np.clip(alpha0[t][:m], 0.0, C)
+
+    def put(a):
+        return torch.as_tensor(a, device=device)
+
+    return TaskBatch(idx=put(idx), y=put(y), c=put(c), alpha0=put(a0)), pairs
+
+
+@full_fp32()
+def ovo_decision_values(features: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """(m, B) features x (T, B) per-pair weights -> (m, T) decision values."""
+    return features @ W.T
+
+
+def ovo_vote(decisions: np.ndarray, pairs: List[Tuple[int, int]],
+             n_classes: int) -> np.ndarray:
+    """Majority vote over pairwise decisions -> (m,) class predictions."""
+    decisions = np.asarray(decisions)
+    m = decisions.shape[0]
+    pa = np.asarray([p[0] for p in pairs], np.int64)
+    pb = np.asarray([p[1] for p in pairs], np.int64)
+    winner = np.where(decisions > 0, pa[None, :], pb[None, :])   # (m, T)
+    votes = np.zeros((m, n_classes), dtype=np.int32)
+    np.add.at(votes, (np.repeat(np.arange(m), len(pairs)), winner.ravel()), 1)
+    # np.argmax breaks ties towards the smaller index (LIBSVM behaviour)
+    return np.argmax(votes, axis=1)

@@ -1,0 +1,94 @@
+"""Build the hand-written CUDA kernels in ``csrc/`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers), so
+``nvcc`` builds it in seconds.  The shared library goes to
+``<repo>/build/repro_torch/<name>-<hash>.so``; the hash covers the source and
+the flags, so an edited source is rebuilt and an unchanged one is reused.
+Nothing is built when this module is imported: the first launch of a kernel
+builds it, and ``build_all`` builds every kernel at once, one ``nvcc`` per
+source, all started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNELS = ("gram", "smo")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the CUDA "
+            "kernels of repro_torch are built on the machine with the card")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+Started = Tuple[str, Path, Path, Optional[subprocess.Popen]]
+
+
+def _start(name: str) -> Started:
+    out = library_path(name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if out.exists():
+        return name, out, tmp, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return name, out, tmp, proc
+
+
+def _finish(started: Started) -> str:
+    name, out, tmp, proc = started
+    if proc is None:
+        return f"{name}: cached {out.name}"
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
+    os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
+    return f"{name}: built {out.name}\n{log.strip()}"
+
+
+def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every named kernel in parallel; returns each one's nvcc log."""
+    started = [_start(name) for name in names]
+    try:
+        return {s[0]: _finish(s) for s in started}
+    finally:
+        for *_, proc in started:     # stop every nvcc, also after a failure
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,117 @@
+"""Kernel B2, one SMO (dual coordinate-ascent) epoch over T tasks: CUDA launch
+and plain version.
+
+``smo_epoch_kernel`` launches ``csrc/smo.cu`` (it replaces the TPU kernel
+``src/repro/kernels/smo.py:100``, ``smo_epoch_pallas``, and the ``vmap`` of
+``dual_solver.epoch_ref`` over tasks); ``smo_epoch_plain`` is the same epoch
+in PyTorch ops: the reference's per-row arithmetic, with the task axis
+written out.  The plain version serves CPU tensors and the comparisons;
+nothing on the CUDA path calls it.
+
+Both take the same arguments and update ``alpha``, ``unchanged`` and ``w`` in
+place (the reference returns new arrays):
+
+    G          (n_rows, B) fp32   the shared factor
+    q          (n_rows,)   fp32   ||g_r||^2 per row of G, computed once
+    idx        (T, n_pad)  int32  rows of G per task
+    y, c       (T, n_pad)  fp32   labels in {-1, +1}; box bound, 0 = padding
+    alpha      (T, n_pad)  fp32
+    unchanged  (T, n_pad)  int32  shrinking's no-change counters
+    w          (T, B)      fp32
+    live       (T,)        bool   a task that is not live is left untouched
+
+and return ``viol`` (T,), the largest |projected gradient| over the rows
+each task touched (0 for a task that is not live).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+Q_FLOOR = 1e-12   # guards the division for zero rows
+
+
+def smo_epoch_plain(G, q, idx, y, c, alpha, unchanged, w, live, *,
+                    full_pass: bool, shrink_k: int) -> torch.Tensor:
+    """One epoch in PyTorch ops: row position i of every task at once.
+
+    Row i reads and writes only its own alpha / unchanged entries, so which
+    rows are active is known before the sweep; positions where no task is
+    active change nothing and are skipped, as the kernel skips them."""
+    T, n_pad = idx.shape
+    viol = torch.zeros((T,), dtype=torch.float32, device=G.device)
+    act = live[:, None] & (c > 0.0)
+    if not full_pass:
+        act = act & (unchanged < shrink_k)
+    for i in act.any(0).nonzero().flatten().tolist():
+        active = act[:, i]
+        rows = G[idx[:, i]]                                   # (T, B)
+        a, ci, yi, ui = alpha[:, i], c[:, i], y[:, i], unchanged[:, i]
+        g = 1.0 - yi * (w * rows).sum(-1)
+        pg = torch.where(a <= 0.0, g.clamp(min=0.0),
+                         torch.where(a >= ci, g.clamp(max=0.0), g))
+        a_new = (a + g / q[idx[:, i]].clamp(min=Q_FLOOR)).clamp(min=0.0)
+        a_new = torch.where(active, torch.minimum(a_new, ci), a)
+        delta = a_new - a
+        w += (delta * yi)[:, None] * rows
+        unchanged[:, i] = torch.where(active & (delta == 0.0), ui + 1,
+                                      torch.where(active, 0, ui))
+        alpha[:, i] = a_new
+        viol = torch.where(active, torch.maximum(viol, pg.abs()), viol)
+    return viol
+
+
+def _launcher():
+    fn = build.load("smo").smo_epoch_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name, t, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"smo_epoch_kernel: {name} must be a contiguous {dtype} {tuple(shape)} "
+            f"tensor on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def smo_epoch_kernel(G, q, idx, y, c, alpha, unchanged, w, live, *,
+                     full_pass: bool, shrink_k: int) -> torch.Tensor:
+    """Launch kernel B2 on CUDA tensors (see the module docstring).
+
+    ``idx`` must index rows of ``G``; the caller validates that once per
+    solve, since checking it here would synchronise every epoch."""
+    if not G.is_cuda:
+        raise ValueError("smo_epoch_kernel: G must be a CUDA tensor")
+    dev = G.device
+    n_rows, B = G.shape
+    T, n_pad = idx.shape
+    f32, i32 = torch.float32, torch.int32
+    for name, t, dt, shape in (
+            ("G", G, f32, (n_rows, B)), ("q", q, f32, (n_rows,)),
+            ("idx", idx, i32, (T, n_pad)), ("y", y, f32, (T, n_pad)),
+            ("c", c, f32, (T, n_pad)), ("alpha", alpha, f32, (T, n_pad)),
+            ("unchanged", unchanged, i32, (T, n_pad)), ("w", w, f32, (T, B)),
+            ("live", live, torch.bool, (T,))):
+        _check(name, t, dt, shape, dev)
+    viol = torch.zeros((T,), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _launcher()(
+            G.data_ptr(), B, idx.data_ptr(), y.data_ptr(), c.data_ptr(),
+            q.data_ptr(), alpha.data_ptr(), unchanged.data_ptr(), w.data_ptr(),
+            viol.data_ptr(), live.data_ptr(), T, n_pad, int(bool(full_pass)),
+            int(shrink_k), stream)
+    if err != 0:
+        raise RuntimeError(f"smo_epoch_kernel: launch failed with CUDA error {err}")
+    smo_epoch_kernel.launches += 1
+    return viol
+
+
+smo_epoch_kernel.launches = 0
