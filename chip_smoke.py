@@ -7,10 +7,12 @@ Phases, each printed as ``[phase] start`` ... ``[phase] ok in N s``; any
 failure raises and exits non-zero, nothing is caught and carried on:
 
   device        card name and power limit (nvidia-smi), torch and CUDA versions
-  build         nvcc builds kernels B1 (gram) and B2 (SMO epoch) from
+  build         nvcc builds kernels B1 and B3 (gram.cu) and B2 (smo.cu) from
                 src/repro_torch/kernels/csrc, in parallel
   B1 vs plain   gram kernel against its plain PyTorch version, four kinds at
                 ragged shapes
+  B3 vs plain   int8 gram kernel against dequantise-then-gram, four kinds at
+                ragged shapes, affine and symmetric codecs
   data          an MNIST-shaped 10-class problem: 60000 + 10000 rows, p = 784
   B1 vs plain, main-path shapes   K_mm, K_nm and the prediction features
   B2 vs plain   SMO-epoch kernel against its plain version at small shapes
@@ -23,6 +25,22 @@ failure raises and exits non-zero, nothing is caught and carried on:
   card vs cpu   a small fit on the card against the same fit on the CPU
   timing        CUDA-event times of each kernel at the main path's shapes,
                 beside its plain version, a library call and its bound
+  B3 vs plain, chunk shape        B3 at the streamed stage-1 chunk shape
+  streamed path LPDSVM(stream_config=StreamConfig(256 MiB, int8 stage 1))
+                .fit -> predict on the main path's data: both stages routed to
+                streaming, counts reset just before and read just after,
+                held against the monolithic fit; stage 1 alone and stage 2
+                alone (f32, then bf16 blocks) for their peak device memory
+  windowed B2 vs plain            B2's window form on one streamed G block
+  timing, streamed kernels        B3 at the chunk shape and windowed B2 on
+                one block, beside plain versions, library calls and bounds
+  streamed stage 1 at scale       1,000,000 x 784 rows (mnist8m's shape, cut
+                from 8.1 M rows), default StreamConfig, f32 and int8 wires:
+                counts reset around each wire, B1 and B3 against their plain
+                versions on its first chunk, G rows against the plain path
+  streamed vs monolithic, one factor   the main path's factor, moved to
+                pinned host memory, through the streamed stage 2 against the
+                main path's own solve: q, epochs, alphas, dual objective
 
 Then one JSON line {"kernels": [...]} and, last, the {"ok": true, ...} line.
 """
@@ -107,6 +125,21 @@ def gram_bound(n: int, m: int, p: int):
     return bound_ms(2.0 * n * m * p + 2.0 * (n + m) * p, 4.0 * (n * p + m * p + n * m))
 
 
+def gram_q8_bound(n: int, m: int, p: int, n_groups: int):
+    # as B1, plus one dequantising FMA per element of x in each of the two
+    # passes; x read once as int8 codes with 8 bytes of table per group
+    return bound_ms(2.0 * n * m * p + 2.0 * (n + m) * p + 2.0 * n * p,
+                    1.0 * n * p + 8.0 * n_groups + 4.0 * (m * p + n * m))
+
+
+def host_free_bytes() -> int:
+    """MemAvailable of /proc/meminfo (bytes)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("chip_smoke: no MemAvailable in /proc/meminfo")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -120,12 +153,19 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
 
-    from repro_torch import LPDSVM, KernelParams, median_gamma
+    from repro_torch import LPDSVM, KernelParams, StreamConfig, median_gamma
     from repro_torch.convert import tasks_from_reference
     from repro_torch.core.nystrom import compute_factor, select_landmarks
+    from repro_torch.core.quant import quantize_rows
+    from repro_torch.core.solver_stream import (_row_sq, block_windows,
+                                                solve_batch_streamed)
+    from repro_torch.core.streaming import (auto_chunk_rows,
+                                            compute_factor_streamed,
+                                            host_buffer)
     from repro_torch.data import make_multiclass
     from repro_torch.kernels import build
-    from repro_torch.kernels.gram import gram_kernel, gram_plain
+    from repro_torch.kernels.gram import (gram_kernel, gram_plain,
+                                          gram_q8_kernel, gram_q8_plain)
     from repro_torch.kernels.smo import smo_epoch_kernel, smo_epoch_plain
 
     dev = torch.device("cuda")
@@ -144,18 +184,23 @@ def main() -> int:
         for log in build.build_all().values():
             print(log)
 
-    def compare_gram(x, z, kp, label):
-        got = gram_kernel(x, z, kp)
-        want = gram_plain(x, z, kp)
+    def compare(got, want, label):
         torch.cuda.synchronize()
         err = (got - want).abs()
         lim = GRAM_ATOL + GRAM_RTOL * want.abs()
-        print(f"gram {label}: max abs err {err.max().item():.3e} "
+        print(f"{label}: max abs err {err.max().item():.3e} "
               f"(tol {GRAM_ATOL} + {GRAM_RTOL}|plain|), plain in "
               f"[{want.min().item():.3e}, {want.max().item():.3e}]")
         check(bool(torch.isfinite(got).all()) and bool((err <= lim).all()),
-              f"gram {label} disagrees with its plain version")
+              f"{label} disagrees with its plain version")
         return err.max().item()
+
+    def compare_gram(x, z, kp, label):
+        return compare(gram_kernel(x, z, kp), gram_plain(x, z, kp), f"gram {label}")
+
+    def compare_gram_q8(v, sc, z, kp, group, label):
+        return compare(gram_q8_kernel(v, sc, z, kp, group),
+                       gram_q8_plain(v, sc, z, kp, group), f"gram_q8 {label}")
 
     gen = torch.Generator(device="cpu").manual_seed(0)
     with phase("B1 vs plain"):
@@ -165,6 +210,21 @@ def main() -> int:
                 x = torch.randn(n, p, generator=gen).to(dev)
                 z = torch.randn(m, p, generator=gen).to(dev)
                 compare_gram(x, z, kp, f"{kind:6s} {n}x{m}x{p}")
+
+    with phase("B3 vs plain"):
+        q8_err = 0.0
+        for kind in ("rbf", "linear", "poly", "tanh"):
+            for n, m, p in RAGGED:
+                kp = ragged_params(kind, p)
+                # offset rows, so that the affine codec's zero-points are not 0
+                x = (torch.randn(n, p, generator=gen) + 0.5).numpy()
+                z = torch.randn(m, p, generator=gen).to(dev)
+                for codec, sym in (("affine", False), ("symmetric", True)):
+                    v, sc = quantize_rows(x, 32, symmetric=sym)
+                    q8_err = max(q8_err, compare_gram_q8(
+                        torch.as_tensor(v, device=dev),
+                        torch.as_tensor(sc, device=dev), z, kp, 32,
+                        f"{kind:6s} {codec:9s} {n}x{m}x{p}"))
 
     with phase("data"):
         x, y = make_multiclass(70000, p=784, n_classes=10, sep=0.07, within=0.06,
@@ -189,13 +249,13 @@ def main() -> int:
         return dict(G=G, q=(G * G).sum(-1), idx=tasks.idx, y=tasks.y, c=tasks.c,
                     alpha=alpha, unchanged=unchanged, w=w, live=live)
 
-    def compare_smo(state, full_pass, label, shrink_k=5):
-        """Run kernel and plain version on copies of ``state``; returns the
-        largest abs error of alpha and w."""
+    def compare_smo(state, full_pass, label, shrink_k=5, **window):
+        """Run kernel and plain version on copies of ``state`` (``window``:
+        B2's window form); returns the largest abs error of alpha and w."""
         runs = []
         for fn in (smo_epoch_kernel, smo_epoch_plain):
             s = {k: v.clone() for k, v in state.items()}
-            viol = fn(**s, full_pass=full_pass, shrink_k=shrink_k)
+            viol = fn(**s, full_pass=full_pass, shrink_k=shrink_k, **window)
             runs.append((s, viol))
         torch.cuda.synchronize()
         (k, vk), (p, vp) = runs
@@ -347,8 +407,8 @@ def main() -> int:
                 work.update({k: v.clone() for k, v in state.items()})
             return go
 
-        def run(fn, full_pass):
-            return lambda: fn(**work, full_pass=full_pass, shrink_k=5)
+        def run(fn, full_pass, **window):
+            return lambda: fn(**work, full_pass=full_pass, shrink_k=5, **window)
 
         s_ms = cuda_ms(run(smo_epoch_kernel, True), 5, reset(state0))
         changed = int((work["alpha"] != state0["alpha"]).sum())   # rows whose w update ran
@@ -376,6 +436,326 @@ def main() -> int:
               f"K_nm @ projector {mm_ms:.3f} ms; stage 1 again in this process "
               f"{warm_s:.3f} s")
 
+    # ------------------------------------------------------ the streamed route
+    cfg = StreamConfig(device_budget_bytes=256 << 20, stage1_dtype="int8",
+                       prefetch=2, autotune_prefetch=False)
+    group = cfg.quant_group_rows
+    n_tr, p_tr = xtr.shape
+    chunk = auto_chunk_rows(n_tr, p_tr, budget, cfg)
+    with phase("B3 vs plain, chunk shape"):
+        # the first stage-1 chunk of the streamed path, as its wire carries it
+        v, sc = quantize_rows(xtr[:chunk], group, symmetric=True)
+        v_d, sc_d = torch.as_tensor(v, device=dev), torch.as_tensor(sc, device=dev)
+        q8_err = max(q8_err, compare_gram_q8(
+            v_d, sc_d, lm, kp, group, f"stage-1 chunk {chunk}x{budget}x{p_tr}"))
+
+    def peak_start() -> int:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def peak_since(base: int) -> int:
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    with phase("streamed path"):
+        # stage 1 alone, for its peak device memory: the byte model counts
+        # the landmarks, the projector and the chunks in flight; it leaves
+        # out the eigh phase before the first chunk (K_mm, its symmetrised
+        # copy, the eigenvectors, two reordered and scaled copies, and about
+        # 2 B^2 of eigensolver workspace)
+        base = peak_start()
+        fac1 = compute_factor(xtr, kp, budget, seed=0, device=dev, stream_config=cfg)
+        peak1 = peak_since(base)
+        allow1 = 4 * 7 * budget * budget
+        print(f"stage 1 alone: streamed {fac1.streamed}, peak device memory "
+              f"{peak1} B: budget {cfg.device_budget_bytes} + eigh allowance "
+              f"{allow1} = {cfg.device_budget_bytes + allow1}")
+        check(fac1.streamed, "stage 1 did not stream")
+        check(peak1 <= cfg.device_budget_bytes + allow1,
+              "stage 1 peak device memory above the budget plus the allowance")
+
+        svm_s = LPDSVM(kernel=kp, C=1.0, budget=budget, tol=1e-2, stream_config=cfg)
+        gram_kernel.launches = 0
+        gram_q8_kernel.launches = 0
+        smo_epoch_kernel.launches = 0
+        t0 = time.perf_counter()
+        svm_s.fit(xtr, ytr)
+        pred_s = svm_s.predict(xte)
+        wall_s = time.perf_counter() - t0
+        s_launches = {"gram": gram_kernel.launches, "gram_q8": gram_q8_kernel.launches,
+                      "smo_epoch": smo_epoch_kernel.launches}
+        st = svm_s.stats
+        s1, s2 = st.stage1_stats, st.stage2_stats
+        fac_s = svm_s.factor
+        rank = fac_s.effective_rank
+        T, n_pad = svm_s.tasks_.idx.shape
+        err_s = float(np.mean(pred_s != yte))
+        agree = float(np.mean(pred_s == pred))
+        g_bytes = n_tr * rank * 4
+        g_same = torch.equal(fac1.G, fac_s.G)
+        print(f"stage 1 twice on the same data (alone, then in the fit): G "
+              f"bit-equal {g_same}, max abs diff "
+              f"{(fac1.G - fac_s.G).abs().max().item():.3e}")
+        del fac1
+        print(f"route: stage 1 streamed {st.stage1_streamed}, stage 2 streamed "
+              f"{st.stage2_streamed}; chunks {s1.chunks} of {chunk} rows, tile "
+              f"{s2.tile_rows} rows, launches {s_launches}")
+        print(f"stage1 {st.stage1_seconds:.3f} s, stage2 {st.stage2_seconds:.3f} s, "
+              f"fit->predict wall {wall_s:.3f} s; epochs max {st.epochs.max()}, "
+              f"full passes {s2.full_passes}, blocks {s2.blocks_streamed}")
+        print(f"stage 1 wire {s1.wire_dtype}: bytes_h2d {s1.bytes_h2d} (scales "
+              f"{s1.bytes_scales}) against {n_tr * p_tr * 4} on the f32 wire; "
+              f"h2d {s1.h2d_gbps:.2f} GB/s, overlap {s1.overlap_efficiency:.3f}, "
+              f"encode {s1.encode_seconds:.3f} s, put {s1.put_seconds:.3f} s, "
+              f"drain {s1.drain_seconds:.3f} s, pinned G {s1.alloc_seconds:.3f} s, "
+              f"prefetch_final {s1.prefetch_final}")
+        print(f"stage 2 wire {s2.block_dtype}: bytes_h2d {s2.bytes_h2d}, bytes_g "
+              f"{s2.bytes_g}, bytes_d2h {s2.bytes_d2h}; h2d {s2.h2d_gbps:.2f} GB/s, "
+              f"overlap {s2.overlap_efficiency:.3f}, put {s2.put_seconds:.3f} s, "
+              f"drain {s2.drain_seconds:.3f} s, compaction {s2.compact_seconds:.3f} s, "
+              f"prefetch_final {s2.prefetch_final}, coord_visits {s2.coord_visits}")
+        print(f"epoch_bytes first 3 {s2.epoch_bytes[:3]}, last 3 "
+              f"{s2.epoch_bytes[-3:]}, total {sum(s2.epoch_bytes)}; active_history "
+              f"{s2.active_history}")
+        print(f"test error {err_s:.4f} (monolithic {err:.4f}), prediction "
+              f"agreement with the monolithic fit {agree:.4f}")
+        check(st.stage1_streamed and st.stage2_streamed, "a stage did not stream")
+        check(s_launches["gram_q8"] == s1.chunks > 1,
+              "B3 was not launched once per stage-1 chunk")
+        check(s_launches["gram"] == 2, "B1 not launched once for K_mm and once "
+              "for the prediction features")
+        check(s_launches["smo_epoch"] == s2.kernel_calls > 0,
+              "B2 launches differ from the streamed blocks")
+        check(fac_s.G.device.type == "cpu" and fac_s.G.is_pinned(),
+              "the streamed G is not a pinned host tensor")
+        check(agree >= 0.99, f"streamed predictions agree {agree} < 0.99")
+        check(abs(err_s - err) <= 0.005, "streamed test error off by > 0.5 points")
+        check(bool(np.all(st.violations < 1e-2)), "a streamed task did not converge")
+        check(s2.epoch_bytes[0] == g_bytes,
+              f"first full pass streamed {s2.epoch_bytes[0]} G bytes, not n B' 4")
+
+        # stage 2 alone, for its peak: the byte model counts w and the G
+        # blocks in flight; it leaves out the task state on the card
+        # (TaskBatch idx/y/c/alpha0, the sorted copies sidx/y/c/alpha/
+        # unchanged, the int64 permutation, the compacted index table old and
+        # new while it is replaced: 13 words per task position) and q (one
+        # word per row of G).  The factor's landmarks and projector are
+        # there before the start.
+        allow2 = 4 * (13 * T * n_pad + n_tr)
+        limit2 = cfg.device_budget_bytes + allow2
+        base = peak_start()
+        svm2 = LPDSVM(kernel=kp, C=1.0, budget=budget, tol=1e-2, stream_config=cfg)
+        svm2.fit(xtr, ytr, factor=fac_s)
+        peak2 = peak_since(base)
+        same = (np.array_equal(svm2.stats.epochs, st.epochs)
+                and torch.equal(svm2.alpha_, svm_s.alpha_)
+                and torch.equal(svm2.W_, svm_s.W_))
+        print(f"stage 2 alone, f32 blocks: {svm2.stats.stage2_seconds:.3f} s, "
+              f"peak device memory {peak2} B: budget {cfg.device_budget_bytes} "
+              f"+ task-state allowance {allow2} = {limit2}; G is {g_bytes} B "
+              f"(peak / G {peak2 / g_bytes:.3f}); epochs, alphas and w equal "
+              f"to the fit's {same}")
+        check(svm2.stats.stage2_streamed and same,
+              "stage 2 on the same factor did not repeat the fit's solve")
+        check(peak2 <= limit2,
+              "stage 2 peak device memory above the budget plus the allowance")
+
+        cfg16 = dataclasses.replace(cfg, block_dtype="bf16")
+        svm16 = LPDSVM(kernel=kp, C=1.0, budget=budget, tol=1e-2, stream_config=cfg16)
+        base = peak_start()
+        svm16.fit(xtr, ytr, factor=fac_s)
+        peak16 = peak_since(base)
+        pred16 = svm16.predict(xte)
+        b16 = svm16.stats.stage2_stats
+        agree16 = float(np.mean(pred16 == pred))
+        print(f"stage 2 again, bf16 blocks: {svm16.stats.stage2_seconds:.3f} s, "
+              f"epochs max {svm16.stats.epochs.max()}, first full pass "
+              f"{b16.epoch_bytes[0]} B (f32 {s2.epoch_bytes[0]}), h2d "
+              f"{b16.h2d_gbps:.2f} GB/s, test error "
+              f"{float(np.mean(pred16 != yte)):.4f}, agreement {agree16:.4f}, "
+              f"peak device memory {peak16} B (limit {limit2})")
+        check(svm16.stats.stage2_streamed and b16.epoch_bytes[0] * 2 == g_bytes,
+              "bf16 blocks did not halve the first full pass")
+        check(agree16 >= 0.99, f"bf16 predictions agree {agree16} < 0.99")
+        check(peak16 <= limit2,
+              "bf16 stage 2 peak device memory above the budget plus the allowance")
+
+    with phase("windowed B2 vs plain"):
+        # block 1 of the streamed grid (row0 = tile), every task from zero
+        tile = s2.tile_rows
+        row0 = tile if n_tr > tile else 0
+        blk = fac_s.G[row0:row0 + tile].to(dev)
+        tasks_s = svm_s.tasks_
+        idx_h, c_h = tasks_s.idx.cpu().numpy(), tasks_s.c.cpu().numpy()
+        bw = np.stack([block_windows(idx_h[t][c_h[t] > 0], tile, -(-n_tr // tile))
+                       for t in range(T)])[:, row0 // tile:row0 // tile + 2]
+        win = dict(lo=torch.as_tensor(bw[:, 0], dtype=torch.int32, device=dev),
+                   hi=torch.as_tensor(bw[:, 1], dtype=torch.int32, device=dev),
+                   row0=row0)
+        state_w = dict(G=blk, q=(blk * blk).sum(-1), idx=tasks_s.idx, y=tasks_s.y,
+                       c=tasks_s.c, alpha=torch.zeros((T, n_pad), device=dev),
+                       unchanged=torch.zeros((T, n_pad), dtype=torch.int32, device=dev),
+                       w=torch.zeros((T, rank), device=dev),
+                       live=torch.ones(T, dtype=torch.bool, device=dev))
+        visits = int((bw[:, 1] - bw[:, 0]).sum())
+        smo_err = max(smo_err, compare_smo(
+            state_w, True, f"windowed, block rows {row0}:{row0 + blk.shape[0]}, "
+            f"{visits} task rows", **win))
+
+    with phase("timing, streamed kernels"):
+        q8_ms = cuda_ms(lambda: gram_q8_kernel(v_d, sc_d, lm, kp, group), 10)
+        q8_plain = cuda_ms(lambda: gram_q8_plain(v_d, sc_d, lm, kp, group), 10)
+
+        def q8_library():   # dequantise, cuBLAS fp32 product, the RBF epilogue
+            rep = sc_d.repeat_interleave(group, 0)[:chunk]
+            xs = v_d.float() * rep[:, :1] + rep[:, 1:]
+            xsq = (xs * xs).sum(-1)
+            zsq = (lm * lm).sum(-1)
+            k = torch.addmm(xsq[:, None], xs, lm.T, alpha=-2.0)
+            return k.add_(zsq[None, :]).clamp_min_(0.0).mul_(-kp.gamma).exp_()
+        q8_lib = cuda_ms(q8_library, 10)
+        xc_d = torch.as_tensor(xtr[:chunk], device=dev)
+        b1_chunk = cuda_ms(lambda: gram_kernel(xc_d, lm, kp), 10)
+        q8_bound, q8_by = gram_q8_bound(chunk, budget, p_tr, sc.shape[0])
+        print(f"gram_q8 {chunk}x{budget}x{p_tr}: {q8_ms:.3f} ms (plain {q8_plain:.3f}, "
+              f"library {q8_lib:.3f}, bound {q8_bound:.3f} by {q8_by}); B1 on the "
+              f"same chunk in fp32 {b1_chunk:.3f} ms")
+        check(torch.allclose(q8_library(), gram_q8_plain(v_d, sc_d, lm, kp, group),
+                             rtol=GRAM_RTOL, atol=GRAM_ATOL),
+              "the B3 library yardstick computes another function")
+
+        wb_ms = cuda_ms(run(smo_epoch_kernel, True, **win), 5, reset(state_w))
+        changed_w = int((work["alpha"] != 0).sum())
+        wb_plain = cuda_ms(run(smo_epoch_plain, True, **win), 1, reset(state_w))
+        g_rows_w = blk.shape[0]
+        wb_bound, wb_by = bound_ms(
+            2.0 * rank * visits + 2.0 * rank * changed_w,
+            4.0 * (g_rows_w * rank + g_rows_w + 7 * visits + 2 * T * rank + 3 * T))
+        print(f"windowed smo, one full-pass block of {g_rows_w} rows, {visits} task "
+              f"rows: {wb_ms:.3f} ms (plain {wb_plain:.1f}, bound {wb_bound:.4f} "
+              f"by {wb_by})")
+
+    with phase("streamed stage 1 at scale"):
+        need = 32 << 30
+        avail = host_free_bytes()
+        print(f"host MemAvailable {avail} B (this phase needs about {need})")
+        check(avail >= need, "not enough host memory for the 1,000,000-row phase")
+        t0 = time.perf_counter()
+        xb, _ = make_multiclass(1_000_000, p=784, n_classes=10, sep=0.07,
+                                within=0.06, seed=1)
+        kpb = KernelParams("rbf", gamma=median_gamma(xb))
+        print(f"data {xb.shape} in {time.perf_counter() - t0:.3f} s, gamma "
+              f"{kpb.gamma:.6e}")
+        sample = np.sort(np.random.default_rng(0).choice(len(xb), 4096, replace=False))
+        scale = {}
+        for wire in ("f32", "int8"):
+            gram_kernel.launches = 0
+            gram_q8_kernel.launches = 0
+            t0 = time.perf_counter()
+            f = compute_factor_streamed(xb, kpb, budget,
+                                        config=StreamConfig(stage1_dtype=wire),
+                                        device=dev)
+            secs = time.perf_counter() - t0
+            b_launches = {"gram": gram_kernel.launches,
+                          "gram_q8": gram_q8_kernel.launches}
+            s1b = f.stage1_stats
+            rows = f.G[sample].clone()
+            print(f"stage 1 at scale, {wire} wire: {secs:.3f} s (pipeline "
+                  f"{s1b.seconds:.3f} s, pinned G alloc {s1b.alloc_seconds:.3f} s, "
+                  f"encode {s1b.encode_seconds:.3f} s, put {s1b.put_seconds:.3f} s, "
+                  f"drain {s1b.drain_seconds:.3f} s); chunks {s1b.chunks}, rank "
+                  f"{f.effective_rank}, bytes_h2d {s1b.bytes_h2d} (scales "
+                  f"{s1b.bytes_scales}), h2d {s1b.h2d_gbps:.2f} GB/s, overlap "
+                  f"{s1b.overlap_efficiency:.3f}, prefetch_final {s1b.prefetch_final}; "
+                  f"launches {b_launches}")
+            check(f.G.is_pinned() and s1b.rows == len(xb)
+                  and bool(torch.isfinite(rows).all()),
+                  f"stage 1 at scale, {wire} wire: G not pinned, short or not finite")
+            # K_mm goes through B1 once; every chunk through B1 (f32 wire) or
+            # B3 (int8 wire) once
+            want = ({"gram": 1 + s1b.chunks, "gram_q8": 0} if wire == "f32"
+                    else {"gram": 1, "gram_q8": s1b.chunks})
+            check(b_launches == want and s1b.chunks > 1,
+                  f"stage 1 at scale, {wire} wire: launches {b_launches}, not {want}")
+            scale[wire] = (rows, s1b.bytes_h2d)
+            if wire == "f32":
+                lm_b, proj_b = f.landmarks, f.projector
+                # the sampled G rows against the plain path on the same
+                # landmarks and projector: G - G_plain = (K - K_plain) P, so
+                # the gram tolerance carried through |P| bounds each entry
+                xs_d = torch.as_tensor(xb[sample], device=dev)
+                ks_plain = gram_plain(xs_d, lm_b, kpb)
+                gs_plain = ks_plain @ proj_b
+                gs_tol = (GRAM_ATOL + GRAM_RTOL * ks_plain.abs()) @ proj_b.abs()
+                gs_err = (rows.to(dev) - gs_plain).abs()
+                print(f"f32 wire G rows vs plain path on {len(sample)} rows: max "
+                      f"abs err {gs_err.max().item():.3e}, largest share of its "
+                      f"bound {(gs_err / gs_tol).max().item():.3e} (max 1), plain G "
+                      f"in [{gs_plain.min().item():.3e}, {gs_plain.max().item():.3e}]")
+                check(bool((gs_err <= gs_tol).all()),
+                      "stage 1 at scale: G rows disagree with the plain path")
+                del xs_d, ks_plain, gs_plain, gs_tol, gs_err
+            del f
+        # B1 and B3 against their plain versions at this path's chunk shape,
+        # on its first chunk as each wire carries it
+        cfg_b = StreamConfig()
+        chunk_b = auto_chunk_rows(len(xb), xb.shape[1], budget, cfg_b)
+        xc_d = torch.as_tensor(xb[:chunk_b], device=dev)
+        gram_err = max(gram_err, compare_gram(
+            xc_d, lm_b, kpb, f"stage-1 chunk at scale {chunk_b}x{budget}x{xb.shape[1]}"))
+        del xc_d
+        v, sc = quantize_rows(xb[:chunk_b], cfg_b.quant_group_rows, symmetric=True)
+        q8_err = max(q8_err, compare_gram_q8(
+            torch.as_tensor(v, device=dev), torch.as_tensor(sc, device=dev), lm_b,
+            kpb, cfg_b.quant_group_rows, f"stage-1 chunk at scale {chunk_b}x{budget}x{xb.shape[1]}"))
+        d = (scale["int8"][0] - scale["f32"][0]).abs()
+        print(f"int8 G vs f32 G on {len(sample)} rows: max abs diff "
+              f"{d.max().item():.3e} (max 0.05), mean {d.mean().item():.3e} (max "
+              f"0.005); wire bytes int8 {scale['int8'][1]} vs f32 {scale['f32'][1]}")
+        check(d.max().item() < 0.05 and d.mean().item() < 0.005,
+              "the int8 factor left the codec bounds of the f32 factor")
+        check(3 * scale["int8"][1] < scale["f32"][1], "int8 wire not below f32 / 3")
+
+    with phase("streamed vs monolithic, one factor"):
+        # the main path's own f32 factor in pinned host memory, through the
+        # streamed stage 2 at the streamed path's budget, against the main
+        # path's solve_batch on the card: the same sweep order and the same
+        # q make the same epochs and alphas
+        G_d = fac.G
+        G_h = host_buffer(tuple(G_d.shape), torch.float32, dev).copy_(G_d)
+        res_m, s2m = solve_batch_streamed(G_h, svm.tasks_, svm.config,
+                                          stream_config=cfg, return_stats=True)
+        # q as the streamed solve sums it (each block of its grid, plus a
+        # block shorter than 16 rows and one with a short tail) against
+        # solve_batch's (G * G).sum(-1)
+        q_mono = (G_d * G_d).sum(-1)
+        tile_m = s2m.tile_rows
+        spans = [(s, min(s + tile_m, n_tr)) for s in range(0, n_tr, tile_m)]
+        q_err = 0.0
+        for s, e in spans + [(8, 15), (16, 16 + 1029)]:
+            q_blk = torch.empty((e - s,), device=dev)
+            _row_sq(G_d[s:e], q_blk)
+            q_err = max(q_err, (q_blk - q_mono[s:e]).abs().max().item())
+        a_err = (res_m.alpha - svm.alpha_).abs().max().item()
+        w_err = (res_m.w - svm.W_).abs().max().item()
+        dual_m = svm.alpha_.sum(-1) - 0.5 * (svm.W_ * svm.W_).sum(-1)
+        rel = ((res_m.dual_obj - dual_m).abs() / dual_m.abs()).max().item()
+        ep_s, ep_m = res_m.epochs.cpu().numpy(), svm.stats.epochs
+        bit_equal = (np.array_equal(ep_s, ep_m) and torch.equal(res_m.alpha, svm.alpha_)
+                     and torch.equal(res_m.w, svm.W_))
+        print(f"streamed stage 2 on the main path's factor ({s2m.seconds:.3f} s, "
+              f"tile {tile_m}, {s2m.kernel_calls} B2 launches) vs its monolithic "
+              f"solve: epochs max {ep_s.max()} vs {ep_m.max()}, equal "
+              f"{np.array_equal(ep_s, ep_m)}; max |alpha diff| {a_err:.3e} (max "
+              f"1e-6), max |w diff| {w_err:.3e}, dual objective max rel diff "
+              f"{rel:.3e} (max 5e-3), bit-equal {bit_equal}; max |q streamed - "
+              f"q monolithic| {q_err:.3e} over {len(spans) + 2} blocks")
+        check(q_err == 0.0, "the streamed q differs from solve_batch's")
+        check(np.array_equal(ep_s, ep_m) and a_err <= 1e-6 and rel <= 5e-3,
+              "the streamed stage 2 left the monolithic trajectory")
+        del G_h
+
     kernels = [
         {"name": "gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram.cu",
@@ -388,6 +768,12 @@ def main() -> int:
          "launches": launches["smo_epoch"], "max_abs_err": smo_err, "ms": s_ms,
          "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
          "library_ms": None},
+        {"name": "gram_q8", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/gram.cu",
+         "replaces": "src/repro/kernels/gram.py:157",
+         "launches": s_launches["gram_q8"], "max_abs_err": q8_err, "ms": q8_ms,
+         "plain_ms": q8_plain, "bound_ms": q8_bound, "bound_by": q8_by,
+         "library_ms": q8_lib},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,17 @@
 """LPD-SVM in PyTorch with hand-written CUDA kernels for the H100.
 
 A port of the JAX package ``repro`` (which stays the reference and is never
-imported here).  This slice is the monolithic route: ``LPDSVM(...).fit(x, y)``
-then ``predict(x_test)`` on one card, through kernel B1 (gram) in stage 1 and
-prediction, and kernel B2 (SMO epoch) in stage 2.
+imported here).  Two routes of ``LPDSVM(...).fit(x, y)`` then
+``predict(x_test)`` on one card: the monolithic one, through kernel B1
+(gram) in stage 1 and prediction and kernel B2 (SMO epoch) in stage 2, and
+the out-of-core one (``stream`` / ``stream_config``), where x and G stay in
+host memory, stage-1 chunks cross the bus as int8 through kernel B3 (or as
+fp32 through B1) and stage 2 streams G's row blocks through B2.
 """
 from repro_torch.core import (LPDSVM, FitStats, KernelParams, LowRankFactor,
-                              SolverConfig, TaskBatch, compute_factor,
-                              median_gamma, solve_batch)
+                              SolverConfig, StreamConfig, TaskBatch,
+                              compute_factor, median_gamma, solve_batch)
 
 __all__ = ["LPDSVM", "FitStats", "KernelParams", "LowRankFactor",
-           "SolverConfig", "TaskBatch", "compute_factor", "median_gamma",
-           "solve_batch"]
+           "SolverConfig", "StreamConfig", "TaskBatch", "compute_factor",
+           "median_gamma", "solve_batch"]

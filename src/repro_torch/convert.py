@@ -7,8 +7,9 @@ so this module needs nothing of the JAX package:
     (the arrays its ``save`` writes: landmarks, projector, eigvals, W,
     classes, and the kernel parameters and C of its ``meta``);
   * ``factor_from_reference`` / ``tasks_from_reference``: a stage-1 factor G
-    and a ``TaskBatch``, so stage 2 can be held against the reference on
-    identical inputs.
+    (device-resident, or host-resident for the streamed route) and a
+    ``TaskBatch``, so stage 2 can be held against the reference on identical
+    inputs.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from repro_torch.core.dual_solver import TaskBatch
 from repro_torch.core.kernel_fn import KERNELS, KernelParams
 from repro_torch.core.nystrom import LowRankFactor
 from repro_torch.core.ovo import class_pairs
+from repro_torch.core.streaming import host_buffer
 from repro_torch.core.svm import LPDSVM, resolve_device
 
 
@@ -41,17 +43,28 @@ def _put(a, device, dtype=torch.float32) -> torch.Tensor:
 
 
 def factor_from_reference(state: Mapping[str, np.ndarray], kernel: KernelParams,
-                          device=None) -> LowRankFactor:
+                          device=None, *, streamed: bool = False) -> LowRankFactor:
     """A ``LowRankFactor`` from the reference's landmarks, projector, eigvals
-    and, where given, G (a fitted model loaded for prediction has none)."""
+    and, where given, G (a fitted model loaded for prediction has none).
+
+    ``streamed=True`` carries a streamed reference factor (its G is a host
+    numpy buffer) across as a streamed port factor: G stays in host memory,
+    pinned when the device is the card, and stage 2 streams it."""
     device = resolve_device(device)
     projector = _put(state["projector"], device)
     G = state.get("G")
-    G = (torch.zeros((0, projector.shape[1]), device=device) if G is None
-         else _put(G, device))
+    if G is None:
+        G = torch.zeros((0, projector.shape[1]), device=device)
+    elif streamed:
+        src = torch.from_numpy(np.ascontiguousarray(G, np.float32))
+        G = host_buffer(tuple(src.shape), torch.float32, device)
+        G.copy_(src)
+    else:
+        G = _put(G, device)
     return LowRankFactor(G=G, landmarks=_put(state["landmarks"], device),
                          projector=projector, eigvals=_put(state["eigvals"], device),
-                         effective_rank=projector.shape[1], kernel=kernel)
+                         effective_rank=projector.shape[1], kernel=kernel,
+                         streamed=streamed)
 
 
 def tasks_from_reference(idx, y, c, alpha0, device=None) -> TaskBatch:

@@ -1,4 +1,5 @@
-"""LPD-SVM core, PyTorch port: the monolithic fit -> predict route."""
+"""LPD-SVM core, PyTorch port: the monolithic and the out-of-core (streamed)
+fit -> predict routes."""
 from repro_torch.core.dual_solver import (SolveResult, SolverConfig, TaskBatch,
                                           dual_objective, duality_gap,
                                           primal_objective, solve_batch,
@@ -6,16 +7,33 @@ from repro_torch.core.dual_solver import (SolveResult, SolverConfig, TaskBatch,
 from repro_torch.core.kernel_fn import (KernelParams, apply_epilogue, gram,
                                         kernel_diag, median_gamma)
 from repro_torch.core.nystrom import (LowRankFactor, compute_factor,
-                                      select_landmarks)
+                                      landmark_rows, select_landmarks)
 from repro_torch.core.ovo import (build_ovo_tasks, class_pairs,
                                   ovo_decision_values, ovo_vote)
+from repro_torch.core.quant import (GROUP_ROWS, QuantBlock, dequant_rows,
+                                    dequantize_rows, quantize_rows)
+from repro_torch.core.solver_stream import (Stage2StreamStats, auto_tile_rows,
+                                            route_stage2, should_stream_stage2,
+                                            solve_batch_streamed,
+                                            solve_streamed_auto)
+from repro_torch.core.streaming import (Stage1StreamStats, StreamConfig,
+                                        auto_chunk_rows,
+                                        compute_factor_streamed, host_buffer,
+                                        should_stream, stream_factor_rows)
 from repro_torch.core.svm import LPDSVM, FitStats
 
 __all__ = [
     "SolveResult", "SolverConfig", "TaskBatch", "dual_objective",
     "duality_gap", "primal_objective", "solve_batch", "solve_one",
     "KernelParams", "apply_epilogue", "gram", "kernel_diag", "median_gamma",
-    "LowRankFactor", "compute_factor", "select_landmarks",
+    "LowRankFactor", "compute_factor", "landmark_rows", "select_landmarks",
     "build_ovo_tasks", "class_pairs", "ovo_decision_values", "ovo_vote",
+    "GROUP_ROWS", "QuantBlock", "dequant_rows", "dequantize_rows",
+    "quantize_rows",
+    "Stage2StreamStats", "auto_tile_rows", "route_stage2",
+    "should_stream_stage2", "solve_batch_streamed", "solve_streamed_auto",
+    "Stage1StreamStats", "StreamConfig", "auto_chunk_rows",
+    "compute_factor_streamed", "host_buffer", "should_stream",
+    "stream_factor_rows",
     "LPDSVM", "FitStats",
 ]

@@ -57,15 +57,17 @@ class SolveResult(NamedTuple):
     n_sv: torch.Tensor           # (T,) support-vector count
 
 
-@full_fp32()
 def _init_w(G, idx, y, alpha) -> torch.Tensor:
     """w_t = sum_i alpha_ti y_ti g_idx[t, i], one task at a time, so the
-    (T, n_pad, B) gather of G is never materialised; zero for a cold start."""
+    (T, n_pad, B) gather of G is never materialised; zero for a cold start.
+    The sum is taken in fp64 and rounded once, so the streamed solver, which
+    sums the same terms block by block, starts from the same fp32 w."""
     w = torch.zeros((idx.shape[0], G.shape[1]), dtype=torch.float32,
                     device=G.device)
     if bool((alpha != 0).any()):
         for t in range(idx.shape[0]):
-            w[t] = (alpha[t] * y[t]) @ G[idx[t].long()]
+            coef = (alpha[t] * y[t]).double()
+            w[t] = (coef @ G[idx[t].long()].double()).float()
     return w
 
 

@@ -1,0 +1,490 @@
+"""Out-of-core stage 2 on one card: stream G row blocks from pinned host
+memory through kernel B2 (PyTorch port of the one-device route of
+``repro.core.solver_stream``).
+
+The paper's layout: the task state on the card, G in host RAM.
+
+    host RAM (pinned)                      card
+    G      (n, B')   read-only             every task's idx, y, c, alpha,
+    act_G  (U, B')   the active-row union  unchanged (T, n_pad) and w (T, B');
+                     after a full pass     per block in flight: (tile, B') rows
+
+The task state is O(sum of task sizes) and stays on the card for the whole
+solve; only G blocks cross the bus.  Each task's real rows are kept in sorted
+global order (``sidx``), so the sweep order is the monolithic one and the
+trajectory with it.  A block is ONE launch of B2 over every live task in its
+window form: task t sweeps its positions ``lo[t]:hi[t]`` (a precomputed
+``block_windows`` table, on the card) and reads block row
+``sidx[t, i] - row0``.  q (n floats) is summed on the card from the blocks
+of the first pass and kept there, bit for bit ``solve_batch``'s q, and w
+stays in the kernel's hands across blocks, so a block costs no gather, no
+scatter and no host sync.
+
+Shrinking cuts the bytes, as in the reference: after every full pass the
+union of the rows still active for a live task is gathered from G into a
+pinned buffer (and their q on the card), and the cheap epochs until the next
+full pass stream only that union.  A compacted index table maps each
+position to its row in the union; an inactive position takes the next
+active one's row, so the table stays monotone and every window contiguous
+(the kernel skips inactive positions without reading them).  The ``tol`` test runs on full passes, and
+a warm start accumulates w0 block by block in a streamed init pass first.
+
+Blocks go through a ring of ``prefetch`` device slots: the H2D stream fills
+a slot, the compute stream waits for that copy by event and launches B2, and
+before a slot is filled again the host waits on the event recorded after the
+launch that read it.  bf16 blocks are cast into pinned staging on the host
+and upcast on the card into one fp32 buffer of the compute stream.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.dual_solver import (INT32_MAX, SolveResult, SolverConfig,
+                                          TaskBatch)
+from repro_torch.core.kernel_fn import full_fp32
+from repro_torch.core.streaming import (BYTES_F32, Lanes, StreamConfig,
+                                        StreamTimes, check_host, host_buffer,
+                                        tune_prefetch, wait)
+from repro_torch.kernels.ops import smo_epoch
+
+WIRE = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+# ---------------------------------------------------------------------------
+# the stage-2 byte model (the reference's)
+# ---------------------------------------------------------------------------
+
+def stage2_resident_bytes(rank: int, n_tasks: int) -> int:
+    """Device-resident stage-2 state: one (B,) weight vector per task."""
+    return n_tasks * rank * BYTES_F32
+
+
+def stage2_block_bytes(tile: int, rank: int, n_tasks: int) -> int:
+    """Working set of ONE in-flight block: the G tile plus, per task, the
+    five input vectors (y, c, q, alpha, unchanged) and two outputs."""
+    return tile * (rank + 7 * n_tasks) * BYTES_F32
+
+
+def stage2_monolithic_bytes(n: int, rank: int, n_tasks: int, n_pad: int) -> int:
+    """Device working set of `solve_batch`: full G + per-task vectors."""
+    return (n * rank + n_tasks * (7 * n_pad + 2 * rank)) * BYTES_F32
+
+
+def should_stream_stage2(n: int, rank: int, n_tasks: int, n_pad: int,
+                         cfg: StreamConfig) -> bool:
+    """True when the monolithic stage-2 working set blows the device budget."""
+    return stage2_monolithic_bytes(n, rank, n_tasks, n_pad) > cfg.device_budget_bytes
+
+
+def route_stage2(factor, tasks: TaskBatch, stream,
+                 stream_config: Optional[StreamConfig],
+                 solve_fn, default_solve_fn) -> bool:
+    """The stage-2 routing predicate: stream G row blocks when G is already
+    host-resident (``factor.streamed``), streaming is forced, or the
+    monolithic working set exceeds the device budget.  A custom ``solve_fn``
+    is always respected, and ``stream=False`` pins the monolithic path."""
+    if solve_fn is not default_solve_fn or stream is False:
+        return False
+    if stream or getattr(factor, "streamed", False):
+        return True
+    if stream_config is None:
+        return False
+    n, rank = factor.G.shape
+    return should_stream_stage2(n, rank, tasks.n_tasks, tasks.idx.shape[1],
+                                stream_config)
+
+
+def auto_tile_rows(n: int, rank: int, n_tasks: int, cfg: StreamConfig) -> int:
+    """Largest row tile whose ``prefetch`` in-flight blocks fit the budget,
+    floored at ``min_chunk_rows`` and rounded to a multiple of 8."""
+    if cfg.tile_rows is not None:
+        return max(8, -(-min(cfg.tile_rows, n) // 8) * 8)
+    free = cfg.device_budget_bytes - stage2_resident_bytes(rank, n_tasks)
+    per_row = cfg.prefetch * (rank + 7 * n_tasks) * BYTES_F32
+    rows = (free // per_row) // 8 * 8 if free > 0 else 0   # round down: budget
+    return int(min(-(-n // 8) * 8, max(cfg.min_chunk_rows, rows, 8)))
+
+
+def block_windows(ids: np.ndarray, tile: int, n_blocks: int) -> np.ndarray:
+    """Boundary table of a task's SORTED global row ids against the block
+    grid: entry b is the first position in ``ids`` at or past row b * tile,
+    so block b's window is the slice bounds[b]:bounds[b + 1]."""
+    edges = np.arange(n_blocks + 1, dtype=np.int64) * tile
+    return np.searchsorted(np.asarray(ids, np.int64), edges, side="left")
+
+
+# ---------------------------------------------------------------------------
+# stats and the block ring
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Stage2StreamStats(StreamTimes):
+    """Traffic and convergence accounting of one streamed stage-2 solve.
+
+    ``bytes_h2d`` counts the G blocks plus the index tables."""
+
+    tile_rows: int = 0
+    epochs: int = 0                   # epochs run (the longest task's)
+    full_passes: int = 0
+    blocks_streamed: int = 0
+    rows_streamed: int = 0            # G rows over all blocks and passes
+    kernel_calls: int = 0             # B2 launches: one per block, all tasks
+    coord_visits: int = 0             # task rows inside the windows swept
+    bytes_g: int = 0                  # the G-block part of bytes_h2d
+    bytes_d2h: int = 0                # shrink counters, live flags per full pass
+    epoch_bytes: List[int] = dataclasses.field(default_factory=list)
+    # ^ G bytes each epoch streamed (a warm start's init pass comes before)
+    active_history: List[int] = dataclasses.field(default_factory=list)
+    # ^ active-row union size at each compaction
+    block_dtype: str = "f32"
+    compact_seconds: float = 0.0      # host time building compactions
+    prefetch_final: int = 0           # queue depth after autotune
+
+
+class _Ring:
+    """``prefetch`` device slots of (tile, B') wire rows, fed from host rows.
+
+    ``load`` fills the next slot (after the event of the launch that last
+    read it) and returns the block as fp32 on the card; ``release`` records
+    that event once the block's launches are queued."""
+
+    def __init__(self, tile: int, rank: int, wire: str, device,
+                 prefetch: int, lanes: Lanes, st: Stage2StreamStats):
+        self.tile, self.rank, self.device = tile, rank, device
+        self.wire = WIRE[wire]
+        self.prefetch = prefetch
+        self.lanes, self.st = lanes, st
+        self.slots: List[dict] = []
+        self.count = 0
+        self.upcast = (torch.empty((tile, rank), dtype=torch.float32, device=device)
+                       if self.wire != torch.float32 else None)
+
+    def load(self, src: torch.Tensor):
+        k = self.count % self.prefetch
+        self.count += 1
+        while k >= len(self.slots):          # autotune may deepen the ring
+            self.slots.append(dict(
+                dev=torch.empty((self.tile, self.rank), dtype=self.wire,
+                                device=self.device),
+                stage=None, done=None))
+        slot = self.slots[k]
+        t0 = time.perf_counter()
+        wait(slot["done"])
+        t1 = time.perf_counter()
+        self.st.drain_seconds += t1 - t0
+        r = src.shape[0]
+        if src.dtype != self.wire:           # bf16 wire from fp32 rows
+            if slot["stage"] is None:
+                slot["stage"] = host_buffer((self.tile, self.rank), self.wire,
+                                            self.device)
+            staged = slot["stage"][:r]
+            staged.copy_(src)
+            src = staged
+        dev = slot["dev"][:r]
+        self.lanes.put(dev, src)
+        self.st.put_seconds += time.perf_counter() - t1
+        nbytes = src.nbytes
+        self.st.bytes_h2d += nbytes
+        self.st.bytes_g += nbytes
+        self.st.blocks_streamed += 1
+        self.st.rows_streamed += r
+        if self.upcast is None:
+            return dev, slot
+        g = self.upcast[:r]
+        g.copy_(dev)
+        return g, slot
+
+    def release(self, slot) -> None:
+        slot["done"] = self.lanes.mark()
+
+
+# ---------------------------------------------------------------------------
+# the streamed solver
+# ---------------------------------------------------------------------------
+
+# torch's CUDA row sum of a (rows, B') tensor takes its lane layout from B'
+# alone once it sums 16 rows or more (block height min(pow2(rows), 16)); on
+# fewer rows it widens the lanes per row and adds in another order.
+ROW_SQ_MIN_ROWS = 16
+
+
+def _row_sq(gb: torch.Tensor, out: torch.Tensor, piece: int = 1024) -> None:
+    """q = ||g_r||^2 of every row of a block, in the order of ``solve_batch``'s
+    q = (G * G).sum(-1) over the whole G.  The block is summed ``piece`` rows
+    at a time, so that the squares never hold a second block's worth of
+    device memory, and no sum covers fewer than ``ROW_SQ_MIN_ROWS`` rows: a
+    short tail joins the piece before it, and a block that short is summed
+    zero-padded.  Writes the (rows,) result into ``out``."""
+    r = gb.shape[0]
+    if r < ROW_SQ_MIN_ROWS:
+        padded = gb.new_zeros((ROW_SQ_MIN_ROWS, gb.shape[1]))
+        padded[:r] = gb
+        out.copy_((padded * padded).sum(-1)[:r])
+        return
+    starts = list(range(0, r, piece))
+    if len(starts) > 1 and r - starts[-1] < ROW_SQ_MIN_ROWS:
+        starts.pop()
+    for s, e in zip(starts, starts[1:] + [r]):
+        rows = gb[s:e]
+        torch.sum(rows * rows, dim=-1, out=out[s:e])
+
+
+def _sorted_layout(idx: np.ndarray, c: np.ndarray):
+    """Per task: its real (c > 0) positions in sorted global row order,
+    then the rest.  Returns the permutation (T, n_pad) and real counts."""
+    T, n_pad = idx.shape
+    perm = np.empty((T, n_pad), np.int64)
+    m = np.zeros((T,), np.int64)
+    for t in range(T):
+        real = np.where(c[t] > 0.0)[0]
+        order = np.argsort(idx[t][real], kind="stable")
+        rest = np.where(~(c[t] > 0.0))[0]
+        perm[t] = np.concatenate([real[order], rest])
+        m[t] = len(real)
+    return perm, m
+
+
+def _upload(a: np.ndarray, device, st: Stage2StreamStats) -> torch.Tensor:
+    st.bytes_h2d += a.nbytes
+    return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+
+def _compaction(sidx: np.ndarray, m: np.ndarray, active: np.ndarray,
+                tile: int):
+    """The cheap epochs' view of the active rows (see the module docstring):
+    the union, the compacted index table (T, n_pad), its window table
+    (n_blocks + 1, T) and the active positions inside each window."""
+    T, n_pad = sidx.shape
+    union = np.unique(np.concatenate(
+        [sidx[t, :m[t]][active[t, :m[t]]] for t in range(T)]
+        + [np.zeros((0,), sidx.dtype)]))
+    U = len(union)
+    n_blocks = -(-U // tile)
+    edges = np.minimum(np.arange(n_blocks + 1, dtype=np.int64) * tile, U)
+    cidx = np.full((T, n_pad), U, np.int64)
+    bounds = np.zeros((n_blocks + 1, T), np.int64)
+    visits = np.zeros((n_blocks, T), np.int64)
+    for t in range(T):
+        act_t = active[t, :m[t]]
+        col = np.full((m[t],), U, np.int64)
+        col[act_t] = np.searchsorted(union, sidx[t, :m[t]][act_t])
+        # inactive positions take the next active one's row: monotone
+        col = np.minimum.accumulate(col[::-1])[::-1]
+        cidx[t, :m[t]] = col
+        bounds[:, t] = np.searchsorted(col, edges, side="left")
+        seen = np.concatenate([[0], np.cumsum(act_t)])
+        visits[:, t] = seen[bounds[1:, t]] - seen[bounds[:-1, t]]
+    return union, cidx.astype(np.int32), bounds.astype(np.int32), visits
+
+
+@full_fp32()
+def solve_batch_streamed(
+    G,
+    tasks: TaskBatch,
+    config: SolverConfig = SolverConfig(),
+    *,
+    stream_config: Optional[StreamConfig] = None,
+    return_stats: bool = False,
+):
+    """Drop-in ``solve_batch`` over a host G, on the device of ``tasks``.
+
+    ``G`` is a pinned CPU tensor when the tasks are on the card (pageable
+    memory raises; a G on the card is first copied to pinned memory) and a
+    CPU tensor or array on the CPU.  Returns a
+    ``SolveResult`` on the tasks' device, laid out as ``solve_batch``'s, and
+    a ``Stage2StreamStats`` with ``return_stats=True``.  Each task's real
+    rows must be unique; sorted rows (what ``build_ovo_tasks`` gives) make
+    the trajectory the monolithic one."""
+    t_start = time.perf_counter()
+    cfg = stream_config or StreamConfig()
+    dev = tasks.idx.device
+    if not isinstance(G, torch.Tensor):
+        G = torch.as_tensor(np.asarray(G, np.float32))
+    elif G.is_cuda:                    # a device factor, streamed on request
+        G = host_buffer(tuple(G.shape), G.dtype, dev).copy_(G)
+    check_host(G, dev, "G")
+    if G.dtype != torch.float32:
+        raise TypeError(f"G must be fp32, got {G.dtype}")
+    n, rank = G.shape
+    T, n_pad = tasks.idx.shape
+    tile = auto_tile_rows(n, rank, T, cfg)
+    n_blocks = -(-n // tile)
+    st = Stage2StreamStats(tile_rows=tile, block_dtype=cfg.block_dtype)
+    lanes = Lanes(dev)
+    ring = _Ring(tile, rank, cfg.block_dtype, dev, cfg.prefetch, lanes, st)
+
+    # one-time host bookkeeping: the sorted layout and the window tables
+    idx_h = tasks.idx.cpu().numpy().astype(np.int64)
+    c_h = tasks.c.cpu().numpy()
+    real = c_h > 0.0
+    if real.any() and (idx_h[real].min() < 0 or idx_h[real].max() >= n):
+        raise ValueError(f"task indices must lie in [0, {n})")
+    perm_h, m = _sorted_layout(idx_h, c_h)
+    sidx_h = np.take_along_axis(idx_h, perm_h, axis=1)
+    bounds_h = np.stack([block_windows(sidx_h[t, :m[t]], tile, n_blocks)
+                         for t in range(T)], axis=1).astype(np.int32)
+    perm = _upload(perm_h, dev, st)
+    bounds = _upload(bounds_h, dev, st)
+    sidx = torch.gather(tasks.idx.to(torch.int32), 1, perm).contiguous()
+    y = torch.gather(tasks.y.to(torch.float32), 1, perm).contiguous()
+    c = torch.gather(tasks.c.to(torch.float32), 1, perm).contiguous()
+    alpha = torch.gather(tasks.alpha0.to(torch.float32), 1, perm).contiguous()
+    unchanged = torch.zeros_like(sidx)
+    w = torch.zeros((T, rank), dtype=torch.float32, device=dev)
+    live = torch.ones((T,), dtype=torch.bool, device=dev)
+    live_h = np.ones((T,), bool)
+    q = torch.empty((n,), dtype=torch.float32, device=dev)   # from pass one
+    q_summed = False
+    epochs = torch.zeros((T,), dtype=torch.int32, device=dev)
+    violation = torch.full((T,), float("inf"), dtype=torch.float32, device=dev)
+    period = config.full_pass_period if config.shrink else 1
+    shrink_k = config.shrink_k if config.shrink else INT32_MAX
+
+    def shared_pass(kind: str):
+        """One pass over all of G: "init" accumulates warm-start w0, "full"
+        and "cheap" sweep; returns the largest violation per task.  The
+        first pass of the solve sums q."""
+        nonlocal q_summed
+        viol = torch.zeros((T,), dtype=torch.float32, device=dev)
+        w0 = torch.zeros((T, rank), dtype=torch.float64, device=dev) \
+            if kind == "init" else None
+        for b in range(n_blocks):
+            s, e = b * tile, min((b + 1) * tile, n)
+            gb, slot = ring.load(G[s:e])
+            if not q_summed:
+                _row_sq(gb, q[s:e])
+            if kind == "init":      # fp64 sums, as dual_solver._init_w takes
+                for t in range(T):
+                    lo, hi = int(bounds_h[b, t]), int(bounds_h[b + 1, t])
+                    if lo < hi:
+                        rows = gb[sidx[t, lo:hi].long() - s].double()
+                        w0[t] += (alpha[t, lo:hi] * y[t, lo:hi]).double() @ rows
+            else:
+                full = kind == "full"
+                v = smo_epoch(gb, q[s:e], sidx, y, c, alpha,
+                              unchanged, w, live, full_pass=full,
+                              shrink_k=shrink_k, lo=bounds[b], hi=bounds[b + 1],
+                              row0=s)
+                st.kernel_calls += 1
+                st.coord_visits += int((bounds_h[b + 1] - bounds_h[b])[live_h].sum())
+                if full:
+                    viol = torch.maximum(viol, v)
+            ring.release(slot)
+        q_summed = True
+        if w0 is not None:
+            w.copy_(w0)
+        return viol
+
+    def compacted_pass(comp):
+        act_G, act_q, cidx, cbounds, visits = comp
+        for b in range(visits.shape[0]):
+            s, e = b * tile, min((b + 1) * tile, act_G.shape[0])
+            gb, slot = ring.load(act_G[s:e])
+            smo_epoch(gb, act_q[s:e], cidx, y, c, alpha, unchanged, w,
+                      live, full_pass=False, shrink_k=shrink_k, lo=cbounds[b],
+                      hi=cbounds[b + 1], row0=s)
+            st.kernel_calls += 1
+            st.coord_visits += int(visits[b][live_h].sum())
+            ring.release(slot)
+
+    act_buf: Optional[torch.Tensor] = None
+
+    def recompact():
+        """After a full pass: the union of rows active for a live task,
+        gathered once into pinned memory (None: stream all of G)."""
+        nonlocal act_buf
+        t0 = time.perf_counter()
+        u = unchanged.cpu().numpy()
+        st.bytes_d2h += u.nbytes
+        active = (u < shrink_k) & live_h[:, None]
+        union, cidx_h, cb_h, visits = _compaction(sidx_h, m, active, tile)
+        st.active_history.append(int(len(union)))
+        if len(union) == n:
+            st.compact_seconds += time.perf_counter() - t0
+            return None
+        U = len(union)
+        if act_buf is None or act_buf.shape[0] < U:
+            act_buf = host_buffer((max(U, 1), rank), ring.wire, dev)
+        rows = torch.from_numpy(union)
+        if ring.wire == torch.float32:
+            torch.index_select(G, 0, rows, out=act_buf[:U])
+        else:
+            act_buf[:U].copy_(G.index_select(0, rows))
+        comp = (act_buf[:U], q[_upload(union, dev, st)],
+                _upload(cidx_h, dev, st), _upload(cb_h, dev, st), visits)
+        st.compact_seconds += time.perf_counter() - t0
+        return comp
+
+    if bool((alpha != 0).any()):
+        shared_pass("init")
+    comp = None
+    tuned = not cfg.autotune_prefetch
+    for epoch in range(config.max_epochs):
+        full = epoch % period == 0
+        mark = st.bytes_g
+        put0, drain0 = st.put_seconds, st.drain_seconds
+        if full or comp is None:
+            viol = shared_pass("full" if full else "cheap")
+        else:
+            compacted_pass(comp)
+        epochs += live.to(torch.int32)
+        st.epochs = epoch + 1
+        if full:
+            st.full_passes += 1
+            violation = torch.where(live, viol, violation)
+            live &= ~(viol < config.tol)
+            t0 = time.perf_counter()
+            live_h = live.cpu().numpy()       # one host sync per full pass
+            st.drain_seconds += time.perf_counter() - t0
+            st.bytes_d2h += live_h.nbytes
+        st.epoch_bytes.append(st.bytes_g - mark)
+        if full:
+            if not live_h.any():
+                break
+            if not tuned:
+                tuned = True
+                _autotune(ring, cfg, rank, T, tile,
+                          st.put_seconds - put0, st.drain_seconds - drain0)
+            if config.shrink:
+                comp = recompact()
+
+    t0 = time.perf_counter()
+    out_alpha = torch.empty_like(alpha).scatter_(1, perm, alpha)
+    dual = out_alpha.sum(-1) - 0.5 * (w * w).sum(-1)
+    n_sv = (out_alpha > 0.0).sum(-1)
+    if lanes.cuda:
+        torch.cuda.synchronize(dev)
+    st.drain_seconds += time.perf_counter() - t0
+    st.h2d_seconds = lanes.h2d_seconds()
+    st.prefetch_final = ring.prefetch
+    st.seconds = time.perf_counter() - t_start
+    res = SolveResult(out_alpha, w, epochs, violation, dual, n_sv)
+    return (res, st) if return_stats else res
+
+
+def _autotune(ring: _Ring, cfg: StreamConfig, rank: int, T: int, tile: int,
+              put: float, drain: float) -> None:
+    """Deepen the block queue from the first full pass's put and drain
+    times, but never past what the byte model fits in the budget."""
+    free = cfg.device_budget_bytes - stage2_resident_bytes(rank, T)
+    per_block = stage2_block_bytes(tile, rank, T)
+    fit = free // per_block if per_block > 0 else cfg.prefetch_cap
+    cap = max(ring.prefetch, min(cfg.prefetch_cap, int(fit)))
+    ring.prefetch = tune_prefetch(put, drain, ring.prefetch, cap)
+
+
+# the streamed stage-2 route of ``LPDSVM.fit`` on one card (the reference's
+# multi-device task farm is not ported)
+solve_streamed_auto = solve_batch_streamed
+
+
+__all__ = ["Stage2StreamStats", "auto_tile_rows", "block_windows",
+           "route_stage2", "should_stream_stage2", "solve_batch_streamed",
+           "solve_streamed_auto",
+           "stage2_block_bytes", "stage2_monolithic_bytes",
+           "stage2_resident_bytes"]

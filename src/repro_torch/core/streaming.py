@@ -1,0 +1,450 @@
+"""Out-of-core stage 1: stream the Nyström factor G in row chunks (PyTorch
+port of the stage-1 half of ``repro.core.streaming``).
+
+The paper's "more RAM" ingredient: the data set and the (n, B') factor G live
+in host memory, and the card holds only a working set:
+
+    host RAM                               card
+    x   (n, p)  numpy, read-only           landmarks (B, p), projector (B, B')
+    G   (n, B') pinned, filled in place    per chunk in flight: its wire
+                                           arrays, K_chunk (r, B), G_chunk (r, B')
+
+Per chunk: the host slices x (and, on the int8 wire, encodes the slice with
+the symmetric codec of ``core/quant.py``, so scale groups restart at every
+chunk), copies the wire arrays into a pinned staging slot and issues a
+non-blocking copy on the H2D stream.  The compute stream waits for that copy
+(an event, not the host), runs kernel B3 on the int8 wire or B1 on the f32
+wire, then ``@ projector`` (a plain fp32 product, as the reference leaves it
+to XLA), and the D2H stream copies the G chunk, non-blocking, into its rows
+of the pinned G.  At most ``prefetch`` chunks are in flight: before a slot is
+reused the host waits on the event of the oldest chunk only.
+
+On the CPU (``device="cpu"``) the same loop runs the kernels' plain versions
+and the copies are plain copies; a CPU-only PyTorch cannot pin.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Callable, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.kernel_fn import KernelParams, full_fp32, gram
+from repro_torch.core.quant import GROUP_ROWS, quantize_rows
+from repro_torch.kernels.ops import gram_q8
+
+BYTES_F32 = 4
+
+WIRE_DTYPES = ("f32", "bf16", "int8")
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    """Knobs of the streamed pipelines (all sizes in rows / bytes).
+
+    ``device_budget_bytes`` is the working-set allowance on the card, not its
+    memory size.  Stage 2 reads ``tile_rows`` and ``block_dtype``; both
+    stages read the rest."""
+
+    device_budget_bytes: int = 2 << 30   # 2 GiB working-set allowance
+    chunk_rows: Optional[int] = None     # None -> derived from the budget
+    prefetch: int = 2                    # chunks / blocks in flight
+    min_chunk_rows: int = 256
+    tile_rows: Optional[int] = None      # stage-2 G block rows (None -> derived)
+    block_dtype: str = "f32"             # stage-2 wire: "f32" or "bf16"
+    stage1_dtype: str = "f32"            # stage-1 wire: "f32" or "int8"
+    quant_group_rows: int = GROUP_ROWS   # rows per int8 scale group
+    autotune_prefetch: bool = True       # deepen the queue when H2D lags
+    prefetch_cap: int = 8                # autotune ceiling on queue depth
+
+    def __post_init__(self):
+        if self.prefetch < 1:
+            raise ValueError("prefetch must be >= 1")
+        if self.chunk_rows is not None and self.chunk_rows < 1:
+            raise ValueError("chunk_rows must be positive")
+        if self.tile_rows is not None and self.tile_rows < 1:
+            raise ValueError("tile_rows must be positive")
+        if self.block_dtype not in WIRE_DTYPES:
+            raise ValueError(f"block_dtype must be one of {WIRE_DTYPES}, "
+                             f"got {self.block_dtype!r}")
+        if self.block_dtype == "int8":
+            raise NotImplementedError(
+                "StreamConfig: int8 stage-2 blocks are not ported to "
+                "repro_torch yet; use block_dtype='f32' or 'bf16'")
+        if self.stage1_dtype not in ("f32", "int8"):
+            raise ValueError(f"stage1_dtype must be 'f32' or 'int8', "
+                             f"got {self.stage1_dtype!r}")
+        if self.quant_group_rows < 1:
+            raise ValueError("quant_group_rows must be >= 1")
+        if self.prefetch_cap < 1:
+            raise ValueError("prefetch_cap must be >= 1")
+
+
+def tune_prefetch(h2d_seconds: float, compute_seconds: float, prefetch: int,
+                  cap: int = 8) -> int:
+    """Overlap autotune shared by both streamed stages: when the first
+    pipeline window spent more time putting than draining, transfer lags
+    compute, so double the queue depth (bounded by ``cap``)."""
+    if h2d_seconds > compute_seconds and prefetch < cap:
+        return min(cap, max(prefetch * 2, prefetch + 1))
+    return prefetch
+
+
+@dataclasses.dataclass
+class StreamTimes:
+    """The wire bytes and host / copy times both streamed stages keep."""
+
+    bytes_h2d: int = 0
+    put_seconds: float = 0.0          # host time staging, issuing copies
+    drain_seconds: float = 0.0        # host time blocked on the card
+    h2d_seconds: float = 0.0          # the copies themselves (CUDA events)
+    seconds: float = 0.0
+
+    @property
+    def h2d_gbps(self) -> float:
+        """Rate of the H2D copies (GB/s): on the card over their own device
+        time, since a non-blocking put returns before its copy runs."""
+        return self.bytes_h2d / max(self.h2d_seconds, 1e-12) / 1e9
+
+    @property
+    def overlap_efficiency(self) -> float:
+        """Stall-free fraction of the wall clock: 1 minus the share spent in
+        puts and drains, clamped to [0, 1]."""
+        if self.seconds <= 0.0:
+            return 0.0
+        busy = (self.put_seconds + self.drain_seconds) / self.seconds
+        return min(1.0, max(0.0, 1.0 - busy))
+
+
+@dataclasses.dataclass
+class Stage1StreamStats(StreamTimes):
+    """Traffic accounting of one streamed stage-1 factor build.
+
+    ``bytes_h2d`` counts the chunk wire bytes (int8 scale tables included,
+    broken out in ``bytes_scales``), as the reference does; the one-time
+    landmark and projector copies are not counted.  ``drain_seconds`` is the
+    host's wait on the oldest chunk."""
+
+    chunks: int = 0
+    rows: int = 0
+    bytes_scales: int = 0
+    encode_seconds: float = 0.0       # host time in the int8 encoder
+    alloc_seconds: float = 0.0        # host time allocating (pinning) G
+    wire_dtype: str = "f32"
+    prefetch_final: int = 0           # queue depth after autotune
+
+
+def resident_bytes(p: int, budget: int) -> int:
+    """Device-resident stage-1 state: landmark block + projector."""
+    return (budget * p + budget * budget) * BYTES_F32
+
+
+def chunk_bytes(rows: int, p: int, budget: int) -> int:
+    """Working set of ONE in-flight chunk: input rows, K block, G block."""
+    return rows * (p + 2 * budget) * BYTES_F32
+
+
+def monolithic_bytes(n: int, p: int, budget: int) -> int:
+    """Device working set of the one-shot path: x, K_nm, G all live at once."""
+    return (n * p + 2 * n * budget) * BYTES_F32 + resident_bytes(p, budget)
+
+
+def should_stream(n: int, p: int, budget: int, cfg: StreamConfig) -> bool:
+    """True when the monolithic stage-1 working set blows the device budget."""
+    return monolithic_bytes(n, p, budget) > cfg.device_budget_bytes
+
+
+def auto_chunk_rows(n: int, p: int, budget: int, cfg: StreamConfig) -> int:
+    """Largest chunk whose ``prefetch`` in-flight copies fit the budget,
+    clamped to [min_chunk_rows, n]."""
+    if cfg.chunk_rows is not None:
+        return min(cfg.chunk_rows, n)
+    free = cfg.device_budget_bytes - resident_bytes(p, budget)
+    per_row = cfg.prefetch * (p + 2 * budget) * BYTES_F32
+    rows = free // per_row if free > 0 else 0
+    return int(min(n, max(cfg.min_chunk_rows, rows)))
+
+
+def host_buffer(shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """A host tensor the card copies to and from without blocking: pinned
+    when ``device`` is CUDA, a plain CPU tensor on the CPU.  Raises rather
+    than hand back pageable memory for the card, which would make every
+    copy synchronous."""
+    pin = torch.device(device).type == "cuda"
+    t = torch.empty(shape, dtype=dtype, pin_memory=pin)
+    if pin and not t.is_pinned():
+        raise RuntimeError("host_buffer: the host buffer could not be pinned")
+    return t
+
+
+def check_host(t: torch.Tensor, device, name: str) -> None:
+    """A host buffer the streamed pipelines copy through must be a CPU
+    tensor, and pinned when the card is the device."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cpu":
+        raise TypeError(f"{name} must be a host (CPU) tensor")
+    if torch.device(device).type == "cuda" and not t.is_pinned():
+        raise ValueError(f"{name} must be pinned for the card: pageable memory "
+                         "would make every copy synchronous (see host_buffer)")
+
+
+class Lanes:
+    """The copy streams of a streamed pass beside the compute (current)
+    stream, or plain copies on the CPU.
+
+    ``put`` copies host rows to the card on the H2D stream and makes the
+    compute stream wait for it; ``fetch`` copies a device result to host on
+    the D2H stream once the compute stream has produced it; ``mark`` records
+    an event on the compute stream.  The H2D copies are timed with CUDA
+    events, read by ``h2d_seconds`` once the pass has synchronised."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.copies: List = []
+        self.cpu_copy_seconds = 0.0
+        if self.cuda:
+            self.h2d = torch.cuda.Stream(device)
+            self.d2h = torch.cuda.Stream(device)
+
+    def put(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        if not self.cuda:
+            t0 = time.perf_counter()
+            dst.copy_(src)
+            self.cpu_copy_seconds += time.perf_counter() - t0
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(self.h2d):
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+        torch.cuda.current_stream().wait_event(end)
+        self.copies.append((start, end))
+
+    def fetch(self, dst: torch.Tensor, src: torch.Tensor):
+        """Copy ``src`` (device) into ``dst`` (host); returns the event that
+        marks the copy done (None on the CPU, where it is done at once)."""
+        if not self.cuda:
+            dst.copy_(src)
+            return None
+        ready = self.mark()
+        self.d2h.wait_event(ready)
+        with torch.cuda.stream(self.d2h):
+            dst.copy_(src, non_blocking=True)
+            src.record_stream(self.d2h)
+            done = torch.cuda.Event()
+            done.record()
+        return done
+
+    def mark(self):
+        if not self.cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    def h2d_seconds(self) -> float:
+        """Device time of the H2D copies so far (CPU: host copy time).  On
+        the card every copy must have completed."""
+        if not self.cuda:
+            return self.cpu_copy_seconds
+        return sum(s.elapsed_time(e) for s, e in self.copies) / 1e3
+
+
+def wait(event) -> None:
+    if event is not None:
+        event.synchronize()
+
+
+class _Slot:
+    """Pinned staging and device buffers of one chunk in flight, grown to
+    the largest wire array they have carried."""
+
+    def __init__(self):
+        self.host: List[torch.Tensor] = []
+        self.dev: List[torch.Tensor] = []
+
+    def put(self, arrays, lanes: Lanes, device) -> List[torch.Tensor]:
+        out = []
+        for j, a in enumerate(arrays):
+            a = torch.from_numpy(np.ascontiguousarray(a))
+            r = a.shape[0]
+            if (j == len(self.host) or self.host[j].shape[0] < r
+                    or self.host[j].shape[1:] != a.shape[1:]
+                    or self.host[j].dtype != a.dtype):
+                buf = (host_buffer(a.shape, a.dtype, device),
+                       torch.empty(a.shape, dtype=a.dtype, device=device))
+                if j == len(self.host):
+                    self.host.append(buf[0])
+                    self.dev.append(buf[1])
+                else:
+                    self.host[j], self.dev[j] = buf
+            host, dev = self.host[j][:r], self.dev[j][:r]
+            host.copy_(a)
+            lanes.put(dev, host)
+            out.append(dev)
+        return out
+
+
+@full_fp32()
+def stream_factor_blocks(
+    blocks: Iterable[np.ndarray],
+    n: int,
+    landmarks: torch.Tensor,
+    projector: torch.Tensor,
+    params: KernelParams,
+    *,
+    prefetch: int = 2,
+    out: Optional[torch.Tensor] = None,
+    wire_dtype: str = "f32",
+    quant_group_rows: int = GROUP_ROWS,
+    autotune_prefetch: bool = False,
+    prefetch_cap: int = 8,
+    stats: Optional[Stage1StreamStats] = None,
+    gram_fn: Callable = gram,
+) -> torch.Tensor:
+    """Fill a host G = K(x, landmarks) @ projector from an iterator of
+    (rows, p) fp32 row blocks totalling ``n`` rows (see the module
+    docstring).  ``out`` is the host G, allocated (pinned for the card) when
+    not given.  ``autotune_prefetch`` deepens the queue after the first
+    window when putting took longer than draining (``tune_prefetch``)."""
+    dev = landmarks.device
+    rank = projector.shape[1]
+    if wire_dtype not in ("f32", "int8"):
+        raise ValueError(f"stage-1 wire_dtype must be 'f32' or 'int8', "
+                         f"got {wire_dtype!r}")
+    quant = wire_dtype == "int8"
+    st = stats if stats is not None else Stage1StreamStats()
+    st.wire_dtype = wire_dtype
+    t_start = time.perf_counter()
+    if out is None:
+        out = host_buffer((n, rank), torch.float32, dev)
+        st.alloc_seconds += time.perf_counter() - t_start
+    check_host(out, dev, "out")
+    if tuple(out.shape) != (n, rank):
+        raise ValueError(f"out buffer {tuple(out.shape)} != {(n, rank)}")
+
+    lanes = Lanes(dev)
+    free: List[_Slot] = []
+    inflight = collections.deque()        # (slot, done event)
+
+    def drain_one():
+        slot, done = inflight.popleft()
+        t0 = time.perf_counter()
+        wait(done)                         # this chunk's G rows are in `out`
+        st.drain_seconds += time.perf_counter() - t0
+        free.append(slot)
+
+    tuned = not autotune_prefetch
+    s = 0
+    for xb in blocks:
+        xb = np.asarray(xb, np.float32)
+        e = s + xb.shape[0]
+        if e > n:
+            raise ValueError(f"block iterator produced more than {n} rows")
+        if quant:
+            t0 = time.perf_counter()
+            vals, scales = quantize_rows(xb, quant_group_rows, symmetric=True)
+            st.encode_seconds += time.perf_counter() - t0
+            wire = (vals, scales)
+            st.bytes_scales += scales.nbytes
+        else:
+            wire = (xb,)
+        slot = free.pop() if free else _Slot()
+        t0 = time.perf_counter()
+        on_card = slot.put(wire, lanes, dev)
+        st.put_seconds += time.perf_counter() - t0
+        st.bytes_h2d += sum(a.nbytes for a in wire)
+        if quant:
+            k = gram_q8(on_card[0], on_card[1], landmarks, params,
+                        group=quant_group_rows)
+        else:
+            k = gram_fn(on_card[0], landmarks, params)
+        inflight.append((slot, lanes.fetch(out[s:e], k @ projector)))
+        del k
+        st.chunks += 1
+        st.rows += e - s
+        if len(inflight) >= prefetch:
+            drain_one()
+            if not tuned:
+                tuned = True
+                prefetch = tune_prefetch(st.put_seconds, st.drain_seconds,
+                                         prefetch, prefetch_cap)
+        s = e
+    while inflight:
+        drain_one()
+    if s != n:
+        raise ValueError(f"block iterator produced {s} rows, expected {n}")
+    st.h2d_seconds += lanes.h2d_seconds()
+    st.prefetch_final = prefetch
+    st.seconds = time.perf_counter() - t_start
+    return out
+
+
+def stream_factor_rows(x, landmarks: torch.Tensor, projector: torch.Tensor,
+                       params: KernelParams, *, chunk_rows: int,
+                       **kwargs) -> torch.Tensor:
+    """Fill a host G = K(x, landmarks) @ projector, ``chunk_rows`` rows of
+    the host array ``x`` at a time; keyword arguments go to
+    ``stream_factor_blocks``."""
+    x = np.asarray(x, np.float32)
+    n = x.shape[0]
+    blocks = (x[s:min(s + chunk_rows, n)] for s in range(0, n, chunk_rows))
+    return stream_factor_blocks(blocks, n, landmarks, projector, params,
+                                **kwargs)
+
+
+def host_rows(x) -> np.ndarray:
+    """The data set as a host fp32 array (a tensor on the card is copied
+    back: the streamed route reads x from host memory)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def compute_factor_streamed(
+    x,
+    params: KernelParams,
+    budget: int,
+    *,
+    seed: int = 0,
+    landmark_idx=None,
+    eig_rtol: Optional[float] = None,
+    config: StreamConfig = StreamConfig(),
+    gram_fn: Callable = gram,
+    device=None,
+):
+    """Out-of-core stage 1: the artifact of ``nystrom.compute_factor``, with
+    G a host tensor (pinned for the card) filled by the chunked pipeline.
+
+    The landmarks are the rows of the same ``torch.Generator`` draw as
+    ``nystrom.select_landmarks`` (gathered on the host, so x never goes to
+    the card whole), or ``landmark_idx`` when given; K_mm and its eigh are
+    those of the monolithic route.  Only the (n, B) part streams."""
+    from repro_torch.core import nystrom   # nystrom routes back into here
+
+    device = torch.device("cuda" if device is None else device)
+    if eig_rtol is None:
+        eig_rtol = nystrom.DEFAULT_EIG_RTOL
+    x = host_rows(x)
+    n, p = x.shape
+    rows = (np.asarray(landmark_idx) if landmark_idx is not None
+            else nystrom.landmark_rows(n, budget, seed))
+    landmarks = torch.as_tensor(x if rows is None else x[rows], device=device)
+    k_mm = gram_fn(landmarks, landmarks, params)
+    projector, evals, rank = nystrom.eig_projector(k_mm, eig_rtol)
+    projector = projector[:, :rank].contiguous()
+
+    stats = Stage1StreamStats()
+    G = stream_factor_rows(
+        x, landmarks, projector, params,
+        chunk_rows=auto_chunk_rows(n, p, landmarks.shape[0], config),
+        prefetch=config.prefetch, wire_dtype=config.stage1_dtype,
+        quant_group_rows=config.quant_group_rows,
+        autotune_prefetch=config.autotune_prefetch,
+        prefetch_cap=config.prefetch_cap, stats=stats, gram_fn=gram_fn)
+    return nystrom.LowRankFactor(
+        G=G, landmarks=landmarks, projector=projector, eigvals=evals,
+        effective_rank=rank, kernel=params, streamed=True, stage1_stats=stats)

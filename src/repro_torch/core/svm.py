@@ -8,8 +8,14 @@
 It runs on the card (``device=None`` means ``"cuda"``) through kernels B1
 (gram) and B2 (SMO epoch), and raises where there is no card, unless the
 caller asks for ``device="cpu"``, which runs the kernels' plain versions.
-The streamed, polished, checkpointed and traced routes of the reference are
-not ported yet: their arguments raise ``NotImplementedError``.
+
+Out-of-core training routes as in the reference: ``stream=True`` forces it,
+and a ``stream_config`` streams each stage whose monolithic working set
+exceeds its device budget.  Stage 1 then builds G in pinned host memory
+(kernel B3 on the int8 wire, ``core/streaming.py``) and stage 2 streams G's
+row blocks through B2 (``core/solver_stream.py``).  The polished,
+checkpointed and traced routes of the reference are not ported yet: their
+arguments raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,6 +30,9 @@ from repro_torch.core.dual_solver import SolveResult, SolverConfig, solve_batch
 from repro_torch.core.kernel_fn import KernelParams, gram
 from repro_torch.core.nystrom import LowRankFactor, compute_factor
 from repro_torch.core.ovo import build_ovo_tasks, ovo_decision_values, ovo_vote
+from repro_torch.core.solver_stream import (Stage2StreamStats, route_stage2,
+                                            solve_batch_streamed)
+from repro_torch.core.streaming import Stage1StreamStats, StreamConfig
 
 
 @dataclasses.dataclass
@@ -36,6 +45,10 @@ class FitStats:
     epochs: Optional[np.ndarray] = None
     violations: Optional[np.ndarray] = None
     effective_rank: int = 0
+    stage1_streamed: bool = False   # True -> G came from the out-of-core path
+    stage1_stats: Optional[Stage1StreamStats] = None
+    stage2_streamed: bool = False   # True -> the solver streamed G row blocks
+    stage2_stats: Optional[Stage2StreamStats] = None
 
 
 def _not_ported(**args) -> None:
@@ -43,7 +56,7 @@ def _not_ported(**args) -> None:
         if set_:
             raise NotImplementedError(
                 f"LPDSVM: `{name}` is not ported to repro_torch yet; only the "
-                "monolithic fit -> predict route is")
+                "monolithic and the streamed fit -> predict routes are")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -69,18 +82,18 @@ class LPDSVM:
         gram_fn: Callable = gram,
         solve_fn: Callable = solve_batch,
         stream: Optional[bool] = None,
-        stream_config=None,
+        stream_config: Optional[StreamConfig] = None,
         polish: bool = False,
         polish_levels: int = 3,
         polish_schedule=None,
         polish_gap_trace: bool = True,
         device=None,
     ):
-        _not_ported(stream=stream is not None,
-                    stream_config=stream_config is not None,
-                    polish=bool(polish), polish_levels=polish_levels != 3,
+        _not_ported(polish=bool(polish), polish_levels=polish_levels != 3,
                     polish_schedule=polish_schedule is not None,
                     polish_gap_trace=polish_gap_trace is not True)
+        if stream_config is not None and not isinstance(stream_config, StreamConfig):
+            raise TypeError("stream_config must be a repro_torch StreamConfig")
         self.device = resolve_device(device)
         self.kernel = kernel
         self.C = float(C)
@@ -89,6 +102,8 @@ class LPDSVM:
         self.seed = seed
         self.gram_fn = gram_fn
         self.solve_fn = solve_fn
+        self.stream = stream
+        self.stream_config = stream_config
         # fitted state
         self.factor: Optional[LowRankFactor] = None
         self.classes_: Optional[np.ndarray] = None
@@ -110,11 +125,17 @@ class LPDSVM:
             t0 = time.perf_counter()
             self.factor = compute_factor(
                 x, self.kernel, self.budget, seed=self.seed,
-                gram_fn=self.gram_fn, device=self.device)
+                gram_fn=self.gram_fn, device=self.device, stream=self.stream,
+                stream_config=self.stream_config)
             self._sync()
             self.stats.stage1_seconds = time.perf_counter() - t0
-            self.stats.effective_rank = self.factor.effective_rank
+            self._factor_stats()
         return self.factor
+
+    def _factor_stats(self) -> None:
+        self.stats.effective_rank = self.factor.effective_rank
+        self.stats.stage1_streamed = self.factor.streamed
+        self.stats.stage1_stats = self.factor.stage1_stats
 
     # ------------------------------------------------------------------ stage 2
     def fit(self, x, y, factor: Optional[LowRankFactor] = None,
@@ -132,7 +153,7 @@ class LPDSVM:
             raise ValueError("need at least two classes")
         if factor is not None:
             self.factor = factor
-            self.stats.effective_rank = factor.effective_rank
+            self._factor_stats()
         self.prepare(x)
 
         warm = None if warm_alpha is None else [np.asarray(a) for a in warm_alpha]
@@ -140,7 +161,7 @@ class LPDSVM:
                                              alpha0=warm, device=self.device)
         self.tasks_ = tasks
         t0 = time.perf_counter()
-        res: SolveResult = self.solve_fn(self.factor.G, tasks, self.config)
+        res: SolveResult = self._solve_stage2(tasks)
         self._sync()
         self.stats.stage2_seconds = time.perf_counter() - t0
         self.stats.n_tasks = tasks.n_tasks
@@ -149,6 +170,24 @@ class LPDSVM:
         self.W_ = res.w
         self.alpha_ = res.alpha
         return self
+
+    def _solve_stage2(self, tasks) -> SolveResult:
+        """Stage-2 dispatch (``solver_stream.route_stage2``): the streamed
+        row-block solver when G is host-resident or must be, else
+        ``solve_fn`` on G on the device."""
+        self.stats.stage2_streamed = False     # a refit must not report the
+        self.stats.stage2_stats = None         # previous fit's stream stats
+        G = self.factor.G
+        if route_stage2(self.factor, tasks, self.stream, self.stream_config,
+                        self.solve_fn, solve_batch):
+            res, self.stats.stage2_stats = solve_batch_streamed(
+                G, tasks, self.config, stream_config=self.stream_config,
+                return_stats=True)
+            self.stats.stage2_streamed = True
+            return res
+        # a host G that is not to stream (stream=False, or a custom solve_fn)
+        # goes to the device whole, as the caller asked
+        return self.solve_fn(G.to(self.device), tasks, self.config)
 
     # --------------------------------------------------------------- prediction
     def decision_function(self, x) -> np.ndarray:

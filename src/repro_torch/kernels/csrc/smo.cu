@@ -18,6 +18,14 @@
 // G row: that is where shrinking pays on the card.  A task whose live flag is
 // 0 (converged) returns at once and keeps its state.
 //
+// Window form (the streamed stage 2, core/solver_stream.py): G is then one
+// row block of the factor, held on the card while the rest stays in host
+// memory.  Task t sweeps only its positions lo[t] .. hi[t] - 1, and position
+// i reads block row idx[t, i] - row0 (and its q).  The monolithic call passes
+// no window (lo = hi = null: positions 0 .. n_pad - 1) and row0 = 0, so its
+// arithmetic is the same as without the window.  A task whose window is
+// empty returns at once too, leaving w and viol untouched.
+//
 // alpha, unchanged and w are updated in place; viol[t] receives the largest
 // |projected gradient| over the rows the epoch touched.
 //
@@ -39,12 +47,14 @@ smo_epoch(const float* __restrict__ G, int B, const int* __restrict__ idx,
           const float* __restrict__ q, float* __restrict__ alpha,
           int* __restrict__ unchanged, float* __restrict__ w,
           float* __restrict__ viol_out, const unsigned char* __restrict__ live,
+          const int* __restrict__ lo, const int* __restrict__ hi, int row0,
           int n_pad, int full_pass, int shrink_k) {
   extern __shared__ float w_s[];            // B floats
   __shared__ float red[2][WARPS];
 
   const int t = blockIdx.x;
-  if (!live[t]) return;
+  const int i0 = lo ? lo[t] : 0, i1 = hi ? hi[t] : n_pad;
+  if (!live[t] || i0 >= i1) return;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   float* wt = w + (long)t * B;
   for (int j = tid; j < B; j += THREADS) w_s[j] = wt[j];   // own slice only
@@ -52,13 +62,13 @@ smo_epoch(const float* __restrict__ G, int B, const int* __restrict__ idx,
   const long base = (long)t * n_pad;
   float viol = 0.f;
   int parity = 0;
-  for (int i = 0; i < n_pad; ++i) {
+  for (int i = i0; i < i1; ++i) {
     // Every per-row scalar is read before this row's barrier: thread 0
     // rewrites alpha / unchanged after it.
     const float ci = c[base + i];
     const int ui = unchanged[base + i];
     if (!(ci > 0.f && (full_pass || ui < shrink_k))) continue;   // block-uniform
-    const int gi = idx[base + i];
+    const int gi = idx[base + i] - row0;
     const float yi = y[base + i], ai = alpha[base + i], qi = q[gi];
     const float* row = G + (long)gi * B;
 
@@ -93,15 +103,17 @@ smo_epoch(const float* __restrict__ G, int B, const int* __restrict__ idx,
 
 }  // namespace
 
-// G (n_rows, B) fp32; idx (T, n_pad) int32 rows of G; y, c, alpha (T, n_pad)
-// fp32; unchanged (T, n_pad) int32; q (n_rows) fp32 = ||g_r||^2 per row of G;
-// w (T, B) fp32; viol (T) fp32; live (T) bytes.  All contiguous on the
-// current device.  Launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() (0 = launched).
+// G (n_rows, B) fp32; idx (T, n_pad) int32 rows of G (offset by row0);
+// y, c, alpha (T, n_pad) fp32; unchanged (T, n_pad) int32; q (n_rows) fp32 =
+// ||g_r||^2 per row of G; w (T, B) fp32; viol (T) fp32; live (T) bytes; lo,
+// hi (T) int32 position windows, or both null for all n_pad positions.  All
+// contiguous on the current device.  Launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() (0 = launched).
 extern "C" int smo_epoch_launch(const float* G, int B, const int* idx,
                                 const float* y, const float* c, const float* q,
                                 float* alpha, int* unchanged, float* w,
-                                float* viol, const unsigned char* live, int T,
+                                float* viol, const unsigned char* live,
+                                const int* lo, const int* hi, int row0, int T,
                                 int n_pad, int full_pass, int shrink_k,
                                 void* stream) {
   if (T <= 0) return 0;
@@ -112,7 +124,7 @@ extern "C" int smo_epoch_launch(const float* G, int B, const int* idx,
     if (err != cudaSuccess) return err;
   }
   smo_epoch<<<T, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      G, B, idx, y, c, q, alpha, unchanged, w, viol, live, n_pad, full_pass,
-      shrink_k);
+      G, B, idx, y, c, q, alpha, unchanged, w, viol, live, lo, hi, row0,
+      n_pad, full_pass, shrink_k);
   return cudaGetLastError();
 }

@@ -22,6 +22,12 @@ place (the reference returns new arrays):
 
 and return ``viol`` (T,), the largest |projected gradient| over the rows
 each task touched (0 for a task that is not live).
+
+The window form serves the streamed stage 2 (``core/solver_stream.py``),
+where ``G`` and ``q`` hold one row block of the factor: ``lo`` and ``hi``
+(T,) int32 bound the positions each task sweeps, and position i reads block
+row ``idx[t, i] - row0``.  Without ``lo`` / ``hi`` every position is swept
+and ``row0`` is 0: the monolithic epoch.
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ Q_FLOOR = 1e-12   # guards the division for zero rows
 
 
 def smo_epoch_plain(G, q, idx, y, c, alpha, unchanged, w, live, *,
-                    full_pass: bool, shrink_k: int) -> torch.Tensor:
+                    full_pass: bool, shrink_k: int, lo=None, hi=None,
+                    row0: int = 0) -> torch.Tensor:
     """One epoch in PyTorch ops: row position i of every task at once.
 
     Row i reads and writes only its own alpha / unchanged entries, so which
@@ -46,14 +53,21 @@ def smo_epoch_plain(G, q, idx, y, c, alpha, unchanged, w, live, *,
     act = live[:, None] & (c > 0.0)
     if not full_pass:
         act = act & (unchanged < shrink_k)
+    rows_of = idx.long()
+    if lo is not None:
+        pos = torch.arange(n_pad, device=idx.device)[None, :]
+        act = act & (pos >= lo[:, None]) & (pos < hi[:, None])
+        # positions outside a window may hold rows of other blocks: clamp
+        # them into the block for the gather, the mask keeps them inert
+        rows_of = (rows_of - row0).clamp(0, max(G.shape[0] - 1, 0))
     for i in act.any(0).nonzero().flatten().tolist():
         active = act[:, i]
-        rows = G[idx[:, i]]                                   # (T, B)
+        rows = G[rows_of[:, i]]                               # (T, B)
         a, ci, yi, ui = alpha[:, i], c[:, i], y[:, i], unchanged[:, i]
         g = 1.0 - yi * (w * rows).sum(-1)
         pg = torch.where(a <= 0.0, g.clamp(min=0.0),
                          torch.where(a >= ci, g.clamp(max=0.0), g))
-        a_new = (a + g / q[idx[:, i]].clamp(min=Q_FLOOR)).clamp(min=0.0)
+        a_new = (a + g / q[rows_of[:, i]].clamp(min=Q_FLOOR)).clamp(min=0.0)
         a_new = torch.where(active, torch.minimum(a_new, ci), a)
         delta = a_new - a
         w += (delta * yi)[:, None] * rows
@@ -68,7 +82,7 @@ def _launcher():
     fn = build.load("smo").smo_epoch_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -82,23 +96,29 @@ def _check(name, t, dtype, shape, device):
 
 
 def smo_epoch_kernel(G, q, idx, y, c, alpha, unchanged, w, live, *,
-                     full_pass: bool, shrink_k: int) -> torch.Tensor:
+                     full_pass: bool, shrink_k: int, lo=None, hi=None,
+                     row0: int = 0) -> torch.Tensor:
     """Launch kernel B2 on CUDA tensors (see the module docstring).
 
-    ``idx`` must index rows of ``G``; the caller validates that once per
-    solve, since checking it here would synchronise every epoch."""
+    ``idx`` (minus ``row0``) must index rows of ``G`` inside each task's
+    window; the caller validates that once per solve, since checking it here
+    would synchronise every launch."""
     if not G.is_cuda:
         raise ValueError("smo_epoch_kernel: G must be a CUDA tensor")
+    if (lo is None) != (hi is None):
+        raise ValueError("smo_epoch_kernel: give both lo and hi, or neither")
     dev = G.device
     n_rows, B = G.shape
     T, n_pad = idx.shape
     f32, i32 = torch.float32, torch.int32
-    for name, t, dt, shape in (
-            ("G", G, f32, (n_rows, B)), ("q", q, f32, (n_rows,)),
-            ("idx", idx, i32, (T, n_pad)), ("y", y, f32, (T, n_pad)),
-            ("c", c, f32, (T, n_pad)), ("alpha", alpha, f32, (T, n_pad)),
-            ("unchanged", unchanged, i32, (T, n_pad)), ("w", w, f32, (T, B)),
-            ("live", live, torch.bool, (T,))):
+    checks = [("G", G, f32, (n_rows, B)), ("q", q, f32, (n_rows,)),
+              ("idx", idx, i32, (T, n_pad)), ("y", y, f32, (T, n_pad)),
+              ("c", c, f32, (T, n_pad)), ("alpha", alpha, f32, (T, n_pad)),
+              ("unchanged", unchanged, i32, (T, n_pad)), ("w", w, f32, (T, B)),
+              ("live", live, torch.bool, (T,))]
+    if lo is not None:
+        checks += [("lo", lo, i32, (T,)), ("hi", hi, i32, (T,))]
+    for name, t, dt, shape in checks:
         _check(name, t, dt, shape, dev)
     viol = torch.zeros((T,), dtype=f32, device=dev)
     with torch.cuda.device(dev):
@@ -106,8 +126,10 @@ def smo_epoch_kernel(G, q, idx, y, c, alpha, unchanged, w, live, *,
         err = _launcher()(
             G.data_ptr(), B, idx.data_ptr(), y.data_ptr(), c.data_ptr(),
             q.data_ptr(), alpha.data_ptr(), unchanged.data_ptr(), w.data_ptr(),
-            viol.data_ptr(), live.data_ptr(), T, n_pad, int(bool(full_pass)),
-            int(shrink_k), stream)
+            viol.data_ptr(), live.data_ptr(),
+            None if lo is None else lo.data_ptr(),
+            None if hi is None else hi.data_ptr(), int(row0), T, n_pad,
+            int(bool(full_pass)), int(shrink_k), stream)
     if err != 0:
         raise RuntimeError(f"smo_epoch_kernel: launch failed with CUDA error {err}")
     smo_epoch_kernel.launches += 1

@@ -1,18 +1,24 @@
-"""Kernels B1 and B2 on the card against their plain versions.
+"""Kernels B1, B2 (whole and windowed) and B3 on the card against their
+plain versions, and the streamed route against the monolithic one.
 
 These need a CUDA card and nvcc: each test asks for the ``cuda`` fixture,
 which skips where there is none.  On the machine with the card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import LPDSVM, KernelParams
+from repro_torch import LPDSVM, KernelParams, StreamConfig
+from repro_torch.core import solver_stream as ss
 from repro_torch.core.nystrom import compute_factor
+from repro_torch.core.quant import quantize_rows
 from repro_torch.data import make_multiclass
-from repro_torch.kernels.gram import gram_kernel, gram_plain
+from repro_torch.kernels.gram import (gram_kernel, gram_plain, gram_q8_kernel,
+                                      gram_q8_plain)
 from repro_torch.kernels.smo import smo_epoch_kernel, smo_epoch_plain
 
 
@@ -112,3 +118,155 @@ def test_fit_on_card_matches_cpu(cuda):
         x, y, factor=cpu_fac)
     assert np.mean(card.predict(x) == cpu.predict(x)) >= 0.99
     assert np.abs(card.decision_function(x) - cpu.decision_function(x)).max() < 5e-2
+
+
+@pytest.mark.parametrize("n,m,p", [(64, 24, 32), (70, 9, 33), (33, 40, 100),
+                                   (257, 129, 784), (1, 1, 1)])
+@pytest.mark.parametrize("kind", ["rbf", "linear", "poly", "tanh"])
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_gram_q8_kernel_matches_plain(cuda, n, m, p, kind, symmetric):
+    """B3 against dequantise-then-gram, both codecs, ragged shapes; gamma
+    scaled to p as for B1; rows offset by 0.5 so the affine zero-points are
+    not 0."""
+    rng = np.random.default_rng(n + m + p)
+    x = (rng.normal(size=(n, p)) + 0.5).astype(np.float32)
+    z = torch.as_tensor(rng.normal(size=(m, p)), dtype=torch.float32, device=cuda)
+    kp = KernelParams(kind, gamma=1.0 / (2 * p) if kind == "rbf" else p ** -0.5,
+                      coef0=0.3, degree=3)
+    v, sc = quantize_rows(x, 32, symmetric=symmetric)
+    v, sc = torch.as_tensor(v, device=cuda), torch.as_tensor(sc, device=cuda)
+    before = gram_q8_kernel.launches
+    got = gram_q8_kernel(v, sc, z, kp, 32)
+    assert gram_q8_kernel.launches == before + 1
+    torch.testing.assert_close(got, gram_q8_plain(v, sc, z, kp, 32),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("group", [1, 7, 32, 1000])
+def test_gram_q8_kernel_group_sizes_and_unaligned_base(cuda, group):
+    """The scale table is indexed by row / group for any group; a base that
+    is not 4-byte aligned takes the scalar loads."""
+    rng = np.random.default_rng(group)
+    n, m, p = 300, 130, 64
+    x = rng.normal(size=(n, p)).astype(np.float32)
+    v, sc = quantize_rows(x, group)
+    flat = torch.empty(n * p + 1, dtype=torch.int8, device=cuda)
+    flat[1:] = torch.as_tensor(v.ravel(), device=cuda)
+    vq = flat[1:].view(n, p)
+    sc = torch.as_tensor(sc, device=cuda)
+    z = torch.as_tensor(rng.normal(size=(m, p)), dtype=torch.float32, device=cuda)
+    kp = KernelParams("rbf", gamma=1.0 / (2 * p))
+    torch.testing.assert_close(gram_q8_kernel(vq, sc, z, kp, group),
+                               gram_q8_plain(vq, sc, z, kp, group),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_gram_q8_kernel_rejects_what_it_does_not_take(cuda):
+    kp = KernelParams("rbf")
+    v = torch.zeros(40, 3, dtype=torch.int8, device=cuda)
+    z = torch.zeros(4, 3, device=cuda)
+    with pytest.raises(ValueError, match="scales"):
+        gram_q8_kernel(v, torch.ones(1, 2, device=cuda), z, kp, 32)   # needs 2 groups
+    with pytest.raises(TypeError):
+        gram_q8_kernel(v.float(), torch.ones(2, 2, device=cuda), z, kp, 32)
+
+
+@pytest.mark.parametrize("full_pass", [True, False])
+@pytest.mark.parametrize("B", [64, 300, 13000])
+def test_windowed_smo_kernel_matches_plain(cuda, full_pass, B):
+    """B2's window form on one row block: each task sweeps lo[t]:hi[t] and
+    reads block row idx - row0; positions outside the window are untouched."""
+    rng = np.random.default_rng(B + full_pass)
+    T, n_pad, n_rows, row0 = 4, 120, 90, 300
+    G = torch.as_tensor(rng.normal(size=(n_rows, B)) / np.sqrt(B),
+                        dtype=torch.float32, device=cuda)
+    ids = np.sort(np.stack([rng.choice(np.arange(row0 - 50, row0 + n_rows + 50),
+                                       n_pad, replace=False) for _ in range(T)]), 1)
+    lo = np.array([np.searchsorted(r, row0) for r in ids])
+    hi = np.array([np.searchsorted(r, row0 + n_rows) for r in ids])
+    hi[2] = lo[2]                                    # an empty window
+    idx = torch.as_tensor(ids, dtype=torch.int32, device=cuda)
+    y = torch.as_tensor(rng.choice([-1.0, 1.0], size=(T, n_pad)),
+                        dtype=torch.float32, device=cuda)
+    c = torch.full((T, n_pad), 2.0, device=cuda)
+    alpha = torch.as_tensor(rng.uniform(0, 2, size=(T, n_pad)),
+                            dtype=torch.float32, device=cuda)
+    w = torch.as_tensor(rng.normal(size=(T, B)) * 0.1, dtype=torch.float32,
+                        device=cuda)
+    unch = torch.as_tensor(rng.integers(0, 8, size=(T, n_pad)),
+                           dtype=torch.int32, device=cuda)
+    live = torch.tensor([True, False, True, True], device=cuda)
+    state = dict(G=G, q=(G * G).sum(-1), idx=idx, y=y, c=c, alpha=alpha,
+                 unchanged=unch, w=w, live=live)
+    win = dict(lo=torch.as_tensor(lo, dtype=torch.int32, device=cuda),
+               hi=torch.as_tensor(hi, dtype=torch.int32, device=cuda), row0=row0)
+    k = {key: v.clone() for key, v in state.items()}
+    p = {key: v.clone() for key, v in state.items()}
+    vk = smo_epoch_kernel(**k, full_pass=full_pass, shrink_k=5, **win)
+    vp = smo_epoch_plain(**p, full_pass=full_pass, shrink_k=5, **win)
+    torch.testing.assert_close(k["alpha"], p["alpha"], rtol=0, atol=1e-5)
+    torch.testing.assert_close(k["w"], p["w"], rtol=0, atol=1e-4)
+    torch.testing.assert_close(vk, vp, rtol=1e-4, atol=1e-5)
+    assert torch.equal(k["unchanged"], p["unchanged"])
+    for t in range(T):
+        outside = np.r_[0:lo[t], hi[t]:n_pad]
+        assert torch.equal(k["alpha"][t, outside], state["alpha"][t, outside])
+    for key in ("alpha", "unchanged", "w"):      # not live, or empty window
+        for t in (1, 2):
+            assert torch.equal(k[key][t], state[key][t])
+
+
+@pytest.mark.parametrize("rank", [2048, 2047, 96])
+def test_streamed_q_is_the_monolithic_q_on_card(cuda, rank):
+    """The streamed solver's q of a block starting at a multiple of 8 rows
+    (every block of its grid) equals solve_batch's (G * G).sum(-1) over the
+    whole G bit for bit: full pieces, a short tail, a block under 16 rows."""
+    G = torch.randn(3000, rank, device=cuda)
+    q = (G * G).sum(-1)
+    for s, e in [(0, 3000), (8, 15), (16, 16 + 1029), (1024, 2048), (2992, 3000),
+                 (2000, 3000)]:
+        out = torch.empty((e - s,), device=cuda)
+        ss._row_sq(G[s:e], out)
+        assert torch.equal(out, q[s:e]), (s, e)
+
+
+@pytest.mark.parametrize("block_dtype", ["f32", "bf16"])
+def test_streamed_fit_equals_monolithic_on_card(cuda, block_dtype):
+    """Both stages streamed (int8 stage-1 wire for the f32 case): G is a
+    pinned host tensor, stage 2 matches the monolithic solve on the same
+    factor (bf16: on the bf16-rounded factor) epoch for epoch."""
+    x, y = make_multiclass(1500, p=20, n_classes=4, seed=2)
+    kp = KernelParams("rbf", gamma=0.05)
+    cfg = StreamConfig(device_budget_bytes=64 << 10, tile_rows=200,
+                       stage1_dtype="int8" if block_dtype == "f32" else "f32",
+                       block_dtype=block_dtype, autotune_prefetch=False)
+    s = LPDSVM(kernel=kp, C=2.0, budget=128, tol=1e-2, stream_config=cfg)
+    s.fit(x, y)
+    assert s.stats.stage1_streamed and s.stats.stage2_streamed
+    G = s.factor.G
+    assert G.device.type == "cpu" and G.is_pinned()
+    Gd = G.to(cuda)
+    if block_dtype == "bf16":
+        Gd = Gd.bfloat16().float()
+    m = LPDSVM(kernel=kp, C=2.0, budget=128, tol=1e-2)
+    m.fit(x, y, factor=dataclasses.replace(s.factor, G=Gd, streamed=False))
+    assert not m.stats.stage2_streamed
+    np.testing.assert_array_equal(s.stats.epochs, m.stats.epochs)
+    torch.testing.assert_close(s.alpha_, m.alpha_, rtol=0, atol=1e-6)
+    torch.testing.assert_close(s.W_, m.W_, rtol=0, atol=1e-6)
+    assert np.mean(s.predict(x) == m.predict(x)) >= 0.99
+
+
+def test_forced_streaming_of_a_factor_on_the_card(cuda):
+    """stream=True with a factor whose G lies on the card: stage 2 copies G
+    to pinned host memory once and streams it, epoch for epoch as the
+    monolithic solve on the same G."""
+    x, y = make_multiclass(800, p=10, n_classes=3, seed=4)
+    kp = KernelParams("rbf", gamma=0.1)
+    fac = compute_factor(x, kp, 96, device=cuda)
+    s = LPDSVM(kernel=kp, C=2.0, budget=96, tol=1e-2, stream=True,
+               stream_config=StreamConfig(tile_rows=128)).fit(x, y, factor=fac)
+    m = LPDSVM(kernel=kp, C=2.0, budget=96, tol=1e-2).fit(x, y, factor=fac)
+    assert s.stats.stage2_streamed and not m.stats.stage2_streamed
+    np.testing.assert_array_equal(s.stats.epochs, m.stats.epochs)
+    torch.testing.assert_close(s.W_, m.W_, rtol=0, atol=1e-6)

@@ -35,7 +35,8 @@ def test_no_jax_or_reference_import(path):
 def test_port_covers_its_layout():
     rel = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
     for name in ("core/kernel_fn.py", "core/nystrom.py", "core/dual_solver.py",
-                 "core/ovo.py", "core/svm.py", "kernels/build.py", "kernels/gram.py",
+                 "core/ovo.py", "core/svm.py", "core/quant.py", "core/streaming.py",
+                 "core/solver_stream.py", "kernels/build.py", "kernels/gram.py",
                  "kernels/smo.py", "kernels/ops.py", "data/synthetic.py",
                  "convert.py"):
         assert name in rel

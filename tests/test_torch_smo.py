@@ -123,3 +123,49 @@ def test_dual_is_monotone_over_epochs():
         duals.append(alpha.sum() - 0.5 * w @ w)
     assert all(b >= a - 1e-4 for a, b in zip(duals, duals[1:]))
     assert duals[-1] > duals[0]
+
+
+@pytest.mark.parametrize("full_pass", [True, False])
+@pytest.mark.parametrize("tile", [16, 37, 200])
+def test_window_form_over_the_blocks_equals_the_whole_epoch(full_pass, tile):
+    """B2's window form, the streamed stage 2's unit: sweeping each row
+    block of G in turn (task t over its positions lo[t]:hi[t], block rows
+    idx - row0, q of the block) is the whole epoch, bit for bit."""
+    rng = np.random.default_rng(tile + full_pass)
+    n_rows, B, n_pad, T = 150, 32, 60, 3
+    G = torch.from_numpy((rng.normal(size=(n_rows, B)) / np.sqrt(B)).astype(np.float32))
+    q = (G * G).sum(-1)
+    m = [60, 52, 30]                                   # real rows, sorted, first
+    idx = np.zeros((T, n_pad), np.int32)
+    c = np.zeros((T, n_pad), np.float32)
+    for t in range(T):
+        idx[t, :m[t]] = np.sort(rng.choice(n_rows, m[t], replace=False))
+        c[t, :m[t]] = 1.5
+    y = rng.choice([-1.0, 1.0], size=(T, n_pad)).astype(np.float32)
+    alpha = (rng.uniform(0, 1.5, size=(T, n_pad)) * (c > 0)).astype(np.float32)
+    w = np.stack([(alpha[t] * y[t]) @ G.numpy()[idx[t]] for t in range(T)])
+    unch = rng.integers(0, 8, size=(T, n_pad)).astype(np.int32)
+    live = torch.tensor([True, True, False])
+
+    def state():
+        return dict(idx=torch.from_numpy(idx), y=torch.from_numpy(y),
+                    c=torch.from_numpy(c), alpha=torch.from_numpy(alpha.copy()),
+                    unchanged=torch.from_numpy(unch.copy()),
+                    w=torch.from_numpy(w.astype(np.float32)), live=live)
+
+    whole = state()
+    v_whole = ops.smo_epoch(G, q, **whole, full_pass=full_pass, shrink_k=SHRINK_K)
+    blocks = state()
+    n_blocks = -(-n_rows // tile)
+    bounds = np.stack([np.searchsorted(idx[t, :m[t]], np.arange(n_blocks + 1) * tile)
+                       for t in range(T)], 1).astype(np.int32)
+    v_blocks = torch.zeros(T)
+    for b in range(n_blocks):
+        s, e = b * tile, min((b + 1) * tile, n_rows)
+        v = ops.smo_epoch(G[s:e], q[s:e], **blocks, full_pass=full_pass,
+                          shrink_k=SHRINK_K, lo=torch.from_numpy(bounds[b]),
+                          hi=torch.from_numpy(bounds[b + 1]), row0=s)
+        v_blocks = torch.maximum(v_blocks, v)
+    for key in ("alpha", "unchanged", "w"):
+        assert torch.equal(blocks[key], whole[key]), key
+    assert torch.equal(v_blocks, v_whole)

@@ -9,11 +9,13 @@ import torch
 
 from repro.core.kernel_fn import KernelParams as JKP
 from repro.core.ovo import build_ovo_tasks as jax_tasks
+from repro.core.streaming import StreamConfig as JStreamConfig
 from repro.core.svm import LPDSVM as JaxSVM
-from repro_torch import LPDSVM, KernelParams
-from repro_torch.convert import from_reference
+from repro_torch import LPDSVM, KernelParams, StreamConfig
+from repro_torch.convert import factor_from_reference, from_reference
 from repro_torch.core.kernel_fn import full_fp32
 from repro_torch.core.nystrom import compute_factor
+from repro_torch.core.streaming import compute_factor_streamed
 from repro_torch.core.ovo import build_ovo_tasks
 from repro_torch.data import (make_checker, make_multiclass, make_two_spirals,
                               train_test_split)
@@ -142,7 +144,6 @@ def test_no_card_raises_without_explicit_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("arg,value", [
-    ("stream", True), ("stream", False), ("stream_config", object()),
     ("polish", True), ("polish_levels", 4), ("polish_schedule", object()),
     ("polish_gap_trace", False)])
 def test_unported_constructor_arguments_raise(arg, value):
@@ -165,3 +166,85 @@ def test_single_class_rejected_and_predict_needs_fit():
         svm.predict(np.zeros((2, 2), np.float32))
     with pytest.raises(ValueError, match="two classes"):
         svm.fit(np.zeros((4, 2), np.float32), np.zeros(4))
+
+
+# ------------------------------------------------------------ streamed route
+
+def _stream_problem():
+    """The reference's own int8-wire fit test (tests/test_streaming.py)."""
+    x = np.random.default_rng(1).normal(size=(600, 6)).astype(np.float32)
+    y = (x[:, 0] * x[:, 1] > 0).astype(int)
+    return x, y
+
+
+STREAM_CFG = dict(device_budget_bytes=256 << 10, stage1_dtype="int8")
+
+
+def test_streamed_fit_on_the_cpu():
+    """Both stages stream under a 256 KiB budget (int8 stage-1 wire), and
+    the fit classifies like the monolithic one (within 0.02)."""
+    x, y = _stream_problem()
+    kp = KernelParams("rbf", gamma=1.0)
+    plain = LPDSVM(kp, C=2.0, budget=96, device="cpu").fit(x, y)
+    svm = LPDSVM(kp, C=2.0, budget=96, device="cpu",
+                 stream_config=StreamConfig(**STREAM_CFG)).fit(x, y)
+    st = svm.stats
+    assert st.stage1_streamed and st.stage2_streamed
+    assert not (plain.stats.stage1_streamed or plain.stats.stage2_streamed)
+    assert st.stage1_stats.wire_dtype == "int8" and st.stage1_stats.chunks > 1
+    assert st.stage2_stats.block_dtype == "f32" and st.stage2_stats.full_passes >= 1
+    assert svm.factor.streamed and svm.factor.G.device.type == "cpu"
+    assert abs(svm.score(x, y) - plain.score(x, y)) <= 0.02
+    assert np.all(st.violations < 1e-2)
+
+
+def test_streamed_fit_agrees_with_the_reference():
+    """The reference's streamed fit (f32 stage-2 blocks on both sides):
+    from the reference's own streamed G carried across, and from the port's
+    streamed stage 1 on the reference's landmarks, predictions agree with
+    the reference's on >= 99% of the rows."""
+    x, y = _stream_problem()
+    ref = JaxSVM(JKP("rbf", gamma=1.0), C=2.0, budget=96,
+                 stream_config=JStreamConfig(**STREAM_CFG)).fit(x, y)
+    assert ref.stats.stage1_streamed and ref.stats.stage2_streamed
+    kp = KernelParams("rbf", gamma=1.0)
+    state = {k: np.asarray(getattr(ref.factor, k))
+             for k in ("G", "landmarks", "projector", "eigvals")}
+    carried = factor_from_reference(state, kp, device="cpu", streamed=True)
+    ported = compute_factor_streamed(x, kp, 96, landmark_idx=_reference_idx(600, 96),
+                                     config=StreamConfig(**STREAM_CFG), device="cpu")
+    for fac in (carried, ported):
+        svm = LPDSVM(kp, C=2.0, budget=96, device="cpu").fit(x, y, factor=fac)
+        assert svm.stats.stage1_streamed and svm.stats.stage2_streamed
+        assert np.mean(svm.predict(x) == ref.predict(x)) >= 0.99
+        np.testing.assert_allclose(
+            svm.alpha_.sum(-1).numpy() - 0.5 * (svm.W_ ** 2).sum(-1).numpy(),
+            np.asarray(ref.alpha_).sum(-1) - 0.5 * (np.asarray(ref.W_) ** 2).sum(-1),
+            rtol=5e-3)
+
+
+def test_stream_routing_of_the_estimator():
+    """stream=False keeps both stages monolithic whatever the budget;
+    stream=True streams both with the default config; a refit does not
+    report the previous fit's stream stats."""
+    x, y = _stream_problem()
+    kp = KernelParams("rbf", gamma=1.0)
+    small = StreamConfig(device_budget_bytes=1 << 10)
+    off = LPDSVM(kp, C=2.0, budget=32, device="cpu", stream=False,
+                 stream_config=small).fit(x, y)
+    assert not (off.stats.stage1_streamed or off.stats.stage2_streamed)
+    on = LPDSVM(kp, C=2.0, budget=32, device="cpu", stream=True).fit(x, y)
+    assert on.stats.stage1_streamed and on.stats.stage2_streamed
+    on.fit(x, y, factor=compute_factor(x, kp, 32, device="cpu"))
+    assert on.stats.stage2_streamed            # stream=True forces stage 2
+    assert not on.stats.stage1_streamed
+    mono = LPDSVM(kp, C=2.0, budget=32, device="cpu")
+    mono.fit(x, y, factor=on.factor)
+    assert not mono.stats.stage2_streamed and mono.stats.stage2_stats is None
+
+
+def test_unported_stream_options_raise():
+    with pytest.raises(NotImplementedError, match="int8"):
+        LPDSVM(device="cpu", stream_config=StreamConfig(block_dtype="int8"))
+    with pytest.raises(TypeError, match="StreamConfig"):
+        LPDSVM(device="cpu", stream_config=JStreamConfig())
