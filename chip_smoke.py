@@ -7,8 +7,9 @@ Phases, each printed as ``[phase] start`` ... ``[phase] ok in N s``; any
 failure raises and exits non-zero, nothing is caught and carried on:
 
   device        card name and power limit (nvidia-smi), torch and CUDA versions
-  build         nvcc builds kernels B1 and B3 (gram.cu) and B2 (smo.cu) from
-                src/repro_torch/kernels/csrc, in parallel
+  build         nvcc builds kernels B1 and B3 (gram.cu), B2 (smo.cu) and B4
+                (flash_attention.cu) from src/repro_torch/kernels/csrc, in
+                parallel
   B1 vs plain   gram kernel against its plain PyTorch version, four kinds at
                 ragged shapes
   B3 vs plain   int8 gram kernel against dequantise-then-gram, four kinds at
@@ -41,6 +42,23 @@ failure raises and exits non-zero, nothing is caught and carried on:
   streamed vs monolithic, one factor   the main path's factor, moved to
                 pinned host memory, through the streamed stage 2 against the
                 main path's own solve: q, epochs, alphas, dual objective
+  B4 vs plain   flash-attention kernel against its plain version: causal and
+                not, S in {1, 63, 64, 257, 1000}, (Hq, Hkv) in {(4, 4), (16, 8),
+                (32, 4)}, D in {64, 128}, fp32 and bf16
+  B4 timing     B4 at the driver's shape (qwen3-0.6b, batch 32, S 256) and two
+                prefill shapes (qwen3-0.6b 1 x 4096, tinyllama-1.1b 4 x 2048),
+                beside its plain version, SDPA and its bound
+  end-to-end driver, full width   the paper's driver (launch/train_svm.py):
+                qwen3-0.6b at 28 layers and d 1024 from a seeded init on the
+                card, 8000 class-conditioned documents of 256 tokens, features
+                through B4 in every layer, LPD-SVM (RBF, median gamma, C 8,
+                budget 1024) on the 80/20 split; counts reset just before and
+                read just after; the feature time split into B4, the bf16
+                products and the rest
+  backbone card vs cpu, 2 layers  the same full-width weights cut to 2 layers:
+                the card's features against the port's CPU path on 16 documents
+  class signal by depth           the driver's head on the same documents at
+                0 layers (the mean input embedding) and at the 2-layer cut
 
 Then one JSON line {"kernels": [...]} and, last, the {"ok": true, ...} line.
 """
@@ -60,6 +78,7 @@ ROOT = Path(__file__).resolve().parent
 # cores and HBM3 bandwidth.  Tensor cores are not counted: fp32 there is TF32.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_BF16_FLOPS = 989e12         # dense tensor cores: the yardstick of B4's bf16 bound
 
 RAGGED = [(130, 70, 33), (17, 300, 1100), (128, 128, 512), (256, 128, 512)]
 GRAM_RTOL = GRAM_ATOL = 2e-4     # fp32 sums in two orders (as tests/test_kernels_pallas.py)
@@ -68,6 +87,11 @@ W_RTOL = 1e-3                    # of max |w|
 VIOL_RTOL = 1e-3
 UNCHANGED_MIN_AGREE = 0.999      # a rounding difference at a clip can flip a counter
 DECISION_RTOL = 1e-3             # of max |decision value|
+FLASH_TOL = 2e-5                 # fp32: abs and rel, as tests/test_flash_kernel.py
+BF16_ULP = 2.0 ** -7             # bf16 outputs: one ulp of the plain value, relative
+LIBRARY_TOL = 3e-2               # SDPA rounds p to bf16: test_flash_bf16's tolerance
+FEATURE_ATOL = 0.05              # bf16 end to end, as tests/test_torch_train_svm.py
+FEATURE_MEAN_ATOL = 0.005
 
 
 @contextlib.contextmanager
@@ -132,6 +156,18 @@ def gram_q8_bound(n: int, m: int, p: int, n_groups: int):
                     1.0 * n * p + 8.0 * n_groups + 4.0 * (m * p + n * m))
 
 
+def flash_bound(B: int, S: int, Hq: int, Hkv: int, D: int, dtype, causal: bool = True):
+    """4 B Hq D FLOP per unmasked (q, k) pair over the dtype's peak (bf16
+    tensor cores, or fp32), against q, k, v and o moved once."""
+    import torch
+    pairs = S * (S + 1) // 2 if causal else S * S
+    esize = 2 if dtype == torch.bfloat16 else 4
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    ops_ms = 4.0 * B * Hq * D * pairs / peak * 1e3
+    bytes_ms = esize * (2.0 * B * S * Hq * D + 2.0 * B * S * Hkv * D) / PEAK_HBM_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 def host_free_bytes() -> int:
     """MemAvailable of /proc/meminfo (bytes)."""
     for line in Path("/proc/meminfo").read_text().splitlines():
@@ -167,6 +203,12 @@ def main() -> int:
     from repro_torch.kernels.gram import (gram_kernel, gram_plain,
                                           gram_q8_kernel, gram_q8_plain)
     from repro_torch.kernels.smo import smo_epoch_kernel, smo_epoch_plain
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_plain)
+    from repro_torch.launch.train_svm import class_conditioned_tokens, extract_features
+    from repro_torch.models import init_model
+    from repro_torch.models.model import trunk
 
     dev = torch.device("cuda")
 
@@ -756,6 +798,190 @@ def main() -> int:
               "the streamed stage 2 left the monolithic trajectory")
         del G_h
 
+
+    # ------------------------------------------------------ the backbone (B4)
+    def compare_flash(q, k, v, causal, label):
+        got = flash_attention_kernel(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        err = (g - w).abs()
+        if q.dtype == torch.float32:
+            lim, tol = FLASH_TOL + FLASH_TOL * w.abs(), f"{FLASH_TOL} + {FLASH_TOL}|plain|"
+        else:
+            lim, tol = BF16_ULP * w.abs() + FLASH_TOL, f"2^-7|plain| + {FLASH_TOL}"
+        print(f"flash {label}: max abs err {err.max().item():.3e} (tol {tol}), "
+              f"plain in [{w.min().item():.3e}, {w.max().item():.3e}]")
+        check(got.dtype == q.dtype and bool(torch.isfinite(g).all())
+              and bool((err <= lim).all()), f"flash {label} disagrees with its plain version")
+        return err.max().item()
+
+    def qkv(B, S, Hq, Hkv, D, dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return (torch.randn(B, S, h, D, generator=g, device=dev).to(dtype)
+                for h in (Hq, Hkv, Hkv))
+
+    with phase("B4 vs plain"):
+        flash_err = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                for D in (64, 128):
+                    for Hq, Hkv in ((4, 4), (16, 8), (32, 4)):
+                        for S in (1, 63, 64, 257, 1000):
+                            q, k, v = qkv(2, S, Hq, Hkv, D, dtype, S + Hq + D)
+                            flash_err = max(flash_err, compare_flash(
+                                q, k, v, causal, f"{str(dtype)[6:]:8s} causal={causal:d} "
+                                f"D={D} Hq/Hkv={Hq}/{Hkv} S={S}"))
+
+    flash_times = {}
+    with phase("B4 timing"):
+        shapes = (("qwen3-0.6b pipeline", 32, 256, 16, 8, 128),
+                  ("qwen3-0.6b prefill", 1, 4096, 16, 8, 128),
+                  ("tinyllama-1.1b prefill", 4, 2048, 32, 4, 64))
+        for label, B, S, Hq, Hkv, D in shapes:
+            q, k, v = qkv(B, S, Hq, Hkv, D, torch.bfloat16, S)
+            flash_err = max(flash_err, compare_flash(q, k, v, True, f"{label} B={B} S={S}"))
+            k_ms = cuda_ms(lambda: flash_attention_kernel(q, k, v, causal=True), 10)
+            p_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True), 3)
+            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+
+            def library():    # the yardstick only: the port never calls it
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            l_ms = cuda_ms(library, 10)
+            plain = flash_attention_plain(q, k, v).float()
+            lib_diff = (library().transpose(1, 2).float() - plain).abs()
+            lib_err = lib_diff.max().item()
+            check(bool((lib_diff <= LIBRARY_TOL + LIBRARY_TOL * plain.abs()).all()),
+                  "the SDPA yardstick computes another function")
+            del plain, lib_diff
+            b_ms, b_by = flash_bound(B, S, Hq, Hkv, D, torch.bfloat16)
+            flash_times[label] = (k_ms, p_ms, l_ms, b_ms, b_by)
+            print(f"flash {label} (B {B}, S {S}, Hq/Hkv {Hq}/{Hkv}, D {D}, bf16, causal): "
+                  f"{k_ms:.3f} ms (plain {p_ms:.3f}, SDPA {l_ms:.3f} [max abs diff to "
+                  f"plain {lib_err:.3e}], bound {b_ms:.4f} by {b_by}; kernel / bound "
+                  f"{k_ms / b_ms:.1f}, kernel / SDPA {k_ms / l_ms:.1f})")
+            del q, k, v, qt, kt, vt
+
+    with phase("end-to-end driver, full width"):
+        cfg_m = get_config("qwen3-0.6b")
+        check(cfg_m.n_layers == 28 and cfg_m.d_model == 1024,
+              "qwen3-0.6b is not at its published width and depth")
+        t0 = time.perf_counter()
+        backbone = init_model(torch.Generator(device=dev).manual_seed(0), cfg_m, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in backbone.parameters())
+        print(f"qwen3-0.6b: {cfg_m.n_layers} layers, d {cfg_m.d_model}, heads "
+              f"{cfg_m.n_heads}/{cfg_m.n_kv_heads}, head dim {cfg_m.resolved_head_dim}, "
+              f"{n_params} parameters (bf16) in {time.perf_counter() - t0:.3f} s")
+        n_docs, seq, n_cls, feat_batch = 8000, 256, 10, 32
+        toks, ydoc = class_conditioned_tokens(n_docs, n_cls, seq, cfg_m.vocab_size)
+        n_tr = int(n_docs * 0.8)
+        base = peak_start()
+        for fn in (flash_attention_kernel, gram_kernel, gram_q8_kernel, smo_epoch_kernel):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        feats = extract_features(cfg_m, backbone, toks, batch=feat_batch)
+        t_feat = time.perf_counter() - t0
+        gamma_f = median_gamma(feats)
+        head = LPDSVM(KernelParams("rbf", gamma=gamma_f), C=8.0, budget=1024, tol=1e-2)
+        t0 = time.perf_counter()
+        head.fit(feats[:n_tr], ydoc[:n_tr])
+        t_fit = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred_f = head.predict(feats[n_tr:])
+        t_pred = time.perf_counter() - t0
+        e2e = {"flash_attention": flash_attention_kernel.launches,
+               "gram": gram_kernel.launches, "gram_q8": gram_q8_kernel.launches,
+               "smo_epoch": smo_epoch_kernel.launches}
+        peak_e2e = peak_since(base)
+        err_f = float(np.mean(pred_f != ydoc[n_tr:]))
+        st_f = head.stats
+        want_b4 = cfg_m.n_layers * -(-n_docs // feat_batch)
+        print(f"features {feats.shape} in {t_feat:.3f} s ({n_docs * seq / t_feat:.0f} "
+              f"tokens/s), range [{feats.min():.3e}, {feats.max():.3e}], gamma "
+              f"{gamma_f:.6e}")
+        print(f"head: fit {t_fit:.3f} s (stage1 {st_f.stage1_seconds:.3f} s, stage2 "
+              f"{st_f.stage2_seconds:.3f} s, rank {st_f.effective_rank}, {st_f.n_tasks} "
+              f"tasks, epochs max {st_f.epochs.max()}), predict {t_pred:.3f} s; test "
+              f"error {err_f:.4f} (chance {1 - 1 / n_cls:.2f}); peak device memory "
+              f"{peak_e2e} B above the weights")
+        print(f"launches {e2e} (B4 expected {cfg_m.n_layers} x ceil({n_docs} / "
+              f"{feat_batch}) = {want_b4})")
+        check(feats.shape == (n_docs, cfg_m.d_model) and bool(np.isfinite(feats).all()),
+              "features of the wrong shape or not finite")
+        check(e2e["flash_attention"] == want_b4, "B4 launches differ from layers x batches")
+        check(e2e["gram"] == 3 and e2e["gram_q8"] == 0,
+              "B1 not launched once each for K_mm, K_nm and the predict features")
+        check(e2e["smo_epoch"] == int(st_f.epochs.max()), "B2 launches differ from the epochs")
+        check(set(np.unique(pred_f)) <= set(range(n_cls)), "predictions outside the classes")
+        print(f"head tasks converged {int((st_f.violations < 1e-2).sum())} of {st_f.n_tasks}")
+
+        # where the feature time goes: one batch of the trunk on the card,
+        # B4 at its shape and the layer's seven bf16 products at theirs
+        tb = torch.as_tensor(toks[:feat_batch], device=dev).long()
+        with torch.no_grad():
+            trunk_ms = cuda_ms(lambda: trunk(backbone, cfg_m, tb), 3)
+            L0 = backbone.layers[0]
+            rows = feat_batch * seq
+            xa = torch.randn(rows, cfg_m.d_model, device=dev, dtype=torch.bfloat16)
+            xo = torch.randn(rows, cfg_m.n_heads * cfg_m.resolved_head_dim, device=dev,
+                             dtype=torch.bfloat16)
+            xh = torch.randn(rows, cfg_m.d_ff, device=dev, dtype=torch.bfloat16)
+            prods = ((xa, L0.mixer.wq), (xa, L0.mixer.wk), (xa, L0.mixer.wv),
+                     (xo, L0.mixer.wo), (xa, L0.ffn.w_gate), (xa, L0.ffn.w_up),
+                     (xh, L0.ffn.w_down))
+            mm_ms = cuda_ms(lambda: [a @ w for a, w in prods], 10)
+        b4_ms = flash_times["qwen3-0.6b pipeline"][0]
+        layer_b4, layer_mm = cfg_m.n_layers * b4_ms, cfg_m.n_layers * mm_ms
+        batches = -(-n_docs // feat_batch)
+        mm_flops = 2.0 * rows * sum(w.numel() for _, w in prods)
+        print(f"feature time per batch of {feat_batch} x {seq}: trunk {trunk_ms:.3f} ms on "
+              f"the card = B4 {layer_b4:.3f} ms ({cfg_m.n_layers} x {b4_ms:.3f}) + bf16 "
+              f"products {layer_mm:.3f} ms ({cfg_m.n_layers} x {mm_ms:.3f}, "
+              f"{mm_flops / mm_ms / 1e9:.0f} TFLOP/s) + rest "
+              f"{trunk_ms - layer_b4 - layer_mm:.3f} ms; x {batches} batches = "
+              f"{batches * trunk_ms / 1e3:.3f} s of {t_feat:.3f} s wall")
+        del xa, xo, xh, tb
+
+    with phase("backbone card vs cpu, 2 layers"):
+        cfg2 = dataclasses.replace(cfg_m, n_layers=2)
+        first2 = {k: v for k, v in backbone.state_dict().items()
+                  if not k.startswith("layers.") or int(k.split(".")[1]) < 2}
+        cut = {}
+        for d in ("cuda", "cpu"):
+            cut[d] = init_model(None, cfg2, device=d)
+            cut[d].load_state_dict({k: v.to(d) for k, v in first2.items()})
+        t0 = time.perf_counter()
+        f_card = extract_features(cfg2, cut["cuda"], toks[:16])
+        f_cpu = extract_features(cfg2, cut["cpu"], toks[:16])
+        ferr = np.abs(f_card - f_cpu)
+        print(f"2-layer qwen3-0.6b on 16 x {seq} tokens: card vs CPU features max abs "
+              f"err {ferr.max():.3e} (tol {FEATURE_ATOL}), mean {ferr.mean():.3e} (tol "
+              f"{FEATURE_MEAN_ATOL}), CPU features in [{f_cpu.min():.3e}, "
+              f"{f_cpu.max():.3e}] ({time.perf_counter() - t0:.3f} s)")
+        check(ferr.max() <= FEATURE_ATOL and ferr.mean() <= FEATURE_MEAN_ATOL,
+              "the card's features disagree with the CPU's")
+
+    with phase("class signal by depth"):
+        # the same head on the same documents with 0 layers (the mean input
+        # embedding) and with the 2-layer cut, beside the 28 layers above:
+        # a random backbone over a 151936-token vocabulary dilutes the
+        # documents' class signal layer by layer
+        def head_error(f):
+            s = LPDSVM(KernelParams("rbf", gamma=median_gamma(f)), C=8.0, budget=1024,
+                       tol=1e-2).fit(f[:n_tr], ydoc[:n_tr])
+            return float(np.mean(s.predict(f[n_tr:]) != ydoc[n_tr:]))
+        with torch.no_grad():
+            f0 = torch.cat([backbone.embed[torch.as_tensor(toks[i:i + feat_batch],
+                                                           device=dev).long()]
+                            .float().mean(1) for i in range(0, n_docs, feat_batch)])
+        by_depth = {0: head_error(f0.cpu().numpy()),
+                    2: head_error(extract_features(cfg2, cut["cuda"], toks)), 28: err_f}
+        print(f"head test error by backbone depth (chance {1 - 1 / n_cls:.2f}): "
+              + ", ".join(f"{d} layers {e:.4f}" for d, e in by_depth.items()))
+        del cut, backbone, f0
+
     kernels = [
         {"name": "gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram.cu",
@@ -774,6 +1000,15 @@ def main() -> int:
          "launches": s_launches["gram_q8"], "max_abs_err": q8_err, "ms": q8_ms,
          "plain_ms": q8_plain, "bound_ms": q8_bound, "bound_by": q8_by,
          "library_ms": q8_lib},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:68",
+         "launches": e2e["flash_attention"], "max_abs_err": flash_err,
+         "ms": flash_times["qwen3-0.6b pipeline"][0],
+         "plain_ms": flash_times["qwen3-0.6b pipeline"][1],
+         "bound_ms": flash_times["qwen3-0.6b pipeline"][3],
+         "bound_by": flash_times["qwen3-0.6b pipeline"][4],
+         "library_ms": flash_times["qwen3-0.6b pipeline"][2]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

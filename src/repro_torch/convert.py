@@ -9,11 +9,14 @@ so this module needs nothing of the JAX package:
   * ``factor_from_reference`` / ``tasks_from_reference``: a stage-1 factor G
     (device-resident, or host-resident for the streamed route) and a
     ``TaskBatch``, so stage 2 can be held against the reference on identical
-    inputs.
+    inputs;
+  * ``model_from_reference``: a backbone ``Model`` from the reference's
+    ``init_model`` parameter tree, so the port's layers can be held against
+    the reference on identical weights.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +27,7 @@ from repro_torch.core.nystrom import LowRankFactor
 from repro_torch.core.ovo import class_pairs
 from repro_torch.core.streaming import host_buffer
 from repro_torch.core.svm import LPDSVM, resolve_device
+from repro_torch.models.model import Model, _layout
 
 
 def _kernel_params(meta: Mapping) -> KernelParams:
@@ -87,3 +91,69 @@ def from_reference(state: Mapping[str, np.ndarray], kernel: Mapping,
     svm.classes_ = np.asarray(state["classes"])
     svm.pairs_ = class_pairs(len(svm.classes_))
     return svm
+
+
+def _torch_dtype(a) -> torch.dtype:
+    name = np.asarray(a).dtype.name
+    if name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros((), dtype=name)).dtype
+
+
+def _leaves(tree, prefix: str) -> Iterator[Tuple[str, object]]:
+    for key, sub in tree.items():
+        if isinstance(sub, Mapping):
+            yield from _leaves(sub, f"{prefix}{key}.")
+        else:
+            yield prefix + key, sub
+
+
+def reference_leaves(params: Mapping, cfg) -> Dict[str, object]:
+    """The reference's parameter tree as one array per port parameter name:
+    ``prologue[i]`` is layer i, and leaf ``[k]`` of ``groups[j]`` (stacked
+    over groups) is layer ``n_prologue + k * group + j``."""
+    pro, g, n_groups = _layout(cfg)
+    out: Dict[str, object] = {}
+    for key in ("embed", "final_ln", "unembed"):
+        if key in params:
+            out[key] = params[key]
+    extra = set(params) - {"embed", "final_ln", "unembed", "prologue", "groups"}
+    if extra:
+        raise KeyError(f"model_from_reference: no port counterpart for {sorted(extra)}")
+    for i, layer in enumerate(params.get("prologue", [])):
+        out.update(_leaves(layer, f"layers.{i}."))
+    for j, stacked in enumerate(params.get("groups", [])):
+        for name, leaf in _leaves(stacked, ""):
+            leaf = np.asarray(leaf)
+            if leaf.shape[0] != n_groups:
+                raise ValueError(f"model_from_reference: groups[{j}].{name} stacks "
+                                 f"{leaf.shape[0]} layers, the layout has {n_groups}")
+            for k in range(n_groups):
+                out[f"layers.{pro + k * g + j}.{name}"] = leaf[k]
+    return out
+
+
+def model_from_reference(params: Mapping, cfg, device=None) -> Model:
+    """A port ``Model`` carrying every leaf of the reference's ``init_model``
+    tree (arrays as numpy; bf16 leaves arrive as ``ml_dtypes`` bfloat16 and go
+    through fp32, which is exact).  Raises if a leaf has no port parameter or
+    a port parameter gets no leaf."""
+    device = resolve_device(device)
+    leaves = reference_leaves(params, cfg)
+    model = Model(cfg, generator=None, dtype=_torch_dtype(params["embed"]),
+                  device=device)
+    own = dict(model.named_parameters())
+    missing = sorted(set(own) - set(leaves))
+    unknown = sorted(set(leaves) - set(own))
+    if missing or unknown:
+        raise KeyError(f"model_from_reference: port parameters without a leaf "
+                       f"{missing}, leaves without a port parameter {unknown}")
+    for name, leaf in leaves.items():
+        p = own[name]
+        src = torch.from_numpy(np.array(leaf, dtype=np.float32))
+        if tuple(src.shape) != tuple(p.shape) or _torch_dtype(leaf) != p.dtype:
+            raise ValueError(f"model_from_reference: {name} is {np.asarray(leaf).dtype} "
+                             f"{tuple(src.shape)}, the port's {p.dtype} {tuple(p.shape)}")
+        with torch.no_grad():
+            p.copy_(src.to(p.dtype))
+    return model

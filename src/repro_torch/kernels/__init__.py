@@ -4,11 +4,13 @@ PyTorch version:
   * gram.py + csrc/gram.cu: stage-1 batch kernel matrix, from fp32 rows
     (kernel B1) or from int8 codes with their scale table (kernel B3);
   * smo.py  + csrc/smo.cu:  stage-2 SMO epoch over all tasks, whole G or
-    one streamed row block (kernel B2).
+    one streamed row block (kernel B2);
+  * flash_attention.py + csrc/flash_attention.cu: the backbone's attention
+    core, online softmax over grouped-query heads (kernel B4).
 
 ops.py holds the public wrappers that dispatch by device; build.py compiles
 csrc/ with nvcc at first use.
 """
-from repro_torch.kernels.ops import gram, gram_q8, smo_epoch
+from repro_torch.kernels.ops import flash_attention, gram, gram_q8, smo_epoch
 
-__all__ = ["gram", "gram_q8", "smo_epoch"]
+__all__ = ["flash_attention", "gram", "gram_q8", "smo_epoch"]

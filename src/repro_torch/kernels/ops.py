@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                 flash_attention_plain)
 from repro_torch.kernels.gram import (gram_kernel, gram_plain, gram_q8_kernel,
                                       gram_q8_plain)
 from repro_torch.kernels.smo import smo_epoch_kernel, smo_epoch_plain
@@ -50,3 +52,19 @@ def smo_epoch(G, q, idx, y, c, alpha, unchanged, w, live, *,
     fn = smo_epoch_plain if _on_cpu(G) else smo_epoch_kernel
     return fn(G, q, idx, y, c, alpha, unchanged, w, live,
               full_pass=full_pass, shrink_k=shrink_k, lo=lo, hi=hi, row0=row0)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Online-softmax attention in the model's layout: q (B, S, Hq, D), k and
+    v (B, S, Hkv, D), query head h on kv head h // (Hq // Hkv); returns
+    (B, S, Hq, D) in q's dtype (see kernels/flash_attention.py).  Ragged S is
+    masked, never padded, causal or not.  A sliding window is not ported:
+    ``window > 0`` raises on every device."""
+    if window > 0:
+        raise NotImplementedError(
+            "flash_attention: sliding-window attention (window > 0) is not "
+            "ported to repro_torch; no ported configuration has one")
+    if _on_cpu(q):
+        return flash_attention_plain(q, k, v, causal=causal)
+    return flash_attention_kernel(q, k, v, causal=causal)

@@ -1,5 +1,6 @@
-"""Kernels B1, B2 (whole and windowed) and B3 on the card against their
-plain versions, and the streamed route against the monolithic one.
+"""Kernels B1, B2 (whole and windowed), B3 and B4 on the card against their
+plain versions, the streamed route against the monolithic one, and the
+backbone's features on the card against the CPU's.
 
 These need a CUDA card and nvcc: each test asks for the ``cuda`` fixture,
 which skips where there is none.  On the machine with the card:
@@ -19,6 +20,9 @@ from repro_torch.core.quant import quantize_rows
 from repro_torch.data import make_multiclass
 from repro_torch.kernels.gram import (gram_kernel, gram_plain, gram_q8_kernel,
                                       gram_q8_plain)
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                 flash_attention_plain)
 from repro_torch.kernels.smo import smo_epoch_kernel, smo_epoch_plain
 
 
@@ -270,3 +274,65 @@ def test_forced_streaming_of_a_factor_on_the_card(cuda):
     assert s.stats.stage2_streamed and not m.stats.stage2_streamed
     np.testing.assert_array_equal(s.stats.epochs, m.stats.epochs)
     torch.testing.assert_close(s.W_, m.W_, rtol=0, atol=1e-6)
+
+
+def assert_flash_close(got, want):
+    """fp32: 2e-5 abs and rel, as tests/test_flash_kernel.py.  bf16 outputs:
+    one bf16 ulp of the plain value (2^-7 relative) plus 2e-5 for the fp32
+    sums before the rounding, which differ in order."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if want.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        return
+    g, w = got.float(), want.float()
+    assert bool(torch.isfinite(g).all())
+    assert bool(((g - w).abs() <= 2.0 ** -7 * w.abs() + 2e-5).all()), \
+        (g - w).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (16, 8), (32, 4)])
+@pytest.mark.parametrize("S", [1, 63, 64, 257, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain(cuda, causal, S, Hq, Hkv, D, dtype):
+    gen = torch.Generator().manual_seed(S * 1000 + Hq * 10 + D)
+    B = 2
+    q = torch.randn(B, S, Hq, D, generator=gen).to(cuda, dtype)
+    k = torch.randn(B, S, Hkv, D, generator=gen).to(cuda, dtype)
+    v = torch.randn(B, S, Hkv, D, generator=gen).to(cuda, dtype)
+    before = flash_attention_kernel.launches
+    got = flash_attention_kernel(q, k, v, causal=causal)
+    assert flash_attention_kernel.launches == before + 1
+    assert_flash_close(got, flash_attention_plain(q, k, v, causal=causal))
+
+
+def test_flash_on_card_never_reaches_the_plain_version(cuda, monkeypatch):
+    monkeypatch.setattr(ops, "flash_attention_plain",
+                        lambda *a, **kw: pytest.fail("plain version on the card path"))
+    q = torch.randn(1, 100, 4, 64, device=cuda)
+    before = flash_attention_kernel.launches
+    out = ops.flash_attention(q, q[:, :, :2].contiguous(), q[:, :, 2:].contiguous())
+    assert flash_attention_kernel.launches == before + 1 and out.is_cuda
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(*(torch.zeros(1, 8, 2, 32, device=cuda),) * 3)
+
+
+def test_backbone_features_on_card_match_cpu(cuda):
+    """Reduced qwen3-0.6b (head dim 64), one seeded init copied to the CPU:
+    the card's features (B4 and cuBLAS bf16 products) against the CPU's
+    (plain version, CPU bf16 products), bf16 end to end."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train_svm import class_conditioned_tokens, extract_features
+    from repro_torch.models import init_model
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    card = init_model(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    cpu = init_model(None, cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    toks, _ = class_conditioned_tokens(40, 3, 48, cfg.vocab_size)
+    before = flash_attention_kernel.launches
+    f_card = extract_features(cfg, card, toks, batch=16)
+    assert flash_attention_kernel.launches == before + cfg.n_layers * 3
+    f_cpu = extract_features(cfg, cpu, toks, batch=16)
+    err = np.abs(f_card - f_cpu)
+    assert err.max() <= 0.05 and err.mean() <= 0.005, (err.max(), err.mean())

@@ -38,9 +38,12 @@ def test_port_covers_its_layout():
                  "core/ovo.py", "core/svm.py", "core/quant.py", "core/streaming.py",
                  "core/solver_stream.py", "kernels/build.py", "kernels/gram.py",
                  "kernels/smo.py", "kernels/ops.py", "data/synthetic.py",
-                 "convert.py"):
+                 "convert.py", "kernels/flash_attention.py", "configs/base.py",
+                 "configs/qwen3_0_6b.py", "configs/tinyllama_1_1b.py",
+                 "models/common.py", "models/attention.py", "models/blocks.py",
+                 "models/model.py", "launch/train_svm.py"):
         assert name in rel
-    for cu in ("gram.cu", "smo.cu"):
+    for cu in ("gram.cu", "smo.cu", "flash_attention.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / cu).is_file()
 
 
