@@ -58,7 +58,8 @@ failure raises and exits non-zero, nothing is caught and carried on:
   backbone card vs cpu, 2 layers  the same full-width weights cut to 2 layers:
                 the card's features against the port's CPU path on 16 documents
   class signal by depth           the driver's head on the same documents at
-                0 layers (the mean input embedding) and at the 2-layer cut
+                0 layers (the mean input embedding) and at the 2-layer cut;
+                the 0-layer error must lie ten standard errors below chance
 
 Then one JSON line {"kernels": [...]} and, last, the {"ok": true, ...} line.
 """
@@ -978,8 +979,14 @@ def main() -> int:
                             .float().mean(1) for i in range(0, n_docs, feat_batch)])
         by_depth = {0: head_error(f0.cpu().numpy()),
                     2: head_error(extract_features(cfg2, cut["cuda"], toks)), 28: err_f}
-        print(f"head test error by backbone depth (chance {1 - 1 / n_cls:.2f}): "
-              + ", ".join(f"{d} layers {e:.4f}" for d, e in by_depth.items()))
+        chance = 1 - 1 / n_cls
+        # ten standard errors of a chance-level classifier on the test rows
+        margin = 10 * (chance * (1 - chance) / (n_docs - n_tr)) ** 0.5
+        print(f"head test error by backbone depth (chance {chance:.2f}): "
+              + ", ".join(f"{d} layers {e:.4f}" for d, e in by_depth.items())
+              + f"; 0 layers must be below {chance - margin:.4f}")
+        check(by_depth[0] < chance - margin,
+              "the documents' mean input embedding carries no class signal")
         del cut, backbone, f0
 
     kernels = [

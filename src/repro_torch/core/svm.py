@@ -64,7 +64,7 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "LPDSVM runs on a CUDA card and none is available; pass "
+            "repro_torch runs on a CUDA card and none is available; pass "
             "device='cpu' to run the plain PyTorch versions of the kernels")
     return dev
 

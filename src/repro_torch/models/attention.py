@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.svm import resolve_device
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models.common import (apply_rotary, dense_init, ones_init,
                                        rms_norm, rotary_cos_sin, zeros_init)
@@ -29,13 +30,14 @@ from repro_torch.models.common import (apply_rotary, dense_init, ones_init,
 
 class GQAttention(nn.Module):
     """The GQA mixer's weights: wq (d, H hd), wk / wv (d, Hkv hd), wo (H hd, d);
-    bq / bk / bv with ``qkv_bias``; q_norm / k_norm (hd) with ``qk_norm``."""
+    bq / bk / bv with ``qkv_bias``; q_norm / k_norm (hd) with ``qk_norm``.
+    ``gqa_full`` applies them.  ``device=None`` means the card."""
 
     def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
+        device = resolve_device(device)
         d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        self.cfg = cfg
         for name, shape in (("wq", (d, H * hd)), ("wk", (d, Hkv * hd)),
                             ("wv", (d, Hkv * hd)), ("wo", (H * hd, d))):
             self.register_parameter(name, nn.Parameter(
@@ -48,10 +50,6 @@ class GQAttention(nn.Module):
             for name in ("q_norm", "k_norm"):
                 self.register_parameter(name, nn.Parameter(
                     ones_init((hd,), dtype, device), requires_grad=False))
-
-    def forward(self, x: torch.Tensor, positions: torch.Tensor, *, causal: bool = True,
-                window: int = 0) -> torch.Tensor:
-        return gqa_full(self, self.cfg, x, positions, causal=causal, window=window)
 
 
 def init_gqa(generator, cfg: ModelConfig, dtype=torch.bfloat16, device=None) -> GQAttention:

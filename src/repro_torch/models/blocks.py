@@ -13,29 +13,28 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.svm import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.common import activation, dense_init, ones_init, rms_norm
 
 
 class DenseFFN(nn.Module):
     """w_gate, w_up (d, d_ff) and w_down (d_ff, d) for silu / gelu; w_in and
-    w_down for relu2."""
+    w_down for relu2.  ``apply_ffn`` applies them.  ``device=None`` means the
+    card."""
 
     def __init__(self, cfg: ModelConfig, d_ff: int, *,
                  generator: Optional[torch.Generator] = None,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
+        device = resolve_device(device)
         d = cfg.d_model
-        self.cfg = cfg
         names = (("w_gate", "w_up") if cfg.act in ("silu", "gelu") else ("w_in",))
         for name in names:
             self.register_parameter(name, nn.Parameter(
                 dense_init(generator, (d, d_ff), dtype, device), requires_grad=False))
         self.w_down = nn.Parameter(dense_init(generator, (d_ff, d), dtype, device),
                                    requires_grad=False)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_ffn(self, self.cfg, x)
 
 
 def init_ffn(generator, cfg: ModelConfig, d_ff: int, dtype=torch.bfloat16,
@@ -64,25 +63,21 @@ def _check_dense(cfg: ModelConfig, i: int) -> None:
 
 
 class DecoderLayer(nn.Module):
-    """ln1, the attention mixer, ln2, the dense FFN."""
+    """ln1, the attention mixer, ln2, the dense FFN.  ``apply_layer_full``
+    applies them.  ``device=None`` means the card."""
 
     def __init__(self, cfg: ModelConfig, i: int, *,
                  generator: Optional[torch.Generator] = None,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
         _check_dense(cfg, i)
-        self.cfg, self.index = cfg, i
+        device = resolve_device(device)
         self.ln1 = nn.Parameter(ones_init((cfg.d_model,), dtype, device),
                                 requires_grad=False)
         self.mixer = attn.init_attention(generator, cfg, dtype, device)
         self.ln2 = nn.Parameter(ones_init((cfg.d_model,), dtype, device),
                                 requires_grad=False)
         self.ffn = init_ffn(generator, cfg, cfg.d_ff, dtype, device)
-
-    def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
-                causal: bool = True) -> torch.Tensor:
-        return apply_layer_full(self, self.cfg, self.index, x, positions,
-                                causal=causal)[0]
 
 
 def init_layer(generator, cfg: ModelConfig, i: int, dtype=torch.bfloat16,

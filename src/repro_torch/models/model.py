@@ -6,7 +6,7 @@ module (``Model.layers``), run in a Python loop.  ``_layout`` stays: it says
 how the reference's ``prologue`` / ``groups`` parameter tree maps onto
 those layers (``convert.model_from_reference``).
 
-    init_model(generator, cfg)          -> Model
+    init_model(generator, cfg, device=None) -> Model (None: the card)
     forward(model, cfg, {"tokens": t})  -> (logits (B, S, V), aux_loss)
     trunk(model, cfg, tokens)           -> final-normed hidden states (B, S, d)
 
@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.svm import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.common import embed_init, ones_init, rms_norm
 
@@ -62,7 +63,8 @@ def _mask_padded_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
 
 class Model(nn.Module):
     """embed (Vp, d), final_ln (d), unembed (Vp, d) unless tied, and one
-    ``DecoderLayer`` per layer."""
+    ``DecoderLayer`` per layer.  ``device=None`` means the card; without one
+    it raises and points to ``device='cpu'``."""
 
     def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
                  dtype=torch.bfloat16, device=None):
@@ -70,6 +72,9 @@ class Model(nn.Module):
         if cfg.is_encoder_decoder or cfg.modality != "text":
             raise NotImplementedError(f"{cfg.name}: encoder-decoder and prefix "
                                       "models are not ported to repro_torch yet")
+        for i in range(cfg.n_layers):
+            blocks._check_dense(cfg, i)
+        device = resolve_device(device)
         self.cfg = cfg
         Vp = padded_vocab(cfg)
         self.embed = nn.Parameter(embed_init(generator, Vp, cfg.d_model, dtype, device),
@@ -90,7 +95,7 @@ class Model(nn.Module):
 def init_model(generator: Optional[torch.Generator], cfg: ModelConfig,
                dtype=torch.bfloat16, device=None) -> Model:
     """A model with the reference's distributions drawn from ``generator`` on
-    ``device`` (the generator must live on that device)."""
+    ``device`` (None: the card; the generator must live on that device)."""
     return Model(cfg, generator=generator, dtype=dtype, device=device)
 
 

@@ -318,6 +318,14 @@ def test_flash_on_card_never_reaches_the_plain_version(cuda, monkeypatch):
         ops.flash_attention(*(torch.zeros(1, 8, 2, 32, device=cuda),) * 3)
 
 
+def test_init_model_defaults_to_the_card(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    m = init_model(torch.Generator(device=cuda).manual_seed(0),
+                   get_config("qwen3-0.6b", reduced=True))
+    assert all(p.is_cuda for p in m.parameters())
+
+
 def test_backbone_features_on_card_match_cpu(cuda):
     """Reduced qwen3-0.6b (head dim 64), one seeded init copied to the CPU:
     the card's features (B4 and cuBLAS bf16 products) against the CPU's

@@ -114,7 +114,7 @@ def test_apply_ffn(act):
     cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True), act=act)
     ref_cfg = dataclasses.replace(ref_config("qwen3-0.6b", reduced=True), act=act)
     p, _ = ref_blocks.init_ffn(jax.random.PRNGKey(3), ref_cfg, ref_cfg.d_ff, jnp.bfloat16)
-    ffn = blocks.DenseFFN(cfg, cfg.d_ff)
+    ffn = blocks.DenseFFN(cfg, cfg.d_ff, device="cpu")
     assert sorted(n for n, _ in ffn.named_parameters()) == sorted(p)
     with torch.no_grad():
         for name, leaf in p.items():
@@ -177,17 +177,30 @@ def test_forward_logits(pair):
 
 
 def test_modules_call_their_functions(pair):
-    """Each module's ``forward`` is its function of the same name."""
+    """The model's ``forward`` is ``forward``'s logits; the layer modules hold
+    weights only, which the free functions apply."""
     cfg, _, _, port = pair
     toks = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (1, 12)))
-    x = _bf16(_x(np.random.default_rng(9), 1, 12, cfg.d_model))
-    pos = torch.arange(12)
-    layer = port.layers[0]
     with torch.no_grad():
         assert torch.equal(port(toks), model.forward(port, cfg, {"tokens": toks})[0])
-        assert torch.equal(layer(x, pos), blocks.apply_layer_full(layer, cfg, 0, x, pos)[0])
-        assert torch.equal(layer.mixer(x, pos), attention.gqa_full(layer.mixer, cfg, x, pos))
-        assert torch.equal(layer.ffn(x), blocks.apply_ffn(layer.ffn, cfg, x))
+    layer = port.layers[0]
+    for module in (layer, layer.mixer, layer.ffn):
+        assert type(module).forward is torch.nn.Module.forward
+
+
+@pytest.mark.parametrize("build", [
+    lambda cfg: model.init_model(None, cfg),
+    lambda cfg: model.Model(cfg),
+    lambda cfg: blocks.DecoderLayer(cfg, 0),
+    lambda cfg: attention.GQAttention(cfg),
+    lambda cfg: blocks.DenseFFN(cfg, cfg.d_ff),
+], ids=["init_model", "Model", "DecoderLayer", "GQAttention", "DenseFFN"])
+def test_constructors_default_to_the_card(build, monkeypatch):
+    """With no device given the weights go to the card; without a card that
+    raises and points to device='cpu', as ``LPDSVM`` does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(get_config("qwen3-0.6b", reduced=True))
 
 
 def test_convert_carries_every_leaf(pair):
@@ -248,8 +261,8 @@ def test_padded_vocab_is_the_references(vocab):
 
 def test_seeded_init_has_the_references_distributions():
     cfg = get_config("qwen3-0.6b", reduced=True)
-    m = model.init_model(torch.Generator().manual_seed(0), cfg)
-    again = model.init_model(torch.Generator().manual_seed(0), cfg)
+    m = model.init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    again = model.init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
     for (name, a), (_, b) in zip(m.named_parameters(), again.named_parameters()):
         assert torch.equal(a, b), name
     assert m.embed.dtype == torch.bfloat16
