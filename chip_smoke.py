@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (src/repro_torch) end to end on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase
+    python3 chip_smoke.py --b4     # device, build, B4 vs plain, B4 timing: the
+                                   # quick loop for work on kernel B4
 
 Phases, each printed as ``[phase] start`` ... ``[phase] ok in N s``; any
 failure raises and exits non-zero, nothing is caught and carried on:
@@ -9,7 +11,19 @@ failure raises and exits non-zero, nothing is caught and carried on:
   device        card name and power limit (nvidia-smi), torch and CUDA versions
   build         nvcc builds kernels B1 and B3 (gram.cu), B2 (smo.cu) and B4
                 (flash_attention.cu) from src/repro_torch/kernels/csrc, in
-                parallel
+                parallel; B4's registers, spills and shared memory (ptxas) and
+                the HGMMA count of each body (cuobjdump -sass): no spills, and
+                the bf16 body on the tensor cores
+  B4 vs plain   flash-attention kernel against its plain version: causal and
+                not, S in {1, 63, 64, 127, 128, 129, 255, 257, 1000}, (Hq, Hkv)
+                in {(4, 4), (16, 8), (32, 4), (16, 2)}, D in {64, 128}, fp32 and
+                bf16; bf16 against the plain version at the kernel's kv tile,
+                and within 3e-2 of it with p in fp32 (_flash's arithmetic);
+                at S 1000 also the plain version on the CPU against the card
+  B4 timing     B4 at the driver's shape (qwen3-0.6b, batch 32, S 256) and two
+                prefill shapes (qwen3-0.6b 1 x 4096, tinyllama-1.1b 4 x 2048),
+                beside its plain version, SDPA and its bound; back to back
+                (device time) and one call alone (host launch cost included)
   B1 vs plain   gram kernel against its plain PyTorch version, four kinds at
                 ragged shapes
   B3 vs plain   int8 gram kernel against dequantise-then-gram, four kinds at
@@ -42,12 +56,6 @@ failure raises and exits non-zero, nothing is caught and carried on:
   streamed vs monolithic, one factor   the main path's factor, moved to
                 pinned host memory, through the streamed stage 2 against the
                 main path's own solve: q, epochs, alphas, dual objective
-  B4 vs plain   flash-attention kernel against its plain version: causal and
-                not, S in {1, 63, 64, 257, 1000}, (Hq, Hkv) in {(4, 4), (16, 8),
-                (32, 4)}, D in {64, 128}, fp32 and bf16
-  B4 timing     B4 at the driver's shape (qwen3-0.6b, batch 32, S 256) and two
-                prefill shapes (qwen3-0.6b 1 x 4096, tinyllama-1.1b 4 x 2048),
-                beside its plain version, SDPA and its bound
   end-to-end driver, full width   the paper's driver (launch/train_svm.py):
                 qwen3-0.6b at 28 layers and d 1024 from a seeded init on the
                 card, 8000 class-conditioned documents of 256 tokens, features
@@ -90,6 +98,16 @@ UNCHANGED_MIN_AGREE = 0.999      # a rounding difference at a clip can flip a co
 DECISION_RTOL = 1e-3             # of max |decision value|
 FLASH_TOL = 2e-5                 # fp32: abs and rel, as tests/test_flash_kernel.py
 BF16_ULP = 2.0 ** -7             # bf16 outputs: one ulp of the plain value, relative
+# bf16 B4, also: one bf16 ulp of every term of p . |v| / l.  The kernel's
+# tensor-core logits differ from cuBLAS's in the last bits, so a p near a
+# bf16 rounding boundary may round the other way; the plain version on the
+# CPU misses one ulp against itself on the card the same way ("B4 vs plain"
+# prints both at S 1000).
+P_ROUNDING = 2.0 ** -7
+# ... and such a flip is rare: at most this share of the outputs may lie
+# beyond one ulp (at most 1.6e-4 on an H100; the plain version with p kept
+# in fp32, printed beside it, puts percents of them there)
+BEYOND_ULP_SHARE = 1e-3
 LIBRARY_TOL = 3e-2               # SDPA rounds p to bf16: test_flash_bf16's tolerance
 FEATURE_ATOL = 0.05              # bf16 end to end, as tests/test_torch_train_svm.py
 FEATURE_MEAN_ATOL = 0.005
@@ -139,6 +157,22 @@ def cuda_ms(fn, reps: int, reset=None) -> float:
     return total / reps
 
 
+def cuda_ms_back_to_back(fn, n: int) -> float:
+    """Mean CUDA-event time per call over ``n`` back-to-back calls of ``fn``
+    after one warm-up: the device's time per call while the host keeps ahead
+    of it (``cuda_ms`` times each call alone, the host's launch cost in it)."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def bound_ms(flops: float, nbytes: float):
     ops_ms = flops / PEAK_FP32_FLOPS * 1e3
     bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
@@ -169,6 +203,44 @@ def flash_bound(B: int, S: int, Hq: int, Hkv: int, D: int, dtype, causal: bool =
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def flash_build_report(log: str, lib: Path, smem_bytes) -> list:
+    """B4's instantiations: registers and spilled bytes from ptxas's log, the
+    dynamic shared memory of a block, and the HGMMA (wgmma) instructions in
+    each one's SASS (``cuobjdump -sass`` of the built library)."""
+    import re
+    from repro_torch.kernels import build
+    ptxas, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            name = found.group(1) if "flash_fwd" in found.group(1) else None
+            if name:
+                ptxas[name] = {}
+        elif name and (found := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                          line)):
+            ptxas[name]["spills"] = int(found.group(1)) + int(found.group(2))
+        elif name and (found := re.search(r"Used (\d+) registers", line)):
+            ptxas[name]["registers"] = int(found.group(1))
+    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    hgmma, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+        elif name and "HGMMA" in line:
+            hgmma[name] = hgmma.get(name, 0) + 1
+    report = []
+    for name, r in ptxas.items():
+        tensor_cores = "2tc9flash_fwd" in name
+        D = 128 if "ILi128E" in name else 64
+        report.append({"body": "bf16, tensor cores" if tensor_cores else "fp32, SIMT",
+                       "D": D, "registers": r.get("registers"), "spills": r.get("spills"),
+                       "smem": smem_bytes(D, int(tensor_cores)),
+                       "hgmma": hgmma.get(name, 0), "tensor_cores": tensor_cores})
+    return report
+
+
 def host_free_bytes() -> int:
     """MemAvailable of /proc/meminfo (bytes)."""
     for line in Path("/proc/meminfo").read_text().splitlines():
@@ -177,9 +249,14 @@ def host_free_bytes() -> int:
     raise RuntimeError("chip_smoke: no MemAvailable in /proc/meminfo")
 
 
-def main() -> int:
+def main(argv: list) -> int:
     import numpy as np
     import torch
+
+    if argv not in ([], ["--b4"]):
+        print(f"usage: chip_smoke.py [--b4]; got {argv}", file=sys.stderr)
+        return 2
+    b4_only = argv == ["--b4"]
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the card",
@@ -205,7 +282,7 @@ def main() -> int:
                                           gram_q8_kernel, gram_q8_plain)
     from repro_torch.kernels.smo import smo_epoch_kernel, smo_epoch_plain
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+    from repro_torch.kernels.flash_attention import (bf16_kv_tile, flash_attention_kernel,
                                                      flash_attention_plain)
     from repro_torch.launch.train_svm import class_conditioned_tokens, extract_features
     from repro_torch.models import init_model
@@ -224,8 +301,125 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
 
     with phase("build"):
-        for log in build.build_all().values():
+        logs = build.build_all()
+        for log in logs.values():
             print(log)
+        b4_lib = build.load("flash_attention")
+        b4_build = flash_build_report(logs["flash_attention"],
+                                      build.library_path("flash_attention"),
+                                      b4_lib.flash_attention_smem_bytes)
+        for r in b4_build:
+            print(f"B4 {r['body']} D={r['D']}: {r['registers']} registers, {r['spills']} "
+                  f"bytes spilled, {r['smem']} B of dynamic shared memory, {r['hgmma']} "
+                  "HGMMA in its SASS")
+        check(len(b4_build) == 4, "B4's ptxas report is missing from the build log")
+        check(all(r["spills"] == 0 for r in b4_build), "B4 spills registers")
+        check(all(r["hgmma"] > 0 for r in b4_build if r["tensor_cores"]),
+              "B4's bf16 body has no HGMMA: it does not run on the tensor cores")
+        kv_tile = bf16_kv_tile()
+        print(f"B4's bf16 kv tile: {kv_tile}")
+
+    # ------------------------------------------------------ kernel B4 alone
+    fp32_p_diff = [0.0]    # bf16: the kernel against the plain version with p in fp32
+
+    def compare_flash(q, k, v, causal, label):
+        got = flash_attention_kernel(q, k, v, causal=causal)
+        g = got.float()
+        if q.dtype == torch.float32:
+            w = flash_attention_plain(q, k, v, causal=causal).float()
+            lim, tol = FLASH_TOL + FLASH_TOL * w.abs(), f"{FLASH_TOL} + {FLASH_TOL}|plain|"
+            extra = ""
+        else:
+            # the plain version at the kernel's kv tile rounds p against the
+            # same running max as the kernel
+            w = flash_attention_plain(q, k, v, causal=causal, kv_tile=kv_tile).float()
+            pv_abs = flash_attention_plain(q, k, v.abs(), causal=causal,
+                                           kv_tile=kv_tile).float()
+            lim = BF16_ULP * w.abs() + P_ROUNDING * pv_abs + FLASH_TOL
+            tol = f"2^-7|plain| + 2^-7 p|v|/l + {FLASH_TOL}"
+            beyond_ulp = int(((g - w).abs() > BF16_ULP * w.abs() + FLASH_TOL).sum())
+            # _flash's arithmetic (p kept in fp32) on the same bf16 inputs
+            ref = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
+            d32 = (g - ref).abs()
+            fp32_beyond = int(((ref - w).abs() > BF16_ULP * w.abs() + FLASH_TOL).sum())
+            fp32_p_diff[0] = max(fp32_p_diff[0], d32.max().item())
+            extra = (f"; {beyond_ulp} of {w.numel()} beyond one ulp (with p in fp32: "
+                     f"{fp32_beyond}); vs p in fp32 {d32.max().item():.3e} (tol "
+                     f"{LIBRARY_TOL} abs and rel)")
+            if q.shape[1] == 1000:
+                # the same function in another summation order: the plain
+                # version on the CPU against itself on the card
+                wc = flash_attention_plain(q.cpu(), k.cpu(), v.cpu(), causal=causal,
+                                           kv_tile=kv_tile).float().to(dev)
+                extra += (f"; plain on the CPU: "
+                          f"{int(((wc - w).abs() > BF16_ULP * w.abs() + FLASH_TOL).sum())} "
+                          "beyond one ulp")
+                del wc
+            check(bool((d32 <= LIBRARY_TOL + LIBRARY_TOL * ref.abs()).all()),
+                  f"flash {label} strays from _flash's arithmetic (p in fp32)")
+            del ref, d32
+        err = (g - w).abs()
+        print(f"flash {label}: max abs err {err.max().item():.3e} (tol {tol}), "
+              f"plain in [{w.min().item():.3e}, {w.max().item():.3e}]{extra}")
+        check(got.dtype == q.dtype and bool(torch.isfinite(g).all())
+              and bool((err <= lim).all()), f"flash {label} disagrees with its plain version")
+        check(q.dtype == torch.float32 or beyond_ulp <= BEYOND_ULP_SHARE * w.numel(),
+              f"flash {label}: more than {BEYOND_ULP_SHARE} of the outputs beyond one ulp")
+        return err.max().item()
+
+    def qkv(B, S, Hq, Hkv, D, dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return (torch.randn(B, S, h, D, generator=g, device=dev).to(dtype)
+                for h in (Hq, Hkv, Hkv))
+
+    with phase("B4 vs plain"):
+        flash_err = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                for D in (64, 128):
+                    for Hq, Hkv in ((4, 4), (16, 8), (32, 4), (16, 2)):
+                        for S in (1, 63, 64, 127, 128, 129, 255, 257, 1000):
+                            q, k, v = qkv(2, S, Hq, Hkv, D, dtype, S + Hq + D)
+                            flash_err = max(flash_err, compare_flash(
+                                q, k, v, causal, f"{str(dtype)[6:]:8s} causal={causal:d} "
+                                f"D={D} Hq/Hkv={Hq}/{Hkv} S={S}"))
+        print(f"bf16: largest difference to the plain version with p in fp32 "
+              f"{fp32_p_diff[0]:.3e} (tol {LIBRARY_TOL} abs and rel)")
+
+    flash_times = {}
+    with phase("B4 timing"):
+        shapes = (("qwen3-0.6b pipeline", 32, 256, 16, 8, 128),
+                  ("qwen3-0.6b prefill", 1, 4096, 16, 8, 128),
+                  ("tinyllama-1.1b prefill", 4, 2048, 32, 4, 64))
+        for label, B, S, Hq, Hkv, D in shapes:
+            q, k, v = qkv(B, S, Hq, Hkv, D, torch.bfloat16, S)
+            flash_err = max(flash_err, compare_flash(q, k, v, True, f"{label} B={B} S={S}"))
+            kernel = lambda: flash_attention_kernel(q, k, v, causal=True)  # noqa: E731
+            k_ms, k_one = cuda_ms_back_to_back(kernel, 50), cuda_ms(kernel, 10)
+            p_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True), 3)
+            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+
+            def library():    # the yardstick only: the port never calls it
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            l_ms, l_one = cuda_ms_back_to_back(library, 50), cuda_ms(library, 10)
+            plain = flash_attention_plain(q, k, v).float()
+            lib_diff = (library().transpose(1, 2).float() - plain).abs()
+            lib_err = lib_diff.max().item()
+            check(bool((lib_diff <= LIBRARY_TOL + LIBRARY_TOL * plain.abs()).all()),
+                  "the SDPA yardstick computes another function")
+            del plain, lib_diff
+            b_ms, b_by = flash_bound(B, S, Hq, Hkv, D, torch.bfloat16)
+            flash_times[label] = (k_ms, p_ms, l_ms, b_ms, b_by)
+            print(f"flash {label} (B {B}, S {S}, Hq/Hkv {Hq}/{Hkv}, D {D}, bf16, causal): "
+                  f"{k_ms:.4f} ms back to back, {k_one:.4f} ms alone (plain {p_ms:.3f}; "
+                  f"SDPA {l_ms:.4f} back to back, {l_one:.4f} alone [max abs diff to plain "
+                  f"{lib_err:.3e}]; bound {b_ms:.4f} by {b_by}); kernel / bound "
+                  f"{k_ms / b_ms:.2f} ({100 * b_ms / k_ms:.1f}% of the bound), kernel / "
+                  f"SDPA {k_ms / l_ms:.2f} back to back, {k_one / l_one:.2f} alone")
+            del q, k, v, qt, kt, vt
+    if b4_only:
+        return 0
 
     def compare(got, want, label):
         torch.cuda.synchronize()
@@ -800,70 +994,6 @@ def main() -> int:
         del G_h
 
 
-    # ------------------------------------------------------ the backbone (B4)
-    def compare_flash(q, k, v, causal, label):
-        got = flash_attention_kernel(q, k, v, causal=causal)
-        want = flash_attention_plain(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        g, w = got.float(), want.float()
-        err = (g - w).abs()
-        if q.dtype == torch.float32:
-            lim, tol = FLASH_TOL + FLASH_TOL * w.abs(), f"{FLASH_TOL} + {FLASH_TOL}|plain|"
-        else:
-            lim, tol = BF16_ULP * w.abs() + FLASH_TOL, f"2^-7|plain| + {FLASH_TOL}"
-        print(f"flash {label}: max abs err {err.max().item():.3e} (tol {tol}), "
-              f"plain in [{w.min().item():.3e}, {w.max().item():.3e}]")
-        check(got.dtype == q.dtype and bool(torch.isfinite(g).all())
-              and bool((err <= lim).all()), f"flash {label} disagrees with its plain version")
-        return err.max().item()
-
-    def qkv(B, S, Hq, Hkv, D, dtype, seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        return (torch.randn(B, S, h, D, generator=g, device=dev).to(dtype)
-                for h in (Hq, Hkv, Hkv))
-
-    with phase("B4 vs plain"):
-        flash_err = 0.0
-        for dtype in (torch.float32, torch.bfloat16):
-            for causal in (True, False):
-                for D in (64, 128):
-                    for Hq, Hkv in ((4, 4), (16, 8), (32, 4)):
-                        for S in (1, 63, 64, 257, 1000):
-                            q, k, v = qkv(2, S, Hq, Hkv, D, dtype, S + Hq + D)
-                            flash_err = max(flash_err, compare_flash(
-                                q, k, v, causal, f"{str(dtype)[6:]:8s} causal={causal:d} "
-                                f"D={D} Hq/Hkv={Hq}/{Hkv} S={S}"))
-
-    flash_times = {}
-    with phase("B4 timing"):
-        shapes = (("qwen3-0.6b pipeline", 32, 256, 16, 8, 128),
-                  ("qwen3-0.6b prefill", 1, 4096, 16, 8, 128),
-                  ("tinyllama-1.1b prefill", 4, 2048, 32, 4, 64))
-        for label, B, S, Hq, Hkv, D in shapes:
-            q, k, v = qkv(B, S, Hq, Hkv, D, torch.bfloat16, S)
-            flash_err = max(flash_err, compare_flash(q, k, v, True, f"{label} B={B} S={S}"))
-            k_ms = cuda_ms(lambda: flash_attention_kernel(q, k, v, causal=True), 10)
-            p_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True), 3)
-            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-
-            def library():    # the yardstick only: the port never calls it
-                return torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
-            l_ms = cuda_ms(library, 10)
-            plain = flash_attention_plain(q, k, v).float()
-            lib_diff = (library().transpose(1, 2).float() - plain).abs()
-            lib_err = lib_diff.max().item()
-            check(bool((lib_diff <= LIBRARY_TOL + LIBRARY_TOL * plain.abs()).all()),
-                  "the SDPA yardstick computes another function")
-            del plain, lib_diff
-            b_ms, b_by = flash_bound(B, S, Hq, Hkv, D, torch.bfloat16)
-            flash_times[label] = (k_ms, p_ms, l_ms, b_ms, b_by)
-            print(f"flash {label} (B {B}, S {S}, Hq/Hkv {Hq}/{Hkv}, D {D}, bf16, causal): "
-                  f"{k_ms:.3f} ms (plain {p_ms:.3f}, SDPA {l_ms:.3f} [max abs diff to "
-                  f"plain {lib_err:.3e}], bound {b_ms:.4f} by {b_by}; kernel / bound "
-                  f"{k_ms / b_ms:.1f}, kernel / SDPA {k_ms / l_ms:.1f})")
-            del q, k, v, qt, kt, vt
-
     with phase("end-to-end driver, full width"):
         cfg_m = get_config("qwen3-0.6b")
         check(cfg_m.n_layers == 28 and cfg_m.d_model == 1024,
@@ -938,7 +1068,8 @@ def main() -> int:
         batches = -(-n_docs // feat_batch)
         mm_flops = 2.0 * rows * sum(w.numel() for _, w in prods)
         print(f"feature time per batch of {feat_batch} x {seq}: trunk {trunk_ms:.3f} ms on "
-              f"the card = B4 {layer_b4:.3f} ms ({cfg_m.n_layers} x {b4_ms:.3f}) + bf16 "
+              f"the card = B4 {layer_b4:.3f} ms ({100 * layer_b4 / trunk_ms:.1f}%: "
+              f"{cfg_m.n_layers} x {b4_ms:.4f}) + bf16 "
               f"products {layer_mm:.3f} ms ({cfg_m.n_layers} x {mm_ms:.3f}, "
               f"{mm_flops / mm_ms / 1e9:.0f} TFLOP/s) + rest "
               f"{trunk_ms - layer_b4 - layer_mm:.3f} ms; x {batches} batches = "
@@ -1025,4 +1156,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

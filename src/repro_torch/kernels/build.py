@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers), so
 ``nvcc`` builds it in seconds.  The shared library goes to
 ``<repo>/build/repro_torch/<name>-<hash>.so``; the hash covers the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+the flags, so an edited source is rebuilt and an unchanged one is reused;
+nvcc's log (``-Xptxas -v``: registers, spills) is kept beside it as
+``<name>-<hash>.log``.
 Nothing is built when this module is imported: the first launch of a kernel
 builds it, and ``build_all`` builds every kernel at once, one ``nvcc`` per
 source, all started together.
@@ -27,15 +29,17 @@ KERNELS = ("gram", "smo", "flash_attention")
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump): $CUDA_HOME/bin first,
+    then PATH."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(cuda_home) / "bin" / "nvcc"
+    cand = Path(cuda_home) / "bin" / name
     if cand.is_file():
         return str(cand)
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
         raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the CUDA "
+            f"{name} not found (looked in $CUDA_HOME/bin and on PATH): the CUDA "
             "kernels of repro_torch are built on the machine with the card")
     return found
 
@@ -55,7 +59,7 @@ def _start(name: str) -> Started:
     if out.exists():
         return name, out, tmp, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [cuda_tool(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return name, out, tmp, proc
@@ -63,17 +67,21 @@ def _start(name: str) -> Started:
 
 def _finish(started: Started) -> str:
     name, out, tmp, proc = started
+    log_path = out.with_suffix(".log")
     if proc is None:
-        return f"{name}: cached {out.name}"
+        log = log_path.read_text() if log_path.exists() else ""
+        return f"{name}: cached {out.name}\n{log.strip()}"
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
+    log_path.write_text(log)
     os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
     return f"{name}: built {out.name}\n{log.strip()}"
 
 
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
-    """Compile every named kernel in parallel; returns each one's nvcc log."""
+    """Compile every named kernel in parallel; returns each one's nvcc log
+    (the kept one for a library already built)."""
     started = [_start(name) for name in names]
     try:
         return {s[0]: _finish(s) for s in started}

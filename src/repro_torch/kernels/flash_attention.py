@@ -3,10 +3,12 @@
 ``flash_attention_kernel`` launches ``csrc/flash_attention.cu`` (it replaces
 the TPU kernel ``src/repro/kernels/flash_attention.py:68``,
 ``flash_attention_pallas``, which is the TPU form of the model's
-``models/attention.py::_flash``); ``flash_attention_plain`` is ``_flash``'s
-arithmetic in PyTorch ops, tiled over kv with an fp32 running max,
-normaliser and accumulator.  The plain version serves CPU tensors and the
-comparisons; nothing on the CUDA path calls it.
+``models/attention.py::_flash``): a tensor-core body for bf16, a SIMT body
+for fp32.  ``flash_attention_plain`` computes the TPU kernel's function in
+PyTorch ops, tiled over kv with an fp32 running max, normaliser and
+accumulator, p rounded to the input type before p . v (a no-op for fp32).
+The plain version serves CPU tensors and the comparisons; nothing on the
+CUDA path calls it.
 
 Both take the model's layout, grouped-query heads included:
 
@@ -15,6 +17,8 @@ Both take the model's layout, grouped-query heads included:
 query head h attends kv head h // (Hq // Hkv), over positions 0 .. S - 1 of
 the same sequence (causal: key position <= query position).  The logits are
 fp32 from the inputs upcast, times 1/sqrt(D); the output has q's dtype.
+The rounded p depends on the running max and so on the kv tile: given
+``kv_tile=bf16_kv_tile()`` the plain version rounds p as the kernel does.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ KV_TILE = 1024                      # the plain version's kv tile (_flash's kv c
 HEAD_DIMS = (64, 128)               # the kernel's head widths
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_YZ = 65535                 # Hq and B ride gridDim.y and gridDim.z
+TMA_ALIGN = 16                      # bytes: the bf16 body loads q, k, v by TMA
 
 
 def softmax_scale(D: int) -> float:
@@ -52,7 +57,9 @@ def _shapes(q, k, v, who: str):
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, kv_tile: int = KV_TILE) -> torch.Tensor:
-    """``_flash``'s online softmax in PyTorch ops, one kv tile at a time."""
+    """The TPU kernel's online softmax in PyTorch ops, one kv tile at a time:
+    ``_flash``'s arithmetic, except that p is rounded to v's dtype before
+    p . v (``src/repro/kernels/flash_attention.py:57``)."""
     B, S, Hq, Hkv, D = _shapes(q, k, v, "flash_attention_plain")
     G = Hq // Hkv
     scale = torch.tensor(softmax_scale(D), dtype=torch.float32, device=q.device)
@@ -72,7 +79,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + torch.einsum("bhgqk,bkhd->bhgqd", p, vb)
+        pv = p.to(v.dtype).to(torch.float32)               # a no-op for fp32
+        acc = acc * alpha + torch.einsum("bhgqk,bkhd->bhgqd", pv, vb)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)                  # (B, Hkv, G, S, D)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
@@ -87,11 +95,18 @@ def _launcher():
     return fn
 
 
+def bf16_kv_tile() -> int:
+    """The kv tile of the kernel's bf16 body (builds the kernel at first use)."""
+    return int(build.load("flash_attention").flash_attention_bf16_kv_tile())
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            causal: bool = True) -> torch.Tensor:
     """Launch kernel B4 on CUDA tensors; returns (B, S, Hq, D) in q's dtype.
 
-    D must be 64 or 128 and q, k, v one dtype, fp32 or bf16."""
+    D must be 64 or 128 and q, k, v one dtype, fp32 or bf16; bf16 runs on
+    the tensor cores and needs 16-byte-aligned q, k and v (after
+    ``.contiguous()``), fp32 runs the SIMT body."""
     B, S, Hq, Hkv, D = _shapes(q, k, v, "flash_attention_kernel")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention_kernel: head dim {D} not in {HEAD_DIMS}")
@@ -105,6 +120,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention_kernel: {tuple(q.shape)} exceeds the "
                          "launch grid")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % TMA_ALIGN for t in (q, k, v)):
+        raise ValueError("flash_attention_kernel: the bf16 body reads q, k and v by TMA, "
+                         f"which needs {TMA_ALIGN}-byte-aligned bases; got byte offsets "
+                         f"{[t.data_ptr() % TMA_ALIGN for t in (q, k, v)]}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

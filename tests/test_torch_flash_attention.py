@@ -5,9 +5,15 @@ against the reference's oracle ``flash_attention_ref``, its Pallas kernel
 ``flash_attention_pallas`` in interpret mode, and the model's ``_flash``, on
 the same numpy-seeded inputs.  fp32 tolerance 2e-5 (abs and rel), as
 ``tests/test_flash_kernel.py``: the same fp32 online softmax, summed in
-another order.  bf16 inputs: 3e-2, as ``test_flash_bf16`` (the outputs are
-rounded to bf16, and B4 rounds p to bf16 before p . v where _flash and the
-port keep it in fp32).
+another order.  bf16 inputs: the plain version rounds p to bf16 before
+p . v, as the Pallas kernel does, so at the Pallas kernel's kv tile the two
+compute one function and agree within one bf16 ulp of the output plus
+2e-5, plus one bf16 ulp of every term of p . |v| / l (a p within the
+logits' last bits of a rounding boundary may round the other way, which
+is rare: at most 1 in 1000 outputs beyond one ulp, where keeping p in fp32
+puts percents of them); against
+``_flash``, which keeps p in fp32, and against the oracle: 3e-2, as
+``test_flash_bf16``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -68,6 +74,30 @@ def test_plain_bf16_matches_reference_kernel():
     got = got[:, :, 0].float().numpy()
     np.testing.assert_allclose(got, np.asarray(pallas, np.float32), **BF16_TOL)
     np.testing.assert_allclose(got, np.asarray(want, np.float32), **BF16_TOL)
+
+
+@pytest.mark.parametrize("BH,S,D,bq,bk", [
+    (2, 64, 64, 32, 32),
+    (3, 128, 128, 64, 128),
+    (1, 256, 64, 128, 64),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_bf16_rounds_p_as_the_reference_kernel(BH, S, D, bq, bk, causal):
+    """p rounded to bf16 against the same running max: the plain version at
+    kv_tile=bk is the Pallas kernel's function."""
+    rng = np.random.default_rng(BH * 1000 + S + D + bk)
+    qj, kj, vj = (jnp.asarray(a, jnp.bfloat16) for a in _bh(rng, BH, S, D))
+    q, k, v = (_port_bh(np.asarray(a, np.float32), torch.bfloat16) for a in (qj, kj, vj))
+    got = flash_attention_plain(q, k, v, causal=causal, kv_tile=bk)
+    assert got.dtype == torch.bfloat16
+    pv_abs = flash_attention_plain(q, k, v.abs(), causal=causal, kv_tile=bk)
+    pallas = flash_attention_pallas(qj, kj, vj, causal=causal, bq=bq, bk=bk,
+                                    interpret=True)
+    got = got[:, :, 0].float().numpy()
+    want = np.asarray(pallas, np.float32)
+    err, ulp = np.abs(got - want), 2.0 ** -7 * np.abs(want) + 2e-5
+    assert np.all(err <= ulp + 2.0 ** -7 * pv_abs[:, :, 0].float().numpy()), err.max()
+    assert np.sum(err > ulp) <= 1e-3 * err.size
 
 
 def _model_layout(rng, B, S, Hkv, G, D):

@@ -115,3 +115,15 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     assert before.parent == tmp_path / "build" and before == build.library_path("gram")
     (csrc / "gram.cu").write_text((csrc / "gram.cu").read_text() + "\n// edited\n")
     assert build.library_path("gram") != before
+
+
+def test_cached_build_returns_its_kept_log(monkeypatch, tmp_path):
+    """A library already built is reused, and its nvcc log (registers and
+    spills from ptxas) comes back with it."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    out = build.library_path("gram")
+    out.write_bytes(b"")
+    assert build.build_all(["gram"])["gram"] == f"gram: cached {out.name}\n"
+    out.with_suffix(".log").write_text("ptxas info    : Used 127 registers\n")
+    assert build.build_all(["gram"])["gram"].endswith("Used 127 registers")
