@@ -1,9 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (src/repro_torch) end to end on one CUDA card.
 
-    python3 chip_smoke.py          # every phase
-    python3 chip_smoke.py --b4     # device, build, B4 vs plain, B4 timing: the
-                                   # quick loop for work on kernel B4
+    python3 chip_smoke.py
 
 Phases, each printed as ``[phase] start`` ... ``[phase] ok in N s``; any
 failure raises and exits non-zero, nothing is caught and carried on:
@@ -98,15 +96,18 @@ UNCHANGED_MIN_AGREE = 0.999      # a rounding difference at a clip can flip a co
 DECISION_RTOL = 1e-3             # of max |decision value|
 FLASH_TOL = 2e-5                 # fp32: abs and rel, as tests/test_flash_kernel.py
 BF16_ULP = 2.0 ** -7             # bf16 outputs: one ulp of the plain value, relative
-# bf16 B4, also: one bf16 ulp of every term of p . |v| / l.  The kernel's
-# tensor-core logits differ from cuBLAS's in the last bits, so a p near a
-# bf16 rounding boundary may round the other way; the plain version on the
+# bf16 B4, also: flash_attention_rounding_slack, one bf16 step of every p
+# within 2^-16 (relative) of a rounding midpoint, times |v|, over l.  The
+# kernel's tensor-core logits and ex2 differ from the plain version's in the
+# last bits, so such a p may round the other way; the plain version on the
 # CPU misses one ulp against itself on the card the same way ("B4 vs plain"
-# prints both at S 1000).
-P_ROUNDING = 2.0 ** -7
-# ... and such a flip is rare: at most this share of the outputs may lie
-# beyond one ulp (at most 1.6e-4 on an H100; the plain version with p kept
-# in fp32, printed beside it, puts percents of them there)
+# prints both at S 1000).  The slack is some 0.4% of one ulp of the whole
+# p . |v| / l, so a fault in a few rows cannot hide under it.
+# ... and such a flip is rare: at most this share of a case's outputs may
+# lie beyond one ulp (at most 1.6e-4 on an H100; the plain version with p
+# kept in fp32, printed beside it, puts percents of them there).  Not per
+# (batch row, query head): one flipped p moves up to D outputs of its row,
+# and on an H100 8 of a case's 10 lay in one at S 63, D 64.
 BEYOND_ULP_SHARE = 1e-3
 LIBRARY_TOL = 3e-2               # SDPA rounds p to bf16: test_flash_bf16's tolerance
 FEATURE_ATOL = 0.05              # bf16 end to end, as tests/test_torch_train_svm.py
@@ -249,14 +250,9 @@ def host_free_bytes() -> int:
     raise RuntimeError("chip_smoke: no MemAvailable in /proc/meminfo")
 
 
-def main(argv: list) -> int:
+def main() -> int:
     import numpy as np
     import torch
-
-    if argv not in ([], ["--b4"]):
-        print(f"usage: chip_smoke.py [--b4]; got {argv}", file=sys.stderr)
-        return 2
-    b4_only = argv == ["--b4"]
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the card",
@@ -283,7 +279,8 @@ def main(argv: list) -> int:
     from repro_torch.kernels.smo import smo_epoch_kernel, smo_epoch_plain
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (bf16_kv_tile, flash_attention_kernel,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_attention_rounding_slack)
     from repro_torch.launch.train_svm import class_conditioned_tokens, extract_features
     from repro_torch.models import init_model
     from repro_torch.models.model import trunk
@@ -321,6 +318,7 @@ def main(argv: list) -> int:
 
     # ------------------------------------------------------ kernel B4 alone
     fp32_p_diff = [0.0]    # bf16: the kernel against the plain version with p in fp32
+    slack_ratio = [0.0]    # bf16: the largest excess over one ulp / the rounding slack
 
     def compare_flash(q, k, v, causal, label):
         got = flash_attention_kernel(q, k, v, causal=causal)
@@ -333,28 +331,38 @@ def main(argv: list) -> int:
             # the plain version at the kernel's kv tile rounds p against the
             # same running max as the kernel
             w = flash_attention_plain(q, k, v, causal=causal, kv_tile=kv_tile).float()
-            pv_abs = flash_attention_plain(q, k, v.abs(), causal=causal,
-                                           kv_tile=kv_tile).float()
-            lim = BF16_ULP * w.abs() + P_ROUNDING * pv_abs + FLASH_TOL
-            tol = f"2^-7|plain| + 2^-7 p|v|/l + {FLASH_TOL}"
-            beyond_ulp = int(((g - w).abs() > BF16_ULP * w.abs() + FLASH_TOL).sum())
+            slack = flash_attention_rounding_slack(q, k, v, causal=causal, kv_tile=kv_tile)
+            # the slack's yardstick: one bf16 ulp of every term of p . |v| / l
+            whole = 2.0 ** -7 * flash_attention_plain(q, k, v.abs(), causal=causal,
+                                                      kv_tile=kv_tile).float()
+            ulp = BF16_ULP * w.abs() + FLASH_TOL
+            lim = ulp + slack
+            tol = f"2^-7|plain| + {FLASH_TOL} + rounding slack"
+            excess = ((g - w).abs() - ulp).clamp(min=0)
+            beyond_ulp = int((excess > 0).sum())
+            ratio = (excess / slack.clamp(min=torch.finfo(torch.float32).tiny)).max().item()
+            slack_ratio[0] = max(slack_ratio[0], ratio)
+            slack_share = (slack.sum() / whole.sum()).item()
             # _flash's arithmetic (p kept in fp32) on the same bf16 inputs
             ref = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
             d32 = (g - ref).abs()
             fp32_beyond = int(((ref - w).abs() > BF16_ULP * w.abs() + FLASH_TOL).sum())
             fp32_p_diff[0] = max(fp32_p_diff[0], d32.max().item())
             extra = (f"; {beyond_ulp} of {w.numel()} beyond one ulp (with p in fp32: "
-                     f"{fp32_beyond}); vs p in fp32 {d32.max().item():.3e} (tol "
+                     f"{fp32_beyond}); excess / slack {ratio:.3f} (limit 1), slack "
+                     f"{slack_share:.2e} of 2^-7 p|v|/l; vs p in fp32 {d32.max().item():.3e} (tol "
                      f"{LIBRARY_TOL} abs and rel)")
             if q.shape[1] == 1000:
                 # the same function in another summation order: the plain
                 # version on the CPU against itself on the card
                 wc = flash_attention_plain(q.cpu(), k.cpu(), v.cpu(), causal=causal,
                                            kv_tile=kv_tile).float().to(dev)
-                extra += (f"; plain on the CPU: "
-                          f"{int(((wc - w).abs() > BF16_ULP * w.abs() + FLASH_TOL).sum())} "
-                          "beyond one ulp")
-                del wc
+                cpu_excess = ((wc - w).abs() - ulp).clamp(min=0)
+                extra += (f"; plain on the CPU: {int((cpu_excess > 0).sum())} beyond one "
+                          f"ulp, excess / slack "
+                          f"{(cpu_excess / slack.clamp(min=1e-30)).max().item():.3f}")
+                del wc, cpu_excess
+            del slack, whole, excess
             check(bool((d32 <= LIBRARY_TOL + LIBRARY_TOL * ref.abs()).all()),
                   f"flash {label} strays from _flash's arithmetic (p in fp32)")
             del ref, d32
@@ -384,7 +392,8 @@ def main(argv: list) -> int:
                                 q, k, v, causal, f"{str(dtype)[6:]:8s} causal={causal:d} "
                                 f"D={D} Hq/Hkv={Hq}/{Hkv} S={S}"))
         print(f"bf16: largest difference to the plain version with p in fp32 "
-              f"{fp32_p_diff[0]:.3e} (tol {LIBRARY_TOL} abs and rel)")
+              f"{fp32_p_diff[0]:.3e} (tol {LIBRARY_TOL} abs and rel); largest excess over "
+              f"one ulp / rounding slack {slack_ratio[0]:.3f} (limit 1)")
 
     flash_times = {}
     with phase("B4 timing"):
@@ -395,14 +404,14 @@ def main(argv: list) -> int:
             q, k, v = qkv(B, S, Hq, Hkv, D, torch.bfloat16, S)
             flash_err = max(flash_err, compare_flash(q, k, v, True, f"{label} B={B} S={S}"))
             kernel = lambda: flash_attention_kernel(q, k, v, causal=True)  # noqa: E731
-            k_ms, k_one = cuda_ms_back_to_back(kernel, 50), cuda_ms(kernel, 10)
+            k_ms, k_b2b = cuda_ms(kernel, 10), cuda_ms_back_to_back(kernel, 50)
             p_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True), 3)
             qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
 
             def library():    # the yardstick only: the port never calls it
                 return torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True)
-            l_ms, l_one = cuda_ms_back_to_back(library, 50), cuda_ms(library, 10)
+            l_ms, l_b2b = cuda_ms(library, 10), cuda_ms_back_to_back(library, 50)
             plain = flash_attention_plain(q, k, v).float()
             lib_diff = (library().transpose(1, 2).float() - plain).abs()
             lib_err = lib_diff.max().item()
@@ -410,16 +419,19 @@ def main(argv: list) -> int:
                   "the SDPA yardstick computes another function")
             del plain, lib_diff
             b_ms, b_by = flash_bound(B, S, Hq, Hkv, D, torch.bfloat16)
-            flash_times[label] = (k_ms, p_ms, l_ms, b_ms, b_by)
+            # ms: one call alone, as every kernel's; back to back beside it
+            flash_times[label] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                                  "bound_ms": b_ms, "bound_by": b_by,
+                                  "ms_back_to_back": k_b2b,
+                                  "library_ms_back_to_back": l_b2b}
             print(f"flash {label} (B {B}, S {S}, Hq/Hkv {Hq}/{Hkv}, D {D}, bf16, causal): "
-                  f"{k_ms:.4f} ms back to back, {k_one:.4f} ms alone (plain {p_ms:.3f}; "
-                  f"SDPA {l_ms:.4f} back to back, {l_one:.4f} alone [max abs diff to plain "
+                  f"{k_ms:.4f} ms alone, {k_b2b:.4f} ms back to back (plain {p_ms:.3f}; "
+                  f"SDPA {l_ms:.4f} alone, {l_b2b:.4f} back to back [max abs diff to plain "
                   f"{lib_err:.3e}]; bound {b_ms:.4f} by {b_by}); kernel / bound "
-                  f"{k_ms / b_ms:.2f} ({100 * b_ms / k_ms:.1f}% of the bound), kernel / "
-                  f"SDPA {k_ms / l_ms:.2f} back to back, {k_one / l_one:.2f} alone")
+                  f"{k_ms / b_ms:.2f} alone ({100 * b_ms / k_ms:.1f}% of the bound), "
+                  f"{k_b2b / b_ms:.2f} back to back ({100 * b_ms / k_b2b:.1f}%); kernel / "
+                  f"SDPA {k_ms / l_ms:.2f} alone, {k_b2b / l_b2b:.2f} back to back")
             del q, k, v, qt, kt, vt
-    if b4_only:
-        return 0
 
     def compare(got, want, label):
         torch.cuda.synchronize()
@@ -1063,13 +1075,16 @@ def main(argv: list) -> int:
                      (xo, L0.mixer.wo), (xa, L0.ffn.w_gate), (xa, L0.ffn.w_up),
                      (xh, L0.ffn.w_down))
             mm_ms = cuda_ms(lambda: [a @ w for a, w in prods], 10)
-        b4_ms = flash_times["qwen3-0.6b pipeline"][0]
+        b4_ms = flash_times["qwen3-0.6b pipeline"]["ms"]
+        b4_b2b = flash_times["qwen3-0.6b pipeline"]["ms_back_to_back"]
         layer_b4, layer_mm = cfg_m.n_layers * b4_ms, cfg_m.n_layers * mm_ms
         batches = -(-n_docs // feat_batch)
         mm_flops = 2.0 * rows * sum(w.numel() for _, w in prods)
         print(f"feature time per batch of {feat_batch} x {seq}: trunk {trunk_ms:.3f} ms on "
               f"the card = B4 {layer_b4:.3f} ms ({100 * layer_b4 / trunk_ms:.1f}%: "
-              f"{cfg_m.n_layers} x {b4_ms:.4f}) + bf16 "
+              f"{cfg_m.n_layers} x {b4_ms:.4f} alone; "
+              f"{100 * cfg_m.n_layers * b4_b2b / trunk_ms:.1f}% at {b4_b2b:.4f} back to "
+              f"back) + bf16 "
               f"products {layer_mm:.3f} ms ({cfg_m.n_layers} x {mm_ms:.3f}, "
               f"{mm_flops / mm_ms / 1e9:.0f} TFLOP/s) + rest "
               f"{trunk_ms - layer_b4 - layer_mm:.3f} ms; x {batches} batches = "
@@ -1142,11 +1157,7 @@ def main(argv: list) -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:68",
          "launches": e2e["flash_attention"], "max_abs_err": flash_err,
-         "ms": flash_times["qwen3-0.6b pipeline"][0],
-         "plain_ms": flash_times["qwen3-0.6b pipeline"][1],
-         "bound_ms": flash_times["qwen3-0.6b pipeline"][3],
-         "bound_by": flash_times["qwen3-0.6b pipeline"][4],
-         "library_ms": flash_times["qwen3-0.6b pipeline"][2]},
+         **flash_times["qwen3-0.6b pipeline"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1156,4 +1167,4 @@ def main(argv: list) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

@@ -19,6 +19,8 @@ the same sequence (causal: key position <= query position).  The logits are
 fp32 from the inputs upcast, times 1/sqrt(D); the output has q's dtype.
 The rounded p depends on the running max and so on the kv tile: given
 ``kv_tile=bf16_kv_tile()`` the plain version rounds p as the kernel does.
+``flash_attention_rounding_slack`` bounds what a p rounded the other way
+(logits that differ in the last bits) can move in the output.
 """
 from __future__ import annotations
 
@@ -35,6 +37,9 @@ HEAD_DIMS = (64, 128)               # the kernel's head widths
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_YZ = 65535                 # Hq and B ride gridDim.y and gridDim.z
 TMA_ALIGN = 16                      # bytes: the bf16 body loads q, k, v by TMA
+# the logits' relative last-bit spread between two implementations (fp32
+# sums in another order, exp against ex2.approx: about 2^-20 of p), with room
+ROUNDING_REL = 2.0 ** -16
 
 
 def softmax_scale(D: int) -> float:
@@ -55,12 +60,11 @@ def _shapes(q, k, v, who: str):
     return B, S, Hq, Hkv, D
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          causal: bool = True, kv_tile: int = KV_TILE) -> torch.Tensor:
-    """The TPU kernel's online softmax in PyTorch ops, one kv tile at a time:
-    ``_flash``'s arithmetic, except that p is rounded to v's dtype before
-    p . v (``src/repro/kernels/flash_attention.py:57``)."""
-    B, S, Hq, Hkv, D = _shapes(q, k, v, "flash_attention_plain")
+def _online_softmax(q, k, v, causal: bool, kv_tile: int, who: str, weigh):
+    """The TPU kernel's online softmax, one kv tile at a time, with an fp32
+    running max, normaliser and accumulator; ``weigh(p, v_tile)`` gives the
+    two factors of the tile's product.  Returns acc / l as (B, S, Hq, D) fp32."""
+    B, S, Hq, Hkv, D = _shapes(q, k, v, who)
     G = Hq // Hkv
     scale = torch.tensor(softmax_scale(D), dtype=torch.float32, device=q.device)
     qf = q.to(torch.float32).reshape(B, S, Hkv, G, D)
@@ -79,11 +83,40 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
-        pv = p.to(v.dtype).to(torch.float32)               # a no-op for fp32
-        acc = acc * alpha + torch.einsum("bhgqk,bkhd->bhgqd", pv, vb)
+        acc = acc * alpha + torch.einsum("bhgqk,bkhd->bhgqd", *weigh(p, vb))
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)                  # (B, Hkv, G, S, D)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, kv_tile: int = KV_TILE) -> torch.Tensor:
+    """The TPU kernel's online softmax in PyTorch ops, one kv tile at a time:
+    ``_flash``'s arithmetic, except that p is rounded to v's dtype before
+    p . v (``src/repro/kernels/flash_attention.py:57``)."""
+    out = _online_softmax(q, k, v, causal, kv_tile, "flash_attention_plain",
+                          lambda p, vb: (p.to(v.dtype).to(torch.float32), vb))
+    return out.to(q.dtype)                                 # the rounding: a no-op for fp32
+
+
+def flash_attention_rounding_slack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                                   causal: bool = True, kv_tile: int = KV_TILE
+                                   ) -> torch.Tensor:
+    """How far ``flash_attention_plain``'s bf16 p . v / l can move when its
+    logits move in the last bits: one rounding step of every p that lies
+    within ``ROUNDING_REL`` (relative) of a rounding midpoint of v's dtype, times
+    |v|, over l; (B, S, Hq, D) fp32, zero for fp32 inputs (p not rounded).
+    A kernel that forms the same logits in another summation order, or p
+    by another exp, may round exactly those p the other way."""
+    if v.dtype == torch.float32:
+        _shapes(q, k, v, "flash_attention_rounding_slack")
+        return torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+
+    def step(p):
+        lo, hi = (p * (1 - ROUNDING_REL)).to(v.dtype), (p * (1 + ROUNDING_REL)).to(v.dtype)
+        return hi.to(torch.float32) - lo.to(torch.float32)
+    return _online_softmax(q, k, v, causal, kv_tile, "flash_attention_rounding_slack",
+                           lambda p, vb: (step(p), vb.abs()))
 
 
 def _launcher():
