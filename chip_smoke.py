@@ -11,7 +11,8 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 (flash_attention.cu) from src/repro_torch/kernels/csrc, in
                 parallel; B4's registers, spills and shared memory (ptxas) and
                 the HGMMA count of each body (cuobjdump -sass): no spills, and
-                the bf16 body on the tensor cores
+                the bf16 body on the tensor cores; B2's registers and spills
+                at each ring depth: no spills
   B4 vs plain   flash-attention kernel against its plain version: causal and
                 not, S in {1, 63, 64, 127, 128, 129, 255, 257, 1000}, (Hq, Hkv)
                 in {(4, 4), (16, 8), (32, 4), (16, 2)}, D in {64, 128}, fp32 and
@@ -37,7 +38,10 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 from the fitted state
   card vs cpu   a small fit on the card against the same fit on the CPU
   timing        CUDA-event times of each kernel at the main path's shapes,
-                beside its plain version, a library call and its bound
+                beside its plain version, a library call and its bound; the
+                cheap epoch's active rows and ns per active row; stage 2
+                solved again on the main path's factor with CUDA events
+                around every B2 launch: their sum against the wall time
   B3 vs plain, chunk shape        B3 at the streamed stage-1 chunk shape
   streamed path LPDSVM(stream_config=StreamConfig(256 MiB, int8 stage 1))
                 .fit -> predict on the main path's data: both stages routed to
@@ -74,6 +78,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -204,17 +209,14 @@ def flash_bound(B: int, S: int, Hq: int, Hkv: int, D: int, dtype, causal: bool =
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def flash_build_report(log: str, lib: Path, smem_bytes) -> list:
-    """B4's instantiations: registers and spilled bytes from ptxas's log, the
-    dynamic shared memory of a block, and the HGMMA (wgmma) instructions in
-    each one's SASS (``cuobjdump -sass`` of the built library)."""
-    import re
-    from repro_torch.kernels import build
+def ptxas_entries(log: str, key: str) -> dict:
+    """Registers and spilled bytes of each kernel entry whose mangled name
+    holds ``key``, from ptxas's log (``-Xptxas -v``)."""
     ptxas, name = {}, None
     for line in log.splitlines():
         found = re.search(r"Compiling entry function '(\S+)'", line)
         if found:
-            name = found.group(1) if "flash_fwd" in found.group(1) else None
+            name = found.group(1) if key in found.group(1) else None
             if name:
                 ptxas[name] = {}
         elif name and (found := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -222,6 +224,15 @@ def flash_build_report(log: str, lib: Path, smem_bytes) -> list:
             ptxas[name]["spills"] = int(found.group(1)) + int(found.group(2))
         elif name and (found := re.search(r"Used (\d+) registers", line)):
             ptxas[name]["registers"] = int(found.group(1))
+    return ptxas
+
+
+def flash_build_report(log: str, lib: Path, smem_bytes) -> list:
+    """B4's instantiations: registers and spilled bytes from ptxas's log, the
+    dynamic shared memory of a block, and the HGMMA (wgmma) instructions in
+    each one's SASS (``cuobjdump -sass`` of the built library)."""
+    from repro_torch.kernels import build
+    ptxas = ptxas_entries(log, "flash_fwd")
     sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib)], check=True,
                           capture_output=True, text=True, timeout=300).stdout
     hgmma, name = {}, None
@@ -265,6 +276,7 @@ def main() -> int:
 
     from repro_torch import LPDSVM, KernelParams, StreamConfig, median_gamma
     from repro_torch.convert import tasks_from_reference
+    from repro_torch.core import dual_solver
     from repro_torch.core.nystrom import compute_factor, select_landmarks
     from repro_torch.core.quant import quantize_rows
     from repro_torch.core.solver_stream import (_row_sq, block_windows,
@@ -276,7 +288,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.gram import (gram_kernel, gram_plain,
                                           gram_q8_kernel, gram_q8_plain)
-    from repro_torch.kernels.smo import smo_epoch_kernel, smo_epoch_plain
+    from repro_torch.kernels.smo import ring_stages, smo_epoch_kernel, smo_epoch_plain
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (bf16_kv_tile, flash_attention_kernel,
                                                      flash_attention_plain,
@@ -315,6 +327,16 @@ def main() -> int:
               "B4's bf16 body has no HGMMA: it does not run on the tensor cores")
         kv_tile = bf16_kv_tile()
         print(f"B4's bf16 kv tile: {kv_tile}")
+        b2_build = {tuple(map(int, re.search(r"smo_epochILi(\d+)ELi(\d+)E", name).groups())): r
+                    for name, r in ptxas_entries(logs["smo"], "smo_epoch").items()}
+        for (depth, cols), r in sorted(b2_build.items()):
+            where = (f"w and {cols} columns a thread in registers" if cols
+                     else "w in shared memory")
+            print(f"B2, ring of {depth} stages, {where}: {r.get('registers')} "
+                  f"registers, {r.get('spills')} bytes spilled")
+        check(len(b2_build) > 0 and all(r.get("spills") is not None for r in b2_build.values()),
+              "B2's ptxas report is missing from the build log")
+        check(all(r["spills"] == 0 for r in b2_build.values()), "B2 spills registers")
 
     # ------------------------------------------------------ kernel B4 alone
     fp32_p_diff = [0.0]    # bf16: the kernel against the plain version with p in fp32
@@ -673,7 +695,49 @@ def main() -> int:
         s_bound, s_by = bound_ms(2.0 * Bp * real_rows + 2.0 * Bp * changed, nbytes)
         print(f"smo full epoch {T} tasks x {n_pad} rows, B'={Bp}: {s_ms:.3f} ms "
               f"(plain {s_plain:.1f}, bound {s_bound:.4f} by {s_by}); cheap epoch "
-              f"from the fit: {cheap_ms:.3f} ms")
+              f"from the fit: {cheap_ms:.3f} ms; ring of {ring_stages(Bp)} stages")
+        # the cheap epoch's active rows: free rows (unchanged 0) of each task;
+        # the blocks run side by side, so the largest task sets the time
+        cheap_rows = (~at_bound & real).sum(1)
+        n_cheap, n_cheap_max = int(cheap_rows.sum()), int(cheap_rows.max())
+        print(f"cheap epoch: {n_cheap} active rows in {T} tasks, {n_cheap_max} in the "
+              f"largest: {cheap_ms * 1e6 / max(n_cheap_max, 1):.1f} ns per active row "
+              f"of the largest task, {cheap_ms * 1e6 / max(n_cheap, 1):.2f} ns per "
+              f"active row of all; full epoch {s_ms * 1e6 / n_pad:.1f} ns per position")
+
+        # stage 2 again on the main path's factor with a CUDA event pair
+        # around every B2 launch: the events' sum against the wall time
+        events = []
+        solve_epoch = dual_solver.smo_epoch
+
+        def timed_epoch(*args, full_pass, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            viol = solve_epoch(*args, full_pass=full_pass, **kw)
+            end.record()
+            events.append((full_pass, start, end))
+            return viol
+
+        dual_solver.smo_epoch = timed_epoch
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res2 = dual_solver.solve_batch(G, tasks, svm.config)
+            torch.cuda.synchronize()
+            wall2 = time.perf_counter() - t0
+        finally:
+            dual_solver.smo_epoch = solve_epoch
+        ev = [(f, s.elapsed_time(e)) for f, s, e in events]
+        ev_full = [t for f, t in ev if f]
+        ev_cheap = [t for f, t in ev if not f]
+        ev_s = (sum(ev_full) + sum(ev_cheap)) / 1e3
+        print(f"stage 2 again on the main path's factor: wall {wall2:.4f} s, B2 events "
+              f"{ev_s:.4f} s ({ev_s / wall2:.3f} of the wall) over {len(ev)} launches: "
+              f"{len(ev_full)} full epochs {sum(ev_full):.3f} ms, {len(ev_cheap)} cheap "
+              f"{sum(ev_cheap):.3f} ms; the fit's stage 2 {st.stage2_seconds:.4f} s")
+        check(torch.equal(res2.alpha, svm.alpha_) and len(ev) == launches["smo_epoch"],
+              "stage 2 again did not repeat the fit's solve")
         eig_ms = cuda_ms(lambda: torch.linalg.eigh(gram_kernel(lm, lm, kp)), 3)
         k_nm = gram_kernel(xtr_d, lm, kp)
         mm_ms = cuda_ms(lambda: k_nm @ fac.projector, 5)
@@ -1146,7 +1210,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/smo.py:100",
          "launches": launches["smo_epoch"], "max_abs_err": smo_err, "ms": s_ms,
          "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
-         "library_ms": None},
+         "library_ms": None, "ms_cheap": cheap_ms},
         {"name": "gram_q8", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram.cu",
          "replaces": "src/repro/kernels/gram.py:157",

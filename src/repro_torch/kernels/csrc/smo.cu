@@ -3,20 +3,51 @@
 //
 // Replaces the TPU kernel src/repro/kernels/smo.py:100 (smo_epoch_pallas) and
 // the vmap over tasks around its jnp twin dual_solver.epoch_ref: one launch
-// covers every task, one thread block per task.
+// covers every task, one thread block of 256 threads per task.
 //
-// Per block (task t): w_t (B floats) lives in dynamic shared memory for the
-// whole epoch, the paper's "w in the scratchpad of one SM".  The rows of the
-// task are walked in order; row i reads G[idx[t, i]] straight from the shared
-// G (G is never copied per task).  Per row: a block reduction of w . g_i,
-// then every thread derives the same scalar truncated-Newton step, then each
-// thread updates its own slice of w (thread j owns w[j], w[j + 256], ...), so
-// the reduction scratch is the only state threads share; it is double
-// buffered by row parity, which makes one __syncthreads per row enough.
-// A row that is inactive on this epoch (c = 0 padding, or shrunk on a cheap
-// epoch) changes nothing in epoch_ref, so it is skipped without reading its
-// G row: that is where shrinking pays on the card.  A task whose live flag is
-// 0 (converged) returns at once and keeps its state.
+// Per block (task t), in two phases:
+//
+// 1. The active list.  A row is active on this epoch when c > 0 and (full
+//    pass or unchanged < shrink_k).  That depends only on the row's own
+//    pre-epoch values (no row reads or writes another row's alpha or
+//    counter), so the list is exact before the sweep starts.  All 256
+//    threads scan the task's positions, 2048 per round (8 consecutive ones
+//    per thread); a block prefix sum of the per-thread counts places every
+//    active position in ascending order, and its thread writes the row's
+//    record (G row, position, counter, y, alpha, c, q) into the task's row
+//    of a global scratch (T x n_pad records of 32 bytes, allocated by the
+//    wrapper, L2-resident).  The list lives in global memory, not in shared
+//    memory: every byte of shared memory stays for w and the ring, so every
+//    width the kernel ever took still runs (at B = 58096 floats w alone
+//    fills the 227 KB), and the sweep never stops to rebuild a chunk.  A
+//    task with no active row returns here, w untouched, viol 0.
+//
+// 2. The sweep over the listed rows, in order, with the next rows of G in
+//    flight through a ring of D row stages in shared memory (cp.async).
+//    Thread j owns columns j, j + 256, ... of w and of each row: its fmaf
+//    chain runs over them in ascending order.  The records reach the threads
+//    one window of 32 rows ahead: lane l of every warp holds the record of
+//    row 32 w + l of the current and of the next window, and a row's scalars
+//    and the G row of the stage to fill come by __shfl_sync.  So neither the
+//    G row nor its scalars wait on a DRAM round trip after the previous row.
+//    Two bodies, by width:
+//
+//    B <= 2048 (the main path; D = SMO_RING_STAGES): thread j holds its <= 8
+//      columns of w and of the current row in registers, unrolled.  The block
+//      copies each row into the ring together, in 16-byte pieces where rows
+//      and G are 16-byte aligned (else each thread its own columns).  Row k+1
+//      is waited for (cp.async.wait_group D-2, each thread its own pieces)
+//      before row k's reduction barrier, which publishes it; every thread then
+//      reads its columns of row k+1 into registers while the warp sums and
+//      the step are computed.  The stage of row k-1, read out before barrier
+//      k-1, takes row k+D-1.  One barrier per row, the reduction's.
+//    B > 2048: w in shared memory beside the ring, runtime loops; thread j
+//      copies (4-byte cp.async.ca, a warp's copy one 128-byte line) and reads
+//      only its own columns, waiting on its own copy groups (wait_group D-1).
+//      D is as many stages as fit beside w, at most SMO_RING_STAGES; where
+//      not one fits (B > 29048 floats on an H100) D is 0 and the row is read
+//      in place: a row is then over 116 KB, and its 114 loads per thread keep
+//      the memory busy.
 //
 // Window form (the streamed stage 2, core/solver_stream.py): G is then one
 // row block of the factor, held on the card while the rest stays in host
@@ -29,18 +60,126 @@
 // alpha, unchanged and w are updated in place; viol[t] receives the largest
 // |projected gradient| over the rows the epoch touched.
 //
-// Bound on the H100: the rows of G each task reads (bytes), but the row loop
-// is serial inside a block and only T blocks run, so the epoch is latency
-// bound: 45 OVO tasks occupy 45 of 132 SMs.  Splitting a task's rows over a
-// cluster, or more tasks per launch, is later work.
+// Bound on the H100: bytes.  Counting each G row once, the main path's full
+// epoch (45 tasks, 12160 rows each, B = 2048) needs 0.15 ms at 3.35 TB/s;
+// every task reads its own rows, some 540,000 rows of 8 KB (4.4 GB), which
+// is 1.3 ms unless other tasks' reads leave them in L2.  The rows of one
+// task are serial (each step needs the w of the last) and only T blocks run
+// (45 of 132 SMs), so what sets the pace is one row's chain: the dot
+// product, the shuffle tree, the barrier, the warp sums, the step and the
+// update, issued by all 8 warps of the SM.  The ring keeps the G rows off
+// that chain; B2's design goal of 3 ms for that epoch is not reached (see
+// PERF.md).
 #include <cuda_runtime.h>
+
+#include <array>
+#include <cstdint>
+#include <utility>
+
+#ifndef SMO_RING_STAGES
+#define SMO_RING_STAGES 8      // the deepest ring; 4 to 16 time alike on an H100
+#endif
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int SCAN = 8;                      // positions per thread per round
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float Q_FLOOR = 1e-12f;
+constexpr int MAX_STAGES = SMO_RING_STAGES;
+static_assert(MAX_STAGES >= 0 && MAX_STAGES <= 32,
+              "a stage to fill must lie in the current or the next window");
 
+// One listed row: 32 bytes, read as two int4.
+struct alignas(16) Record {
+  int gi, pos, u, pad;            // block row of G, position, counter
+  float y, a, c, q;               // label, alpha, box, ||g||^2
+};
+
+__device__ __forceinline__ Record load_record(const Record* list, int k, int n) {
+  Record r{};
+  if (k < n) {
+    const int4* p = reinterpret_cast<const int4*>(list + k);
+    const int4 lo = p[0], hi = p[1];
+    r.gi = lo.x; r.pos = lo.y; r.u = lo.z;
+    r.y = __int_as_float(hi.x); r.a = __int_as_float(hi.y);
+    r.c = __int_as_float(hi.z); r.q = __int_as_float(hi.w);
+  }
+  return r;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// The block's margin w . g_i from every thread's partial sum s: the
+// __shfl_xor_sync tree inside each warp, then the 8 warp sums in warp order
+// (red is double-buffered by row parity, so one barrier per row is enough).
+__device__ __forceinline__ float block_margin(float s, float (*red)[WARPS], int& parity,
+                                              int lane, int warp) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+  if (lane == 0) red[parity][warp] = s;
+  __syncthreads();
+  float margin = 0.f;
+#pragma unroll
+  for (int k = 0; k < WARPS; ++k) margin += red[parity][k];   // same order in all threads
+  parity ^= 1;
+  return margin;
+}
+
+// One row's truncated-Newton step (the same in every thread): the new alpha
+// and the |projected gradient| folded into viol; returns alpha's change.
+__device__ __forceinline__ float newton_step(float margin, float yi, float ai, float ci,
+                                             float qi, float& a_new, float& viol) {
+  const float g = 1.f - yi * margin;
+  const float pg = ai <= 0.f ? fmaxf(g, 0.f) : (ai >= ci ? fminf(g, 0.f) : g);
+  a_new = fminf(fmaxf(ai + g / fmaxf(qi, Q_FLOOR), 0.f), ci);
+  viol = fmaxf(viol, fabsf(pg));
+  return a_new - ai;
+}
+
+// One G row of B <= 256 NW floats into a ring stage, the block's threads
+// together: 16-byte pieces where rows and G are 16-byte aligned (vec), else
+// each thread its columns j + 256 r.
+template <int NW>
+__device__ __forceinline__ void copy_row(float* dst, const float* src, int B, int tid,
+                                         bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int r = 0; r < (NW + 3) / 4; ++r) {
+      const int j = 4 * (tid + r * THREADS);
+      if (j < B) cp_async16(dst + j, src + j);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < NW; ++r) {
+      const int j = tid + r * THREADS;
+      if (j < B) cp_async4(dst + j, src + j);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void commit_and_wait() {   // at most D groups left in flight
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(D) : "memory");
+}
+
+// D: ring stages.  NW > 0 (B <= 256 NW, and D >= 2): thread j holds its
+// columns of w and of the current row in registers, and the block copies
+// rows into the ring together (the row barrier publishes them); NW = 0: w in
+// shared memory and each thread copies and reads only its own columns, any B.
+template <int D, int NW>
 __global__ void __launch_bounds__(THREADS)
 smo_epoch(const float* __restrict__ G, int B, const int* __restrict__ idx,
           const float* __restrict__ y, const float* __restrict__ c,
@@ -48,83 +187,286 @@ smo_epoch(const float* __restrict__ G, int B, const int* __restrict__ idx,
           int* __restrict__ unchanged, float* __restrict__ w,
           float* __restrict__ viol_out, const unsigned char* __restrict__ live,
           const int* __restrict__ lo, const int* __restrict__ hi, int row0,
-          int n_pad, int full_pass, int shrink_k) {
-  extern __shared__ float w_s[];            // B floats
+          int n_pad, int full_pass, int shrink_k, Record* __restrict__ scratch,
+          int vec) {
+  constexpr bool IN_REGISTERS = D >= 2 && NW > 0;
+  extern __shared__ float smem[];   // [w: B floats, unless IN_REGISTERS] D stages of B
   __shared__ float red[2][WARPS];
 
   const int t = blockIdx.x;
   const int i0 = lo ? lo[t] : 0, i1 = hi ? hi[t] : n_pad;
   if (!live[t] || i0 >= i1) return;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* wt = w + (long)t * B;
-  for (int j = tid; j < B; j += THREADS) w_s[j] = wt[j];   // own slice only
-
   const long base = (long)t * n_pad;
+  Record* list = scratch + base;
+
+  // ---- 1. the active list, in ascending position order
+  int* count = reinterpret_cast<int*>(&red[0][0]);   // free until the sweep
+  int n_act = 0;                                      // the same in every thread
+  for (int r0 = i0; r0 < i1; r0 += THREADS * SCAN) {
+    const int p0 = r0 + tid * SCAN;
+    float cs[SCAN];
+    int us[SCAN];
+    bool act[SCAN];
+    int cnt = 0;
+#pragma unroll
+    for (int s = 0; s < SCAN; ++s) {
+      const bool in = p0 + s < i1;
+      cs[s] = in ? c[base + p0 + s] : 0.f;
+      us[s] = in ? unchanged[base + p0 + s] : 0;
+    }
+#pragma unroll
+    for (int s = 0; s < SCAN; ++s) {
+      act[s] = cs[s] > 0.f && (full_pass || us[s] < shrink_k);
+      cnt += act[s];
+    }
+    int incl = cnt;                                   // warp inclusive scan
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) count[warp] = incl;
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int k = 0; k < WARPS; ++k) {
+      const int v = count[k];
+      before += k < warp ? v : 0;
+      total += v;
+    }
+    int at = n_act + before + incl - cnt;
+#pragma unroll
+    for (int s = 0; s < SCAN; ++s) {
+      if (!act[s]) continue;
+      const long i = base + p0 + s;
+      const int gi = idx[i] - row0;
+      int4* dst = reinterpret_cast<int4*>(list + at++);
+      dst[0] = make_int4(gi, p0 + s, us[s], 0);
+      dst[1] = make_int4(__float_as_int(y[i]), __float_as_int(alpha[i]),
+                         __float_as_int(cs[s]), __float_as_int(q[gi]));
+    }
+    n_act += total;
+    __syncthreads();                                  // count[] is rewritten next
+  }
+  if (n_act == 0) {
+    if (tid == 0) viol_out[t] = 0.f;
+    return;
+  }
+
+  // ---- 2. the sweep over the listed rows
+  float* wt = w + (long)t * B;
+  Record cur = load_record(list, lane, n_act);        // rows 0 .. 31
+  Record nxt = load_record(list, 32 + lane, n_act);   // rows 32 .. 63
   float viol = 0.f;
   int parity = 0;
-  for (int i = i0; i < i1; ++i) {
-    // Every per-row scalar is read before this row's barrier: thread 0
-    // rewrites alpha / unchanged after it.
-    const float ci = c[base + i];
-    const int ui = unchanged[base + i];
-    if (!(ci > 0.f && (full_pass || ui < shrink_k))) continue;   // block-uniform
-    const int gi = idx[base + i] - row0;
-    const float yi = y[base + i], ai = alpha[base + i], qi = q[gi];
-    const float* row = G + (long)gi * B;
 
-    float s = 0.f;
-    for (int j = tid; j < B; j += THREADS) s = fmaf(w_s[j], row[j], s);
+  if constexpr (IN_REGISTERS) {
+    // Row k+1 is waited for (each thread its own pieces) before row k's
+    // barrier, which publishes it; every thread reads its columns of it into
+    // registers after that barrier, so the stage of row k-1, read before
+    // barrier k-1, is free at row k: it takes row k+D-1.
+    float* ring = smem;
+    float wr[NW], rv[NW];                             // w and row k, own columns
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) red[parity][warp] = s;
+    for (int r = 0; r < NW; ++r) {
+      const int j = tid + r * THREADS;
+      wr[r] = j < B ? wt[j] : 0.f;
+    }
+    for (int m = 0; m < D - 1; ++m) {                 // rows 0 .. D-2
+      const int g = __shfl_sync(FULL, cur.gi, m);
+      if (m < n_act) copy_row<NW>(ring + m * B, G + (long)g * B, B, tid, vec);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(D - 2) : "memory");   // row 0
     __syncthreads();
-    float margin = 0.f;
 #pragma unroll
-    for (int k = 0; k < WARPS; ++k) margin += red[parity][k];   // same order in all threads
-    parity ^= 1;
-
-    const float g = 1.f - yi * margin;
-    const float pg = ai <= 0.f ? fmaxf(g, 0.f) : (ai >= ci ? fminf(g, 0.f) : g);
-    const float a_new = fminf(fmaxf(ai + g / fmaxf(qi, Q_FLOOR), 0.f), ci);
-    const float delta = a_new - ai;
-    if (delta != 0.f) {
-      const float step = delta * yi;
-      for (int j = tid; j < B; j += THREADS) w_s[j] = fmaf(step, row[j], w_s[j]);
+    for (int r = 0; r < NW; ++r) {
+      const int j = tid + r * THREADS;
+      rv[r] = j < B ? ring[j] : 0.f;
     }
-    viol = fmaxf(viol, fabsf(pg));
-    if (tid == 0) {
-      alpha[base + i] = a_new;
-      unchanged[base + i] = delta != 0.f ? 0 : ui + 1;
+    for (int k = 0; k < n_act; ++k) {
+      if (k > 0 && (k & 31) == 0) {                   // the next window
+        cur = nxt;
+        nxt = load_record(list, k + 32 + lane, n_act);
+      }
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < NW; ++r)
+        if (tid + r * THREADS < B) s = fmaf(wr[r], rv[r], s);
+      const int m = k + D - 1;
+      if (m < n_act) {
+        const int g = __shfl_sync(FULL, (m >> 5) == (k >> 5) ? cur.gi : nxt.gi, m & 31);
+        copy_row<NW>(ring + (m % D) * B, G + (long)g * B, B, tid, vec);
+      }
+      commit_and_wait<D - 2>();                       // row k+1: own pieces
+      const int kl = k & 31;
+      const float yi = __shfl_sync(FULL, cur.y, kl), ai = __shfl_sync(FULL, cur.a, kl);
+      const float ci = __shfl_sync(FULL, cur.c, kl), qi = __shfl_sync(FULL, cur.q, kl);
+      const int pos = __shfl_sync(FULL, cur.pos, kl), ui = __shfl_sync(FULL, cur.u, kl);
+      const float margin = block_margin(s, red, parity, lane, warp);
+      float rn[NW];                                   // row k+1, published
+      const float* next = ring + ((k + 1) % D) * B;
+#pragma unroll
+      for (int r = 0; r < NW; ++r) {
+        const int j = tid + r * THREADS;
+        rn[r] = j < B ? next[j] : 0.f;
+      }
+      float a_new;
+      const float delta = newton_step(margin, yi, ai, ci, qi, a_new, viol);
+      if (delta != 0.f) {
+        const float step = delta * yi;
+#pragma unroll
+        for (int r = 0; r < NW; ++r)
+          if (tid + r * THREADS < B) wr[r] = fmaf(step, rv[r], wr[r]);
+      }
+      if (tid == 0) {
+        alpha[base + pos] = a_new;
+        unchanged[base + pos] = delta != 0.f ? 0 : ui + 1;
+      }
+#pragma unroll
+      for (int r = 0; r < NW; ++r) rv[r] = rn[r];
     }
+#pragma unroll
+    for (int r = 0; r < NW; ++r) {
+      const int j = tid + r * THREADS;
+      if (j < B) wt[j] = wr[r];
+    }
+  } else {
+    float* w_s = smem;
+    float* ring = smem + B;
+    for (int j = tid; j < B; j += THREADS) w_s[j] = wt[j];   // own slice only
+    if constexpr (D > 0) {
+      for (int m = 0; m < D - 1; ++m) {               // rows 0 .. D-2
+        const int g = __shfl_sync(FULL, cur.gi, m);
+        if (m < n_act) {
+          const float* src = G + (long)g * B;
+          float* dst = ring + m * B;
+          for (int j = tid; j < B; j += THREADS) cp_async4(dst + j, src + j);
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+      }
+    }
+    for (int k = 0; k < n_act; ++k) {
+      if (k > 0 && (k & 31) == 0) {                   // the next window
+        cur = nxt;
+        nxt = load_record(list, k + 32 + lane, n_act);
+      }
+      const float* row;
+      if constexpr (D > 0) {
+        const int m = k + D - 1;                      // into row k-1's stage
+        if (m < n_act) {
+          const int g = __shfl_sync(FULL, (m >> 5) == (k >> 5) ? cur.gi : nxt.gi, m & 31);
+          const float* src = G + (long)g * B;
+          float* dst = ring + (m % D) * B;
+          for (int j = tid; j < B; j += THREADS) cp_async4(dst + j, src + j);
+        }
+        commit_and_wait<D - 1>();                     // row k is in
+        row = ring + (k % D) * B;
+      } else {
+        row = G + (long)__shfl_sync(FULL, cur.gi, k & 31) * B;
+      }
+      const int kl = k & 31;
+      const float yi = __shfl_sync(FULL, cur.y, kl), ai = __shfl_sync(FULL, cur.a, kl);
+      const float ci = __shfl_sync(FULL, cur.c, kl), qi = __shfl_sync(FULL, cur.q, kl);
+      const int pos = __shfl_sync(FULL, cur.pos, kl), ui = __shfl_sync(FULL, cur.u, kl);
+      float s = 0.f;
+      for (int j = tid; j < B; j += THREADS) s = fmaf(w_s[j], row[j], s);
+      const float margin = block_margin(s, red, parity, lane, warp);
+      float a_new;
+      const float delta = newton_step(margin, yi, ai, ci, qi, a_new, viol);
+      if (delta != 0.f) {
+        const float step = delta * yi;
+        for (int j = tid; j < B; j += THREADS) w_s[j] = fmaf(step, row[j], w_s[j]);
+      }
+      if (tid == 0) {
+        alpha[base + pos] = a_new;
+        unchanged[base + pos] = delta != 0.f ? 0 : ui + 1;
+      }
+    }
+    for (int j = tid; j < B; j += THREADS) wt[j] = w_s[j];
   }
-  for (int j = tid; j < B; j += THREADS) wt[j] = w_s[j];
   if (tid == 0) viol_out[t] = viol;
+}
+
+using Kernel = decltype(&smo_epoch<0, 0>);
+
+template <int... Ds>
+std::array<Kernel, sizeof...(Ds)> shared_w_kernels(std::integer_sequence<int, Ds...>) {
+  return {&smo_epoch<Ds, 0>...};
+}
+
+// Columns per thread held in registers for width B: 1, 2, 4 or 8 (B <= 2048),
+// else 0 (w in shared memory).
+int register_columns(int B) {
+  if (MAX_STAGES < 2 || B > 8 * THREADS) return 0;
+  return B <= THREADS ? 1 : B <= 2 * THREADS ? 2 : B <= 4 * THREADS ? 4 : 8;
+}
+
+// Dynamic shared memory a block may have beside the static reduction buffer.
+int dynamic_smem_limit() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    return -1;
+  return optin - (int)(sizeof(float) * 2 * WARPS);
 }
 
 }  // namespace
 
+// Ring stages the launch gives width B on the current device: as many B-float
+// stages as fit beside w, at most SMO_RING_STAGES; -1 where w alone does not
+// fit (B too wide for the kernel).
+extern "C" int smo_epoch_stages(int B) {
+  const long limit = dynamic_smem_limit();
+  const long row = sizeof(float) * (long)(B > 0 ? B : 1);
+  if (limit < 0 || row > limit) return -1;
+  const long d = limit / row - 1;
+  return (int)(d < MAX_STAGES ? d : MAX_STAGES);
+}
+
+// Bytes of the scratch a launch over T tasks of n_pad positions needs: one
+// 32-byte record per position.
+extern "C" long smo_epoch_scratch_bytes(int T, int n_pad) {
+  return (long)sizeof(Record) * T * n_pad;
+}
+
 // G (n_rows, B) fp32; idx (T, n_pad) int32 rows of G (offset by row0);
 // y, c, alpha (T, n_pad) fp32; unchanged (T, n_pad) int32; q (n_rows) fp32 =
 // ||g_r||^2 per row of G; w (T, B) fp32; viol (T) fp32; live (T) bytes; lo,
-// hi (T) int32 position windows, or both null for all n_pad positions.  All
+// hi (T) int32 position windows, or both null for all n_pad positions;
+// scratch of smo_epoch_scratch_bytes(T, n_pad), 16-byte aligned.  All
 // contiguous on the current device.  Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() (0 = launched).
+// synchronise, and returns cudaGetLastError() (0 = launched), or
+// cudaErrorInvalidValue for a B the kernel does not take.
 extern "C" int smo_epoch_launch(const float* G, int B, const int* idx,
                                 const float* y, const float* c, const float* q,
                                 float* alpha, int* unchanged, float* w,
                                 float* viol, const unsigned char* live,
                                 const int* lo, const int* hi, int row0, int T,
                                 int n_pad, int full_pass, int shrink_k,
-                                void* stream) {
+                                void* scratch, void* stream) {
   if (T <= 0) return 0;
-  const size_t smem = sizeof(float) * (size_t)B;
+  const int D = smo_epoch_stages(B);
+  if (D < 0) return cudaErrorInvalidValue;
+  static const auto shared_w =
+      shared_w_kernels(std::make_integer_sequence<int, MAX_STAGES + 1>{});
+  static const Kernel in_registers[] = {
+      &smo_epoch<MAX_STAGES, 1>, &smo_epoch<MAX_STAGES, 2>,
+      &smo_epoch<MAX_STAGES, 4>, &smo_epoch<MAX_STAGES, 8>};
+  const int nw = D == MAX_STAGES ? register_columns(B) : 0;
+  const Kernel kernel = nw ? in_registers[nw == 1 ? 0 : nw == 2 ? 1 : nw == 4 ? 2 : 3]
+                           : shared_w[D];
+  const size_t smem = sizeof(float) * (size_t)B * (nw ? D : 1 + D);
   if (smem > 48 * 1024) {   // above 48 KB dynamic shared memory is opt-in
     cudaError_t err = cudaFuncSetAttribute(
-        smo_epoch, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  smo_epoch<<<T, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      G, B, idx, y, c, q, alpha, unchanged, w, viol, live, lo, hi, row0,
-      n_pad, full_pass, shrink_k);
+  kernel<<<T, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      G, B, idx, y, c, q, alpha, unchanged, w, viol, live, lo, hi, row0, n_pad,
+      full_pass, shrink_k, static_cast<Record*>(scratch),
+      B % 4 == 0 && reinterpret_cast<uintptr_t>(G) % 16 == 0);
   return cudaGetLastError();
 }

@@ -6,7 +6,11 @@ and plain version.
 ``dual_solver.epoch_ref`` over tasks); ``smo_epoch_plain`` is the same epoch
 in PyTorch ops: the reference's per-row arithmetic, with the task axis
 written out.  The plain version serves CPU tensors and the comparisons;
-nothing on the CUDA path calls it.
+nothing on the CUDA path calls it.  The kernel lists each task's active rows
+first, into a scratch the wrapper allocates with the call (32 bytes per task
+position), then sweeps the list with the next rows of G in flight through a
+ring in shared memory (``ring_stages``); its results are those of a walk
+over every position.
 
 Both take the same arguments and update ``alpha``, ``unchanged`` and ``w`` in
 place (the reference returns new arrays):
@@ -78,13 +82,26 @@ def smo_epoch_plain(G, q, idx, y, c, alpha, unchanged, w, live, *,
     return viol
 
 
-def _launcher():
-    fn = build.load("smo").smo_epoch_launch
-    if fn.argtypes is None:
+def _library():
+    lib = build.load("smo")
+    if lib.smo_epoch_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return fn
+        lib.smo_epoch_launch.argtypes = [p, i, p, p, p, p, p, p, p, p, p, p, p, i,
+                                         i, i, i, i, p, p]
+        lib.smo_epoch_launch.restype = ctypes.c_int
+        lib.smo_epoch_stages.argtypes = [i]
+        lib.smo_epoch_stages.restype = ctypes.c_int
+        lib.smo_epoch_scratch_bytes.argtypes = [i, i]
+        lib.smo_epoch_scratch_bytes.restype = ctypes.c_long
+    return lib
+
+
+def ring_stages(B: int) -> int:
+    """The depth of kernel B2's prefetch ring at width B on the current card:
+    as many B-float row stages as fit beside w in shared memory, at most the
+    build's ``SMO_RING_STAGES``; 0 where only w fits (rows are then read in
+    place), -1 where B is too wide for the kernel."""
+    return _library().smo_epoch_stages(int(B))
 
 
 def _check(name, t, dtype, shape, device):
@@ -122,14 +139,21 @@ def smo_epoch_kernel(G, q, idx, y, c, alpha, unchanged, w, live, *,
         _check(name, t, dt, shape, dev)
     viol = torch.zeros((T,), dtype=f32, device=dev)
     with torch.cuda.device(dev):
+        lib = _library()
+        if lib.smo_epoch_stages(B) < 0:
+            raise ValueError(f"smo_epoch_kernel: B = {B} floats of w do not fit in "
+                             "a block's shared memory on this card")
+        # the active list: one record per task position (see csrc/smo.cu)
+        scratch = torch.empty((lib.smo_epoch_scratch_bytes(T, n_pad),),
+                              dtype=torch.uint8, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher()(
+        err = lib.smo_epoch_launch(
             G.data_ptr(), B, idx.data_ptr(), y.data_ptr(), c.data_ptr(),
             q.data_ptr(), alpha.data_ptr(), unchanged.data_ptr(), w.data_ptr(),
             viol.data_ptr(), live.data_ptr(),
             None if lo is None else lo.data_ptr(),
             None if hi is None else hi.data_ptr(), int(row0), T, n_pad,
-            int(bool(full_pass)), int(shrink_k), stream)
+            int(bool(full_pass)), int(shrink_k), scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"smo_epoch_kernel: launch failed with CUDA error {err}")
     smo_epoch_kernel.launches += 1

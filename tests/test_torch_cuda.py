@@ -222,6 +222,163 @@ def test_windowed_smo_kernel_matches_plain(cuda, full_pass, B):
             assert torch.equal(k[key][t], state[key][t])
 
 
+def _smo_against_plain(state, full_pass, **win):
+    """Kernel and plain version on copies of ``state``, held to each other at
+    test_smo_kernel_matches_plain's tolerances; returns both states."""
+    k = {key: v.clone() for key, v in state.items()}
+    p = {key: v.clone() for key, v in state.items()}
+    before = smo_epoch_kernel.launches
+    vk = smo_epoch_kernel(**k, full_pass=full_pass, shrink_k=5, **win)
+    assert smo_epoch_kernel.launches == before + 1
+    vp = smo_epoch_plain(**p, full_pass=full_pass, shrink_k=5, **win)
+    torch.testing.assert_close(k["alpha"], p["alpha"], rtol=0, atol=1e-5)
+    torch.testing.assert_close(k["w"], p["w"], rtol=0, atol=1e-4)
+    torch.testing.assert_close(vk, vp, rtol=1e-4, atol=1e-5)
+    assert torch.equal(k["unchanged"], p["unchanged"])
+    return k, vk
+
+
+def _smo_sparse_state(cuda, B, n_pad, active, seed, T=2, n_rows=500):
+    """T tasks of n_pad positions; on a cheap epoch exactly the positions in
+    ``active`` (the same for every task) have unchanged < 5."""
+    state = _smo_state(cuda, T=T, n_pad=n_pad, n_rows=max(n_rows, n_pad), B=B,
+                       seed=seed)
+    state["live"][:] = True
+    state["c"][:] = 2.0
+    unch = torch.full((T, n_pad), 5, dtype=torch.int32, device=cuda)
+    unch[:, torch.as_tensor(active, dtype=torch.long, device=cuda)] = 0
+    state["unchanged"] = unch
+    return state
+
+
+@pytest.mark.parametrize("active", [
+    [3, 17, 400],                                  # shorter than the ring
+    list(range(0, 1000, 2)),                       # longer than the ring
+    list(range(31)), list(range(32)), list(range(33)),       # one 32-row window,
+    list(range(64)), list(range(65)),                        # then two, then three
+    [2040, 2047, 2048, 2055, 4095, 4096, 4097, 4199],        # scan rounds of 2048
+    list(range(2000, 2100)) + list(range(4080, 4120)),       # straddling both
+])
+def test_smo_kernel_active_list_lengths(cuda, active):
+    """A cheap epoch over exactly the listed positions, at B = 2048 (a full
+    ring): lists shorter and longer than the ring, across the 32-row record
+    windows and across the 2048-position scan rounds of the list build."""
+    from repro_torch.kernels.smo import ring_stages
+    assert ring_stages(2048) >= 2
+    state = _smo_sparse_state(cuda, 2048, 4200, active, seed=len(active))
+    k, _ = _smo_against_plain(state, False)
+    changed = (k["unchanged"] != state["unchanged"]).any(0).nonzero().flatten()
+    assert set(changed.tolist()) <= set(active)
+
+
+def test_smo_kernel_cheap_epoch_with_an_empty_and_a_full_task(cuda):
+    """One task with no active row keeps w bit for bit and reports 0; one
+    task with every row active; one with a few."""
+    state = _smo_state(cuda, T=3, n_pad=700, n_rows=900, B=300, seed=11)
+    state["live"][:] = True
+    unch = state["unchanged"]
+    unch[0] = 5                                    # none active
+    unch[1] = 0                                    # all active
+    unch[2] = 5
+    unch[2, ::50] = 1                              # a few
+    k, vk = _smo_against_plain(state, False)
+    for key in ("alpha", "unchanged", "w"):
+        assert torch.equal(k[key][0], state[key][0])
+    assert vk[0].item() == 0.0 and vk[1].item() > 0.0
+
+
+@pytest.mark.parametrize("full_pass", [True, False])
+def test_windowed_smo_kernel_mid_task(cuda, full_pass):
+    """The window form with lo / hi in the middle of each task, on both
+    sides of a 2048-position scan round; positions outside stay put."""
+    state = _smo_state(cuda, T=3, n_pad=5000, n_rows=5000, B=512, seed=5)
+    state["live"][:] = True
+    lo = torch.tensor([1000, 2047, 13], dtype=torch.int32, device=cuda)
+    hi = torch.tensor([3001, 2049, 4999], dtype=torch.int32, device=cuda)
+    k, _ = _smo_against_plain(state, full_pass, lo=lo, hi=hi, row0=0)
+    for t in range(3):
+        outside = torch.cat([torch.arange(0, int(lo[t])),
+                             torch.arange(int(hi[t]), 5000)]).to(cuda)
+        assert torch.equal(k["alpha"][t, outside], state["alpha"][t, outside])
+        assert torch.equal(k["unchanged"][t, outside], state["unchanged"][t, outside])
+
+
+@pytest.mark.parametrize("full_pass", [True, False])
+@pytest.mark.parametrize("B", [1, 255, 257, 1023, 1024, 2047, 2048, 2049])
+def test_smo_kernel_across_its_two_bodies(cuda, full_pass, B):
+    """Widths on both sides of the register body's 1, 2, 4 and 8 columns a
+    thread (B <= 2048) and of the shared-memory body (B > 2048); ragged
+    widths take 4-byte copies, widths that are a multiple of 4 16-byte ones."""
+    state = _smo_state(cuda, T=3, n_pad=200, n_rows=300, B=B, seed=B + 7)
+    _smo_against_plain(state, full_pass)
+
+
+@pytest.mark.parametrize("B", [2048, 300])
+def test_smo_kernel_on_a_g_that_is_not_16_byte_aligned(cuda, B):
+    """G one float past a 16-byte boundary: the row copies fall back to
+    4-byte pieces and the epoch is the same, bit for bit."""
+    state = _smo_state(cuda, T=3, n_pad=200, n_rows=300, B=B, seed=3)
+    flat = torch.empty(state["G"].numel() + 1, device=cuda)
+    flat[1:] = state["G"].flatten()
+    shifted = {**state, "G": flat[1:].view(state["G"].shape)}
+    k, vk = _smo_against_plain(shifted, True)
+    a, va = _smo_against_plain(state, True)
+    for key in ("alpha", "unchanged", "w"):
+        assert torch.equal(k[key], a[key])
+    assert torch.equal(vk, va)
+
+
+def _widest_B():
+    """The largest B kernel B2 takes on this card (ring_stages is -1 above)."""
+    from repro_torch.kernels.smo import ring_stages
+    lo, hi = 1, 1 << 17
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if ring_stages(mid) >= 0 else (lo, mid)
+    return lo
+
+
+@pytest.mark.parametrize("full_pass", [True, False])
+@pytest.mark.parametrize("where", ["widest", "one stage", "two stages"])
+def test_smo_kernel_at_the_widest_rows(cuda, full_pass, where):
+    """The widest B the kernel takes (w fills shared memory: no ring) and the
+    widest with a ring of one and of two stages, against the plain version;
+    one float wider raises."""
+    from repro_torch.kernels.smo import ring_stages
+    widest = _widest_B()
+    B = {"widest": widest, "one stage": widest // 2,
+         "two stages": widest // 3}[where]
+    assert ring_stages(B) == {"widest": 0, "one stage": 1, "two stages": 2}[where]
+    state = _smo_state(cuda, T=3, n_pad=40, n_rows=60, B=B, seed=B % 1000)
+    _smo_against_plain(state, full_pass)
+    if where == "widest":
+        with pytest.raises(ValueError, match="shared memory"):
+            G = torch.zeros((4, widest + 1), device=cuda)
+            smo_epoch_kernel(G, torch.zeros(4, device=cuda), state["idx"] % 4,
+                             state["y"], state["c"], state["alpha"],
+                             state["unchanged"], torch.zeros((3, widest + 1),
+                                                             device=cuda),
+                             state["live"], full_pass=full_pass, shrink_k=5)
+
+
+def test_smo_kernel_launches_once_per_call(cuda):
+    """One launch and one count per call, also when every task returns at
+    once (not live, an empty window, nothing active)."""
+    state = _smo_state(cuda, T=3, n_pad=64, n_rows=100, B=128, seed=2)
+    empty = dict(lo=torch.zeros(3, dtype=torch.int32, device=cuda),
+                 hi=torch.zeros(3, dtype=torch.int32, device=cuda), row0=0)
+    none_live = {**state, "live": torch.zeros(3, dtype=torch.bool, device=cuda)}
+    shrunk = {**state, "unchanged": torch.full_like(state["unchanged"], 5)}
+    for s, full_pass, win in ((state, True, {}), (state, False, {}),
+                              (state, True, empty), (none_live, True, {}),
+                              (shrunk, False, {})):
+        s = {key: v.clone() for key, v in s.items()}
+        before = smo_epoch_kernel.launches
+        smo_epoch_kernel(**s, full_pass=full_pass, shrink_k=5, **win)
+        assert smo_epoch_kernel.launches == before + 1
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("rank", [2048, 2047, 96])
 def test_streamed_q_is_the_monolithic_q_on_card(cuda, rank):
     """The streamed solver's q of a block starting at a multiple of 8 rows

@@ -45,16 +45,16 @@ def _port_epoch(G, y, c, alpha, unch, w, full_pass, live=True):
             float(viol[0]))
 
 
-@pytest.mark.parametrize("full_pass", [True, False])
-@pytest.mark.parametrize("n,B", [(96, 64), (200, 96), (64, 128)])
-def test_epoch_matches_pallas_and_epoch_ref(full_pass, n, B):
-    G, y, c, alpha, unch, w = _inputs(n, B, seed=n + B)
-    a, u, wv, v = _port_epoch(G, y, c, alpha, unch, w, full_pass)
-    q = (G * G).sum(-1)
-    pa, pu, pw, pv = jops.smo_epoch(jnp.asarray(G), y, c, q, alpha, unch, w,
+def _assert_matches_references(port, G, idx, y, c, alpha, unch, w, full_pass):
+    """One task's epoch from the port (alpha, unchanged, w, viol) against the
+    Pallas kernel in interpret mode (on the task's rows of G) and epoch_ref."""
+    a, u, wv, v = port
+    Gt = G[idx]
+    q = (Gt * Gt).sum(-1)
+    pa, pu, pw, pv = jops.smo_epoch(jnp.asarray(Gt), y, c, q, alpha, unch, w,
                                     full_pass=full_pass, shrink_k=SHRINK_K,
                                     interpret=True)
-    ra, rw, ru, rv = epoch_ref(jnp.asarray(G), jnp.arange(n, dtype=jnp.int32),
+    ra, rw, ru, rv = epoch_ref(jnp.asarray(G), jnp.asarray(idx, dtype=jnp.int32),
                                jnp.asarray(y), jnp.asarray(c), jnp.asarray(q),
                                jnp.asarray(alpha), jnp.asarray(w),
                                jnp.asarray(unch), SHRINK_K, jnp.bool_(full_pass))
@@ -63,12 +63,64 @@ def test_epoch_matches_pallas_and_epoch_ref(full_pass, n, B):
         np.testing.assert_allclose(wv, np.asarray(ref_w), atol=3e-5)
         np.testing.assert_array_equal(u, np.asarray(ref_u))
         assert abs(v - float(ref_v)) < 1e-4
+
+
+@pytest.mark.parametrize("full_pass", [True, False])
+@pytest.mark.parametrize("n,B", [(96, 64), (200, 96), (64, 128)])
+def test_epoch_matches_pallas_and_epoch_ref(full_pass, n, B):
+    G, y, c, alpha, unch, w = _inputs(n, B, seed=n + B)
+    a, u, wv, v = _port_epoch(G, y, c, alpha, unch, w, full_pass)
+    _assert_matches_references((a, u, wv, v), G, np.arange(n), y, c, alpha, unch,
+                               w, full_pass)
     assert np.all(a[c == 0] == 0.0)                       # padding stays inert
     if not full_pass:                                     # shrunk rows untouched
         shrunk = (unch >= SHRINK_K) & (c > 0)
         assert shrunk.any()
         np.testing.assert_array_equal(a[shrunk], alpha[shrunk])
         np.testing.assert_array_equal(u[shrunk], unch[shrunk])
+
+
+def test_mostly_shrunk_cheap_epoch_matches_pallas_and_epoch_ref():
+    """A cheap epoch of two tasks over one G, the shape of the fit's cheap
+    epochs (kernel B2 lists the few active rows first): task 0 with over 90%
+    of its real rows shrunk, task 1 with none active.  Each task against the
+    Pallas kernel (interpret mode) and epoch_ref; task 1 keeps its state and
+    reports 0."""
+    rng = np.random.default_rng(17)
+    n_rows, B, n_pad, T = 300, 96, 200, 2
+    G = (rng.normal(size=(n_rows, B)) / np.sqrt(B)).astype(np.float32)
+    idx = np.stack([rng.choice(n_rows, n_pad, replace=False) for _ in range(T)]
+                   ).astype(np.int32)
+    y = rng.choice([-1.0, 1.0], size=(T, n_pad)).astype(np.float32)
+    c = np.full((T, n_pad), 2.0, np.float32)
+    c[:, 190:] = 0.0
+    alpha = (rng.uniform(0, 2, size=(T, n_pad)) * (c > 0)).astype(np.float32)
+    alpha[:, ::7] = 0.0
+    w = np.stack([(alpha[t] * y[t]) @ G[idx[t]] for t in range(T)]).astype(np.float32)
+    unch = rng.integers(SHRINK_K, SHRINK_K + 3, size=(T, n_pad)).astype(np.int32)
+    unch[0, rng.choice(190, 12, replace=False)] = rng.integers(0, SHRINK_K, size=12)
+    real = c > 0
+    active = real & (unch < SHRINK_K)
+    assert active[0].sum() <= 0.1 * real[0].sum() and active[0].sum() > 0
+    assert not active[1].any()
+    Gt = torch.from_numpy(G)
+    s = dict(G=Gt, q=(Gt * Gt).sum(-1), idx=torch.from_numpy(idx),
+             y=torch.from_numpy(y), c=torch.from_numpy(c),
+             alpha=torch.from_numpy(alpha.copy()),
+             unchanged=torch.from_numpy(unch.copy()), w=torch.from_numpy(w.copy()),
+             live=torch.ones(T, dtype=torch.bool))
+    viol = ops.smo_epoch(**s, full_pass=False, shrink_k=SHRINK_K).numpy()
+    for t in range(T):
+        port = (s["alpha"][t].numpy(), s["unchanged"][t].numpy(), s["w"][t].numpy(),
+                float(viol[t]))
+        _assert_matches_references(port, G, idx[t], y[t], c[t], alpha[t], unch[t],
+                                   w[t], False)
+    np.testing.assert_array_equal(s["alpha"][1].numpy(), alpha[1])
+    np.testing.assert_array_equal(s["unchanged"][1].numpy(), unch[1])
+    np.testing.assert_array_equal(s["w"][1].numpy(), w[1])
+    assert viol[1] == 0.0 and viol[0] > 0.0
+    touched = (s["unchanged"][0].numpy() != unch[0]) | (s["alpha"][0].numpy() != alpha[0])
+    assert touched.any() and not (touched & ~active[0]).any()   # listed rows only
 
 
 def test_batched_tasks_gather_rows_and_skip_tasks_not_live():
