@@ -852,10 +852,11 @@ def main() -> int:
         # blocks in flight; it leaves out the task state on the card
         # (TaskBatch idx/y/c/alpha0, the sorted copies sidx/y/c/alpha/
         # unchanged, the int64 permutation, the compacted index table old and
-        # new while it is replaced: 13 words per task position) and q (one
-        # word per row of G).  The factor's landmarks and projector are
-        # there before the start.
-        allow2 = 4 * (13 * T * n_pad + n_tr)
+        # new while it is replaced: 13 words per task position), q (one
+        # word per row of G) and B2's active-list scratch (8 words per
+        # position of the widest window, one per solve: s2.scratch_bytes).
+        # The factor's landmarks and projector are there before the start.
+        allow2 = 4 * (13 * T * n_pad + n_tr) + s2.scratch_bytes
         limit2 = cfg.device_budget_bytes + allow2
         base = peak_start()
         svm2 = LPDSVM(kernel=kp, C=1.0, budget=budget, tol=1e-2, stream_config=cfg)
@@ -866,7 +867,8 @@ def main() -> int:
                 and torch.equal(svm2.W_, svm_s.W_))
         print(f"stage 2 alone, f32 blocks: {svm2.stats.stage2_seconds:.3f} s, "
               f"peak device memory {peak2} B: budget {cfg.device_budget_bytes} "
-              f"+ task-state allowance {allow2} = {limit2}; G is {g_bytes} B "
+              f"+ task-state allowance {allow2} (B2 scratch {s2.scratch_bytes}) = "
+              f"{limit2}; G is {g_bytes} B "
               f"(peak / G {peak2 / g_bytes:.3f}); epochs, alphas and w equal "
               f"to the fit's {same}")
         check(svm2.stats.stage2_streamed and same,

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.kernel_fn import full_fp32
-from repro_torch.kernels.ops import smo_epoch
+from repro_torch.kernels.ops import smo_epoch, smo_epoch_scratch
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -89,11 +89,12 @@ def solve_batch(G: torch.Tensor, tasks: TaskBatch, config: SolverConfig) -> Solv
     epochs = torch.zeros((T,), dtype=torch.int32, device=dev)
     violation = torch.full((T,), float("inf"), dtype=torch.float32, device=dev)
     live = torch.ones((T,), dtype=torch.bool, device=dev)
+    scratch = smo_epoch_scratch(T, idx.shape[1], dev)   # B2's active lists
 
     for epoch in range(config.max_epochs):
         full_pass = epoch % period == 0        # the same epoch for every live task
         viol = smo_epoch(G, q, idx, y, c, alpha, unchanged, w, live,
-                         full_pass=full_pass, shrink_k=shrink_k)
+                         full_pass=full_pass, shrink_k=shrink_k, scratch=scratch)
         epochs += live.to(torch.int32)
         if full_pass:                          # the tol test is on full passes only
             violation = torch.where(live, viol, violation)

@@ -50,7 +50,7 @@ from repro_torch.core.kernel_fn import full_fp32
 from repro_torch.core.streaming import (BYTES_F32, Lanes, StreamConfig,
                                         StreamTimes, check_host, host_buffer,
                                         tune_prefetch, wait)
-from repro_torch.kernels.ops import smo_epoch
+from repro_torch.kernels.ops import smo_epoch, smo_epoch_scratch
 
 WIRE = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -144,6 +144,7 @@ class Stage2StreamStats(StreamTimes):
     block_dtype: str = "f32"
     compact_seconds: float = 0.0      # host time building compactions
     prefetch_final: int = 0           # queue depth after autotune
+    scratch_bytes: int = 0            # B2's active-list scratch on the card
 
 
 class _Ring:
@@ -330,6 +331,10 @@ def solve_batch_streamed(
                          for t in range(T)], axis=1).astype(np.int32)
     perm = _upload(perm_h, dev, st)
     bounds = _upload(bounds_h, dev, st)
+    # B2 lists a block's active rows in a scratch sized by the widest window
+    # of the shared passes; a wider compacted window is swept in segments
+    scratch = smo_epoch_scratch(T, int(np.diff(bounds_h, axis=0).max(initial=1)), dev)
+    st.scratch_bytes = 0 if scratch is None else scratch.numel()
     sidx = torch.gather(tasks.idx.to(torch.int32), 1, perm).contiguous()
     y = torch.gather(tasks.y.to(torch.float32), 1, perm).contiguous()
     c = torch.gather(tasks.c.to(torch.float32), 1, perm).contiguous()
@@ -369,7 +374,7 @@ def solve_batch_streamed(
                 v = smo_epoch(gb, q[s:e], sidx, y, c, alpha,
                               unchanged, w, live, full_pass=full,
                               shrink_k=shrink_k, lo=bounds[b], hi=bounds[b + 1],
-                              row0=s)
+                              row0=s, scratch=scratch)
                 st.kernel_calls += 1
                 st.coord_visits += int((bounds_h[b + 1] - bounds_h[b])[live_h].sum())
                 if full:
@@ -387,7 +392,7 @@ def solve_batch_streamed(
             gb, slot = ring.load(act_G[s:e])
             smo_epoch(gb, act_q[s:e], cidx, y, c, alpha, unchanged, w,
                       live, full_pass=False, shrink_k=shrink_k, lo=cbounds[b],
-                      hi=cbounds[b + 1], row0=s)
+                      hi=cbounds[b + 1], row0=s, scratch=scratch)
             st.kernel_calls += 1
             st.coord_visits += int(visits[b][live_h].sum())
             ring.release(slot)

@@ -15,12 +15,15 @@
 //    per thread); a block prefix sum of the per-thread counts places every
 //    active position in ascending order, and its thread writes the row's
 //    record (G row, position, counter, y, alpha, c, q) into the task's row
-//    of a global scratch (T x n_pad records of 32 bytes, allocated by the
-//    wrapper, L2-resident).  The list lives in global memory, not in shared
-//    memory: every byte of shared memory stays for w and the ring, so every
-//    width the kernel ever took still runs (at B = 58096 floats w alone
-//    fills the 227 KB), and the sweep never stops to rebuild a chunk.  A
-//    task with no active row returns here, w untouched, viol 0.
+//    of a global scratch (32 bytes a position, L2-resident).  The list lives
+//    in global memory, not in shared memory: every byte of shared memory
+//    stays for w and the ring, so every width the kernel ever took still
+//    runs (at B = 58096 floats w alone fills the 227 KB).  The caller sizes
+//    the scratch (stride positions a task: n_pad for the monolithic solve,
+//    the widest block window for the streamed one, allocated once per
+//    solve); a longer window is listed and swept stride positions at a
+//    time, in order, which changes nothing in the result.  A task with no
+//    active row leaves w untouched and gets viol 0.
 //
 // 2. The sweep over the listed rows, in order, with the next rows of G in
 //    flight through a ring of D row stages in shared memory (cp.async).
@@ -32,7 +35,7 @@
 //    G row nor its scalars wait on a DRAM round trip after the previous row.
 //    Two bodies, by width:
 //
-//    B <= 2048 (the main path; D = SMO_RING_STAGES): thread j holds its <= 8
+//    B <= 2048 (the main path; D = MAX_STAGES = 8): thread j holds its <= 8
 //      columns of w and of the current row in registers, unrolled.  The block
 //      copies each row into the ring together, in 16-byte pieces where rows
 //      and G are 16-byte aligned (else each thread its own columns).  Row k+1
@@ -44,9 +47,9 @@
 //    B > 2048: w in shared memory beside the ring, runtime loops; thread j
 //      copies (4-byte cp.async.ca, a warp's copy one 128-byte line) and reads
 //      only its own columns, waiting on its own copy groups (wait_group D-1).
-//      D is as many stages as fit beside w, at most SMO_RING_STAGES; where
-//      not one fits (B > 29048 floats on an H100) D is 0 and the row is read
-//      in place: a row is then over 116 KB, and its 114 loads per thread keep
+//      D is the most of 8, 4 and 2 stages that fit beside w; where not two
+//      fit (B > 19365 floats on an H100) D is 0 and the row is read in
+//      place: a row is then over 77 KB, and its 76 loads per thread keep
 //      the memory busy.
 //
 // Window form (the streamed stage 2, core/solver_stream.py): G is then one
@@ -72,13 +75,7 @@
 // PERF.md).
 #include <cuda_runtime.h>
 
-#include <array>
 #include <cstdint>
-#include <utility>
-
-#ifndef SMO_RING_STAGES
-#define SMO_RING_STAGES 8      // the deepest ring; 4 to 16 time alike on an H100
-#endif
 
 namespace {
 
@@ -87,9 +84,8 @@ constexpr int WARPS = THREADS / 32;
 constexpr int SCAN = 8;                      // positions per thread per round
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float Q_FLOOR = 1e-12f;
-constexpr int MAX_STAGES = SMO_RING_STAGES;
-static_assert(MAX_STAGES >= 0 && MAX_STAGES <= 32,
-              "a stage to fill must lie in the current or the next window");
+constexpr int MAX_STAGES = 8;   // the deepest ring; 4 to 16 time alike at B = 2048
+static_assert(MAX_STAGES <= 32, "a stage to fill must lie in the current or the next window");
 
 // One listed row: 32 bytes, read as two int4.
 struct alignas(16) Record {
@@ -175,35 +171,19 @@ __device__ __forceinline__ void commit_and_wait() {   // at most D groups left i
   asm volatile("cp.async.wait_group %0;\n" ::"n"(D) : "memory");
 }
 
-// D: ring stages.  NW > 0 (B <= 256 NW, and D >= 2): thread j holds its
-// columns of w and of the current row in registers, and the block copies
-// rows into the ring together (the row barrier publishes them); NW = 0: w in
-// shared memory and each thread copies and reads only its own columns, any B.
-template <int D, int NW>
-__global__ void __launch_bounds__(THREADS)
-smo_epoch(const float* __restrict__ G, int B, const int* __restrict__ idx,
-          const float* __restrict__ y, const float* __restrict__ c,
-          const float* __restrict__ q, float* __restrict__ alpha,
-          int* __restrict__ unchanged, float* __restrict__ w,
-          float* __restrict__ viol_out, const unsigned char* __restrict__ live,
-          const int* __restrict__ lo, const int* __restrict__ hi, int row0,
-          int n_pad, int full_pass, int shrink_k, Record* __restrict__ scratch,
-          int vec) {
-  constexpr bool IN_REGISTERS = D >= 2 && NW > 0;
-  extern __shared__ float smem[];   // [w: B floats, unless IN_REGISTERS] D stages of B
-  __shared__ float red[2][WARPS];
-
-  const int t = blockIdx.x;
-  const int i0 = lo ? lo[t] : 0, i1 = hi ? hi[t] : n_pad;
-  if (!live[t] || i0 >= i1) return;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long base = (long)t * n_pad;
-  Record* list = scratch + base;
-
-  // ---- 1. the active list, in ascending position order
-  int* count = reinterpret_cast<int*>(&red[0][0]);   // free until the sweep
-  int n_act = 0;                                      // the same in every thread
-  for (int r0 = i0; r0 < i1; r0 += THREADS * SCAN) {
+// The active positions of [s0, s1) in ascending order, as records in list
+// (one per active position, at most s1 - s0); returns their number, the same
+// in every thread.  All 256 threads scan 2048 positions a round (8
+// consecutive ones a thread); a block prefix sum of the per-thread counts
+// places each active position.  count is a WARPS-int buffer of the block.
+__device__ __forceinline__ int list_active(
+    const int* __restrict__ idx, const float* __restrict__ y,
+    const float* __restrict__ c, const float* __restrict__ q,
+    const float* __restrict__ alpha, const int* __restrict__ unchanged, long base,
+    int s0, int s1, int row0, int full_pass, int shrink_k, Record* __restrict__ list,
+    int* count, int tid, int lane, int warp) {
+  int n_act = 0;
+  for (int r0 = s0; r0 < s1; r0 += THREADS * SCAN) {
     const int p0 = r0 + tid * SCAN;
     float cs[SCAN];
     int us[SCAN];
@@ -211,7 +191,7 @@ smo_epoch(const float* __restrict__ G, int B, const int* __restrict__ idx,
     int cnt = 0;
 #pragma unroll
     for (int s = 0; s < SCAN; ++s) {
-      const bool in = p0 + s < i1;
+      const bool in = p0 + s < s1;
       cs[s] = in ? c[base + p0 + s] : 0.f;
       us[s] = in ? unchanged[base + p0 + s] : 0;
     }
@@ -249,157 +229,200 @@ smo_epoch(const float* __restrict__ G, int B, const int* __restrict__ idx,
     n_act += total;
     __syncthreads();                                  // count[] is rewritten next
   }
-  if (n_act == 0) {
-    if (tid == 0) viol_out[t] = 0.f;
-    return;
-  }
+  return n_act;
+}
 
-  // ---- 2. the sweep over the listed rows
+// D: ring stages.  NW > 0 (B <= 256 NW, and D >= 2): thread j holds its
+// columns of w and of the current row in registers, and the block copies
+// rows into the ring together (the row barrier publishes them); NW = 0: w in
+// shared memory and each thread copies and reads only its own columns, any B.
+// stride: records per task in scratch; the task's positions are listed and
+// swept in segments of stride positions, in order.
+template <int D, int NW>
+__global__ void __launch_bounds__(THREADS)
+smo_epoch(const float* __restrict__ G, int B, const int* __restrict__ idx,
+          const float* __restrict__ y, const float* __restrict__ c,
+          const float* __restrict__ q, float* __restrict__ alpha,
+          int* __restrict__ unchanged, float* __restrict__ w,
+          float* __restrict__ viol_out, const unsigned char* __restrict__ live,
+          const int* __restrict__ lo, const int* __restrict__ hi, int row0,
+          int n_pad, int full_pass, int shrink_k, Record* __restrict__ scratch,
+          int stride, int vec) {
+  constexpr bool IN_REGISTERS = D >= 2 && NW > 0;
+  constexpr int NR = NW > 0 ? NW : 1;
+  extern __shared__ float smem[];   // [w: B floats, unless IN_REGISTERS] D stages of B
+  __shared__ float red[2][WARPS];
+
+  const int t = blockIdx.x;
+  const int i0 = lo ? lo[t] : 0, i1 = hi ? hi[t] : n_pad;
+  if (!live[t] || i0 >= i1) return;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long base = (long)t * n_pad;
+  Record* list = scratch + (long)t * stride;
   float* wt = w + (long)t * B;
-  Record cur = load_record(list, lane, n_act);        // rows 0 .. 31
-  Record nxt = load_record(list, 32 + lane, n_act);   // rows 32 .. 63
+  float* w_s = smem;                                  // unless IN_REGISTERS
+  float* ring = IN_REGISTERS ? smem : smem + B;
+  float wr[NR];                                       // w, own columns (IN_REGISTERS)
   float viol = 0.f;
   int parity = 0;
+  bool swept = false;                                 // w loaded
 
-  if constexpr (IN_REGISTERS) {
-    // Row k+1 is waited for (each thread its own pieces) before row k's
-    // barrier, which publishes it; every thread reads its columns of it into
-    // registers after that barrier, so the stage of row k-1, read before
-    // barrier k-1, is free at row k: it takes row k+D-1.
-    float* ring = smem;
-    float wr[NW], rv[NW];                             // w and row k, own columns
+  for (int s0 = i0; s0 < i1; s0 += stride) {
+    // ---- 1. the segment's active list, in ascending position order
+    const int n_act = list_active(idx, y, c, q, alpha, unchanged, base, s0,
+                                  min(i1 - s0, stride) + s0, row0, full_pass,
+                                  shrink_k, list, reinterpret_cast<int*>(&red[0][0]),
+                                  tid, lane, warp);
+    if (n_act == 0) continue;
+    if (!swept) {                                     // own columns only
+      if constexpr (IN_REGISTERS) {
 #pragma unroll
-    for (int r = 0; r < NW; ++r) {
-      const int j = tid + r * THREADS;
-      wr[r] = j < B ? wt[j] : 0.f;
-    }
-    for (int m = 0; m < D - 1; ++m) {                 // rows 0 .. D-2
-      const int g = __shfl_sync(FULL, cur.gi, m);
-      if (m < n_act) copy_row<NW>(ring + m * B, G + (long)g * B, B, tid, vec);
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
-    }
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(D - 2) : "memory");   // row 0
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < NW; ++r) {
-      const int j = tid + r * THREADS;
-      rv[r] = j < B ? ring[j] : 0.f;
-    }
-    for (int k = 0; k < n_act; ++k) {
-      if (k > 0 && (k & 31) == 0) {                   // the next window
-        cur = nxt;
-        nxt = load_record(list, k + 32 + lane, n_act);
+        for (int r = 0; r < NW; ++r) {
+          const int j = tid + r * THREADS;
+          wr[r] = j < B ? wt[j] : 0.f;
+        }
+      } else {
+        for (int j = tid; j < B; j += THREADS) w_s[j] = wt[j];
       }
-      float s = 0.f;
-#pragma unroll
-      for (int r = 0; r < NW; ++r)
-        if (tid + r * THREADS < B) s = fmaf(wr[r], rv[r], s);
-      const int m = k + D - 1;
-      if (m < n_act) {
-        const int g = __shfl_sync(FULL, (m >> 5) == (k >> 5) ? cur.gi : nxt.gi, m & 31);
-        copy_row<NW>(ring + (m % D) * B, G + (long)g * B, B, tid, vec);
+      swept = true;
+    }
+
+    // ---- 2. the sweep over the listed rows
+    Record cur = load_record(list, lane, n_act);      // rows 0 .. 31
+    Record nxt = load_record(list, 32 + lane, n_act); // rows 32 .. 63
+
+    if constexpr (IN_REGISTERS) {
+      // Row k+1 is waited for (each thread its own pieces) before row k's
+      // barrier, which publishes it; every thread reads its columns of it
+      // into registers after that barrier, so the stage of row k-1, read
+      // before barrier k-1, is free at row k: it takes row k+D-1.
+      float rv[NW];                                   // row k, own columns
+      for (int m = 0; m < D - 1; ++m) {               // rows 0 .. D-2
+        const int g = __shfl_sync(FULL, cur.gi, m);
+        if (m < n_act) copy_row<NW>(ring + m * B, G + (long)g * B, B, tid, vec);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
       }
-      commit_and_wait<D - 2>();                       // row k+1: own pieces
-      const int kl = k & 31;
-      const float yi = __shfl_sync(FULL, cur.y, kl), ai = __shfl_sync(FULL, cur.a, kl);
-      const float ci = __shfl_sync(FULL, cur.c, kl), qi = __shfl_sync(FULL, cur.q, kl);
-      const int pos = __shfl_sync(FULL, cur.pos, kl), ui = __shfl_sync(FULL, cur.u, kl);
-      const float margin = block_margin(s, red, parity, lane, warp);
-      float rn[NW];                                   // row k+1, published
-      const float* next = ring + ((k + 1) % D) * B;
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(D - 2) : "memory");   // row 0
+      __syncthreads();
 #pragma unroll
       for (int r = 0; r < NW; ++r) {
         const int j = tid + r * THREADS;
-        rn[r] = j < B ? next[j] : 0.f;
+        rv[r] = j < B ? ring[j] : 0.f;
       }
-      float a_new;
-      const float delta = newton_step(margin, yi, ai, ci, qi, a_new, viol);
-      if (delta != 0.f) {
-        const float step = delta * yi;
+      for (int k = 0; k < n_act; ++k) {
+        if (k > 0 && (k & 31) == 0) {                 // the next window
+          cur = nxt;
+          nxt = load_record(list, k + 32 + lane, n_act);
+        }
+        float s = 0.f;
 #pragma unroll
         for (int r = 0; r < NW; ++r)
-          if (tid + r * THREADS < B) wr[r] = fmaf(step, rv[r], wr[r]);
-      }
-      if (tid == 0) {
-        alpha[base + pos] = a_new;
-        unchanged[base + pos] = delta != 0.f ? 0 : ui + 1;
-      }
-#pragma unroll
-      for (int r = 0; r < NW; ++r) rv[r] = rn[r];
-    }
-#pragma unroll
-    for (int r = 0; r < NW; ++r) {
-      const int j = tid + r * THREADS;
-      if (j < B) wt[j] = wr[r];
-    }
-  } else {
-    float* w_s = smem;
-    float* ring = smem + B;
-    for (int j = tid; j < B; j += THREADS) w_s[j] = wt[j];   // own slice only
-    if constexpr (D > 0) {
-      for (int m = 0; m < D - 1; ++m) {               // rows 0 .. D-2
-        const int g = __shfl_sync(FULL, cur.gi, m);
-        if (m < n_act) {
-          const float* src = G + (long)g * B;
-          float* dst = ring + m * B;
-          for (int j = tid; j < B; j += THREADS) cp_async4(dst + j, src + j);
-        }
-        asm volatile("cp.async.commit_group;\n" ::: "memory");
-      }
-    }
-    for (int k = 0; k < n_act; ++k) {
-      if (k > 0 && (k & 31) == 0) {                   // the next window
-        cur = nxt;
-        nxt = load_record(list, k + 32 + lane, n_act);
-      }
-      const float* row;
-      if constexpr (D > 0) {
-        const int m = k + D - 1;                      // into row k-1's stage
+          if (tid + r * THREADS < B) s = fmaf(wr[r], rv[r], s);
+        const int m = k + D - 1;
         if (m < n_act) {
           const int g = __shfl_sync(FULL, (m >> 5) == (k >> 5) ? cur.gi : nxt.gi, m & 31);
-          const float* src = G + (long)g * B;
-          float* dst = ring + (m % D) * B;
-          for (int j = tid; j < B; j += THREADS) cp_async4(dst + j, src + j);
+          copy_row<NW>(ring + (m % D) * B, G + (long)g * B, B, tid, vec);
         }
-        commit_and_wait<D - 1>();                     // row k is in
-        row = ring + (k % D) * B;
-      } else {
-        row = G + (long)__shfl_sync(FULL, cur.gi, k & 31) * B;
+        commit_and_wait<D - 2>();                     // row k+1: own pieces
+        const int kl = k & 31;
+        const float yi = __shfl_sync(FULL, cur.y, kl), ai = __shfl_sync(FULL, cur.a, kl);
+        const float ci = __shfl_sync(FULL, cur.c, kl), qi = __shfl_sync(FULL, cur.q, kl);
+        const int pos = __shfl_sync(FULL, cur.pos, kl), ui = __shfl_sync(FULL, cur.u, kl);
+        const float margin = block_margin(s, red, parity, lane, warp);
+        float rn[NW];                                 // row k+1, published
+        const float* next = ring + ((k + 1) % D) * B;
+#pragma unroll
+        for (int r = 0; r < NW; ++r) {
+          const int j = tid + r * THREADS;
+          rn[r] = j < B ? next[j] : 0.f;
+        }
+        float a_new;
+        const float delta = newton_step(margin, yi, ai, ci, qi, a_new, viol);
+        if (delta != 0.f) {
+          const float step = delta * yi;
+#pragma unroll
+          for (int r = 0; r < NW; ++r)
+            if (tid + r * THREADS < B) wr[r] = fmaf(step, rv[r], wr[r]);
+        }
+        if (tid == 0) {
+          alpha[base + pos] = a_new;
+          unchanged[base + pos] = delta != 0.f ? 0 : ui + 1;
+        }
+#pragma unroll
+        for (int r = 0; r < NW; ++r) rv[r] = rn[r];
       }
-      const int kl = k & 31;
-      const float yi = __shfl_sync(FULL, cur.y, kl), ai = __shfl_sync(FULL, cur.a, kl);
-      const float ci = __shfl_sync(FULL, cur.c, kl), qi = __shfl_sync(FULL, cur.q, kl);
-      const int pos = __shfl_sync(FULL, cur.pos, kl), ui = __shfl_sync(FULL, cur.u, kl);
-      float s = 0.f;
-      for (int j = tid; j < B; j += THREADS) s = fmaf(w_s[j], row[j], s);
-      const float margin = block_margin(s, red, parity, lane, warp);
-      float a_new;
-      const float delta = newton_step(margin, yi, ai, ci, qi, a_new, viol);
-      if (delta != 0.f) {
-        const float step = delta * yi;
-        for (int j = tid; j < B; j += THREADS) w_s[j] = fmaf(step, row[j], w_s[j]);
+    } else {
+      if constexpr (D > 0) {
+        for (int m = 0; m < D - 1; ++m) {             // rows 0 .. D-2
+          const int g = __shfl_sync(FULL, cur.gi, m);
+          if (m < n_act) {
+            const float* src = G + (long)g * B;
+            float* dst = ring + m * B;
+            for (int j = tid; j < B; j += THREADS) cp_async4(dst + j, src + j);
+          }
+          asm volatile("cp.async.commit_group;\n" ::: "memory");
+        }
       }
-      if (tid == 0) {
-        alpha[base + pos] = a_new;
-        unchanged[base + pos] = delta != 0.f ? 0 : ui + 1;
+      for (int k = 0; k < n_act; ++k) {
+        if (k > 0 && (k & 31) == 0) {                 // the next window
+          cur = nxt;
+          nxt = load_record(list, k + 32 + lane, n_act);
+        }
+        const float* row;
+        if constexpr (D > 0) {
+          const int m = k + D - 1;                    // into row k-1's stage
+          if (m < n_act) {
+            const int g = __shfl_sync(FULL, (m >> 5) == (k >> 5) ? cur.gi : nxt.gi, m & 31);
+            const float* src = G + (long)g * B;
+            float* dst = ring + (m % D) * B;
+            for (int j = tid; j < B; j += THREADS) cp_async4(dst + j, src + j);
+          }
+          commit_and_wait<D - 1>();                   // row k is in
+          row = ring + (k % D) * B;
+        } else {
+          row = G + (long)__shfl_sync(FULL, cur.gi, k & 31) * B;
+        }
+        const int kl = k & 31;
+        const float yi = __shfl_sync(FULL, cur.y, kl), ai = __shfl_sync(FULL, cur.a, kl);
+        const float ci = __shfl_sync(FULL, cur.c, kl), qi = __shfl_sync(FULL, cur.q, kl);
+        const int pos = __shfl_sync(FULL, cur.pos, kl), ui = __shfl_sync(FULL, cur.u, kl);
+        float s = 0.f;
+        for (int j = tid; j < B; j += THREADS) s = fmaf(w_s[j], row[j], s);
+        const float margin = block_margin(s, red, parity, lane, warp);
+        float a_new;
+        const float delta = newton_step(margin, yi, ai, ci, qi, a_new, viol);
+        if (delta != 0.f) {
+          const float step = delta * yi;
+          for (int j = tid; j < B; j += THREADS) w_s[j] = fmaf(step, row[j], w_s[j]);
+        }
+        if (tid == 0) {
+          alpha[base + pos] = a_new;
+          unchanged[base + pos] = delta != 0.f ? 0 : ui + 1;
+        }
       }
     }
-    for (int j = tid; j < B; j += THREADS) wt[j] = w_s[j];
+    __syncthreads();   // the next segment rewrites the list, red[0] and the ring
+  }
+  if (swept) {                                        // own columns only
+    if constexpr (IN_REGISTERS) {
+#pragma unroll
+      for (int r = 0; r < NW; ++r) {
+        const int j = tid + r * THREADS;
+        if (j < B) wt[j] = wr[r];
+      }
+    } else {
+      for (int j = tid; j < B; j += THREADS) wt[j] = w_s[j];
+    }
   }
   if (tid == 0) viol_out[t] = viol;
 }
 
 using Kernel = decltype(&smo_epoch<0, 0>);
 
-template <int... Ds>
-std::array<Kernel, sizeof...(Ds)> shared_w_kernels(std::integer_sequence<int, Ds...>) {
-  return {&smo_epoch<Ds, 0>...};
-}
-
 // Columns per thread held in registers for width B: 1, 2, 4 or 8 (B <= 2048),
 // else 0 (w in shared memory).
 int register_columns(int B) {
-  if (MAX_STAGES < 2 || B > 8 * THREADS) return 0;
+  if (B > 8 * THREADS) return 0;
   return B <= THREADS ? 1 : B <= 2 * THREADS ? 2 : B <= 4 * THREADS ? 4 : 8;
 }
 
@@ -415,49 +438,54 @@ int dynamic_smem_limit() {
 
 }  // namespace
 
-// Ring stages the launch gives width B on the current device: as many B-float
-// stages as fit beside w, at most SMO_RING_STAGES; -1 where w alone does not
-// fit (B too wide for the kernel).
+// Ring stages the launch gives width B on the current device: the most of 8,
+// 4 and 2 B-float stages that fit beside w (one stage would prefetch
+// nothing), else 0; -1 where w alone does not fit (B too wide for the
+// kernel).
 extern "C" int smo_epoch_stages(int B) {
   const long limit = dynamic_smem_limit();
   const long row = sizeof(float) * (long)(B > 0 ? B : 1);
   if (limit < 0 || row > limit) return -1;
-  const long d = limit / row - 1;
-  return (int)(d < MAX_STAGES ? d : MAX_STAGES);
+  const long d = limit / row - 1;                     // stages that fit beside w
+  return d >= MAX_STAGES ? MAX_STAGES : d >= 4 ? 4 : d >= 2 ? 2 : 0;
 }
 
-// Bytes of the scratch a launch over T tasks of n_pad positions needs: one
-// 32-byte record per position.
-extern "C" long smo_epoch_scratch_bytes(int T, int n_pad) {
-  return (long)sizeof(Record) * T * n_pad;
+// Bytes of a scratch that lists up to `positions` positions of each of T
+// tasks at once: one 32-byte record per position.
+extern "C" long smo_epoch_scratch_bytes(int T, int positions) {
+  return (long)sizeof(Record) * T * positions;
 }
 
 // G (n_rows, B) fp32; idx (T, n_pad) int32 rows of G (offset by row0);
 // y, c, alpha (T, n_pad) fp32; unchanged (T, n_pad) int32; q (n_rows) fp32 =
 // ||g_r||^2 per row of G; w (T, B) fp32; viol (T) fp32; live (T) bytes; lo,
 // hi (T) int32 position windows, or both null for all n_pad positions;
-// scratch of smo_epoch_scratch_bytes(T, n_pad), 16-byte aligned.  All
-// contiguous on the current device.  Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for a B the kernel does not take.
+// scratch of smo_epoch_scratch_bytes(T, stride), 16-byte aligned: a task's
+// positions are listed and swept stride at a time (stride >= the largest
+// window, n_pad without one, makes it one segment; any stride >= 1 gives the
+// same result).  All contiguous on the current device.  Launches on
+// `stream`, does not synchronise, and returns cudaGetLastError() (0 =
+// launched), or cudaErrorInvalidValue for a B the kernel does not take or a
+// stride below 1.
 extern "C" int smo_epoch_launch(const float* G, int B, const int* idx,
                                 const float* y, const float* c, const float* q,
                                 float* alpha, int* unchanged, float* w,
                                 float* viol, const unsigned char* live,
                                 const int* lo, const int* hi, int row0, int T,
                                 int n_pad, int full_pass, int shrink_k,
-                                void* scratch, void* stream) {
+                                void* scratch, int stride, void* stream) {
   if (T <= 0) return 0;
+  if (stride < 1) return cudaErrorInvalidValue;
   const int D = smo_epoch_stages(B);
   if (D < 0) return cudaErrorInvalidValue;
-  static const auto shared_w =
-      shared_w_kernels(std::make_integer_sequence<int, MAX_STAGES + 1>{});
+  static const Kernel shared_w[] = {&smo_epoch<0, 0>, &smo_epoch<2, 0>,
+                                    &smo_epoch<4, 0>, &smo_epoch<MAX_STAGES, 0>};
   static const Kernel in_registers[] = {
       &smo_epoch<MAX_STAGES, 1>, &smo_epoch<MAX_STAGES, 2>,
       &smo_epoch<MAX_STAGES, 4>, &smo_epoch<MAX_STAGES, 8>};
   const int nw = D == MAX_STAGES ? register_columns(B) : 0;
   const Kernel kernel = nw ? in_registers[nw == 1 ? 0 : nw == 2 ? 1 : nw == 4 ? 2 : 3]
-                           : shared_w[D];
+                           : shared_w[D == 0 ? 0 : D == 2 ? 1 : D == 4 ? 2 : 3];
   const size_t smem = sizeof(float) * (size_t)B * (nw ? D : 1 + D);
   if (smem > 48 * 1024) {   // above 48 KB dynamic shared memory is opt-in
     cudaError_t err = cudaFuncSetAttribute(
@@ -466,7 +494,7 @@ extern "C" int smo_epoch_launch(const float* G, int B, const int* idx,
   }
   kernel<<<T, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       G, B, idx, y, c, q, alpha, unchanged, w, viol, live, lo, hi, row0, n_pad,
-      full_pass, shrink_k, static_cast<Record*>(scratch),
+      full_pass, shrink_k, static_cast<Record*>(scratch), stride,
       B % 4 == 0 && reinterpret_cast<uintptr_t>(G) % 16 == 0);
   return cudaGetLastError();
 }

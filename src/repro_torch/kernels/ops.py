@@ -12,7 +12,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                  flash_attention_plain)
 from repro_torch.kernels.gram import (gram_kernel, gram_plain, gram_q8_kernel,
                                       gram_q8_plain)
-from repro_torch.kernels.smo import smo_epoch_kernel, smo_epoch_plain
+from repro_torch.kernels.smo import (epoch_scratch, smo_epoch_kernel,
+                                     smo_epoch_plain)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -45,13 +46,27 @@ def gram_q8(values: torch.Tensor, scales: torch.Tensor, z: torch.Tensor,
 
 def smo_epoch(G, q, idx, y, c, alpha, unchanged, w, live, *,
               full_pass: bool, shrink_k: int, lo=None, hi=None,
-              row0: int = 0) -> torch.Tensor:
+              row0: int = 0, scratch=None) -> torch.Tensor:
     """One shrinking-aware epoch over every live task, in place on alpha,
     unchanged and w; returns the per-task violation (see kernels/smo.py).
-    ``lo`` / ``hi`` / ``row0`` give the window form over one row block."""
-    fn = smo_epoch_plain if _on_cpu(G) else smo_epoch_kernel
-    return fn(G, q, idx, y, c, alpha, unchanged, w, live,
-              full_pass=full_pass, shrink_k=shrink_k, lo=lo, hi=hi, row0=row0)
+    ``lo`` / ``hi`` / ``row0`` give the window form over one row block;
+    ``scratch`` is the kernel's, from ``smo_epoch_scratch``."""
+    if _on_cpu(G):
+        return smo_epoch_plain(G, q, idx, y, c, alpha, unchanged, w, live,
+                               full_pass=full_pass, shrink_k=shrink_k, lo=lo,
+                               hi=hi, row0=row0)
+    return smo_epoch_kernel(G, q, idx, y, c, alpha, unchanged, w, live,
+                            full_pass=full_pass, shrink_k=shrink_k, lo=lo, hi=hi,
+                            row0=row0, scratch=scratch)
+
+
+def smo_epoch_scratch(n_tasks: int, positions: int, device):
+    """The scratch ``smo_epoch`` lists active rows in, for windows of up to
+    ``positions`` positions per task: allocated once per solve on the card,
+    None on the CPU (the plain version needs none)."""
+    if torch.device(device).type == "cpu":
+        return None
+    return epoch_scratch(n_tasks, positions, device)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -7,10 +7,11 @@ and plain version.
 in PyTorch ops: the reference's per-row arithmetic, with the task axis
 written out.  The plain version serves CPU tensors and the comparisons;
 nothing on the CUDA path calls it.  The kernel lists each task's active rows
-first, into a scratch the wrapper allocates with the call (32 bytes per task
-position), then sweeps the list with the next rows of G in flight through a
-ring in shared memory (``ring_stages``); its results are those of a walk
-over every position.
+first, into a scratch of 32 bytes per listed position (``epoch_scratch``:
+the solvers allocate one per solve, sized by their largest window), then
+sweeps the list with the next rows of G in flight through a ring in shared
+memory (``ring_stages``); its results are those of a walk over every
+position.
 
 Both take the same arguments and update ``alpha``, ``unchanged`` and ``w`` in
 place (the reference returns new arrays):
@@ -87,7 +88,7 @@ def _library():
     if lib.smo_epoch_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.smo_epoch_launch.argtypes = [p, i, p, p, p, p, p, p, p, p, p, p, p, i,
-                                         i, i, i, i, p, p]
+                                         i, i, i, i, p, i, p]
         lib.smo_epoch_launch.restype = ctypes.c_int
         lib.smo_epoch_stages.argtypes = [i]
         lib.smo_epoch_stages.restype = ctypes.c_int
@@ -98,10 +99,21 @@ def _library():
 
 def ring_stages(B: int) -> int:
     """The depth of kernel B2's prefetch ring at width B on the current card:
-    as many B-float row stages as fit beside w in shared memory, at most the
-    build's ``SMO_RING_STAGES``; 0 where only w fits (rows are then read in
-    place), -1 where B is too wide for the kernel."""
+    the most of 8, 4 and 2 B-float row stages that fit beside w in shared
+    memory, else 0 (rows are then read in place); -1 where B is too wide for
+    the kernel."""
     return _library().smo_epoch_stages(int(B))
+
+
+def epoch_scratch(n_tasks: int, positions: int, device) -> torch.Tensor:
+    """Kernel B2's scratch for lists of up to ``positions`` positions of each
+    of ``n_tasks`` tasks: one 32-byte record per position.  A launch whose
+    window holds more positions lists and sweeps them that many at a time,
+    with the same result."""
+    positions = max(int(positions), 1)
+    with torch.cuda.device(device):
+        nbytes = _library().smo_epoch_scratch_bytes(int(n_tasks), positions)
+    return torch.empty((nbytes,), dtype=torch.uint8, device=device)
 
 
 def _check(name, t, dtype, shape, device):
@@ -114,12 +126,13 @@ def _check(name, t, dtype, shape, device):
 
 def smo_epoch_kernel(G, q, idx, y, c, alpha, unchanged, w, live, *,
                      full_pass: bool, shrink_k: int, lo=None, hi=None,
-                     row0: int = 0) -> torch.Tensor:
+                     row0: int = 0, scratch=None) -> torch.Tensor:
     """Launch kernel B2 on CUDA tensors (see the module docstring).
 
     ``idx`` (minus ``row0``) must index rows of ``G`` inside each task's
     window; the caller validates that once per solve, since checking it here
-    would synchronise every launch."""
+    would synchronise every launch.  ``scratch`` is an ``epoch_scratch`` of
+    these T tasks; without one the call allocates one for n_pad positions."""
     if not G.is_cuda:
         raise ValueError("smo_epoch_kernel: G must be a CUDA tensor")
     if (lo is None) != (hi is None):
@@ -143,9 +156,16 @@ def smo_epoch_kernel(G, q, idx, y, c, alpha, unchanged, w, live, *,
         if lib.smo_epoch_stages(B) < 0:
             raise ValueError(f"smo_epoch_kernel: B = {B} floats of w do not fit in "
                              "a block's shared memory on this card")
-        # the active list: one record per task position (see csrc/smo.cu)
-        scratch = torch.empty((lib.smo_epoch_scratch_bytes(T, n_pad),),
-                              dtype=torch.uint8, device=dev)
+        if scratch is None:
+            scratch = epoch_scratch(T, n_pad, dev)
+        # positions listed at once per task: a window holding more is swept
+        # in segments of that many (at most n_pad: one segment)
+        stride = min(scratch.numel() // (lib.smo_epoch_scratch_bytes(1, 1) * max(T, 1)),
+                     max(n_pad, 1))
+        if scratch.dtype != torch.uint8 or scratch.device != dev or (T and stride < 1) \
+                or not scratch.is_contiguous() or scratch.data_ptr() % 16:
+            raise ValueError("smo_epoch_kernel: scratch must be a contiguous, 16-byte "
+                             f"aligned epoch_scratch of {T} tasks on {dev}")
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.smo_epoch_launch(
             G.data_ptr(), B, idx.data_ptr(), y.data_ptr(), c.data_ptr(),
@@ -153,7 +173,8 @@ def smo_epoch_kernel(G, q, idx, y, c, alpha, unchanged, w, live, *,
             viol.data_ptr(), live.data_ptr(),
             None if lo is None else lo.data_ptr(),
             None if hi is None else hi.data_ptr(), int(row0), T, n_pad,
-            int(bool(full_pass)), int(shrink_k), scratch.data_ptr(), stream)
+            int(bool(full_pass)), int(shrink_k), scratch.data_ptr(), stride,
+            stream)
     if err != 0:
         raise RuntimeError(f"smo_epoch_kernel: launch failed with CUDA error {err}")
     smo_epoch_kernel.launches += 1

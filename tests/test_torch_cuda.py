@@ -222,13 +222,14 @@ def test_windowed_smo_kernel_matches_plain(cuda, full_pass, B):
             assert torch.equal(k[key][t], state[key][t])
 
 
-def _smo_against_plain(state, full_pass, **win):
-    """Kernel and plain version on copies of ``state``, held to each other at
-    test_smo_kernel_matches_plain's tolerances; returns both states."""
+def _smo_against_plain(state, full_pass, scratch=None, **win):
+    """Kernel (with ``scratch``, if given) and plain version on copies of
+    ``state``, held to each other at test_smo_kernel_matches_plain's
+    tolerances; returns the kernel's state and viol."""
     k = {key: v.clone() for key, v in state.items()}
     p = {key: v.clone() for key, v in state.items()}
     before = smo_epoch_kernel.launches
-    vk = smo_epoch_kernel(**k, full_pass=full_pass, shrink_k=5, **win)
+    vk = smo_epoch_kernel(**k, full_pass=full_pass, shrink_k=5, scratch=scratch, **win)
     assert smo_epoch_kernel.launches == before + 1
     vp = smo_epoch_plain(**p, full_pass=full_pass, shrink_k=5, **win)
     torch.testing.assert_close(k["alpha"], p["alpha"], rtol=0, atol=1e-5)
@@ -328,6 +329,37 @@ def test_smo_kernel_on_a_g_that_is_not_16_byte_aligned(cuda, B):
     assert torch.equal(vk, va)
 
 
+@pytest.mark.parametrize("stride", [1, 33, 2049])
+@pytest.mark.parametrize("full_pass", [True, False])
+@pytest.mark.parametrize("B", [300, 4096])
+def test_smo_kernel_sweeps_a_short_scratch_in_segments(cuda, B, full_pass, stride):
+    """A scratch of fewer positions than a window: the kernel lists and sweeps
+    the window stride positions at a time, in order, so the epoch is bit for
+    bit the one-segment epoch, and held to the plain version; in both
+    bodies, over whole tasks and windows mid-task."""
+    from repro_torch.kernels.smo import epoch_scratch
+    state = _smo_state(cuda, T=3, n_pad=2500, n_rows=3000, B=B, seed=stride)
+    state["live"][:] = True
+    for win in ({}, dict(lo=torch.tensor([0, 100, 2400], dtype=torch.int32, device=cuda),
+                         hi=torch.tensor([2500, 2300, 2500], dtype=torch.int32,
+                                         device=cuda), row0=0)):
+        k, vk = _smo_against_plain(state, full_pass, epoch_scratch(3, stride, cuda), **win)
+        a, va = _smo_against_plain(state, full_pass, **win)
+        for key in ("alpha", "unchanged", "w"):
+            assert torch.equal(k[key], a[key])
+        assert torch.equal(vk, va)
+
+
+def test_smo_kernel_rejects_a_scratch_it_cannot_use(cuda):
+    from repro_torch.kernels.smo import epoch_scratch
+    state = _smo_state(cuda, T=3, n_pad=64, n_rows=100, B=128, seed=4)
+    good = epoch_scratch(3, 64, cuda)
+    for bad in (good.view(torch.int32), good[4:], good[:31 * 3],
+                epoch_scratch(3, 64, "cuda").cpu()):
+        with pytest.raises(ValueError, match="scratch"):
+            smo_epoch_kernel(**state, full_pass=True, shrink_k=5, scratch=bad)
+
+
 def _widest_B():
     """The largest B kernel B2 takes on this card (ring_stages is -1 above)."""
     from repro_torch.kernels.smo import ring_stages
@@ -339,16 +371,18 @@ def _widest_B():
 
 
 @pytest.mark.parametrize("full_pass", [True, False])
-@pytest.mark.parametrize("where", ["widest", "one stage", "two stages"])
+@pytest.mark.parametrize("where", ["widest", "no ring", "two stages", "four stages"])
 def test_smo_kernel_at_the_widest_rows(cuda, full_pass, where):
-    """The widest B the kernel takes (w fills shared memory: no ring) and the
-    widest with a ring of one and of two stages, against the plain version;
-    one float wider raises."""
+    """The widest B the kernel takes (w fills shared memory: no ring), one
+    where a ring of one stage would fit (it takes none: one stage prefetches
+    nothing), and the widest with rings of two and of four stages, against
+    the plain version; one float wider raises."""
     from repro_torch.kernels.smo import ring_stages
     widest = _widest_B()
-    B = {"widest": widest, "one stage": widest // 2,
-         "two stages": widest // 3}[where]
-    assert ring_stages(B) == {"widest": 0, "one stage": 1, "two stages": 2}[where]
+    B = {"widest": widest, "no ring": widest // 2, "two stages": widest // 3,
+         "four stages": widest // 5}[where]
+    assert ring_stages(B) == {"widest": 0, "no ring": 0, "two stages": 2,
+                              "four stages": 4}[where]
     state = _smo_state(cuda, T=3, n_pad=40, n_rows=60, B=B, seed=B % 1000)
     _smo_against_plain(state, full_pass)
     if where == "widest":

@@ -1,34 +1,26 @@
 #!/usr/bin/env python3
-"""Probe kernel B2 (the SMO epoch, src/repro_torch/kernels/csrc/smo.cu) on
-one CUDA card, at the main path of chip_smoke.py.
+"""Hold kernel B2 (the SMO epoch, src/repro_torch/kernels/csrc/smo.cu) bit for
+bit against another build of smo.cu, and time both, on one CUDA card.
 
-    python3 tools/b2_probe.py [--parent OLD_SMO.cu] [--depths 2,4,8,16]
-                              [--variant NAME=SRC ...] [--out PATH]
+    python3 tools/b2_probe.py --parent OLD_SMO.cu [--out PATH]
 
-Fits the main path (60000 x 784, 10 classes, RBF, C 1, budget 2048, tol
-1e-2) and then reports:
+OLD_SMO.cu is built with the tree's nvcc flags into a temporary directory; it
+may export the C interface of the tree's smo.cu or that of the kernel before
+the active list (no scratch).  The probe fits chip_smoke.py's main path
+(60000 x 784, 10 classes, RBF, C 1, budget 2048, tol 1e-2) and runs five
+epochs through both builds:
 
-  stage 2       the fit's stage-2 seconds, and stage 2 solved again on the
-                fit's factor with CUDA events around every B2 launch: wall
-                time against the events' sum, split into full and cheap
-                epochs, with the active rows (c > 0 and, on a cheap epoch,
-                unchanged < 5) of each epoch, summed over tasks and in the
-                largest task
-  epochs        CUDA-event times of chip_smoke.py's epochs (a full epoch from
-                zero, the cheap epoch from the fitted state), of a cheap
-                epoch with no active row (the walk alone) and of one windowed
-                block (rows 14176:28352 of G, every task from zero)
-  --parent      another smo.cu (the kernel before a change), built with the
-                same flags into a temporary directory: timed in turns with
-                the tree's (parent, tree, tree, parent) and held against it
-                bit for bit (alpha, unchanged, w, viol) on the four epochs
-  --depths      the tree's smo.cu built again with -DSMO_RING_STAGES=N (the
-                deepest ring it may choose), each timed beside the tree's
-  --variant     NAME=SRC, another smo.cu with the tree's interface (an
-                experiment), timed beside the tree's and held against it bit
-                for bit
+  full     a full epoch from zero (45 tasks x 12160 positions, B 2048)
+  cheap    the cheap epoch from the fitted state (rows at a bound shrunk)
+  walk     a cheap epoch with no active row (the position walk alone)
+  window   one windowed block: rows 14176:28352 of G, every task from zero
+  wide     a full epoch from zero at B 4096 (16 tasks x 4096 positions of a
+           seeded 16384-row G), a width where w stays in shared memory
 
-Prints one JSON object last, and writes it to --out PATH where given.
+Each epoch is timed with CUDA events in turns (parent, tree, tree, parent; 5
+calls each) and its alpha, unchanged, w and viol are compared bit for bit.
+The stage-2 split into B2 events and wall time is chip_smoke.py's.  Prints
+one JSON object last, and writes it to --out PATH where given.
 """
 from __future__ import annotations
 
@@ -40,7 +32,6 @@ import shutil
 import subprocess
 import sys
 import tempfile
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -48,39 +39,32 @@ sys.path.insert(0, str(ROOT / "src"))
 
 SHRINK_K = 5
 TILE = 14176          # the streamed path's tile in chip_smoke.py
-
-
-def nvcc(src: Path, out: Path, defines=()) -> subprocess.Popen:
-    from repro_torch.kernels import build
-    cmd = [build.cuda_tool(), *build.NVCC_FLAGS, *defines, "-o", str(out), str(src)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+REPS = 5
 
 
 class Lib:
-    """One built smo.cu, called with the C interface it exports: the parent's
-    (no scratch) or the tree's (a scratch of smo_epoch_scratch_bytes)."""
+    """One built smo.cu, called through the C interface it exports: the
+    tree's (a scratch and its stride) or the one before it (no scratch)."""
 
     def __init__(self, name: str, path: Path):
         import torch
-        self.name = name
+        self.name, self.torch = name, torch
         self.lib = ctypes.CDLL(str(path))
         fn = self.lib.smo_epoch_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        try:
-            sb = self.lib.smo_epoch_scratch_bytes
-            sb.argtypes, sb.restype = [i, i], ctypes.c_long
-            self.scratch_bytes = sb
-            fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p, p]
-        except AttributeError:
-            self.scratch_bytes = None
-            fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        head = [p, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i]
+        self.scratch_bytes = getattr(self.lib, "smo_epoch_scratch_bytes", None)
+        if self.scratch_bytes is not None:
+            self.scratch_bytes.argtypes = [i, i]
+            self.scratch_bytes.restype = ctypes.c_long
+            fn.argtypes = head + [p, i, p]
+        else:
+            fn.argtypes = head + [p]
         fn.restype = ctypes.c_int
         self.fn = fn
-        self.torch = torch
 
     def __call__(self, G, q, idx, y, c, alpha, unchanged, w, live, *, full_pass,
-                 shrink_k=SHRINK_K, lo=None, hi=None, row0=0):
+                 lo=None, hi=None, row0=0):
         torch = self.torch
         T, n_pad = idx.shape
         viol = torch.zeros((T,), dtype=torch.float32, device=G.device)
@@ -89,11 +73,11 @@ class Lib:
                 viol.data_ptr(), live.data_ptr(),
                 None if lo is None else lo.data_ptr(),
                 None if hi is None else hi.data_ptr(), int(row0), T, n_pad,
-                int(bool(full_pass)), int(shrink_k)]
-        if self.scratch_bytes is not None:
+                int(bool(full_pass)), SHRINK_K]
+        if self.scratch_bytes is not None:       # one segment: every position
             scratch = torch.empty((self.scratch_bytes(T, n_pad),), dtype=torch.uint8,
                                   device=G.device)
-            args.append(scratch.data_ptr())
+            args += [scratch.data_ptr(), n_pad]
         args.append(torch.cuda.current_stream().cuda_stream)
         err = self.fn(*args)
         if err != 0:
@@ -101,12 +85,12 @@ class Lib:
         return viol
 
 
-def cuda_ms(fn, reps, reset):
+def cuda_ms(fn, reset):
     import torch
     reset()
     fn()
     total = 0.0
-    for _ in range(reps):
+    for _ in range(REPS):
         reset()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -115,15 +99,24 @@ def cuda_ms(fn, reps, reset):
         end.record()
         end.synchronize()
         total += start.elapsed_time(end)
-    return total / reps
+    return total / REPS
+
+
+def first_difference(a, va, b, vb):
+    """None where both epochs' alpha, unchanged, w and viol are bit-equal."""
+    for key in ("alpha", "unchanged", "w"):
+        if not a[key].equal(b[key]):
+            at = tuple((a[key] != b[key]).nonzero()[0].tolist())
+            return f"{key}{list(at)}: {a[key][at].item()!r} vs {b[key][at].item()!r}"
+    if not va.equal(vb):
+        at = int((va != vb).nonzero()[0])
+        return f"viol[{at}]: {va[at].item()!r} vs {vb[at].item()!r}"
+    return None
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", type=Path, default=None)
-    ap.add_argument("--depths", default="")
-    ap.add_argument("--variant", action="append", default=[])
-    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--parent", type=Path, required=True)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
 
@@ -133,11 +126,10 @@ def main() -> int:
         print("b2_probe: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch import LPDSVM, KernelParams, median_gamma
-    from repro_torch.core import dual_solver
     from repro_torch.core.solver_stream import block_windows
     from repro_torch.data import make_multiclass
     from repro_torch.kernels import build
-    from repro_torch.kernels.smo import smo_epoch_kernel
+    from repro_torch.kernels.smo import ring_stages
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -146,210 +138,101 @@ def main() -> int:
     print(smi)
     out = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
 
-    # ---------------------------------------------------------------- builds
     tmp = Path(tempfile.mkdtemp(prefix="b2_probe_"))
     atexit.register(shutil.rmtree, tmp, True)
-    procs = {}
-    if args.parent is not None:
-        procs["parent"] = (tmp / "parent.so", nvcc(args.parent, tmp / "parent.so"))
-    depths = [int(d) for d in args.depths.split(",") if d]
-    src = build.CSRC / "smo.cu"
-    for d in depths:
-        so = tmp / f"depth{d}.so"
-        procs[f"depth{d}"] = (so, nvcc(src, so, [f"-DSMO_RING_STAGES={d}"]))
-    for spec in args.variant:
-        name, path = spec.split("=", 1)
-        so = tmp / f"{name}.so"
-        procs[name] = (so, nvcc(Path(path), so))
+    so = tmp / "parent.so"
+    proc = subprocess.Popen([build.cuda_tool(), *build.NVCC_FLAGS, "-o", str(so),
+                             str(args.parent)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
     try:
-        logs = build.build_all(["smo"])
-        print(logs["smo"])
-        libs = {"tree": Lib("tree", build.library_path("smo"))}
-        for name, (so, proc) in procs.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-            print(f"{name}:\n{log.strip()}")
-            libs[name] = Lib(name, so)
-    finally:                         # stop every nvcc, also after a failure
-        for _, proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    out["ptxas"] = {k: v for k, v in logs.items()}
-    if hasattr(libs["tree"].lib, "smo_epoch_stages"):
-        st = libs["tree"].lib.smo_epoch_stages
-        st.argtypes, st.restype = [ctypes.c_int], ctypes.c_int
-        out["ring_stages"] = {B: st(B) for B in (300, 1024, 2048, 13000, 29000, 58096, 58097)}
-        print(f"ring stages by B: {out['ring_stages']}")
+        build.build_all(["smo"])
+        log, _ = proc.communicate()
+    finally:                         # stop nvcc, also after a failure
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {args.parent}:\n{log}")
+    libs = {"parent": Lib("parent", so), "tree": Lib("tree", build.library_path("smo"))}
 
-    # ------------------------------------------------------------ main path
+    # the main path's fit gives the cheap epoch's state
     x, y = make_multiclass(70000, p=784, n_classes=10, sep=0.07, within=0.06, seed=0)
     xtr, ytr = x[:60000], y[:60000]
-    kp = KernelParams("rbf", gamma=median_gamma(xtr))
-    svm = LPDSVM(kernel=kp, C=1.0, budget=2048, tol=1e-2)
-    smo_epoch_kernel.launches = 0
+    svm = LPDSVM(kernel=KernelParams("rbf", gamma=median_gamma(xtr)), C=1.0,
+                 budget=2048, tol=1e-2)
     svm.fit(xtr, ytr)
-    st = svm.stats
-    out["fit"] = {"stage1_s": st.stage1_seconds, "stage2_s": st.stage2_seconds,
-                  "launches": smo_epoch_kernel.launches,
-                  "epochs_max": int(st.epochs.max())}
-    print(f"main path: stage 1 {st.stage1_seconds:.3f} s, stage 2 "
-          f"{st.stage2_seconds:.3f} s, {smo_epoch_kernel.launches} B2 launches")
-
-    # stage 2 again on the fit's factor: B2 events against the wall
-    fac, tasks = svm.factor, svm.tasks_
-    real = tasks.c > 0
-    events = []
-    orig = dual_solver.smo_epoch
-
-    def timed(*a, full_pass, **kw):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        v = orig(*a, full_pass=full_pass, **kw)
-        e.record()
-        events.append((full_pass, s, e))
-        return v
-
-    dual_solver.smo_epoch = timed
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dual_solver.solve_batch(fac.G, tasks, svm.config)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    dual_solver.smo_epoch = orig
-    ms = [(f, s.elapsed_time(e)) for f, s, e in events]
-    full_ms = sum(t for f, t in ms if f)
-    cheap_ms = sum(t for f, t in ms if not f)
-    n_full = sum(1 for f, _ in ms if f)
-
-    # active rows of every epoch of that solve, replayed with syncs
-    actives = []
-    orig_call = dual_solver.smo_epoch
-
-    def counted(G, q, idx, y, c, alpha, unchanged, w, live, *, full_pass, shrink_k, **kw):
-        act = live[:, None] & (c > 0)
-        if not full_pass:
-            act = act & (unchanged < shrink_k)
-        per = act.sum(1)
-        actives.append((full_pass, int(per.sum()), int(per.max())))
-        return orig_call(G, q, idx, y, c, alpha, unchanged, w, live,
-                         full_pass=full_pass, shrink_k=shrink_k, **kw)
-
-    dual_solver.smo_epoch = counted
-    dual_solver.solve_batch(fac.G, tasks, svm.config)
-    dual_solver.smo_epoch = orig
-    cheap_act = [(s, m) for f, s, m in actives if not f]
-    out["stage2"] = {
-        "wall_s": wall, "events_s": (full_ms + cheap_ms) / 1e3, "launches": len(ms),
-        "full_epochs": n_full, "full_ms_sum": full_ms, "cheap_epochs": len(ms) - n_full,
-        "cheap_ms_sum": cheap_ms,
-        "cheap_active_sum_mean": float(np.mean([s for s, _ in cheap_act])) if cheap_act else 0,
-        "cheap_active_max_task_mean": float(np.mean([m for _, m in cheap_act])) if cheap_act else 0,
-        "cheap_active_sum_max": max((s for s, _ in cheap_act), default=0),
-        "full_active_sum": [s for f, s, _ in actives if f][:3]}
-    print(f"stage 2 again with events: wall {wall:.4f} s, B2 events {out['stage2']['events_s']:.4f} s "
-          f"({len(ms)} launches: {n_full} full {full_ms:.2f} ms, {len(ms) - n_full} cheap "
-          f"{cheap_ms:.2f} ms); cheap-epoch active rows, mean over epochs: "
-          f"{out['stage2']['cheap_active_sum_mean']:.1f} in all tasks, "
-          f"{out['stage2']['cheap_active_max_task_mean']:.1f} in the largest task")
-
-    # ---------------------------------------------------------------- epochs
-    G = fac.G
+    G, tasks = svm.factor.G, svm.tasks_
     T, n_pad = tasks.idx.shape
-    Bp = G.shape[1]
-    live = torch.ones(T, dtype=torch.bool, device=dev)
-    alpha = svm.alpha_
 
-    def state(alpha_, unch_, w_, G_=G):
-        return dict(G=G_, q=(G_ * G_).sum(-1), idx=tasks.idx, y=tasks.y, c=tasks.c,
-                    alpha=alpha_, unchanged=unch_, w=w_, live=live)
+    def state(G_, idx, y_, c, alpha, unch, w):
+        return dict(G=G_, q=(G_ * G_).sum(-1), idx=idx, y=y_, c=c, alpha=alpha,
+                    unchanged=unch, w=w, live=torch.ones(idx.shape[0], dtype=torch.bool,
+                                                         device=dev))
 
     z_a = torch.zeros((T, n_pad), device=dev)
     z_u = torch.zeros((T, n_pad), dtype=torch.int32, device=dev)
-    z_w = torch.zeros((T, Bp), device=dev)
-    at_bound = (alpha <= 0) | (alpha >= tasks.c)
+    z_w = torch.zeros((T, G.shape[1]), device=dev)
+    at_bound = (svm.alpha_ <= 0) | (svm.alpha_ >= tasks.c)
     unch1 = torch.where(at_bound, SHRINK_K, 0).to(torch.int32)
-    n_rows = G.shape[0]
-    row0 = TILE
-    blk = G[row0:row0 + TILE]
+    blk = G[TILE:2 * TILE]
     idx_h, c_h = tasks.idx.cpu().numpy(), tasks.c.cpu().numpy()
-    bw = np.stack([block_windows(idx_h[t][c_h[t] > 0], TILE, -(-n_rows // TILE))
+    bw = np.stack([block_windows(idx_h[t][c_h[t] > 0], TILE, -(-G.shape[0] // TILE))
                    for t in range(T)])[:, 1:3]
     win = dict(lo=torch.as_tensor(bw[:, 0], dtype=torch.int32, device=dev),
-               hi=torch.as_tensor(bw[:, 1], dtype=torch.int32, device=dev), row0=row0)
+               hi=torch.as_tensor(bw[:, 1], dtype=torch.int32, device=dev), row0=TILE)
+    # the wide case: 16 tasks of 4096 sorted distinct rows of a seeded G
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Tw, nw, Bw, rows_w = 16, 4096, 4096, 16384
+    Gw = torch.randn((rows_w, Bw), generator=gen, device=dev) / Bw ** 0.5
+    idx_w = torch.stack([torch.randperm(rows_w, generator=gen, device=dev)[:nw].sort().values
+                         for _ in range(Tw)]).to(torch.int32)
+    y_w = torch.where(torch.rand((Tw, nw), generator=gen, device=dev) < 0.5, -1.0, 1.0)
     cases = {
-        "full": (state(z_a, z_u, z_w), True, {}),
-        "cheap": (state(alpha, unch1, svm.W_), False, {}),
-        "walk": (state(alpha, torch.full_like(z_u, SHRINK_K), svm.W_), False, {}),
-        "window": (state(z_a, z_u, z_w, blk), True, win),
+        "full": (state(G, tasks.idx, tasks.y, tasks.c, z_a, z_u, z_w), True, {}),
+        "cheap": (state(G, tasks.idx, tasks.y, tasks.c, svm.alpha_, unch1, svm.W_),
+                  False, {}),
+        "walk": (state(G, tasks.idx, tasks.y, tasks.c, svm.alpha_,
+                       torch.full_like(z_u, SHRINK_K), svm.W_), False, {}),
+        "window": (state(blk, tasks.idx, tasks.y, tasks.c, z_a, z_u, z_w), True, win),
+        "wide": (state(Gw, idx_w, y_w, torch.ones_like(y_w), torch.zeros_like(y_w),
+                       torch.zeros_like(idx_w), torch.zeros((Tw, Bw), device=dev)),
+                 True, {}),
     }
-    out["cases"] = {"full_rows": int(real.sum()), "cheap_rows": int((~at_bound & real).sum()),
-                    "cheap_rows_max_task": int((~at_bound & real).sum(1).max()),
-                    "window_rows": int((bw[:, 1] - bw[:, 0]).sum())}
-    print(f"cases: {out['cases']}")
+    out["ring_stages"] = {"full": ring_stages(G.shape[1]), "wide": ring_stages(Bw)}
+    out["rows"] = {"full": int((tasks.c > 0).sum()),
+                   "cheap": int((~at_bound & (tasks.c > 0)).sum()),
+                   "window": int((bw[:, 1] - bw[:, 0]).sum()), "wide": Tw * nw}
+    print(f"ring stages {out['ring_stages']}, rows {out['rows']}")
 
-    def runner(lib, case):
-        st0, fp, kw = cases[case]
+    times = {case: {"parent": [], "tree": []} for case in cases}
+    out["bit_equal"] = {}
+    for case, (st0, full_pass, kw) in cases.items():
         work = {}
 
         def reset():
             work.clear()
             work.update({k: v.clone() for k, v in st0.items()})
-        return (lambda: lib(**work, full_pass=fp, **kw)), reset
 
-    order = ["tree"] + [n for n in libs if n not in ("tree", "parent")]
-    if "parent" in libs:
-        order = ["parent", *order, "tree", "parent"]
-    times = {case: {} for case in cases}
-    smi_clk = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-                                "--format=csv,noheader,nounits", "-lms", "200"],
-                               stdout=subprocess.PIPE, text=True)
-    for case in cases:
-        for name in order:
-            fn, reset = runner(libs[name], case)
-            times[case].setdefault(name, []).append(cuda_ms(fn, args.reps, reset))
-    smi_clk.terminate()
-    samples = [line.split(",") for line in smi_clk.communicate()[0].splitlines() if "," in line]
-    out["clocks_sm_mhz"] = sorted(int(float(a)) for a, _ in samples)
-    print(f"SM clock during the epoch timings (MHz, sorted samples): {out['clocks_sm_mhz']}")
+        for name in ("parent", "tree", "tree", "parent"):
+            times[case][name].append(cuda_ms(
+                lambda: libs[name](**work, full_pass=full_pass, **kw), reset))
+        res = []
+        for name in ("tree", "parent"):
+            reset()
+            res.append((dict(work), libs[name](**work, full_pass=full_pass, **kw)))
+        torch.cuda.synchronize()
+        diff = first_difference(*res[0], *res[1])
+        out["bit_equal"][case] = {"bit_equal": diff is None, "first_difference": diff}
+        print(f"{case}: parent " + "/".join(f"{v:.4f}" for v in times[case]["parent"])
+              + ", tree " + "/".join(f"{v:.4f}" for v in times[case]["tree"])
+              + f" ms; bit-equal {diff is None}" + (f" (first: {diff})" if diff else ""))
     out["ms"] = times
-    for case, t in times.items():
-        print(f"{case}: " + ", ".join(f"{n} " + "/".join(f"{v:.4f}" for v in vs)
-                                      for n, vs in t.items()) + " ms")
-
-    # bit-equality of every other build against the tree's
-    eq = {}
-    for name in libs:
-        if name == "tree":
-            continue
-        for case, (st0, fp, kw) in cases.items():
-            res = []
-            for lib in (libs["tree"], libs[name]):
-                s = {k: v.clone() for k, v in st0.items()}
-                v = lib(**s, full_pass=fp, **kw)
-                res.append((s, v))
-            torch.cuda.synchronize()
-            (a, va), (b, vb) = res
-            same, first = True, None
-            for key in ("alpha", "unchanged", "w"):
-                if not torch.equal(a[key], b[key]):
-                    same = False
-                    bad = (a[key] != b[key]).nonzero()[0].tolist()
-                    first = first or f"{key}{bad}: {a[key][tuple(bad)].item()!r} vs {b[key][tuple(bad)].item()!r}"
-            if not torch.equal(va, vb):
-                same = False
-                bad = int((va != vb).nonzero()[0])
-                first = first or f"viol[{bad}]: {va[bad].item()!r} vs {vb[bad].item()!r}"
-            eq[f"{name} {case}"] = {"bit_equal": same, "first_difference": first}
-            print(f"{name} vs tree, {case}: bit-equal {same}" + (f" (first: {first})" if first else ""))
-    out["bit_equal"] = eq
 
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(out, indent=1))
     print(json.dumps(out))
-    return 0
+    return 0 if all(v["bit_equal"] for v in out["bit_equal"].values()) else 1
 
 
 if __name__ == "__main__":
