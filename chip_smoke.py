@@ -7,12 +7,13 @@ Phases, each printed as ``[phase] start`` ... ``[phase] ok in N s``; any
 failure raises and exits non-zero, nothing is caught and carried on:
 
   device        card name and power limit (nvidia-smi), torch and CUDA versions
-  build         nvcc builds kernels B1 and B3 (gram.cu), B2 (smo.cu) and B4
-                (flash_attention.cu) from src/repro_torch/kernels/csrc, in
-                parallel; B4's registers, spills and shared memory (ptxas) and
-                the HGMMA count of each body (cuobjdump -sass): no spills, and
-                the bf16 body on the tensor cores; B2's registers and spills
-                at each ring depth: no spills
+  build         nvcc builds kernels B1 (gram.cu), B3 (gram_q8.cu), B2 (smo.cu)
+                and B4 (flash_attention.cu) from src/repro_torch/kernels/csrc,
+                in parallel; B4's registers, spills and shared memory (ptxas)
+                and the HGMMA count of each body (cuobjdump -sass): no spills,
+                and the bf16 body on the tensor cores; B3's registers, spills
+                and HGMMA count: no spills, on the tensor cores; B2's
+                registers and spills at each ring depth: no spills
   B4 vs plain   flash-attention kernel against its plain version: causal and
                 not, S in {1, 63, 64, 127, 128, 129, 255, 257, 1000}, (Hq, Hkv)
                 in {(4, 4), (16, 8), (32, 4), (16, 2)}, D in {64, 128}, fp32 and
@@ -42,7 +43,9 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 cheap epoch's active rows and ns per active row; stage 2
                 solved again on the main path's factor with CUDA events
                 around every B2 launch: their sum against the wall time
-  B3 vs plain, chunk shape        B3 at the streamed stage-1 chunk shape
+  B3 vs plain, chunk shape        B3 at the streamed stage-1 chunk shape; its
+                pre-pass's bf16 pieces of the landmarks bit-equal to
+                split_bf16x3 on the CPU
   streamed path LPDSVM(stream_config=StreamConfig(256 MiB, int8 stage 1))
                 .fit -> predict on the main path's data: both stages routed to
                 streaming, counts reset just before and read just after,
@@ -51,10 +54,12 @@ failure raises and exits non-zero, nothing is caught and carried on:
   windowed B2 vs plain            B2's window form on one streamed G block
   timing, streamed kernels        B3 at the chunk shape and windowed B2 on
                 one block, beside plain versions, library calls and bounds
+                (B3's by its bf16 passes, the CUDA-core figure beside it)
   streamed stage 1 at scale       1,000,000 x 784 rows (mnist8m's shape, cut
                 from 8.1 M rows), default StreamConfig, f32 and int8 wires:
                 counts reset around each wire, B1 and B3 against their plain
-                versions on its first chunk, G rows against the plain path
+                versions on its first chunk (B3 also timed there), G rows
+                against the plain path
   streamed vs monolithic, one factor   the main path's factor, moved to
                 pinned host memory, through the streamed stage 2 against the
                 main path's own solve: q, epochs, alphas, dual objective
@@ -87,10 +92,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 on the CUDA
-# cores and HBM3 bandwidth.  Tensor cores are not counted: fp32 there is TF32.
+# cores, HBM3 bandwidth, and the dense tensor cores in bf16 (B4, B3's exact
+# bf16 passes) and TF32 (B1's product in fp32 accuracy as 3 TF32 passes).
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-PEAK_BF16_FLOPS = 989e12         # dense tensor cores: the yardstick of B4's bf16 bound
+PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 
 RAGGED = [(130, 70, 33), (17, 300, 1100), (128, 128, 512), (256, 128, 512)]
 GRAM_RTOL = GRAM_ATOL = 2e-4     # fp32 sums in two orders (as tests/test_kernels_pallas.py)
@@ -179,8 +186,8 @@ def cuda_ms_back_to_back(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound_ms(flops: float, nbytes: float):
-    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    ops_ms = flops / peak * 1e3
     bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -190,11 +197,29 @@ def gram_bound(n: int, m: int, p: int):
     return bound_ms(2.0 * n * m * p + 2.0 * (n + m) * p, 4.0 * (n * p + m * p + n * m))
 
 
+def gram_bound_tensor_cores(n: int, m: int, p: int):
+    # B1's product in fp32 accuracy on the tensor cores: 3 TF32 passes (or
+    # 6 bf16 at 989, the same time); the bytes as gram_bound's
+    return bound_ms(3 * 2.0 * n * m * p, 4.0 * (n * p + m * p + n * m), PEAK_TF32_FLOPS)
+
+
+def q8_bytes(n: int, m: int, p: int, n_groups: int) -> float:
+    # codes once, 8 bytes of table per group, z once, K written once
+    return 1.0 * n * p + 8.0 * n_groups + 4.0 * (m * p + n * m)
+
+
 def gram_q8_bound(n: int, m: int, p: int, n_groups: int):
-    # as B1, plus one dequantising FMA per element of x in each of the two
-    # passes; x read once as int8 codes with 8 bytes of table per group
+    # B3's product as computed: three exact bf16 passes (codes times each
+    # piece of z) on the tensor cores
+    return bound_ms(3 * 2.0 * n * m * p, q8_bytes(n, m, p, n_groups), PEAK_BF16_FLOPS)
+
+
+def gram_q8_bound_cuda_cores(n: int, m: int, p: int, n_groups: int):
+    # the same function as one fp32 pass on the CUDA cores (B3's bound
+    # before it moved to the tensor cores): the product, the norm passes,
+    # one dequantising FMA per code in each
     return bound_ms(2.0 * n * m * p + 2.0 * (n + m) * p + 2.0 * n * p,
-                    1.0 * n * p + 8.0 * n_groups + 4.0 * (m * p + n * m))
+                    q8_bytes(n, m, p, n_groups))
 
 
 def flash_bound(B: int, S: int, Hq: int, Hkv: int, D: int, dtype, causal: bool = True):
@@ -227,12 +252,10 @@ def ptxas_entries(log: str, key: str) -> dict:
     return ptxas
 
 
-def flash_build_report(log: str, lib: Path, smem_bytes) -> list:
-    """B4's instantiations: registers and spilled bytes from ptxas's log, the
-    dynamic shared memory of a block, and the HGMMA (wgmma) instructions in
-    each one's SASS (``cuobjdump -sass`` of the built library)."""
+def sass_hgmma(lib: Path) -> dict:
+    """HGMMA (wgmma) instructions of each function in the SASS of a built
+    library (``cuobjdump -sass``), by mangled name."""
     from repro_torch.kernels import build
-    ptxas = ptxas_entries(log, "flash_fwd")
     sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(lib)], check=True,
                           capture_output=True, text=True, timeout=300).stdout
     hgmma, name = {}, None
@@ -242,6 +265,15 @@ def flash_build_report(log: str, lib: Path, smem_bytes) -> list:
             name = found.group(1)
         elif name and "HGMMA" in line:
             hgmma[name] = hgmma.get(name, 0) + 1
+    return hgmma
+
+
+def flash_build_report(log: str, lib: Path, smem_bytes) -> list:
+    """B4's instantiations: registers and spilled bytes from ptxas's log, the
+    dynamic shared memory of a block, and the HGMMA (wgmma) instructions in
+    each one's SASS."""
+    ptxas = ptxas_entries(log, "flash_fwd")
+    hgmma = sass_hgmma(lib)
     report = []
     for name, r in ptxas.items():
         tensor_cores = "2tc9flash_fwd" in name
@@ -287,7 +319,8 @@ def main() -> int:
     from repro_torch.data import make_multiclass
     from repro_torch.kernels import build
     from repro_torch.kernels.gram import (gram_kernel, gram_plain,
-                                          gram_q8_kernel, gram_q8_plain)
+                                          gram_q8_kernel, gram_q8_plain,
+                                          split_bf16x3, split_bf16x3_kernel)
     from repro_torch.kernels.smo import ring_stages, smo_epoch_kernel, smo_epoch_plain
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (bf16_kv_tile, flash_attention_kernel,
@@ -327,6 +360,19 @@ def main() -> int:
               "B4's bf16 body has no HGMMA: it does not run on the tensor cores")
         kv_tile = bf16_kv_tile()
         print(f"B4's bf16 kv tile: {kv_tile}")
+        b3_build = ptxas_entries(logs["gram_q8"], "gram_q8")
+        b3_build.update(ptxas_entries(logs["gram_q8"], "prepass"))
+        b3_hgmma = sass_hgmma(build.library_path("gram_q8"))
+        for name, r in sorted(b3_build.items()):
+            print(f"B3 {name}: {r.get('registers')} registers, {r.get('spills')} bytes "
+                  f"spilled, {b3_hgmma.get(name, 0)} HGMMA in its SASS")
+        b3_main = [name for name in b3_build if "gram_q8_tc" in name]
+        check(len(b3_main) == 2 and len(b3_build) > 2
+              and all(r.get("spills") is not None for r in b3_build.values()),
+              "B3's ptxas report is missing from the build log")
+        check(all(r["spills"] == 0 for r in b3_build.values()), "B3 spills registers")
+        check(all(b3_hgmma.get(name, 0) > 0 for name in b3_main),
+              "B3 has no HGMMA: it does not run on the tensor cores")
         b2_build = {tuple(map(int, re.search(r"smo_epochILi(\d+)ELi(\d+)E", name).groups())): r
                     for name, r in ptxas_entries(logs["smo"], "smo_epoch").items()}
         for (depth, cols), r in sorted(b2_build.items()):
@@ -666,9 +712,13 @@ def main() -> int:
         g_bound, g_by = gram_bound(n, m, p)
         pr_ms = cuda_ms(lambda: gram_kernel(xte_d, lm, kp), 10)
         pr_bound, _ = gram_bound(xte_d.shape[0], m, p)
+        g_bound_tc, _ = gram_bound_tensor_cores(n, m, p)
+        pr_bound_tc, _ = gram_bound_tensor_cores(xte_d.shape[0], m, p)
         print(f"gram {n}x{m}x{p}: {g_ms:.3f} ms (plain {g_plain:.3f}, library "
-              f"{g_lib:.3f}, bound {g_bound:.3f} by {g_by}); predict shape "
-              f"{xte_d.shape[0]}x{m}x{p}: {pr_ms:.3f} ms (bound {pr_bound:.3f})")
+              f"{g_lib:.3f}, bound {g_bound:.3f} by {g_by} on the CUDA cores, "
+              f"{g_bound_tc:.4f} for 3 TF32 passes on the tensor cores); predict "
+              f"shape {xte_d.shape[0]}x{m}x{p}: {pr_ms:.3f} ms (bound {pr_bound:.3f} "
+              f"on the CUDA cores, {pr_bound_tc:.4f} on the tensor cores)")
 
         work = {}
 
@@ -761,6 +811,19 @@ def main() -> int:
         v_d, sc_d = torch.as_tensor(v, device=dev), torch.as_tensor(sc, device=dev)
         q8_err = max(q8_err, compare_gram_q8(
             v_d, sc_d, lm, kp, group, f"stage-1 chunk {chunk}x{budget}x{p_tr}"))
+        # the pre-pass's exact split of the landmarks, against the CPU's
+        pieces, pow2 = split_bf16x3_kernel(lm)
+        want, want_pow2 = split_bf16x3(lm.cpu())
+        same = (torch.equal(pieces[:, :, :p_tr].cpu().view(torch.int16),
+                            want.view(torch.int16))
+                and not bool(pieces[:, :, p_tr:].float().any())
+                and torch.equal(pow2.cpu(), want_pow2))
+        exact = torch.equal(want.double().sum(0) * want_pow2.double()[:, None],
+                            lm.cpu().double())
+        print(f"B3 pre-pass pieces of the {budget} landmarks bit-equal to "
+              f"split_bf16x3 {same}; their sum times 2^e equal to the landmarks {exact}")
+        check(same and exact, "B3's pre-pass does not split z exactly as split_bf16x3")
+        del pieces, pow2, want, want_pow2
 
     def peak_start() -> int:
         torch.cuda.synchronize()
@@ -933,9 +996,13 @@ def main() -> int:
         xc_d = torch.as_tensor(xtr[:chunk], device=dev)
         b1_chunk = cuda_ms(lambda: gram_kernel(xc_d, lm, kp), 10)
         q8_bound, q8_by = gram_q8_bound(chunk, budget, p_tr, sc.shape[0])
-        print(f"gram_q8 {chunk}x{budget}x{p_tr}: {q8_ms:.3f} ms (plain {q8_plain:.3f}, "
-              f"library {q8_lib:.3f}, bound {q8_bound:.3f} by {q8_by}); B1 on the "
-              f"same chunk in fp32 {b1_chunk:.3f} ms")
+        q8_bound_cc, _ = gram_q8_bound_cuda_cores(chunk, budget, p_tr, sc.shape[0])
+        q8_b2b = cuda_ms_back_to_back(lambda: gram_q8_kernel(v_d, sc_d, lm, kp, group), 50)
+        print(f"gram_q8 {chunk}x{budget}x{p_tr}: {q8_ms:.4f} ms alone, {q8_b2b:.4f} back "
+              f"to back (plain {q8_plain:.3f}, library {q8_lib:.3f}, bound {q8_bound:.4f} "
+              f"by {q8_by} for 3 bf16 passes on the tensor cores, {q8_bound_cc:.3f} as one "
+              f"fp32 pass on the CUDA cores; {100 * q8_bound / q8_ms:.1f}% of the bound); "
+              f"B1 on the same chunk in fp32 {b1_chunk:.3f} ms")
         check(torch.allclose(q8_library(), gram_q8_plain(v_d, sc_d, lm, kp, group),
                              rtol=GRAM_RTOL, atol=GRAM_ATOL),
               "the B3 library yardstick computes another function")
@@ -1021,9 +1088,20 @@ def main() -> int:
             xc_d, lm_b, kpb, f"stage-1 chunk at scale {chunk_b}x{budget}x{xb.shape[1]}"))
         del xc_d
         v, sc = quantize_rows(xb[:chunk_b], cfg_b.quant_group_rows, symmetric=True)
+        vb_d, scb_d = torch.as_tensor(v, device=dev), torch.as_tensor(sc, device=dev)
+        g_b = cfg_b.quant_group_rows
         q8_err = max(q8_err, compare_gram_q8(
-            torch.as_tensor(v, device=dev), torch.as_tensor(sc, device=dev), lm_b,
-            kpb, cfg_b.quant_group_rows, f"stage-1 chunk at scale {chunk_b}x{budget}x{xb.shape[1]}"))
+            vb_d, scb_d, lm_b, kpb, g_b,
+            f"stage-1 chunk at scale {chunk_b}x{budget}x{xb.shape[1]}"))
+        q8b_ms = cuda_ms(lambda: gram_q8_kernel(vb_d, scb_d, lm_b, kpb, g_b), 10)
+        q8b_plain = cuda_ms(lambda: gram_q8_plain(vb_d, scb_d, lm_b, kpb, g_b), 3)
+        q8b_bound, q8b_by = gram_q8_bound(chunk_b, budget, xb.shape[1], sc.shape[0])
+        q8b_bound_cc, _ = gram_q8_bound_cuda_cores(chunk_b, budget, xb.shape[1], sc.shape[0])
+        print(f"gram_q8 at scale {chunk_b}x{budget}x{xb.shape[1]}: {q8b_ms:.4f} ms (plain "
+              f"{q8b_plain:.3f}, bound {q8b_bound:.4f} by {q8b_by} for 3 bf16 passes, "
+              f"{q8b_bound_cc:.3f} as one fp32 pass on the CUDA cores; "
+              f"{100 * q8b_bound / q8b_ms:.1f}% of the bound)")
+        del vb_d, scb_d
         d = (scale["int8"][0] - scale["f32"][0]).abs()
         print(f"int8 G vs f32 G on {len(sample)} rows: max abs diff "
               f"{d.max().item():.3e} (max 0.05), mean {d.mean().item():.3e} (max "
@@ -1206,7 +1284,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/gram.cu",
          "replaces": "src/repro/kernels/gram.py:70", "launches": launches["gram"],
          "max_abs_err": gram_err, "ms": g_ms, "plain_ms": g_plain,
-         "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib},
+         "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib,
+         "bound_ms_tensor_cores": g_bound_tc},
         {"name": "smo_epoch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/smo.cu",
          "replaces": "src/repro/kernels/smo.py:100",
@@ -1214,11 +1293,13 @@ def main() -> int:
          "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
          "library_ms": None, "ms_cheap": cheap_ms},
         {"name": "gram_q8", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/gram.cu",
+         "source": "src/repro_torch/kernels/csrc/gram_q8.cu",
          "replaces": "src/repro/kernels/gram.py:157",
          "launches": s_launches["gram_q8"], "max_abs_err": q8_err, "ms": q8_ms,
          "plain_ms": q8_plain, "bound_ms": q8_bound, "bound_by": q8_by,
-         "library_ms": q8_lib},
+         "library_ms": q8_lib, "bound_ms_cuda_cores": q8_bound_cc,
+         "ms_back_to_back": q8_b2b, "ms_at_scale": q8b_ms,
+         "bound_ms_at_scale": q8b_bound},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:68",

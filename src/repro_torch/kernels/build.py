@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("gram", "smo", "flash_attention")
+KERNELS = ("gram", "gram_q8", "smo", "flash_attention")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

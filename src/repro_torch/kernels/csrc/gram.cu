@@ -1,19 +1,10 @@
-// Kernels B1 and B3: batch kernel (gram) matrix K[i, j] = k(x_i, z_j), fp32.
+// Kernel B1: batch kernel (gram) matrix K[i, j] = k(x_i, z_j), fp32.
 //
-// B1 replaces the TPU kernel src/repro/kernels/gram.py:70 (gram_pallas): a
+// Replaces the TPU kernel src/repro/kernels/gram.py:70 (gram_pallas): a
 // tiled X @ Z^T whose epilogue (rbf / linear / poly / tanh) is applied to the
 // accumulator in registers before the tile is written, so the (n, m) inner
-// products never reach device memory.
-//
-// B3 replaces src/repro/kernels/gram.py:157 (gram_pallas_q8): the same tiles
-// with x arriving as int8 codes plus the compact (ng, 2) fp32 scale/zero
-// table of the codec (core/quant.py), one entry per `group` rows.  Each code
-// is dequantised in the tile load, x = q * s[row / group] + z0[row / group]
-// (one fmaf), and the RBF row norms come from the same dequantised values, so
-// no fp32 copy of x is ever written to device memory and the table is never
-// expanded per row.  Both kernels are one body, templated on the loader of
-// the x operand (XF32 for B1, XQ8 for B3): the product, the masking and the
-// epilogue are shared, and B1's arithmetic is what it was.
+// products never reach device memory.  (B3, the same function with x as int8
+// codes, is gram_q8.cu.)
 //
 // Design: SIMT fp32 on the CUDA cores.  A 256-thread block owns a 128 x 128
 // output tile; each thread keeps an 8 x 8 register micro-tile (two 4-wide
@@ -21,18 +12,16 @@
 // The p axis is walked in steps of 8 through two shared-memory buffers: the
 // next step's tile is fetched into registers while the current one is
 // multiplied, one __syncthreads per step.  Ragged n, m and p edges are masked
-// in the loads and stores (a masked element is an exact 0, also for B3, so an
-// affine zero-point never leaks into a padded column), and the caller pads
-// nothing.  For the RBF epilogue a tiny pre-pass (one warp per row) writes
-// the squared row norms.
+// in the loads and stores, and the caller pads nothing.  For the RBF epilogue
+// a tiny pre-pass (one warp per row) writes the squared row norms.
 //
-// Bound on the H100, both kernels: fp32 operations, 2 n m p FLOP over the
-// 67 TFLOP/s of the CUDA cores.  B3's bytes, n p (int8) + 8 ng + 4 m p +
-// 4 n m, are smaller still than B1's.  The accumulation stays in full fp32
-// on purpose: tensor cores would mean TF32, and the RBF form
-// ||x||^2 + ||z||^2 - 2 x.z cancels badly near the diagonal.  Faster designs
-// (wgmma with 3xTF32 splitting, TMA loads, a persistent schedule) are later
-// work.
+// Bound on the H100: fp32 operations, 2 n m p FLOP over the 67 TFLOP/s of
+// the CUDA cores.  The accumulation stays in full fp32 on purpose: tensor
+// cores would mean TF32, and the RBF form ||x||^2 + ||z||^2 - 2 x.z cancels
+// badly near the diagonal.  The same fp32-accurate product on the tensor
+// cores (3xTF32 or, as B3 does for its codes, z split into exact bf16
+// pieces) would be bounded by 3 x 2 n m p FLOP at 495 TFLOP/s; that design,
+// TMA loads and a persistent schedule are later work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,7 +34,7 @@ constexpr int THREADS = 256;
 
 enum Kind { RBF = 0, LINEAR = 1, POLY = 2, TANH = 3 };   // order of KERNELS
 
-// Loader of fp32 rows (x of B1, z of both).  `row(i)` binds one row; its
+// Loader of fp32 rows (x and z).  `row(i)` binds one row; its
 // `at(k)` reads one element and `fetch4` four consecutive ones, 0 outside p.
 struct XF32 {
   const float* __restrict__ x;
@@ -70,48 +59,11 @@ struct XF32 {
   __device__ __forceinline__ Row row(long i) const { return Row{x + i * (long)p}; }
 };
 
-// Loader of int8 rows with the compact scale table: scales[2 g] is the scale
-// and scales[2 g + 1] the zero of rows g * group .. g * group + group - 1.
-struct XQ8 {
-  const int8_t* __restrict__ q;
-  const float* __restrict__ scales;
-  int group;
-  int p;
-  struct Row {
-    const int8_t* r;
-    float s, z0;
-    __device__ __forceinline__ float at(int k) const {
-      return fmaf((float)r[k], s, z0);
-    }
-    // VEC4: p % 4 == 0 and a 4-byte aligned base: one char4 load.
-    template <bool VEC4>
-    __device__ __forceinline__ void fetch4(bool in, int k, int p, float v[4]) const {
-      if (VEC4) {
-        const char4 a = (in && k < p) ? *reinterpret_cast<const char4*>(r + k)
-                                      : make_char4(0, 0, 0, 0);
-        const bool ok = in && k < p;
-        v[0] = ok ? fmaf((float)a.x, s, z0) : 0.f;
-        v[1] = ok ? fmaf((float)a.y, s, z0) : 0.f;
-        v[2] = ok ? fmaf((float)a.z, s, z0) : 0.f;
-        v[3] = ok ? fmaf((float)a.w, s, z0) : 0.f;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = (in && k + e < p) ? at(k + e) : 0.f;
-      }
-    }
-  };
-  __device__ __forceinline__ Row row(long i) const {
-    const long g = i / group;
-    return Row{q + i * (long)p, scales[2 * g], scales[2 * g + 1]};
-  }
-};
-
-template <class L>
-__global__ void row_sqnorm(L rows, int n, int p, float* __restrict__ out) {
+__global__ void row_sqnorm(XF32 rows, int n, int p, float* __restrict__ out) {
   const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= n) return;
-  const typename L::Row r = rows.row(warp);
+  const XF32::Row r = rows.row(warp);
   float s = 0.f;
   for (int k = lane; k < p; k += 32) {
     const float v = r.at(k);
@@ -142,9 +94,9 @@ __device__ __forceinline__ float epilogue(float dot, float xsq, float zsq,
   }
 }
 
-template <bool VEC4, class L>
+template <bool VEC4>
 __global__ void __launch_bounds__(THREADS)
-gram_tiles(L xl, const float* __restrict__ z,
+gram_tiles(XF32 xl, const float* __restrict__ z,
            const float* __restrict__ xsq, const float* __restrict__ zsq,
            float* __restrict__ out, int n, int m, int p,
            int kind, float gamma, float coef0, int degree) {
@@ -159,13 +111,13 @@ gram_tiles(L xl, const float* __restrict__ z,
   // Loader role: thread tid brings 4 consecutive p-elements of tile row lr.
   const int lr = tid >> 1, lk = (tid & 1) * 4;
   const bool xin = row0 + lr < n, zin = col0 + lr < m;
-  const typename L::Row xrow = xl.row(xin ? row0 + lr : 0);
+  const XF32::Row xrow = xl.row(xin ? row0 + lr : 0);
   const XF32::Row zrow = XF32{z, p}.row(zin ? col0 + lr : 0);
   float xv[4], zv[4];
 
   auto fetch = [&](int k0) {
     const int k = k0 + lk;
-    xrow.template fetch4<VEC4>(xin, k, p, xv);
+    xrow.fetch4<VEC4>(xin, k, p, xv);
     zrow.fetch4<VEC4>(zin, k, p, zv);
   };
   auto stash = [&](int buf) {
@@ -227,27 +179,26 @@ gram_tiles(L xl, const float* __restrict__ z,
 
 // The norms pre-pass (RBF only), then the tiles; `vec4` selects the vector
 // loads.  Returns cudaGetLastError() after each launch (0 = launched).
-template <class L>
-int launch(L xl, const float* z, float* xsq, float* zsq, float* out, int n,
+int launch(XF32 xl, const float* z, float* xsq, float* zsq, float* out, int n,
            int m, int p, int kind, float gamma, float coef0, int degree,
            bool vec4, cudaStream_t s) {
   if (n <= 0 || m <= 0) return 0;
   const int rows_per_block = THREADS / 32;
   if (kind == RBF) {
-    row_sqnorm<L><<<(n + rows_per_block - 1) / rows_per_block, THREADS, 0, s>>>(xl, n, p, xsq);
+    row_sqnorm<<<(n + rows_per_block - 1) / rows_per_block, THREADS, 0, s>>>(xl, n, p, xsq);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    row_sqnorm<XF32><<<(m + rows_per_block - 1) / rows_per_block, THREADS, 0, s>>>(
+    row_sqnorm<<<(m + rows_per_block - 1) / rows_per_block, THREADS, 0, s>>>(
         XF32{z, p}, m, p, zsq);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((n + BM - 1) / BM, (m + BN - 1) / BN);
   if (vec4)
-    gram_tiles<true, L><<<grid, THREADS, 0, s>>>(xl, z, xsq, zsq, out, n, m, p,
+    gram_tiles<true><<<grid, THREADS, 0, s>>>(xl, z, xsq, zsq, out, n, m, p,
                                               kind, gamma, coef0, degree);
   else
-    gram_tiles<false, L><<<grid, THREADS, 0, s>>>(xl, z, xsq, zsq, out, n, m, p,
+    gram_tiles<false><<<grid, THREADS, 0, s>>>(xl, z, xsq, zsq, out, n, m, p,
                                                kind, gamma, coef0, degree);
   return cudaGetLastError();
 }
@@ -269,18 +220,4 @@ extern "C" int gram_launch(const float* x, const float* z, float* xsq,
   const bool vec4 = p % 4 == 0 && aligned(x, 16) && aligned(z, 16);
   return launch(XF32{x, p}, z, xsq, zsq, out, n, m, p, kind, gamma, coef0,
                 degree, vec4, static_cast<cudaStream_t>(stream));
-}
-
-// Kernel B3.  q (n, p) int8 codes, scales (ceil(n / group), 2) fp32 (scale,
-// zero) per group of rows, z (m, p) fp32, out (n, m) fp32, all contiguous on
-// the current device; xsq, zsq and the return value as for gram_launch.
-extern "C" int gram_q8_launch(const int8_t* q, const float* scales, int group,
-                              const float* z, float* xsq, float* zsq,
-                              float* out, int n, int m, int p, int kind,
-                              float gamma, float coef0, int degree,
-                              void* stream) {
-  if (group <= 0) return cudaErrorInvalidValue;
-  const bool vec4 = p % 4 == 0 && aligned(q, 4) && aligned(z, 16);
-  return launch(XQ8{q, scales, group, p}, z, xsq, zsq, out, n, m, p, kind,
-                gamma, coef0, degree, vec4, static_cast<cudaStream_t>(stream));
 }

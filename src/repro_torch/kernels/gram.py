@@ -3,13 +3,16 @@ versions.
 
 ``gram_kernel`` launches B1 in ``csrc/gram.cu`` (it replaces the TPU kernel
 ``src/repro/kernels/gram.py:70``, ``gram_pallas``); ``gram_q8_kernel``
-launches B3, the same body with x arriving as int8 codes and the compact
-scale table of the int8 codec (it replaces ``gram_pallas_q8``,
-``src/repro/kernels/gram.py:157``).  ``gram_plain`` / ``gram_q8_plain`` are
-the same functions in PyTorch ops, the reference's arithmetic written out.
-The plain versions serve CPU tensors and the comparisons; nothing on the CUDA
-path calls them.  ``params`` is any object with ``kind``, ``gamma``,
-``coef0`` and ``degree`` (``core.kernel_fn.KernelParams``).
+launches B3 in ``csrc/gram_q8.cu``, the same function with x arriving as
+int8 codes and the compact scale table of the int8 codec, on the tensor
+cores (it replaces ``gram_pallas_q8``, ``src/repro/kernels/gram.py:157``).
+``gram_plain`` / ``gram_q8_plain`` are the same functions in PyTorch ops,
+the reference's arithmetic written out.  The plain versions serve CPU
+tensors and the comparisons; nothing on the CUDA path calls them.
+``split_bf16x3`` is B3's pre-pass in PyTorch (z split exactly into three
+bf16 pieces), for the tests and ``chip_smoke.py``.  ``params`` is any object
+with ``kind``, ``gamma``, ``coef0`` and ``degree``
+(``core.kernel_fn.KernelParams``).
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ import torch
 from repro_torch.kernels import build
 
 KERNELS = ("rbf", "linear", "poly", "tanh")   # index = kind code in gram.cu
-MAX_TILES = 65535                             # gridDim.y limit, 128 z rows each
+MAX_TILES = 65535                             # B1: gridDim.y limit, 128 z rows each
+Q8_TILE = (192, 128, 64)                      # B3: rows of x, rows of z, k per tile
 
 
 def apply_epilogue(dot: torch.Tensor, x_sq: torch.Tensor, z_sq: torch.Tensor,
@@ -62,8 +66,30 @@ def gram_q8_plain(values: torch.Tensor, scales: torch.Tensor, z: torch.Tensor,
     return gram_plain(dequant_rows(values, scales, group), z, params)
 
 
-def _launcher(name: str, argtypes):
-    fn = getattr(build.load("gram"), name)
+def split_bf16x3(z: torch.Tensor):
+    """B3's pre-pass in PyTorch: each row of fp32 z (m, p) scaled by 2^-e_j,
+    which brings its largest |z| into [1, 2), then split into three bf16
+    pieces w1 = bf16(w), w2 = bf16(w - w1), w3 = bf16(w - w1 - w2).  Returns
+    the pieces (3, m, p) bf16 and the powers 2^e_j (m,) fp32, so that
+    (w1 + w2 + w3) 2^e_j == z exactly for every element within 2^110 of its
+    row's largest (subnormals included; a zero may come back as +0).  A row
+    that is all zero or holds an infinity keeps e_j = 0."""
+    z = z.to(torch.float32)
+    # the largest |z| of each row, NaN ignored (as the kernel's fmaxf does)
+    mag = z.abs().masked_fill(z.isnan(), 0.0)
+    mag = mag.amax(dim=1) if z.shape[1] else mag.new_zeros(z.shape[0])
+    e = torch.frexp(mag.double())[1] - 1
+    e = torch.where((mag > 0) & torch.isfinite(mag), e, torch.zeros_like(e))
+    w = (z.double() * torch.pow(2.0, -e.double())[:, None]).float()   # exact
+    w1 = w.to(torch.bfloat16)
+    r1 = w - w1.float()
+    w2 = r1.to(torch.bfloat16)
+    w3 = (r1 - w2.float()).to(torch.bfloat16)
+    return torch.stack([w1, w2, w3]), torch.pow(2.0, e.double()).float()
+
+
+def _launcher(lib: str, name: str, argtypes):
+    fn = getattr(build.load(lib), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -72,12 +98,26 @@ def _launcher(name: str, argtypes):
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GRAM_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P]
-_GRAM_Q8_ARGS = [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P]
+_GRAM_Q8_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P]
+_SPLIT_ARGS = [_P, _P, _P, _I, _I, _I, _P]
 
 
 def _check_grid(name: str, n: int, m: int, p: int) -> None:
     if -(-m // 128) > MAX_TILES or max(n, m, p) >= 2 ** 31:
         raise ValueError(f"{name}: ({n}, {m}, {p}) exceeds the launch grid")
+
+
+def _q8_padded(p: int) -> int:
+    """B3's scratch width: p rounded up to its k tile (at least one tile)."""
+    k = Q8_TILE[2]
+    return max(1, -(-p // k)) * k
+
+
+def _check_q8_grid(n: int, m: int, p: int) -> None:
+    """B3's grid is one dimension of (128-row x tile, 128-row z tile) pairs."""
+    bm, bn, _ = Q8_TILE
+    if -(-n // bm) * -(-m // bn) >= 2 ** 31 or max(n, m, _q8_padded(p)) >= 2 ** 31:
+        raise ValueError(f"gram_q8_kernel: ({n}, {m}, {p}) exceeds the launch grid")
 
 
 def gram_kernel(x: torch.Tensor, z: torch.Tensor, params) -> torch.Tensor:
@@ -97,7 +137,7 @@ def gram_kernel(x: torch.Tensor, z: torch.Tensor, params) -> torch.Tensor:
     norms = torch.empty((n + m,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher("gram_launch", _GRAM_ARGS)(
+        err = _launcher("gram", "gram_launch", _GRAM_ARGS)(
             x.data_ptr(), z.data_ptr(), norms.data_ptr(), norms[n:].data_ptr(),
             out.data_ptr(), n, m, p, KERNELS.index(params.kind),
             float(params.gamma), float(params.coef0), int(params.degree), stream)
@@ -115,7 +155,9 @@ def gram_q8_kernel(values: torch.Tensor, scales: torch.Tensor, z: torch.Tensor,
     """Launch kernel B3 on CUDA tensors: int8 codes (n, p), the compact
     (ceil(n / group), 2) fp32 scale table and fp32 z (m, p); returns the
     (n, m) fp32 matrix.  Ragged n, m and p are masked in the kernel, so any
-    codec (affine or symmetric) gives K(dequant(values), z)."""
+    codec (affine or symmetric) gives K(dequant(values), z).  Its scratch,
+    z's pieces (3, m, p rounded up to 64) bf16 and (3 m + n) fp32 of row
+    tables, is allocated here, per call."""
     if not (values.is_cuda and scales.is_cuda and z.is_cuda
             and values.device == scales.device == z.device):
         raise ValueError("gram_q8_kernel: values, scales and z must be CUDA "
@@ -132,19 +174,21 @@ def gram_q8_kernel(values: torch.Tensor, scales: torch.Tensor, z: torch.Tensor,
     if group < 1 or tuple(scales.shape) != (-(-n // group), 2):
         raise ValueError(f"gram_q8_kernel: scales {tuple(scales.shape)} do not "
                          f"cover {n} rows in groups of {group}")
-    _check_grid("gram_q8_kernel", n, m, p)
+    _check_q8_grid(n, m, p)
     values = values.contiguous()
     scales = scales.contiguous()
     z = z.contiguous()
+    p_pad = _q8_padded(p)
     out = torch.empty((n, m), dtype=torch.float32, device=z.device)
-    norms = torch.empty((n + m,), dtype=torch.float32, device=z.device)
+    pieces = torch.empty((3, m, p_pad), dtype=torch.bfloat16, device=z.device)
+    tables = torch.empty((3 * m + n,), dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher("gram_q8_launch", _GRAM_Q8_ARGS)(
+        err = _launcher("gram_q8", "gram_q8_launch", _GRAM_Q8_ARGS)(
             values.data_ptr(), scales.data_ptr(), int(group), z.data_ptr(),
-            norms.data_ptr(), norms[n:].data_ptr(), out.data_ptr(), n, m, p,
-            KERNELS.index(params.kind), float(params.gamma),
-            float(params.coef0), int(params.degree), stream)
+            pieces.data_ptr(), tables.data_ptr(), tables[3 * m:].data_ptr(),
+            out.data_ptr(), n, m, p, p_pad, KERNELS.index(params.kind),
+            float(params.gamma), float(params.coef0), int(params.degree), stream)
     if err != 0:
         raise RuntimeError(f"gram_q8_kernel: launch failed with CUDA error {err}")
     gram_q8_kernel.launches += 1
@@ -152,3 +196,24 @@ def gram_q8_kernel(values: torch.Tensor, scales: torch.Tensor, z: torch.Tensor,
 
 
 gram_q8_kernel.launches = 0
+
+
+def split_bf16x3_kernel(z: torch.Tensor):
+    """B3's pre-pass alone on CUDA fp32 z (m, p): the pieces (3, m, p_pad)
+    bf16, zero from p on, and the powers 2^e_j (m,), as ``split_bf16x3``
+    gives them.  For the tests and ``chip_smoke.py``; not a launch of B3."""
+    if not z.is_cuda or z.dtype != torch.float32 or z.ndim != 2:
+        raise ValueError("split_bf16x3_kernel: a 2-D fp32 CUDA tensor")
+    m, p = z.shape
+    _check_q8_grid(1, m, p)
+    z = z.contiguous()
+    p_pad = _q8_padded(p)
+    pieces = torch.empty((3, m, p_pad), dtype=torch.bfloat16, device=z.device)
+    tables = torch.empty((3 * m,), dtype=torch.float32, device=z.device)
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _launcher("gram_q8", "gram_q8_split_launch", _SPLIT_ARGS)(
+            z.data_ptr(), pieces.data_ptr(), tables.data_ptr(), m, p, p_pad, stream)
+    if err != 0:
+        raise RuntimeError(f"split_bf16x3_kernel: launch failed with CUDA error {err}")
+    return pieces, tables[2 * m:]

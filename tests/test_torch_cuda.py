@@ -19,7 +19,8 @@ from repro_torch.core.nystrom import compute_factor
 from repro_torch.core.quant import quantize_rows
 from repro_torch.data import make_multiclass
 from repro_torch.kernels.gram import (gram_kernel, gram_plain, gram_q8_kernel,
-                                      gram_q8_plain)
+                                      gram_q8_plain, split_bf16x3,
+                                      split_bf16x3_kernel)
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (TMA_ALIGN, bf16_kv_tile,
                                                  flash_attention_kernel,
@@ -175,6 +176,142 @@ def test_gram_q8_kernel_rejects_what_it_does_not_take(cuda):
         gram_q8_kernel(v, torch.ones(1, 2, device=cuda), z, kp, 32)   # needs 2 groups
     with pytest.raises(TypeError):
         gram_q8_kernel(v.float(), torch.ones(2, 2, device=cuda), z, kp, 32)
+
+
+def _q8_case(cuda, n, m, p, kind, symmetric, seed, x=None, z=None):
+    """B3 against dequantise-then-gram, by default on randn rows offset by
+    0.5 (so the affine zero-points are not 0), gamma scaled to p as for B1;
+    returns both results."""
+    rng = np.random.default_rng(seed)
+    if x is None:
+        x = rng.normal(size=(n, p)) + 0.5
+    if z is None:
+        z = rng.normal(size=(m, p))
+    x = np.asarray(x, dtype=np.float32)
+    z = torch.as_tensor(z, dtype=torch.float32, device=cuda)
+    kp = KernelParams(kind, gamma=1.0 / (2 * p) if kind == "rbf" else p ** -0.5,
+                      coef0=0.3, degree=3)
+    v, sc = quantize_rows(x, 32, symmetric=symmetric)
+    v, sc = torch.as_tensor(v, device=cuda), torch.as_tensor(sc, device=cuda)
+    before = gram_q8_kernel.launches
+    got = gram_q8_kernel(v, sc, z, kp, 32)
+    assert gram_q8_kernel.launches == before + 1
+    want = gram_q8_plain(v, sc, z, kp, 32)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    return got, want
+
+
+@pytest.mark.parametrize("n,m,p", [(63, 129, 100), (65, 127, 64), (128, 128, 128),
+                                   (191, 255, 48), (193, 257, 784), (384, 130, 200)])
+@pytest.mark.parametrize("kind", ["rbf", "linear"])
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_gram_q8_kernel_tile_edges(cuda, n, m, p, kind, symmetric):
+    """n on both sides of 64 (a consumer warpgroup's rows), 128 and 192
+    (B3's tile of x), m on both sides of 128 (its tile of z)."""
+    _q8_case(cuda, n, m, p, kind, symmetric, seed=n + m + p)
+
+
+@pytest.mark.parametrize("n,m,p", [(70, 140, 1), (70, 140, 5), (70, 140, 15),
+                                   (70, 140, 17), (70, 140, 33), (70, 140, 65),
+                                   (70, 140, 100), (70, 140, 130), (1, 1, 1)])
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_gram_q8_kernel_ragged_p(cuda, n, m, p, symmetric):
+    """p below 16, p % 16 != 0 (byte loads of the codes), p % 4 != 0 (the
+    pre-pass's scalar loads), p not a multiple of the 64-wide k tile, and
+    n = m = p = 1."""
+    _q8_case(cuda, n, m, p, "rbf", symmetric, seed=p)
+
+
+def _spanning(rng, m, p, per_row, signed):
+    shape = (m, 1) if per_row else (m, p)
+    sign = rng.choice([-1.0, 1.0], size=(m, p)) if signed else 1.0
+    return np.ldexp(sign * rng.uniform(1, 2, size=(m, p)), rng.integers(-60, 61, size=shape))
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("per_row", [False, True])
+def test_gram_q8_kernel_z_spanning_2_pow_60(cuda, symmetric, per_row):
+    """Positive z with magnitudes from 2^-60 to 2^60, element by element or
+    row by row, against positive x (no cancellation, so the sums are well
+    conditioned); the linear kernel shows the product itself.  Each column
+    is also held at the tolerance relative to its own largest value, so
+    that the rows at 2^-60 are checked too."""
+    rng = np.random.default_rng(61 + per_row)
+    m, p, n = 140, 100, 150
+    z = _spanning(rng, m, p, per_row, signed=False)
+    x = rng.uniform(0.5, 1.5, size=(n, p))
+    got, want = _q8_case(cuda, n, m, p, "linear", symmetric, seed=60, x=x, z=z)
+    col = want.abs().amax(0, keepdim=True)
+    torch.testing.assert_close(got / col, want / col, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_gram_q8_kernel_cancelling_sums_against_fp64(cuda, symmetric):
+    """z of both signs from 2^-60 to 2^60 and x of both signs: the sums
+    cancel by up to 5e4 of their terms, where neither version's relative
+    error means anything.  Both are held against the product in fp64 at
+    2e-4 of sum_k |x_ik| |z_jk| (the size of the terms); the factored form
+    s (q . z) + z0 sum z rounds on terms up to |z0| sum |z|, so the affine
+    codec's error is the larger (PERF.md)."""
+    rng = np.random.default_rng(62)
+    m, p, n = 140, 100, 150
+    z = np.float32(_spanning(rng, m, p, False, signed=True))
+    x = np.float32(rng.normal(size=(n, p)) + 0.5)
+    v, sc = quantize_rows(x, 32, symmetric=symmetric)
+    rows = np.repeat(sc, 32, axis=0)[:n].astype(np.float64)
+    xd = v.astype(np.float64) * rows[:, :1] + rows[:, 1:]
+    exact = xd @ z.astype(np.float64).T
+    size = np.abs(xd) @ np.abs(z.astype(np.float64)).T
+    vd, scd, zd = (torch.as_tensor(a, device=cuda) for a in (v, sc, z))
+    kp = KernelParams("linear")
+    for got in (gram_q8_kernel(vd, scd, zd, kp, 32), gram_q8_plain(vd, scd, zd, kp, 32)):
+        err = np.abs(got.double().cpu().numpy() - exact)
+        assert np.all(err <= 2e-4 * size)
+
+
+def test_gram_q8_kernel_takes_z_up_to_the_largest_float(cuda):
+    """Each row of z is scaled into [1, 2) before the split, so its pieces
+    stay finite up to the largest fp32 value: no z that is finite is
+    refused.  Positive x and z, so that the sums do not cancel."""
+    rng = np.random.default_rng(38)
+    z = rng.uniform(0, 1, size=(130, 96))
+    z = np.float32(z / z.max(1, keepdims=True) * np.finfo(np.float32).max)
+    x = np.float32(rng.uniform(0.5, 1.5, size=(70, 96)) * 1e-12)
+    v, sc = (torch.as_tensor(a, device=cuda) for a in quantize_rows(x, 32, symmetric=True))
+    zd = torch.as_tensor(z, device=cuda)
+    pieces, _ = split_bf16x3_kernel(zd)
+    assert bool(torch.isfinite(pieces.float()).all())
+    kp = KernelParams("linear")
+    got = gram_q8_kernel(v, sc, zd, kp, 32)
+    want = gram_q8_plain(v, sc, zd, kp, 32)
+    assert bool(torch.isfinite(want).all())
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_gram_q8_prepass_pieces_equal_the_plain_split(cuda):
+    """The pre-pass's pieces and powers of two, bit for bit, against
+    ``split_bf16x3`` on the CPU: random, tiny, subnormal, signed-zero,
+    largest-float and 2^+-50 rows; the padded tail of each piece is zero."""
+    rng = np.random.default_rng(7)
+    m, p = 12, 100
+    z = rng.normal(size=(m, p)).astype(np.float32)
+    z[1] *= np.float32(1e-30)
+    sign = rng.integers(0, 2, size=p).astype(np.uint32) << np.uint32(31)
+    z[2] = (rng.integers(1, 2 ** 23, size=p).astype(np.uint32) | sign).view(np.float32)
+    z[3] *= np.float32(1e-41)
+    z[4] = 0.0
+    z[4, ::3] = -0.0
+    z[5, ::2] = -0.0
+    z[6] = np.float32(z[6] / np.abs(z[6]).max() * np.finfo(np.float32).max)
+    z[7] = np.float32(np.ldexp(rng.uniform(1, 2, size=p), rng.integers(-50, 51, size=p)))
+    zt = torch.as_tensor(z)
+    want, want_pow2 = split_bf16x3(zt)
+    pieces, pow2 = split_bf16x3_kernel(zt.to(cuda))
+    assert torch.equal(pieces[:, :, :p].cpu().view(torch.int16), want.view(torch.int16))
+    assert not bool(pieces[:, :, p:].float().any())
+    assert torch.equal(pow2.cpu(), want_pow2)
+    total = want.double().sum(0) * want_pow2.double()[:, None]
+    assert torch.equal(total, zt.double())
 
 
 @pytest.mark.parametrize("full_pass", [True, False])

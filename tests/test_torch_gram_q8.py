@@ -4,7 +4,11 @@ plain version, against the reference's Pallas kernel in interpret mode
 ``repro.kernels.ref.gram_q8_ref``.
 
 Tolerance rtol = atol = 2e-4, the reference's own for its kernel against its
-oracle: fp32 sums over p taken in another order.  gamma is scaled to p
+oracle: fp32 sums over p taken in another order.  The card's B3 computes
+the product from z split exactly into three bf16 pieces, with the codec's
+affine form factored out of it: ``split_bf16x3`` (its pre-pass in PyTorch)
+is held exact here, and that arithmetic, written out in fp32, against the
+plain version and the reference at the same tolerance.  gamma is scaled to p
 (RBF 1/(2p), poly and tanh 1/sqrt(p)) so every kind gives values of order
 0.1-1 on randn rows, which a wrong kernel cannot match."""
 import jax.numpy as jnp
@@ -18,7 +22,9 @@ from repro.kernels import ref as jref
 from repro_torch.core.kernel_fn import KernelParams
 from repro_torch.core.quant import quantize_rows
 from repro_torch.kernels import ops
-from repro_torch.kernels.gram import gram_q8_kernel, gram_q8_plain
+from repro_torch.kernels.gram import (_check_q8_grid, apply_epilogue,
+                                      dequant_rows, gram_q8_kernel,
+                                      gram_q8_plain, split_bf16x3)
 
 SHAPES = [(64, 24, 32), (70, 9, 33), (33, 40, 100)]
 KINDS = ["rbf", "linear", "poly", "tanh"]
@@ -125,3 +131,101 @@ def test_cpu_tensors_take_the_plain_version_and_never_the_kernel():
     assert gram_q8_kernel.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         gram_q8_kernel(v, s, torch.from_numpy(z), kp, 32)
+
+
+def _rows(kind, p, rng):
+    """One row of z of the given kind, fp32."""
+    if kind == "random":
+        return rng.normal(size=p).astype(np.float32)
+    if kind == "tiny":
+        return (rng.normal(size=p) * 1e-30).astype(np.float32)
+    if kind == "subnormal":                      # random subnormal bit patterns
+        sign = rng.integers(0, 2, size=p).astype(np.uint32) << np.uint32(31)
+        return (rng.integers(1, 2 ** 23, size=p).astype(np.uint32) | sign).view(np.float32)
+    if kind == "signed_zero":
+        r = np.where(rng.integers(0, 2, size=p) == 1, -0.0, 0.0).astype(np.float32)
+        r[::7] = rng.normal(size=r[::7].shape)
+        return r
+    if kind == "largest":
+        r = rng.uniform(-1, 1, size=p)
+        return np.float32(r / np.abs(r).max() * np.finfo(np.float32).max)
+    if kind == "span_2_pow_50":
+        return np.float32(np.ldexp(rng.uniform(1, 2, size=p) * rng.choice([-1, 1], size=p),
+                                   rng.integers(-50, 51, size=p)))
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["random", "tiny", "subnormal", "signed_zero",
+                                  "largest", "span_2_pow_50"])
+def test_split_bf16x3_is_exact(kind):
+    """(w1 + w2 + w3) 2^e == z for every element, summed in fp64 (exact for
+    three bf16 values); nonzero elements bit for bit, and every piece finite,
+    up to the largest fp32 value."""
+    rng = np.random.default_rng(len(kind))
+    z = torch.as_tensor(np.stack([_rows(kind, 77, rng) for _ in range(5)]))
+    pieces, pow2 = split_bf16x3(z)
+    assert pieces.dtype == torch.bfloat16 and pieces.shape == (3, 5, 77)
+    assert bool(torch.isfinite(pieces.float()).all())
+    assert bool(((pow2 == 2.0 ** torch.log2(pow2).round()) & (pow2 > 0)).all())
+    scaled = pieces.double().sum(0)
+    assert bool((scaled.abs().amax(1)[z.abs().amax(1) > 0] >= 1).all())   # rows in [1, 2]
+    total = (scaled * pow2.double()[:, None]).float()
+    nonzero = z != 0
+    assert torch.equal(total[nonzero].view(torch.int32), z[nonzero].view(torch.int32))
+    assert not bool(total[~nonzero].any())
+
+
+def _factored(v, s, z, kp, group):
+    """B3's arithmetic in torch fp32: s_i (q_i . w_j) + z0_i sum_k w_jk over
+    z's exact bf16 pieces w, times 2^e_j; the RBF norms as the pre-pass
+    writes them."""
+    pieces, pow2 = split_bf16x3(z)
+    q = v.to(torch.float32)
+    acc = sum(q @ pieces[c].float().T for c in range(3))
+    colsum = pieces.float().sum(0).sum(1)
+    rows = s.repeat_interleave(group, 0)[:q.shape[0]]
+    dot = (rows[:, :1] * acc + rows[:, 1:] * colsum[None, :]) * pow2[None, :]
+    x = dequant_rows(v, s, group)
+    return apply_epilogue(dot, (x * x).sum(-1), (z * z).sum(-1), kp)
+
+
+@pytest.mark.parametrize("n,m,p", SHAPES + [(130, 70, 200)])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_factored_split_arithmetic_matches_plain_and_reference(n, m, p, kind, symmetric):
+    """The split, factored product against ``gram_q8_plain`` and the
+    reference's oracle, both codecs (rows offset by 1.5 so the affine
+    zero-points are not 0)."""
+    x, z = _inputs(n, m, p, seed=7 * n + p, shift=1.5)
+    kp, jkp = _params(kind, p)
+    v, s = quantize_rows(x, 32, symmetric=symmetric)
+    vt, st, zt = torch.from_numpy(v), torch.from_numpy(s), torch.from_numpy(z)
+    got = _factored(vt, st, zt, kp, 32).numpy()
+    plain = gram_q8_plain(vt, st, zt, kp, 32).numpy()
+    oracle = np.asarray(jref.gram_q8_ref(jnp.asarray(v), jnp.asarray(s),
+                                         jnp.asarray(z), jkp, group=32))
+    assert 0.05 < np.abs(oracle).max()
+    np.testing.assert_allclose(got, plain, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got, oracle, rtol=2e-4, atol=2e-4)
+
+
+def test_cpu_route_is_the_plain_version():
+    """``ops.gram_q8`` on CPU tensors returns ``gram_q8_plain``'s result, bit
+    for bit, and launches nothing."""
+    x, z = _inputs(40, 12, 33, seed=2, shift=0.5)
+    kp, _ = _params("rbf", 33)
+    v, s = (torch.from_numpy(a) for a in quantize_rows(x, 32))
+    before = gram_q8_kernel.launches
+    got = ops.gram_q8(v, s, torch.from_numpy(z), kp, group=32)
+    assert torch.equal(got, gram_q8_plain(v, s, torch.from_numpy(z), kp, 32))
+    assert gram_q8_kernel.launches == before
+
+
+def test_launch_grid_check():
+    """B3's own grid check: one dimension of 128 x 128 tiles, and every
+    extent (p padded to the k tile) below 2^31."""
+    _check_q8_grid(2 ** 20, 2 ** 20, 784)
+    for n, m, p in ((2 ** 31, 1, 1), (1, 2 ** 31, 1), (1, 1, 2 ** 31 - 1),
+                    (2 ** 27, 2 ** 27, 1)):
+        with pytest.raises(ValueError, match="launch grid"):
+            _check_q8_grid(n, m, p)
