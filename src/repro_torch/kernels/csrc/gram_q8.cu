@@ -33,36 +33,40 @@
 // which this form does not incur).
 //
 // Two kernels per launch:
-//   1. a pre-pass, one warp per row, writes the scaled pieces of z into a
-//      scratch (3, m, p_pad) bf16 (p_pad = p rounded up to the 64-wide k
-//      tile, the tail zero, so a masked k column adds an exact 0), and per
-//      row of z its squared norm (RBF), the sum of its scaled elements and
-//      2^e_j; for RBF also the squared norms of the dequantised rows of x;
+//   1. a pre-pass writes the scaled pieces of z into a scratch (3, m, p_pad)
+//      bf16 (p_pad = p rounded up to the 64-wide k tile, the tail zero, so a
+//      masked k column adds an exact 0; within each k tile the elements are
+//      in the order the A fragments take the codes, see position()), and
+//      per row of z its squared norm (RBF), the sum of its scaled elements
+//      and 2^e_j; for RBF also the squared norms of the dequantised rows of
+//      x.  Four warps a row of z, four rows of x a warp;
 //   2. the product.  A block owns BM = 192 rows of x by BN = 128 rows of z:
 //      three consumer warpgroups (64 rows of x each) and one producer warp.
 //      The three pieces make the z tile 3x the bytes of a plain bf16 GEMM's,
 //      and its traffic per FLOP falls only with BM, so BM is as large as the
-//      registers allow (416 threads, 127 registers); BN = 128 keeps the
-//      accumulator at 64 registers and the ring at three 48 KB stages (BN =
-//      256 would leave room for one).  At the streamed chunk (6281 rows)
-//      that is 528 tiles, four waves of 132 SMs.
+//      registers allow (416 threads, at most 128 registers each); BN = 128
+//      keeps the accumulator at 64 registers and the ring at four 48 KB
+//      stages.  At the streamed chunk (6281 rows) that is 528 tiles, four
+//      waves of 132 SMs.
 //      - the producer warp's lane 0 loads each 64-wide k tile of the three
 //        pieces (one 3-D TMA box, 48 KB, 128-byte swizzle) into a ring of
 //        STAGES stages paced by full / empty mbarriers;
-//      - each consumer thread loads 32 codes of its row with plain masked
-//        loads (16-byte vectors where p and the base allow, else bytes: a
-//        code row's stride is p bytes, so TMA cannot take every p), two k
-//        tiles ahead, converts them exactly to bf16 and stores them into its
-//        warpgroup's A tile in the 128-byte swizzle (double buffered); a
-//        proxy fence and a warpgroup barrier publish the tile to the
-//        tensor cores (SS form: both operands from shared memory);
+//      - A comes from registers (the RS form of wgmma), so the codes never
+//        pass through shared memory, whose bandwidth the SS form (A from
+//        shared memory) spends on A three times per k16 step.  Each thread
+//        loads the 16 codes of two rows that its fragments take from a k
+//        tile with plain masked loads, a k tile ahead (16-byte vectors
+//        where p and the base allow, else bytes: a code row's stride is p
+//        bytes, so TMA cannot take every p), and converts them exactly to
+//        bf16 pairs;
 //      - per k16 step, three wgmma m64n128k16 (bf16 in, fp32 accumulate)
-//        against the same A tile, one per piece, into the same accumulator;
-//        one k tile's group stays in flight while the next is prepared;
+//        on the same A fragments, one per piece, into the same
+//        accumulator; each warpgroup waits for its own group, and the other
+//        two keep the tensor cores busy meanwhile;
 //      - epilogue in registers: dot = (s_i acc + z0_i colsum_j) 2^e_j, then
 //        the kernel function; ragged n and m are masked in the stores.
 //      tools/b3_probe.py times this against variants of itself (two
-//      warpgroups, fewer stages, and ablations).
+//      warpgroups, three stages, and ablations).
 #include <cuda.h>            // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,23 +79,20 @@ constexpr int BM = 64 * WGS;          // rows of x per block
 constexpr int BN = 128;               // rows of z per block: the wgmma's N
 constexpr int BK = 64;                // k tile: 64 bf16, 128 bytes, the swizzle span
 constexpr int PIECES = 3;
-constexpr int STAGES = 3;             // depth of the ring of z pieces
+constexpr int STAGES = 4;             // depth of the ring of z pieces
 constexpr int CONSUMERS = 128 * WGS;
 constexpr int THREADS = CONSUMERS + 32;   // and the producer warp
 constexpr uint32_t ATOM = 1024;       // 8 rows of 128 bytes: the swizzle's repeat
 constexpr uint32_t PIECE_BYTES = BN * BK * 2;            // [128][64] bf16, 16 KB
 constexpr uint32_t STAGE_BYTES = PIECES * PIECE_BYTES;   // one TMA box, 48 KB
-constexpr uint32_t A_BYTES = 64 * BK * 2;                // a warpgroup's A tile, 8 KB
 
 enum Kind { RBF = 0, LINEAR = 1, POLY = 2, TANH = 3 };   // order of gram.py's KERNELS
 
 // Shared memory, in bytes from a 1024-aligned base: the ring of z pieces,
-// the A tiles (buffer b of warpgroup w at A + (WGS b + w) A_BYTES), then the
-// barriers full[STAGES] and empty[STAGES].
+// then the barriers full[STAGES] and empty[STAGES].
 struct Smem {
   static constexpr uint32_t B = 0;
-  static constexpr uint32_t A = B + STAGES * STAGE_BYTES;
-  static constexpr uint32_t BAR = A + 2 * WGS * A_BYTES;
+  static constexpr uint32_t BAR = B + STAGES * STAGE_BYTES;
   static constexpr uint32_t BYTES = BAR + 16 * STAGES + ATOM;   // + alignment slack
 };
 static_assert(Smem::BYTES <= 232448, "above the 227 KB a block can use");
@@ -128,89 +129,154 @@ __device__ __forceinline__ void load(const float* r, int k, int p, float (&v)[VE
   }
 }
 
-// The pre-pass, one warp per row: warps [0, m) take the rows of z, warps
-// [m, m + nx) the rows of x (nx = n for RBF, else 0).  For row j of z:
-// pieces[c][j][k] (c = 0, 1, 2; k < p_pad, 0 from p on), zcol[j] = sum z^2,
-// zcol[m + j] = sum of the scaled elements, zcol[2 m + j] = 2^e_j.  For row
-// i of x: xsq[i], the squared norm of its dequantised values.  VEC: p % 4 ==
-// 0, z 16-byte and q 4-byte aligned, so a lane takes four elements a load.
+// Where element k of a row of z sits in the pieces: the order in which a
+// consumer thread's 16 contiguous codes meet the A fragments of the four
+// k16 steps of a k tile (see the consumer loop), so that each thread loads
+// its codes as one 16-byte vector.  Code 16 t + 4 kk + j of a tile (t, kk,
+// j in 0..3) is column 2 t + j % 2 + 8 (j / 2) of k16 step kk.
+__device__ __forceinline__ int position(int k) {
+  const int r = k & (BK - 1), t = r >> 4, kk = (r >> 2) & 3, j = r & 3;
+  return (k - r) + 16 * kk + 2 * t + (j & 1) + 8 * (j >> 1);
+}
+
+constexpr int PRE_THREADS = 256;   // a block of the pre-pass
+constexpr int Z_THREADS = 128;     // threads a row of z: two rows a block
+constexpr int X_ROWS = 4;          // rows of x a warp: 32 a block
+
+// The pre-pass.  Blocks [0, z_blocks) take the rows of z, Z_THREADS threads
+// a row; for row j: pieces[c][j][position(k)] (c = 0, 1, 2; k < p_pad, 0
+// from p on), zcol[j] = sum z^2, zcol[m + j] = sum of the scaled elements,
+// zcol[2 m + j] = 2^e_j.  VEC: p % 4 == 0 and z 16-byte aligned, so a
+// thread takes four elements a load.  The blocks after them take the nx
+// rows of x (nx = n for RBF, else 0), X_ROWS a warp, all of their loads in
+// flight at once: xsq[i], the squared norm of row i's dequantised values;
+// xvec: p % 16 == 0 and q 16-byte aligned, so 16 codes a load.
 template <bool VEC>
-__global__ void prepass(const int8_t* __restrict__ q, const float* __restrict__ scales,
-                        int group, const float* __restrict__ z,
-                        __nv_bfloat16* __restrict__ pieces, float* __restrict__ zcol,
-                        float* __restrict__ xsq, int nx, int m, int p, int p_pad) {
-  constexpr int V = VEC ? 4 : 1;           // elements a lane takes at once
-  const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+__global__ void __launch_bounds__(PRE_THREADS)
+prepass(const int8_t* __restrict__ q, const float* __restrict__ scales, int group,
+        const float* __restrict__ z, __nv_bfloat16* __restrict__ pieces,
+        float* __restrict__ zcol, float* __restrict__ xsq, int nx, int m, int p, int p_pad,
+        int z_blocks, int xvec) {
+  constexpr int V = VEC ? 4 : 1;           // elements of z a thread takes at once
   const int lane = threadIdx.x & 31;
-  if (warp >= (long)m + nx) return;
-  if (warp >= m) {
-    const long i = warp - m;
-    const int8_t* r = q + i * (long)p;
-    const float s = scales[2 * (i / group)], z0 = scales[2 * (i / group) + 1];
-    float acc = 0.f;
-#pragma unroll 8
-    for (int k = V * lane; k < p; k += 32 * V) {
-      int c[V];
-      if (VEC) {
-        const char4 a = *reinterpret_cast<const char4*>(r + k);
-        c[0] = a.x; c[VEC ? 1 : 0] = a.y; c[VEC ? 2 : 0] = a.z; c[VEC ? 3 : 0] = a.w;
-      } else {
-        c[0] = r[k];
-      }
+  if ((int)blockIdx.x >= z_blocks) {
+    const long first = ((long)(blockIdx.x - z_blocks) * (PRE_THREADS / 32) +
+                        (threadIdx.x >> 5)) * X_ROWS;
+    float s[X_ROWS], z0[X_ROWS], acc[X_ROWS];
+    const int8_t* r[X_ROWS];
 #pragma unroll
-      for (int e = 0; e < V; ++e) {
-        const float v = fmaf((float)c[e], s, z0);
-        acc = fmaf(v, v, acc);
+    for (int i = 0; i < X_ROWS; ++i) {
+      const long row = first + i < nx ? first + i : 0;
+      s[i] = scales[2 * (row / group)];
+      z0[i] = scales[2 * (row / group) + 1];
+      r[i] = q + row * (long)p;
+      acc[i] = 0.f;
+    }
+    if (xvec) {
+      for (int k = 16 * lane; k < p; k += 16 * 32) {
+        uint4 w[X_ROWS];
+#pragma unroll
+        for (int i = 0; i < X_ROWS; ++i) w[i] = __ldg(reinterpret_cast<const uint4*>(r[i] + k));
+#pragma unroll
+        for (int i = 0; i < X_ROWS; ++i) {
+          const uint32_t words[4] = {w[i].x, w[i].y, w[i].z, w[i].w};
+#pragma unroll
+          for (int b = 0; b < 16; ++b) {
+            const float v = fmaf((float)(int8_t)(words[b / 4] >> (8 * (b % 4))), s[i], z0[i]);
+            acc[i] = fmaf(v, v, acc[i]);
+          }
+        }
+      }
+    } else {
+      for (int k = lane; k < p; k += 32) {
+#pragma unroll
+        for (int i = 0; i < X_ROWS; ++i) {
+          const float v = fmaf((float)r[i][k], s[i], z0[i]);
+          acc[i] = fmaf(v, v, acc[i]);
+        }
       }
     }
-    acc = warp_sum(acc);
-    if (lane == 0) xsq[i] = acc;
+#pragma unroll
+    for (int i = 0; i < X_ROWS; ++i) {
+      acc[i] = warp_sum(acc[i]);
+      if (lane == 0 && first + i < nx) xsq[first + i] = acc[i];
+    }
     return;
   }
-  const float* r = z + warp * (long)p;
+
+  __shared__ float red[PRE_THREADS / Z_THREADS][Z_THREADS / 32][3];
+  const int half = threadIdx.x / Z_THREADS, tid = threadIdx.x % Z_THREADS, wz = tid / 32;
+  const long j = (long)blockIdx.x * (PRE_THREADS / Z_THREADS) + half;
+  const bool valid = j < m;
+  const float* r = z + (valid ? j : 0) * (long)p;
   float mx = 0.f;
-#pragma unroll 8
-  for (int k = V * lane; k < p; k += 32 * V) {
-    float v[V];
-    load<VEC>(r, k, p, v);
+  if (valid) {
+#pragma unroll 4
+    for (int k = V * tid; k < p; k += Z_THREADS * V) {
+      float v[V];
+      load<VEC>(r, k, p, v);
 #pragma unroll
-    for (int e = 0; e < V; ++e) mx = fmaxf(mx, fabsf(v[e]));
+      for (int e = 0; e < V; ++e) mx = fmaxf(mx, fabsf(v[e]));
+    }
   }
   mx = warp_max(mx);
+  if (lane == 0) red[half][wz][0] = mx;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < Z_THREADS / 32; ++w) mx = fmaxf(mx, red[half][w][0]);
   // the row's exponent: its largest |z| scaled into [1, 2); an all-zero or
   // non-finite row keeps its values (a non-finite z gives a non-finite K)
   const int e = (mx > 0.f && mx <= 3.402823466e38f) ? ilogbf(mx) : 0;
+  // w = z 2^-e, exactly, by one multiplication (two when 2^-e > 2^126 is no
+  // fp32: a row whose largest |z| is below 2^-126, scaled up without loss)
+  const bool tiny = e < -126;
+  const float f1 = tiny ? 0x1p64f : 1.f, f2 = ldexpf(1.f, tiny ? -e - 64 : -e);
   const long plane = (long)m * p_pad;
-  __nv_bfloat16* out = pieces + warp * (long)p_pad;
+  __nv_bfloat16* out = pieces + (valid ? j : 0) * (long)p_pad;
   float sq = 0.f, sum = 0.f;
-#pragma unroll 8
-  for (int k = V * lane; k < p_pad; k += 32 * V) {
-    float v[V];
-    load<VEC>(r, k, p, v);
-    uint32_t bits[V][3];
+  if (valid) {
+#pragma unroll 4
+    for (int k = V * tid; k < p_pad; k += Z_THREADS * V) {
+      float v[V];
+      load<VEC>(r, k, p, v);
+      uint32_t bits[V][3];
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      sq = fmaf(v[j], v[j], sq);
-      const float w = ldexpf(v[j], -e);
-      sum += w;
-      split3(w, bits[j]);
-    }
+      for (int i = 0; i < V; ++i) {
+        sq = fmaf(v[i], v[i], sq);
+        const float w = v[i] * f1 * f2;
+        sum += w;
+        split3(w, bits[i]);
+      }
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      uint16_t* o = reinterpret_cast<uint16_t*>(out + c * plane + k);
-      if (VEC)   // four pieces, 8 bytes: k % 4 == 0 and p_pad % 64 == 0
-        *reinterpret_cast<uint2*>(o) = make_uint2(bits[0][c] | bits[VEC ? 1 : 0][c] << 16,
-                                                  bits[VEC ? 2 : 0][c] | bits[VEC ? 3 : 0][c] << 16);
-      else
-        *o = (uint16_t)bits[0][c];
+      for (int c = 0; c < 3; ++c) {
+        uint16_t* o = reinterpret_cast<uint16_t*>(out + c * plane + position(k));
+        if (VEC) {   // k % 4 == 0: elements k, k + 1 and k + 2, k + 3 are pairs 8 apart
+          *reinterpret_cast<uint32_t*>(o) = bits[0][c] | bits[VEC ? 1 : 0][c] << 16;
+          *reinterpret_cast<uint32_t*>(o + 8) = bits[VEC ? 2 : 0][c] | bits[VEC ? 3 : 0][c] << 16;
+        } else {
+          *o = (uint16_t)bits[0][c];
+        }
+      }
     }
   }
   sq = warp_sum(sq);
   sum = warp_sum(sum);
+  __syncthreads();   // every thread has read the maxima
   if (lane == 0) {
-    zcol[warp] = sq;
-    zcol[m + warp] = sum;
-    zcol[2 * m + warp] = ldexpf(1.f, e);
+    red[half][wz][1] = sq;
+    red[half][wz][2] = sum;
+  }
+  __syncthreads();
+  if (valid && tid == 0) {
+    sq = sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < Z_THREADS / 32; ++w) {
+      sq += red[half][w][1];
+      sum += red[half][w][2];
+    }
+    zcol[j] = sq;
+    zcol[m + j] = sum;
+    zcol[2 * m + j] = ldexpf(1.f, e);
   }
 }
 
@@ -304,15 +370,26 @@ __device__ __forceinline__ void pin(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x 128, fp32) += A (64 x 16) B^T (16 x 128), both bf16 from shared memory.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db) {
+// D (64 x 128, fp32) += A (64 x 16, bf16 pairs in registers) B^T (16 x 128),
+// B K-major from shared memory.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Keeps the compiler from reusing A-fragment registers that a wgmma may
+// still read.
+__device__ __forceinline__ void pin(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // Codes 2h and 2h + 1 (the low bytes first) of the word w as a bf16 pair,
@@ -366,105 +443,94 @@ gram_q8_tc(const __grid_constant__ CUtensorMap tz, const int8_t* __restrict__ q,
     return;
   }
 
-  // ---- consumer warpgroups: rows cw * 64 .. of the tile
+  // ---- consumer warpgroups: rows cw * 64 .. of the tile.  A thread holds
+  // rows g and g + 8 of its warp's 16 in the A fragments (RS form: A from
+  // registers, so the codes never pass through shared memory); of each k
+  // tile it loads codes 16 t .. 16 t + 15 of both rows, one 16-byte vector
+  // each, and k16 step kk takes codes 16 t + 4 kk .. + 3 of them, which
+  // position() above lays the pieces out to match.
   const int cw = threadIdx.x / 128, wt = threadIdx.x % 128;
-  // loader role: row lr of the warpgroup's 64, codes 32 lh .. 32 lh + 31 of
-  // each k tile (the rows a warp writes are the rows its own wgmma reads)
-  const int lr = wt >> 1, lh = wt & 1;
-  const long xrow = row0 + cw * 64 + lr;
-  const bool xin = xrow < n;
-  const int8_t* qrow = q + (xin ? xrow : 0) * (long)p;
-  // the codes of k tile kt, fetched two k tiles ahead into one of two
-  // register sets (the loop is unrolled by two, so neither set is copied)
-  auto fetch = [&](int kt, uint32_t (&code)[8]) {
-    const int k = kt * BK + 32 * lh;
-    if (VEC) {
+  const int warp = wt / 32, lane = wt & 31, g = lane >> 2, t = lane & 3;
+  const long r0 = row0 + cw * 64 + warp * 16 + g;
+  const int8_t* qrow[2];
+  bool xin[2];
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const uint4 v = (xin && k + 16 * c < p)
-                            ? __ldg(reinterpret_cast<const uint4*>(qrow + k + 16 * c))
+  for (int h = 0; h < 2; ++h) {
+    xin[h] = r0 + 8 * h < n;
+    qrow[h] = q + (xin[h] ? r0 + 8 * h : 0) * (long)p + 16 * t;
+  }
+
+  // the codes of k tile kt: code[4 h + kk] holds codes 16 t + 4 kk .. + 3
+  // of row g + 8 h, 0 past n and p
+  uint32_t code[8];
+  auto fetch = [&](int kt) {
+    const int k = kt * BK + 16 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (VEC) {
+        const uint4 v = (xin[h] && k < p)
+                            ? __ldg(reinterpret_cast<const uint4*>(qrow[h] + kt * BK))
                             : make_uint4(0u, 0u, 0u, 0u);
-        code[4 * c] = v.x; code[4 * c + 1] = v.y; code[4 * c + 2] = v.z; code[4 * c + 3] = v.w;
-      }
-    } else {
+        code[4 * h] = v.x; code[4 * h + 1] = v.y; code[4 * h + 2] = v.z; code[4 * h + 3] = v.w;
+      } else {
 #pragma unroll
-      for (int w = 0; w < 8; ++w) {
-        uint32_t word = 0;
+        for (int w = 0; w < 4; ++w) {
+          uint32_t word = 0;
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int kk = k + 4 * w + b;
-          const uint32_t byte = (xin && kk < p) ? (uint8_t)qrow[kk] : 0u;
-          word |= byte << (8 * b);
+          for (int b = 0; b < 4; ++b) {
+            const uint32_t byte =
+                (xin[h] && k + 4 * w + b < p) ? (uint8_t)qrow[h][kt * BK + 4 * w + b] : 0u;
+            word |= byte << (8 * b);
+          }
+          code[4 * h + w] = word;
         }
-        code[w] = word;
       }
-    }
-  };
-  // The 32 codes as bf16: four 16-byte chunks (8 codes each) of the row's
-  // 128 bytes, chunk c stored at chunk c ^ (row % 8): the 128-byte swizzle.
-  auto stash = [&](uint32_t a_tile, const uint32_t (&code)[8]) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t addr = a_tile + lr * 128 + (((4 * lh + j) ^ (lr & 7)) << 4);
-      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};"
-                   ::"r"(addr), "r"(codes_bf16x2(code[2 * j], 0)),
-                     "r"(codes_bf16x2(code[2 * j], 1)), "r"(codes_bf16x2(code[2 * j + 1], 0)),
-                     "r"(codes_bf16x2(code[2 * j + 1], 1))
-                   : "memory");
     }
   };
 
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  uint32_t a[4][4];   // the A fragments of the four k16 steps
 
-  auto step = [&](int kt, uint32_t (&code)[8]) {
+  if (VEC && k_tiles > 0) fetch(0);
+  for (int kt = 0; kt < k_tiles; ++kt) {
     const int s = kt % STAGES;
-    // buffer kt % 2 was last read by the group of k tile kt - 2, which the
-    // wait of the previous step saw complete
-    const uint32_t a_tile = base + Smem::A + (WGS * (kt & 1) + cw) * A_BYTES;
-    stash(a_tile, code);
-    // the generic-proxy stores, then the fence, then the warpgroup's
-    // barrier: only then may the tensor cores (async proxy) read the tile
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    asm volatile("bar.sync %0, 128;" ::"r"(1 + cw) : "memory");
-    if (kt + 2 < k_tiles) fetch(kt + 2, code);    // in flight during two k tiles
+    if (!VEC) fetch(kt);   // byte loads: none prefetched, so fewer live registers
+    // step kk: {row g, row g + 8} x {columns 2t, 2t + 1; columns 2t + 8, 2t + 9}
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      a[kk][0] = codes_bf16x2(code[kk], 0);
+      a[kk][1] = codes_bf16x2(code[4 + kk], 0);
+      a[kk][2] = codes_bf16x2(code[kk], 1);
+      a[kk][3] = codes_bf16x2(code[4 + kk], 1);
+    }
+    if (VEC && kt + 1 < k_tiles) fetch(kt + 1);   // in flight during the products
     mbar_wait(full + 8 * s, (kt / STAGES) & 1);
     const uint32_t b_stage = base + Smem::B + s * STAGE_BYTES;
     pin(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t da = desc_k_major(a_tile + kk * 32);
+    for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int c = 0; c < PIECES; ++c)
-        wgmma_ss_n128(acc, da, desc_k_major(b_stage + c * PIECE_BYTES + kk * 32));
-    }
+        wgmma_rs_n128(acc, a[kk], desc_k_major(b_stage + c * PIECE_BYTES + kk * 32));
     wgmma_commit();
-    wgmma_wait<1>();                               // k tile kt - 1 is done
+    // the group's own wait: the other warpgroups keep the tensor cores busy
+    // meanwhile, and the fragments are free for the next k tile
+    wgmma_wait<0>();
     pin(acc);
-    if (kt > 0) mbar_arrive(empty + 8 * ((kt - 1) % STAGES));
-  };
-  uint32_t even[8], odd[8];
-  if (k_tiles > 0) fetch(0, even);
-  if (k_tiles > 1) fetch(1, odd);
-  int kt = 0;
-  for (; kt + 1 < k_tiles; kt += 2) {
-    step(kt, even);
-    step(kt + 1, odd);
+    pin(a);
+    mbar_arrive(empty + 8 * s);
   }
-  if (kt < k_tiles) step(kt, even);
-  wgmma_wait<0>();
-  pin(acc);
 
   // ---- epilogue: acc[4 i + 2 h + e] is row warp * 16 + g + 8 h of the
   // warpgroup, column 8 i + 2 t + e of the tile
-  const int warp = wt / 32, lane = wt & 31, g = lane >> 2, t = lane & 3;
   long rr[2];
   float rs[2], rz0[2], rx[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    rr[h] = row0 + cw * 64 + warp * 16 + g + 8 * h;
+    rr[h] = r0 + 8 * h;
     const long gi = (rr[h] < n ? rr[h] : 0) / group;
     rs[h] = scales[2 * gi];
     rz0[h] = scales[2 * gi + 1];
@@ -548,13 +614,18 @@ int run_prepass(const int8_t* q, const float* scales, int group, const float* z,
                 float* zcol, float* xsq, int nx, int m, int p, int p_pad, cudaStream_t s) {
   if (group <= 0 || p < 0 || p_pad != ((p + BK - 1) / BK > 0 ? (p + BK - 1) / BK : 1) * BK)
     return cudaErrorInvalidValue;
-  const long warps = (long)m + nx, per_block = 256 / 32;
-  const unsigned blocks = (unsigned)((warps + per_block - 1) / per_block);
+  const long z_blocks = ((long)m + 1) / 2;
+  const long x_per_block = (PRE_THREADS / 32) * X_ROWS;
+  const long blocks = z_blocks + ((long)nx + x_per_block - 1) / x_per_block;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(pieces);
-  if (p % 4 == 0 && aligned(z, 16) && aligned(q, 4))
-    prepass<true><<<blocks, 256, 0, s>>>(q, scales, group, z, out, zcol, xsq, nx, m, p, p_pad);
+  const int xvec = p % 16 == 0 && aligned(q, 16);
+  if (p % 4 == 0 && aligned(z, 16))
+    prepass<true><<<(unsigned)blocks, PRE_THREADS, 0, s>>>(q, scales, group, z, out, zcol, xsq,
+                                                           nx, m, p, p_pad, (int)z_blocks, xvec);
   else
-    prepass<false><<<blocks, 256, 0, s>>>(q, scales, group, z, out, zcol, xsq, nx, m, p, p_pad);
+    prepass<false><<<(unsigned)blocks, PRE_THREADS, 0, s>>>(q, scales, group, z, out, zcol, xsq,
+                                                            nx, m, p, p_pad, (int)z_blocks, xvec);
   return cudaGetLastError();
 }
 

@@ -198,10 +198,21 @@ def gram_q8_kernel(values: torch.Tensor, scales: torch.Tensor, z: torch.Tensor,
 gram_q8_kernel.launches = 0
 
 
+def q8_order(p_pad: int) -> torch.Tensor:
+    """The k that position P of B3's pieces holds (the inverse of
+    ``position`` in gram_q8.cu): column c of k16 step kk of a 64-wide k tile
+    holds code 16 ((c % 8) // 2) + 4 kk + c % 2 + 2 (c // 8) of the tile."""
+    P = torch.arange(p_pad)
+    r = P % Q8_TILE[2]
+    kk, c = r // 16, r % 16
+    return P - r + 16 * ((c % 8) // 2) + 4 * kk + c % 2 + 2 * (c // 8)
+
+
 def split_bf16x3_kernel(z: torch.Tensor):
     """B3's pre-pass alone on CUDA fp32 z (m, p): the pieces (3, m, p_pad)
-    bf16, zero from p on, and the powers 2^e_j (m,), as ``split_bf16x3``
-    gives them.  For the tests and ``chip_smoke.py``; not a launch of B3."""
+    bf16 put back in k order (the kernel keeps them in ``q8_order``), zero
+    from p on, and the powers 2^e_j (m,), as ``split_bf16x3`` gives them.
+    For the tests and ``chip_smoke.py``; not a launch of B3."""
     if not z.is_cuda or z.dtype != torch.float32 or z.ndim != 2:
         raise ValueError("split_bf16x3_kernel: a 2-D fp32 CUDA tensor")
     m, p = z.shape
@@ -216,4 +227,6 @@ def split_bf16x3_kernel(z: torch.Tensor):
             z.data_ptr(), pieces.data_ptr(), tables.data_ptr(), m, p, p_pad, stream)
     if err != 0:
         raise RuntimeError(f"split_bf16x3_kernel: launch failed with CUDA error {err}")
-    return pieces, tables[2 * m:]
+    in_order = torch.empty_like(pieces)
+    in_order[:, :, q8_order(p_pad).to(z.device)] = pieces
+    return in_order, tables[2 * m:]

@@ -128,7 +128,15 @@ def test_fit_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("n,m,p", [(64, 24, 32), (70, 9, 33), (33, 40, 100),
-                                   (257, 129, 784), (1, 1, 1)])
+                                   (257, 129, 784), (1, 1, 1),
+                                   # n across 64, 128 and 192 (a warpgroup's
+                                   # rows, B3's x tile), m across 128 (its z tile)
+                                   (63, 129, 100), (65, 127, 64), (128, 128, 128),
+                                   (191, 255, 48), (193, 257, 784), (384, 130, 200),
+                                   # p below 16, % 16 != 0 (byte loads of the
+                                   # codes), % 4 != 0, not a multiple of 64
+                                   (70, 140, 5), (70, 140, 15), (70, 140, 17),
+                                   (70, 140, 65), (70, 140, 130)])
 @pytest.mark.parametrize("kind", ["rbf", "linear", "poly", "tanh"])
 @pytest.mark.parametrize("symmetric", [True, False])
 def test_gram_q8_kernel_matches_plain(cuda, n, m, p, kind, symmetric):
@@ -178,50 +186,6 @@ def test_gram_q8_kernel_rejects_what_it_does_not_take(cuda):
         gram_q8_kernel(v.float(), torch.ones(2, 2, device=cuda), z, kp, 32)
 
 
-def _q8_case(cuda, n, m, p, kind, symmetric, seed, x=None, z=None):
-    """B3 against dequantise-then-gram, by default on randn rows offset by
-    0.5 (so the affine zero-points are not 0), gamma scaled to p as for B1;
-    returns both results."""
-    rng = np.random.default_rng(seed)
-    if x is None:
-        x = rng.normal(size=(n, p)) + 0.5
-    if z is None:
-        z = rng.normal(size=(m, p))
-    x = np.asarray(x, dtype=np.float32)
-    z = torch.as_tensor(z, dtype=torch.float32, device=cuda)
-    kp = KernelParams(kind, gamma=1.0 / (2 * p) if kind == "rbf" else p ** -0.5,
-                      coef0=0.3, degree=3)
-    v, sc = quantize_rows(x, 32, symmetric=symmetric)
-    v, sc = torch.as_tensor(v, device=cuda), torch.as_tensor(sc, device=cuda)
-    before = gram_q8_kernel.launches
-    got = gram_q8_kernel(v, sc, z, kp, 32)
-    assert gram_q8_kernel.launches == before + 1
-    want = gram_q8_plain(v, sc, z, kp, 32)
-    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
-    return got, want
-
-
-@pytest.mark.parametrize("n,m,p", [(63, 129, 100), (65, 127, 64), (128, 128, 128),
-                                   (191, 255, 48), (193, 257, 784), (384, 130, 200)])
-@pytest.mark.parametrize("kind", ["rbf", "linear"])
-@pytest.mark.parametrize("symmetric", [True, False])
-def test_gram_q8_kernel_tile_edges(cuda, n, m, p, kind, symmetric):
-    """n on both sides of 64 (a consumer warpgroup's rows), 128 and 192
-    (B3's tile of x), m on both sides of 128 (its tile of z)."""
-    _q8_case(cuda, n, m, p, kind, symmetric, seed=n + m + p)
-
-
-@pytest.mark.parametrize("n,m,p", [(70, 140, 1), (70, 140, 5), (70, 140, 15),
-                                   (70, 140, 17), (70, 140, 33), (70, 140, 65),
-                                   (70, 140, 100), (70, 140, 130), (1, 1, 1)])
-@pytest.mark.parametrize("symmetric", [True, False])
-def test_gram_q8_kernel_ragged_p(cuda, n, m, p, symmetric):
-    """p below 16, p % 16 != 0 (byte loads of the codes), p % 4 != 0 (the
-    pre-pass's scalar loads), p not a multiple of the 64-wide k tile, and
-    n = m = p = 1."""
-    _q8_case(cuda, n, m, p, "rbf", symmetric, seed=p)
-
-
 def _spanning(rng, m, p, per_row, signed):
     shape = (m, 1) if per_row else (m, p)
     sign = rng.choice([-1.0, 1.0], size=(m, p)) if signed else 1.0
@@ -238,9 +202,14 @@ def test_gram_q8_kernel_z_spanning_2_pow_60(cuda, symmetric, per_row):
     that the rows at 2^-60 are checked too."""
     rng = np.random.default_rng(61 + per_row)
     m, p, n = 140, 100, 150
-    z = _spanning(rng, m, p, per_row, signed=False)
-    x = rng.uniform(0.5, 1.5, size=(n, p))
-    got, want = _q8_case(cuda, n, m, p, "linear", symmetric, seed=60, x=x, z=z)
+    z = torch.as_tensor(_spanning(rng, m, p, per_row, signed=False), dtype=torch.float32,
+                        device=cuda)
+    x = np.float32(rng.uniform(0.5, 1.5, size=(n, p)))
+    v, sc = (torch.as_tensor(a, device=cuda) for a in quantize_rows(x, 32, symmetric=symmetric))
+    kp = KernelParams("linear")
+    got = gram_q8_kernel(v, sc, z, kp, 32)
+    want = gram_q8_plain(v, sc, z, kp, 32)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
     col = want.abs().amax(0, keepdim=True)
     torch.testing.assert_close(got / col, want / col, rtol=2e-4, atol=2e-4)
 

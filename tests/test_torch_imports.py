@@ -43,7 +43,7 @@ def test_port_covers_its_layout():
                  "models/common.py", "models/attention.py", "models/blocks.py",
                  "models/model.py", "launch/train_svm.py"):
         assert name in rel
-    for cu in ("gram.cu", "smo.cu", "flash_attention.cu"):
+    for cu in ("gram.cu", "gram_q8.cu", "smo.cu", "flash_attention.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / cu).is_file()
 
 
