@@ -31,8 +31,8 @@
 // So K's inner products differ from an fp32 product of the dequantised rows
 // in the order of the fp32 sums, and in that the two terms above are
 // rounded apart: where they cancel (a zero z0_i large against row i's
-// values), the error is of the size of the larger term, as a test on the
-// card shows (tests/test_torch_cuda.py, cancelling sums against fp64).
+// values), the error is that of the larger term (tests/test_torch_cuda.py
+// holds such sums against fp64).
 //
 // Two kernels per launch:
 //   1. a pre-pass writes the scaled pieces of z into a scratch (3, m, p_pad)

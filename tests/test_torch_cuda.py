@@ -217,11 +217,11 @@ def test_gram_q8_kernel_z_spanning_2_pow_60(cuda, symmetric, per_row):
 @pytest.mark.parametrize("symmetric", [True, False])
 def test_gram_q8_kernel_cancelling_sums_against_fp64(cuda, symmetric):
     """z of both signs from 2^-60 to 2^60 and x of both signs: the sums
-    cancel by up to 5e4 of their terms, where neither version's relative
-    error means anything.  Both are held against the product in fp64 at
-    2e-4 of sum_k |x_ik| |z_jk| (the size of the terms); the factored form
-    s (q . z) + z0 sum z rounds on terms up to |z0| sum |z|, so the affine
-    codec's error is the larger (PERF.md)."""
+    cancel, and there neither version's relative error means anything.
+    Both are held against the product in fp64 at 2e-4 of sum_k |x_ik|
+    |z_jk| (the size of the terms).  The factored form s (q . z) + z0 sum z
+    rounds its two terms apart, each up to |z0| sum |z| for the affine
+    codec."""
     rng = np.random.default_rng(62)
     m, p, n = 140, 100, 150
     z = np.float32(_spanning(rng, m, p, False, signed=True))
