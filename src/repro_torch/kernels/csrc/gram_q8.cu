@@ -28,11 +28,29 @@
 //     that, bits fall under bf16's least subnormal, 2^-133); the scaled
 //     pieces never overflow, so every finite z is taken;
 //   - each product q w_c is exact in the fp32 accumulator (8 x 8 bits).
-// So K's inner products differ from an fp32 product of the dequantised rows
-// in the order of the fp32 sums, and in that the two terms above are
-// rounded apart: where they cancel (a zero z0_i large against row i's
-// values), the error is that of the larger term (tests/test_torch_cuda.py
-// holds such sums against fp64).
+// So no bit of x or z is lost before the sums; K differs from an fp32
+// product of the dequantised rows in how the sums are taken.  The tensor
+// cores add each wgmma's products into the fp32 accumulator in their own
+// way, not as a chain of round-to-nearest FMAs, and the two terms above are
+// rounded apart (where they cancel, a zero z0_i large against row i's
+// values, the error is that of the larger term).  Measured against K in
+// fp64 (tools/b3_probe.py, 6281 x 2048 x 784, rows uniform in [0, 1);
+// NVIDIA H100 80GB HBM3, 700 W), the largest errors are, here against the
+// SIMT B3 this replaces (which, with the symmetric codec, rounds nearly as
+// gram_q8_plain does: the two differ by 1.8e-7 at RBF 1/p, 0 for linear):
+//   symmetric codec, linear, over sum |x||z|   3.3e-6 against 2.5e-6
+//   symmetric codec, RBF at gamma 1/p / 6/p    1.5e-6 / 4.1e-6 against
+//                                              1.1e-6 / 3.0e-6
+//   affine codec, linear, over sum |x||z|      4.8e-7 against 2.4e-6
+//   mixed signs, z over 2^+-60, linear, over sum |x||z|: symmetric 2.9e-6
+//   against 8.1e-7, affine 4.4e-6 against 9.6e-7.
+// With the symmetric codec every piece and product is exact (the card test
+// with one code a row holds each value within 1e-6 of fp64), so its excess
+// is the accumulation's.  Measured against gram_q8_plain instead, the
+// difference looks ten times the SIMT B3's (2.0e-6 against 1.8e-7 at
+// RBF 1/p), since that B3 shares the plain version's rounding.  Every
+// card test holds B3 at the plain version's 2e-4, at the median
+// heuristic's gamma too, and against fp64 where the sums cancel.
 //
 // Two kernels per launch:
 //   1. a pre-pass writes the scaled pieces of z into a scratch (3, m, p_pad)
@@ -67,8 +85,7 @@
 //        two keep the tensor cores busy meanwhile;
 //      - epilogue in registers: dot = (s_i acc + z0_i colsum_j) 2^e_j, then
 //        the kernel function; ragged n and m are masked in the stores.
-//      tools/b3_probe.py times this against variants of itself (two
-//      warpgroups, three stages, and ablations).
+//      tools/b3_probe.py times this against the SIMT B3 it replaced.
 #include <cuda.h>            // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +93,7 @@
 
 namespace {
 
+// BM, BN and BK are Q8_TILE in kernels/gram.py (a CPU test holds them equal).
 constexpr int WGS = 3;                // consumer warpgroups, 64 rows of x each
 constexpr int BM = 64 * WGS;          // rows of x per block
 constexpr int BN = 128;               // rows of z per block: the wgmma's N

@@ -24,7 +24,9 @@ from repro_torch.kernels import build
 
 KERNELS = ("rbf", "linear", "poly", "tanh")   # index = kind code in gram.cu
 MAX_TILES = 65535                             # B1: gridDim.y limit, 128 z rows each
-Q8_TILE = (192, 128, 64)                      # B3: rows of x, rows of z, k per tile
+# B3: rows of x, rows of z, k per tile; BM, BN and BK of csrc/gram_q8.cu
+# (tests/test_torch_gram_q8.py holds the two equal)
+Q8_TILE = (192, 128, 64)
 
 
 def apply_epilogue(dot: torch.Tensor, x_sq: torch.Tensor, z_sq: torch.Tensor,
@@ -114,7 +116,7 @@ def _q8_padded(p: int) -> int:
 
 
 def _check_q8_grid(n: int, m: int, p: int) -> None:
-    """B3's grid is one dimension of (128-row x tile, 128-row z tile) pairs."""
+    """B3's grid is one dimension of (192-row x tile, 128-row z tile) pairs."""
     bm, bn, _ = Q8_TILE
     if -(-n // bm) * -(-m // bn) >= 2 ** 31 or max(n, m, _q8_padded(p)) >= 2 ** 31:
         raise ValueError(f"gram_q8_kernel: ({n}, {m}, {p}) exceeds the launch grid")

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import LPDSVM, KernelParams, StreamConfig
+from repro_torch import LPDSVM, KernelParams, StreamConfig, median_gamma
 from repro_torch.core import solver_stream as ss
 from repro_torch.core.nystrom import compute_factor
 from repro_torch.core.quant import quantize_rows
@@ -236,6 +236,53 @@ def test_gram_q8_kernel_cancelling_sums_against_fp64(cuda, symmetric):
     for got in (gram_q8_kernel(vd, scd, zd, kp, 32), gram_q8_plain(vd, scd, zd, kp, 32)):
         err = np.abs(got.double().cpu().numpy() - exact)
         assert np.all(err <= 2e-4 * size)
+
+
+@pytest.mark.parametrize("p", [100, 784])
+def test_gram_q8_kernel_single_code_rows_against_fp64(cuda, p):
+    """Rows of x with one nonzero code (symmetric codec, so no zero-point):
+    each inner product is one q s z_k, so the only roundings are those of
+    adding z's three exact pieces times q, of s times that, and of 2^e's
+    (none): within 2.5e-7 of the value in fp64.  Held at 1e-6 relative to
+    it, which a kernel that drops z's third piece misses (two pieces carry
+    16 of z's 24 bits, a relative error of up to 2^-17 = 7.6e-6), as does
+    one that adds a piece at the wrong k; the plain version likewise."""
+    rng = np.random.default_rng(63 + p)
+    n, m = 200, 150
+    x = np.zeros((n, p), np.float32)
+    x[np.arange(n), rng.integers(0, p, size=n)] = (rng.uniform(0.5, 1.5, size=n)
+                                                   * rng.choice([-1.0, 1.0], size=n))
+    z = rng.normal(size=(m, p)).astype(np.float32)
+    v, sc = quantize_rows(x, 32, symmetric=True)
+    assert np.all(np.count_nonzero(v, axis=1) == 1) and not np.any(sc[:, 1])
+    exact = (v.astype(np.float64) * np.repeat(sc[:, :1], 32, axis=0)[:n]) @ z.astype(
+        np.float64).T
+    vd, scd, zd = (torch.as_tensor(a, device=cuda) for a in (v, sc, z))
+    kp = KernelParams("linear")
+    for got in (gram_q8_kernel(vd, scd, zd, kp, 32), gram_q8_plain(vd, scd, zd, kp, 32)):
+        err = np.abs(got.double().cpu().numpy() - exact)
+        assert np.all(err <= 1e-6 * np.abs(exact))
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("scale", [1, 4])
+def test_gram_q8_kernel_rbf_at_the_median_gamma(cuda, symmetric, scale):
+    """Pixel-like rows (uniform in [0, 1), p 784, squared norms twice the
+    squared distances) under RBF at the median heuristic's gamma (about 6/p
+    here, near where K's error from an error in d2 peaks) and at 4x that:
+    d2 = ||x||^2 + ||z||^2 - 2 x.z cancels, and B3's inner products carry a
+    larger error than an fp32 product's (gram_q8.cu's head note), so this is
+    where it shows most.  n and m straddle B3's 192 x 128 tiles."""
+    rng = np.random.default_rng(64 + scale)
+    n, m, p = 300, 260, 784
+    x = rng.uniform(0, 1, size=(n, p)).astype(np.float32)
+    z = rng.uniform(0, 1, size=(m, p)).astype(np.float32)
+    kp = KernelParams("rbf", gamma=scale * median_gamma(np.concatenate([x, z])))
+    v, sc = (torch.as_tensor(a, device=cuda) for a in quantize_rows(x, 32, symmetric=symmetric))
+    zd = torch.as_tensor(z, device=cuda)
+    want = gram_q8_plain(v, sc, zd, kp, 32)
+    assert 0.01 < float(want.max())                  # values worth comparing
+    torch.testing.assert_close(gram_q8_kernel(v, sc, zd, kp, 32), want, rtol=2e-4, atol=2e-4)
 
 
 def test_gram_q8_kernel_takes_z_up_to_the_largest_float(cuda):

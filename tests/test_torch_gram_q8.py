@@ -11,6 +11,8 @@ is held exact here, and that arithmetic, written out in fp32, against the
 plain version and the reference at the same tolerance.  gamma is scaled to p
 (RBF 1/(2p), poly and tanh 1/sqrt(p)) so every kind gives values of order
 0.1-1 on randn rows, which a wrong kernel cannot match."""
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +24,8 @@ from repro.kernels import ref as jref
 from repro_torch.core.kernel_fn import KernelParams
 from repro_torch.core.quant import quantize_rows
 from repro_torch.kernels import ops
-from repro_torch.kernels.gram import (_check_q8_grid, apply_epilogue,
+from repro_torch.kernels import build
+from repro_torch.kernels.gram import (Q8_TILE, _check_q8_grid, apply_epilogue,
                                       dequant_rows, gram_q8_kernel,
                                       gram_q8_plain, split_bf16x3)
 
@@ -222,10 +225,26 @@ def test_cpu_route_is_the_plain_version():
 
 
 def test_launch_grid_check():
-    """B3's own grid check: one dimension of 128 x 128 tiles, and every
+    """B3's own grid check: one dimension of 192 x 128 tiles, and every
     extent (p padded to the k tile) below 2^31."""
     _check_q8_grid(2 ** 20, 2 ** 20, 784)
     for n, m, p in ((2 ** 31, 1, 1), (1, 2 ** 31, 1), (1, 1, 2 ** 31 - 1),
                     (2 ** 27, 2 ** 27, 1)):
         with pytest.raises(ValueError, match="launch grid"):
             _check_q8_grid(n, m, p)
+
+
+def test_q8_tile_is_the_kernel_source_tile():
+    """The wrapper's ``Q8_TILE`` (its grid check and the scratch's padded
+    width) is the tile that csrc/gram_q8.cu declares: BM = 64 WGS rows of x,
+    BN rows of z, a BK-wide k tile."""
+    src = (build.CSRC / "gram_q8.cu").read_text()
+
+    def const(name):
+        found = re.findall(rf"constexpr int {name} = ([^;]+);", src)
+        assert len(found) == 1, name
+        return found[0]
+
+    assert const("BM") == "64 * WGS"
+    tile = (64 * int(const("WGS")), int(const("BN")), int(const("BK")))
+    assert tile == Q8_TILE

@@ -1,38 +1,38 @@
 #!/usr/bin/env python3
 """Time kernel B3 (the int8 gram, src/repro_torch/kernels/csrc/gram_q8.cu)
-against variants of itself and, optionally, against the B3 of another
-gram.cu, on one CUDA card.
+against the SIMT B3 of another gram.cu, and measure both against fp64, on
+one CUDA card.
 
-    python3 tools/b3_probe.py [--parent OLD_GRAM.cu] [--variant OTHER_GRAM_Q8.cu ...]
-                              [--out PATH]
+    python3 tools/b3_probe.py --parent OLD_GRAM.cu [--out PATH]
 
-Shapes: chip_smoke.py's two stage-1 chunk shapes, 6281 x 2048 x 784 (the
+OLD_GRAM.cu is a gram.cu that still holds B3 (its `gram_q8_launch` on B1's
+SIMT body, before B3 moved to gram_q8.cu); it is built with the tree's nvcc
+flags into a temporary directory, beside the tree's build.
+
+Times: chip_smoke.py's two stage-1 chunk shapes, 6281 x 2048 x 784 (the
 streamed path) and 54413 x 2048 x 784 (stage 1 at scale), the symmetric
-codec of uniform [0, 1) rows in groups of 32, RBF with gamma 1/p.  Builds,
-with the tree's nvcc flags, in parallel, into a temporary directory:
+codec of uniform [0, 1) rows in groups of 32, RBF with gamma 1/p; CUDA
+events over 50 calls back to back (device time per call, the tree's
+pre-pass included), in turns parent, tree, tree, parent; the tree's two
+kernels apart with torch.profiler.
 
-  tree        csrc/gram_q8.cu as it is
-  wgs2        two consumer warpgroups (BM 128) instead of three
-  stages3     a ring of three stages instead of four
-  pieces2     ablation, wrong values: two pieces of z instead of three
-  no_mma      ablation, wrong values: no wgmma (loads, conversion, epilogue)
-  no_stores   ablation: the epilogue stores nothing
-  parent      --parent's gram_q8_launch (the SIMT B3 of gram.cu before it
-              moved to gram_q8.cu), where given
-  <stem>      each --variant: another gram_q8.cu with the tree's C interface
-
-Each is timed with CUDA events over 50 calls back to back (device time per
-call, the pre-pass included), in two rounds, the second in reverse order;
-all but the ablations are held against gram_q8_plain.  The tree's two
-kernels are timed apart with torch.profiler.  Prints one JSON object last,
-and writes it to --out PATH where given.
+Errors: each of tree, parent and gram_q8_plain against K in fp64 from the
+same codes, scales and z (max abs error), for RBF at gamma 1/p and at the
+median heuristic's gamma, and for the linear kernel (also relative to
+sum_k |x_ik| |z_jk|, the size of the terms); both codecs at the first
+shape, the symmetric one at the second; at the first shape also the linear
+kernel on tests/test_torch_cuda.py's cancelling sums (x of both signs, z
+of both signs from 2^-60 to 2^60).  Tree and parent are also held against
+gram_q8_plain at 2e-4, and their largest difference from it is reported.  Prints one JSON
+object last, and writes it to --out PATH where given.
 """
 from __future__ import annotations
 
 import argparse
+import atexit
 import ctypes
 import json
-import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -44,152 +44,182 @@ sys.path.insert(0, str(ROOT / "src"))
 SHAPES = ((6281, 2048, 784), (54413, 2048, 784))
 GROUP = 32
 CALLS = 50
-MMA = "        wgmma_rs_n128(acc, a[kk], desc_k_major(b_stage + c * PIECE_BYTES + kk * 32));\n"
-STORE = "        *reinterpret_cast<float2*>(o) = make_float2(v[h][0], v[h][1]);"
-VARIANTS = {
-    "tree": [],
-    "wgs2": [("constexpr int WGS = 3;", "constexpr int WGS = 2;")],
-    "stages3": [("constexpr int STAGES = 4;", "constexpr int STAGES = 3;")],
-    "pieces2": [("constexpr int PIECES = 3;", "constexpr int PIECES = 2;")],
-    "no_mma": [(MMA, '        asm volatile("" ::"r"(a[kk][0]));\n')],
-    "no_stores": [(STORE, "        if (v[h][0] == -1.f) " + STORE.strip())],
-}
-ABLATIONS = ("pieces2", "no_mma", "no_stores")
 
 
-def build_all(parent: Path | None, others: list, tmp: Path) -> dict:
-    from repro_torch.kernels import build
-    src = (build.CSRC / "gram_q8.cu").read_text()
-    sources = {}
-    for name, edits in VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise SystemExit(f"b3_probe: variant {name}: {old!r} not in gram_q8.cu")
-            text = text.replace(old, new)
-        sources[name] = text
-    if parent is not None:
-        sources["parent"] = parent.read_text()
-    for path in others:
-        sources[path.stem] = path.read_text()
-    procs = {}
-    for name, text in sources.items():
-        (tmp / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [build.cuda_tool(), *build.NVCC_FLAGS, "-o", str(tmp / f"{name}.so"),
-             str(tmp / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-    report = {}
-    for name, proc in procs.items():
+def build(parent: Path):
+    """The tree's gram_q8 library and the parent's, built in parallel."""
+    from repro_torch.kernels import build as tree_build
+    tmp = Path(tempfile.mkdtemp(prefix="b3_probe_"))
+    atexit.register(shutil.rmtree, tmp, True)
+    so = tmp / "parent.so"
+    proc = subprocess.Popen([tree_build.cuda_tool(), *tree_build.NVCC_FLAGS, "-o", str(so),
+                             str(parent)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        tree_build.build_all(["gram_q8"])
         log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"b3_probe: nvcc failed for {name}:\n{log}")
-        report[name] = {"registers": [int(r) for r in re.findall(r"Used (\d+) registers", log)],
-                        "spills": [int(a) + int(b) for a, b in re.findall(
-                            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]}
-    return report
+    finally:                         # stop nvcc, also after a failure
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {parent}:\n{log}")
+    return ctypes.CDLL(str(tree_build.library_path("gram_q8"))), ctypes.CDLL(str(so))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", type=Path, help="another gram.cu with the SIMT B3")
-    ap.add_argument("--variant", type=Path, action="append", default=[],
-                    help="another gram_q8.cu with the tree's C interface")
+    ap.add_argument("--parent", type=Path, required=True,
+                    help="a gram.cu that holds the SIMT B3")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
 
     import numpy as np
     import torch
-    from repro_torch import KernelParams
-    from repro_torch.core.quant import quantize_rows
-    from repro_torch.kernels.gram import (_GRAM_Q8_ARGS, KERNELS, _q8_padded,
-                                          gram_q8_kernel, gram_q8_plain)
     if not torch.cuda.is_available():
         print("b3_probe: no CUDA device", file=sys.stderr)
         return 1
+    from repro_torch import KernelParams, median_gamma
+    from repro_torch.core.quant import quantize_rows
+    from repro_torch.kernels.gram import (_GRAM_Q8_ARGS, KERNELS, _q8_padded,
+                                          gram_q8_kernel, gram_q8_plain)
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True, capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
-    result = {"device": smi, "shapes": {}}
+    result = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+              "ms": {}, "kernels_us": {}, "errors": {}}
 
-    with tempfile.TemporaryDirectory() as tmp:
-        result["builds"] = build_all(args.parent, args.variant, Path(tmp))
-        libs = {name: ctypes.CDLL(str(Path(tmp) / f"{name}.so")) for name in result["builds"]}
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for name, lib in libs.items():
-            lib.gram_q8_launch.restype = I
-            lib.gram_q8_launch.argtypes = (
-                [P, P, I, P, P, P, P, I, I, I, I, F, F, I, P] if name == "parent"
-                else _GRAM_Q8_ARGS)
+    tree, parent = build(args.parent)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tree.gram_q8_launch.argtypes = _GRAM_Q8_ARGS
+    parent.gram_q8_launch.argtypes = [P, P, I, P, P, P, P, I, I, I, I, F, F, I, P]
+    for lib in (tree, parent):
+        lib.gram_q8_launch.restype = I
 
-        def b2b(call) -> float:
+    def launchers(v, sc, z, kp, out):
+        """Both B3s on one input, each writing into ``out``."""
+        n, p = v.shape
+        m = z.shape[0]
+        pieces = torch.empty((3, m, _q8_padded(p)), dtype=torch.bfloat16, device=dev)
+        tables = torch.empty((3 * m + n,), device=dev)
+        kind = KERNELS.index(kp.kind)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def check(name, err):
+            if err != 0:
+                raise RuntimeError(f"b3_probe: {name} failed to launch ({err})")
+
+        return {
+            "parent": lambda: check("parent", parent.gram_q8_launch(
+                v.data_ptr(), sc.data_ptr(), GROUP, z.data_ptr(), tables.data_ptr(),
+                tables[n:].data_ptr(), out.data_ptr(), n, m, p, kind, kp.gamma, kp.coef0,
+                kp.degree, stream)),
+            "tree": lambda: check("tree", tree.gram_q8_launch(
+                v.data_ptr(), sc.data_ptr(), GROUP, z.data_ptr(), pieces.data_ptr(),
+                tables.data_ptr(), tables[3 * m:].data_ptr(), out.data_ptr(), n, m, p,
+                _q8_padded(p), kind, kp.gamma, kp.coef0, kp.degree, stream)),
+        }
+
+    def b2b(call) -> float:
+        call()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(CALLS):
             call()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(CALLS):
-                call()
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / CALLS
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / CALLS
 
-        rng = np.random.default_rng(0)
-        for n, m, p in SHAPES:
-            x = rng.uniform(0, 1, size=(n, p)).astype(np.float32)
+    def errors(label, x, z, cases, codecs, hold=True):
+        """Max abs error against fp64 of plain, parent and tree (and, for the
+        linear kernel, relative to sum |x||z|), and each B3's largest
+        difference from plain, where ``hold`` also held at 2e-4 (sums that
+        cancel are not: there no fp32 result is close in relative terms)."""
+        n, m = x.shape[0], z.shape[0]
+        for symmetric in codecs:
+            codec = "symmetric" if symmetric else "affine"
             v, sc = (torch.as_tensor(a, device=dev)
-                     for a in quantize_rows(x, GROUP, symmetric=True))
-            z = torch.as_tensor(rng.uniform(0, 1, size=(m, p)).astype(np.float32), device=dev)
-            kp = KernelParams("rbf", gamma=1.0 / p)
-            want = gram_q8_plain(v, sc, z, kp, GROUP)
-            out = torch.empty((n, m), device=dev)
-            pieces = torch.empty((3, m, _q8_padded(p)), dtype=torch.bfloat16, device=dev)
-            tables = torch.empty((3 * m + n,), device=dev)
-            stream = torch.cuda.current_stream().cuda_stream
-            calls = {}
-            for name, lib in libs.items():
-                fn = lib.gram_q8_launch
-                if name == "parent":
-                    calls[name] = lambda fn=fn: fn(
-                        v.data_ptr(), sc.data_ptr(), GROUP, z.data_ptr(), tables.data_ptr(),
-                        tables[n:].data_ptr(), out.data_ptr(), n, m, p, KERNELS.index("rbf"),
-                        kp.gamma, kp.coef0, kp.degree, stream)
+                     for a in quantize_rows(x, GROUP, symmetric=symmetric))
+            rows = sc.double().repeat_interleave(GROUP, dim=0)[:n]
+            x64, z64 = v.double() * rows[:, :1] + rows[:, 1:], z.double()
+            dot64 = x64 @ z64.T
+            for kname, kp in cases.items():
+                if kp.kind == "linear":
+                    want64 = dot64
                 else:
-                    calls[name] = lambda fn=fn: fn(
-                        v.data_ptr(), sc.data_ptr(), GROUP, z.data_ptr(), pieces.data_ptr(),
-                        tables.data_ptr(), tables[3 * m:].data_ptr(), out.data_ptr(), n, m, p,
-                        _q8_padded(p), KERNELS.index("rbf"), kp.gamma, kp.coef0, kp.degree,
-                        stream)
-            cell = {"ms": {name: [] for name in calls}, "max_abs_err": {}}
-            for order in (list(calls), list(reversed(calls))):
-                for name in order:
-                    if calls[name]() != 0:
-                        raise SystemExit(f"b3_probe: {name} failed to launch")
+                    d2 = (x64 * x64).sum(1)[:, None] + (z64 * z64).sum(1)[None] - 2 * dot64
+                    want64 = torch.exp(-kp.gamma * d2.clamp(min=0))
+                    del d2
+                out = torch.empty((n, m), device=dev)
+                plain = gram_q8_plain(v, sc, z, kp, GROUP)
+                errs, diffs = {"plain": (plain.double() - want64).abs()}, {}
+                for name, call in launchers(v, sc, z, kp, out).items():
+                    call()
                     torch.cuda.synchronize()
-                    if name not in ABLATIONS:
-                        cell["max_abs_err"][name] = (out - want).abs().max().item()
-                    cell["ms"][name].append(b2b(calls[name]))
-            gram_q8_kernel(v, sc, z, kp, GROUP)
+                    diff = (out - plain).abs()
+                    if hold and not bool((diff <= 2e-4 + 2e-4 * plain.abs()).all()):
+                        raise SystemExit(f"b3_probe: {name} disagrees with gram_q8_plain "
+                                         f"({label}, {codec}, {kname})")
+                    diffs[name] = diff.max().item()
+                    errs[name] = (out.double() - want64).abs()
+                key = f"{label} {codec} {kname} (gamma {kp.gamma:.6g})"
+                entry = {"vs fp64": {k: e.max().item() for k, e in errs.items()},
+                         "vs plain": diffs}
+                if kp.kind == "linear":
+                    size = x64.abs() @ z64.abs().T
+                    entry["vs fp64 / sum |x||z|"] = {
+                        k: (e / size).max().item() for k, e in errs.items()}
+                    del size
+                result["errors"][key] = entry
+                print(f"{key}: " + "; ".join(f"{what} " + ", ".join(
+                    f"{k} {e:.4g}" for k, e in d.items()) for what, d in entry.items()),
+                    flush=True)
+                del errs, plain, out, want64
+
+    rng = np.random.default_rng(0)
+    for n, m, p in SHAPES:
+        x = rng.uniform(0, 1, size=(n, p)).astype(np.float32)
+        z = torch.as_tensor(rng.uniform(0, 1, size=(m, p)).astype(np.float32), device=dev)
+        shape = f"{n}x{m}x{p}"
+        first = (n, m, p) == SHAPES[0]
+        errors(f"{shape} uniform", x, z,
+               {"rbf 1/p": KernelParams("rbf", gamma=1.0 / p),
+                "rbf median": KernelParams("rbf", gamma=median_gamma(x[:4096])),
+                "linear": KernelParams("linear")}, (True, False) if first else (True,))
+        if first:   # the card test's cancelling sums: signs mixed, z from 2^-60 to 2^60
+            xc = (rng.normal(size=(n, p)) + 0.5).astype(np.float32)
+            zc = np.ldexp(rng.choice([-1.0, 1.0], size=(m, p)) * rng.uniform(1, 2, size=(m, p)),
+                          rng.integers(-60, 61, size=(m, p))).astype(np.float32)
+            errors(f"{shape} cancelling", xc, torch.as_tensor(zc, device=dev),
+                   {"linear": KernelParams("linear")}, (True, False), hold=False)
+            del xc, zc
+
+        v, sc = (torch.as_tensor(a, device=dev)
+                 for a in quantize_rows(x, GROUP, symmetric=True))
+        kp = KernelParams("rbf", gamma=1.0 / p)
+        calls = launchers(v, sc, z, kp, torch.empty((n, m), device=dev))
+        ms = {"parent": [], "tree": []}
+        for name in ("parent", "tree", "tree", "parent"):
+            ms[name].append(b2b(calls[name]))
+        result["ms"][shape] = ms
+        gram_q8_kernel(v, sc, z, kp, GROUP)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                gram_q8_kernel(v, sc, z, kp, GROUP)
             torch.cuda.synchronize()
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    gram_q8_kernel(v, sc, z, kp, GROUP)
-                torch.cuda.synchronize()
-            cell["tree_kernels_us"] = {
-                ("pre-pass" if "prepass" in e.key else "product"): e.device_time
-                for e in prof.key_averages() if e.device_time > 0}
-            result["shapes"][f"{n}x{m}x{p}"] = cell
-            print(f"{n}x{m}x{p}: " + ", ".join(
-                f"{k} {' / '.join(f'{t:.4f}' for t in ts)} ms" for k, ts in cell["ms"].items())
-                + f"; tree's kernels {cell['tree_kernels_us']} us; errors "
-                f"{cell['max_abs_err']}", flush=True)
-            del want, out, pieces, tables
-            for name, err in cell["max_abs_err"].items():
-                if not err <= 2e-4:
-                    raise SystemExit(f"b3_probe: {name} disagrees with gram_q8_plain ({err})")
+        result["kernels_us"][shape] = {
+            ("pre-pass" if "prepass" in e.key else "product"): e.device_time
+            for e in prof.key_averages() if e.device_time > 0}
+        print(f"{shape}: parent {' / '.join(f'{t:.4f}' for t in ms['parent'])} ms, tree "
+              f"{' / '.join(f'{t:.4f}' for t in ms['tree'])} ms back to back; tree's "
+              f"kernels {result['kernels_us'][shape]} us", flush=True)
+        del calls, x, z, v, sc
+
     line = json.dumps(result)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
