@@ -11,9 +11,9 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 and B4 (flash_attention.cu) from src/repro_torch/kernels/csrc,
                 in parallel; B4's registers, spills and shared memory (ptxas)
                 and the HGMMA count of each body (cuobjdump -sass): no spills,
-                and the bf16 body on the tensor cores; B3's registers, spills
-                and HGMMA count: no spills, on the tensor cores; B2's
-                registers and spills at each ring depth: no spills
+                and the bf16 body on the tensor cores; B1's and B3's
+                registers, spills and HGMMA counts: no spills, on the tensor
+                cores; B2's registers and spills at each ring depth: no spills
   B4 vs plain   flash-attention kernel against its plain version: causal and
                 not, S in {1, 63, 64, 127, 128, 129, 255, 257, 1000}, (Hq, Hkv)
                 in {(4, 4), (16, 8), (32, 4), (16, 2)}, D in {64, 128}, fp32 and
@@ -25,11 +25,15 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 beside its plain version, SDPA and its bound; back to back
                 (device time) and one call alone (host launch cost included)
   B1 vs plain   gram kernel against its plain PyTorch version, four kinds at
-                ragged shapes
+                ragged shapes; against fp64: rows of x with one nonzero element
+                (p 100 and 784, 1e-6 relative: fails if a piece product is
+                dropped) and cancelling sums (2e-4 of sum |x||z|)
   B3 vs plain   int8 gram kernel against dequantise-then-gram, four kinds at
                 ragged shapes, affine and symmetric codecs
   data          an MNIST-shaped 10-class problem: 60000 + 10000 rows, p = 784
-  B1 vs plain, main-path shapes   K_mm, K_nm and the prediction features
+  B1 vs plain, main-path shapes   K_mm, K_nm and the prediction features;
+                K_mm against fp64 within the fp32 form's rounding bound, at
+                the median gamma and 4x it
   B2 vs plain   SMO-epoch kernel against its plain version at small shapes
   main path     LPDSVM(...).fit -> predict on the card (RBF, median gamma,
                 C = 1, budget 2048, tol 1e-2), with launch counts reset just
@@ -39,7 +43,8 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 from the fitted state
   card vs cpu   a small fit on the card against the same fit on the CPU
   timing        CUDA-event times of each kernel at the main path's shapes,
-                beside its plain version, a library call and its bound; the
+                beside its plain version, a library call and its bound (B1
+                one call alone and back to back at K_nm and predict); the
                 cheap epoch's active rows and ns per active row; stage 2
                 solved again on the main path's factor with CUDA events
                 around every B2 launch: their sum against the wall time
@@ -58,7 +63,7 @@ failure raises and exits non-zero, nothing is caught and carried on:
   streamed stage 1 at scale       1,000,000 x 784 rows (mnist8m's shape, cut
                 from 8.1 M rows), default StreamConfig, f32 and int8 wires:
                 counts reset around each wire, B1 and B3 against their plain
-                versions on its first chunk (B3 also timed there), G rows
+                versions on its first chunk (both also timed there), G rows
                 against the plain path
   streamed vs monolithic, one factor   the main path's factor, moved to
                 pinned host memory, through the streamed stage 2 against the
@@ -92,15 +97,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 on the CUDA
-# cores, HBM3 bandwidth, and the dense tensor cores in bf16 (B4, B3's exact
-# bf16 passes) and TF32 (B1's product in fp32 accuracy as 3 TF32 passes).
+# cores, HBM3 bandwidth, and the dense tensor cores in bf16 (B4, and the
+# bf16 passes of B1's and B3's split products).
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_BF16_FLOPS = 989e12
-PEAK_TF32_FLOPS = 495e12
 
 RAGGED = [(130, 70, 33), (17, 300, 1100), (128, 128, 512), (256, 128, 512)]
 GRAM_RTOL = GRAM_ATOL = 2e-4     # fp32 sums in two orders (as tests/test_kernels_pallas.py)
+SINGLE_TERM_RTOL = 1e-6          # B1 on rows with one nonzero: its six products' roundings
+CANCEL_TOL = 2e-4                # of sum |x||z|, where the sums cancel
 ALPHA_ATOL = 1e-4                # C = 1 scale
 W_RTOL = 1e-3                    # of max |w|
 VIOL_RTOL = 1e-3
@@ -193,14 +199,15 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
 
 
 def gram_bound(n: int, m: int, p: int):
-    # the dot products plus the two norm passes; x, z read once, K written once
+    # B1's product as computed: six bf16 passes (piece products of x and z)
+    # on the tensor cores; x, z read once, K written once
+    return bound_ms(6 * 2.0 * n * m * p, 4.0 * (n * p + m * p + n * m), PEAK_BF16_FLOPS)
+
+
+def gram_bound_cuda_cores(n: int, m: int, p: int):
+    # the same function as one fp32 pass on the CUDA cores (B1's bound before
+    # it moved to the tensor cores): the dot products plus the two norm passes
     return bound_ms(2.0 * n * m * p + 2.0 * (n + m) * p, 4.0 * (n * p + m * p + n * m))
-
-
-def gram_bound_tensor_cores(n: int, m: int, p: int):
-    # B1's product in fp32 accuracy on the tensor cores: 3 TF32 passes (or
-    # 6 bf16 at 989, the same time); the bytes as gram_bound's
-    return bound_ms(3 * 2.0 * n * m * p, 4.0 * (n * p + m * p + n * m), PEAK_TF32_FLOPS)
 
 
 def q8_bytes(n: int, m: int, p: int, n_groups: int) -> float:
@@ -360,6 +367,19 @@ def main() -> int:
               "B4's bf16 body has no HGMMA: it does not run on the tensor cores")
         kv_tile = bf16_kv_tile()
         print(f"B4's bf16 kv tile: {kv_tile}")
+        b1_build = ptxas_entries(logs["gram"], "gram_tc")
+        b1_build.update(ptxas_entries(logs["gram"], "prepass"))
+        b1_hgmma = sass_hgmma(build.library_path("gram"))
+        for name, r in sorted(b1_build.items()):
+            print(f"B1 {name}: {r.get('registers')} registers, {r.get('spills')} bytes "
+                  f"spilled, {b1_hgmma.get(name, 0)} HGMMA in its SASS")
+        b1_main = [name for name in b1_build if "gram_tc" in name]
+        check(len(b1_main) == 2 and len(b1_build) > 2
+              and all(r.get("spills") is not None for r in b1_build.values()),
+              "B1's ptxas report is missing from the build log")
+        check(all(r["spills"] == 0 for r in b1_build.values()), "B1 spills registers")
+        check(all(b1_hgmma.get(name, 0) > 0 for name in b1_main),
+              "B1 has no HGMMA: it does not run on the tensor cores")
         b3_build = ptxas_entries(logs["gram_q8"], "gram_q8")
         b3_build.update(ptxas_entries(logs["gram_q8"], "prepass"))
         b3_hgmma = sass_hgmma(build.library_path("gram_q8"))
@@ -527,6 +547,31 @@ def main() -> int:
                 x = torch.randn(n, p, generator=gen).to(dev)
                 z = torch.randn(m, p, generator=gen).to(dev)
                 compare_gram(x, z, kp, f"{kind:6s} {n}x{m}x{p}")
+        # against fp64: one nonzero element a row, so each dot is one x_k z_k
+        # (a dropped piece product errs by up to 2^-16 of it); then sums
+        # that cancel (signs mixed, each element from 2^-60 to 2^60)
+        rng = np.random.default_rng(0)
+        lin = KernelParams("linear")
+        for p in (100, 784):
+            x = np.zeros((200, p), np.float32)
+            x[np.arange(200), rng.integers(0, p, size=200)] = (
+                rng.uniform(0.5, 1.5, size=200) * rng.choice([-1.0, 1.0], size=200))
+            z = rng.normal(size=(150, p)).astype(np.float32)
+            exact = torch.as_tensor(x, dtype=torch.float64) @ torch.as_tensor(z, dtype=torch.float64).T
+            got = gram_kernel(torch.as_tensor(x, device=dev), torch.as_tensor(z, device=dev), lin)
+            rel = ((got.double().cpu() - exact).abs() / exact.abs()).max().item()
+            print(f"gram one nonzero a row, 200x150x{p}, linear: max error / |fp64| {rel:.3e} "
+                  f"(tol {SINGLE_TERM_RTOL})")
+            check(rel <= SINGLE_TERM_RTOL, f"B1 on one-nonzero rows at p {p} strays from fp64")
+        x, z = (np.float32(np.ldexp(rng.choice([-1.0, 1.0], size=(r, 100))
+                                    * rng.uniform(1, 2, size=(r, 100)),
+                                    rng.integers(-60, 61, size=(r, 100)))) for r in (150, 140))
+        x64, z64 = torch.as_tensor(x, dtype=torch.float64), torch.as_tensor(z, dtype=torch.float64)
+        got = gram_kernel(torch.as_tensor(x, device=dev), torch.as_tensor(z, device=dev), lin)
+        share = ((got.double().cpu() - x64 @ z64.T).abs() / (x64.abs() @ z64.abs().T)).max().item()
+        print(f"gram cancelling sums 150x140x100, linear: max error / sum |x||z| {share:.3e} "
+              f"(tol {CANCEL_TOL})")
+        check(share <= CANCEL_TOL, "B1 on cancelling sums strays from fp64")
 
     with phase("B3 vs plain"):
         q8_err = 0.0
@@ -561,6 +606,25 @@ def main() -> int:
             compare_gram(lm, lm, kp, f"K_mm {shape(budget, budget, lm.shape[1])}"),
             compare_gram(xtr_d, lm, kp, f"K_nm {shape(len(xtr_d), budget, lm.shape[1])}"),
             compare_gram(xte_d, lm, kp, f"predict {shape(len(xte_d), budget, lm.shape[1])}"))
+        # K_mm against fp64 within the fp32 form's worst-case rounding,
+        # gamma 4 p eps (||x_i||^2 + ||x_j||^2): the form cancels on and
+        # near the diagonal, which feeds eigh and its eigenvalue drop
+        lm64 = lm.double()
+        sq64 = (lm64 * lm64).sum(-1)
+        d2_64 = (sq64[:, None] + sq64[None] - 2 * lm64 @ lm64.T).clamp(min=0)
+        eps32 = torch.finfo(torch.float32).eps
+        for mult in (1, 4):
+            g = mult * kp.gamma
+            kmm = gram_kernel(lm, lm, KernelParams("rbf", gamma=g)).double()
+            tol = g * 4 * lm.shape[1] * eps32 * (sq64[:, None] + sq64[None])
+            share = ((kmm - torch.exp(-g * d2_64)).abs() / tol).max().item()
+            diag = kmm.diagonal()
+            print(f"gram K_mm at {mult}x the median gamma vs fp64: largest share of the "
+                  f"rounding bound {share:.3e} (max 1), diagonal in [{diag.min().item():.9f}, "
+                  f"{diag.max().item():.9f}]")
+            check(share <= 1 and bool((diag <= 1).all()), f"B1's K_mm at {mult}x gamma strays "
+                  "from fp64")
+        del lm64, d2_64, kmm, tol
 
     def smo_state(G, tasks, alpha, unchanged, w, live):
         return dict(G=G, q=(G * G).sum(-1), idx=tasks.idx, y=tasks.y, c=tasks.c,
@@ -701,6 +765,7 @@ def main() -> int:
     with phase("timing"):
         n, m, p = xtr_d.shape[0], lm.shape[0], xtr_d.shape[1]
         g_ms = cuda_ms(lambda: gram_kernel(xtr_d, lm, kp), 10)
+        g_b2b = cuda_ms_back_to_back(lambda: gram_kernel(xtr_d, lm, kp), 50)
         g_plain = cuda_ms(lambda: gram_plain(xtr_d, lm, kp), 10)
 
         def library():   # cuBLAS fp32 product with the RBF epilogue in place
@@ -710,15 +775,19 @@ def main() -> int:
             return k.add_(zsq[None, :]).clamp_min_(0.0).mul_(-kp.gamma).exp_()
         g_lib = cuda_ms(library, 10)
         g_bound, g_by = gram_bound(n, m, p)
+        g_bound_cc, _ = gram_bound_cuda_cores(n, m, p)
         pr_ms = cuda_ms(lambda: gram_kernel(xte_d, lm, kp), 10)
+        pr_b2b = cuda_ms_back_to_back(lambda: gram_kernel(xte_d, lm, kp), 50)
         pr_bound, _ = gram_bound(xte_d.shape[0], m, p)
-        g_bound_tc, _ = gram_bound_tensor_cores(n, m, p)
-        pr_bound_tc, _ = gram_bound_tensor_cores(xte_d.shape[0], m, p)
-        print(f"gram {n}x{m}x{p}: {g_ms:.3f} ms (plain {g_plain:.3f}, library "
-              f"{g_lib:.3f}, bound {g_bound:.3f} by {g_by} on the CUDA cores, "
-              f"{g_bound_tc:.4f} for 3 TF32 passes on the tensor cores); predict "
-              f"shape {xte_d.shape[0]}x{m}x{p}: {pr_ms:.3f} ms (bound {pr_bound:.3f} "
-              f"on the CUDA cores, {pr_bound_tc:.4f} on the tensor cores)")
+        mm_b1 = cuda_ms(lambda: gram_kernel(lm, lm, kp), 10)
+        mm_bound, _ = gram_bound(m, m, p)
+        print(f"gram {n}x{m}x{p}: {g_ms:.4f} ms alone, {g_b2b:.4f} back to back (plain "
+              f"{g_plain:.3f}, library {g_lib:.3f}, bound {g_bound:.4f} by {g_by} for 6 bf16 "
+              f"passes on the tensor cores, {g_bound_cc:.3f} as one fp32 pass on the CUDA "
+              f"cores; {100 * g_bound / g_b2b:.1f}% of the bound back to back); predict shape "
+              f"{xte_d.shape[0]}x{m}x{p}: {pr_ms:.4f} ms alone, {pr_b2b:.4f} back to back "
+              f"(bound {pr_bound:.4f}); K_mm {m}x{m}x{p}: {mm_b1:.4f} ms alone (bound "
+              f"{mm_bound:.4f})")
 
         work = {}
 
@@ -1086,6 +1155,12 @@ def main() -> int:
         xc_d = torch.as_tensor(xb[:chunk_b], device=dev)
         gram_err = max(gram_err, compare_gram(
             xc_d, lm_b, kpb, f"stage-1 chunk at scale {chunk_b}x{budget}x{xb.shape[1]}"))
+        b1b_ms = cuda_ms(lambda: gram_kernel(xc_d, lm_b, kpb), 10)
+        b1b_b2b = cuda_ms_back_to_back(lambda: gram_kernel(xc_d, lm_b, kpb), 50)
+        b1b_bound, _ = gram_bound(chunk_b, budget, xb.shape[1])
+        print(f"gram at scale {chunk_b}x{budget}x{xb.shape[1]}: {b1b_ms:.4f} ms alone, "
+              f"{b1b_b2b:.4f} back to back (bound {b1b_bound:.4f}; "
+              f"{100 * b1b_bound / b1b_b2b:.1f}% of it back to back)")
         del xc_d
         v, sc = quantize_rows(xb[:chunk_b], cfg_b.quant_group_rows, symmetric=True)
         vb_d, scb_d = torch.as_tensor(v, device=dev), torch.as_tensor(sc, device=dev)
@@ -1285,7 +1360,10 @@ def main() -> int:
          "replaces": "src/repro/kernels/gram.py:70", "launches": launches["gram"],
          "max_abs_err": gram_err, "ms": g_ms, "plain_ms": g_plain,
          "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib,
-         "bound_ms_tensor_cores": g_bound_tc},
+         "bound_ms_cuda_cores": g_bound_cc, "ms_back_to_back": g_b2b,
+         "ms_predict": pr_ms, "ms_predict_back_to_back": pr_b2b, "bound_ms_predict": pr_bound,
+         "ms_at_scale": b1b_ms, "ms_at_scale_back_to_back": b1b_b2b,
+         "bound_ms_at_scale": b1b_bound},
         {"name": "smo_epoch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/smo.cu",
          "replaces": "src/repro/kernels/smo.py:100",

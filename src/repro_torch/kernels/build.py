@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers), so
 ``nvcc`` builds it in seconds.  The shared library goes to
-``<repo>/build/repro_torch/<name>-<hash>.so``; the hash covers the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused;
+``<repo>/build/repro_torch/<name>-<hash>.so``; the hash covers the source,
+the headers beside it (``csrc/*.cuh``, which the sources include by
+relative path) and the flags, so an edited source or header is rebuilt and
+an unchanged one is reused;
 nvcc's log (``-Xptxas -v``: registers, spills) is kept beside it as
 ``<name>-<hash>.log``.
 Nothing is built when this module is imported: the first launch of a kernel
@@ -46,7 +48,8 @@ def cuda_tool(name: str = "nvcc") -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

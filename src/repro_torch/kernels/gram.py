@@ -1,16 +1,18 @@
 """Kernels B1 and B3, the batch kernel (gram) matrix: CUDA launches and plain
 versions.
 
-``gram_kernel`` launches B1 in ``csrc/gram.cu`` (it replaces the TPU kernel
-``src/repro/kernels/gram.py:70``, ``gram_pallas``); ``gram_q8_kernel``
-launches B3 in ``csrc/gram_q8.cu``, the same function with x arriving as
-int8 codes and the compact scale table of the int8 codec, on the tensor
-cores (it replaces ``gram_pallas_q8``, ``src/repro/kernels/gram.py:157``).
+``gram_kernel`` launches B1 in ``csrc/gram.cu`` on the tensor cores (it
+replaces the TPU kernel ``src/repro/kernels/gram.py:70``, ``gram_pallas``);
+``gram_q8_kernel`` launches B3 in ``csrc/gram_q8.cu``, the same function
+with x arriving as int8 codes and the compact scale table of the int8
+codec (it replaces ``gram_pallas_q8``, ``src/repro/kernels/gram.py:157``).
+Both take z split exactly into three bf16 pieces by a pre-pass
+(``csrc/gram_tc.cuh``); B1 splits x the same way in registers.
 ``gram_plain`` / ``gram_q8_plain`` are the same functions in PyTorch ops,
 the reference's arithmetic written out.  The plain versions serve CPU
 tensors and the comparisons; nothing on the CUDA path calls them.
-``split_bf16x3`` is B3's pre-pass in PyTorch (z split exactly into three
-bf16 pieces), for the tests and ``chip_smoke.py``.  ``params`` is any object
+``split_bf16x3`` is that split in PyTorch, for the tests and
+``chip_smoke.py``.  ``params`` is any object
 with ``kind``, ``gamma``, ``coef0`` and ``degree``
 (``core.kernel_fn.KernelParams``).
 """
@@ -23,9 +25,10 @@ import torch
 from repro_torch.kernels import build
 
 KERNELS = ("rbf", "linear", "poly", "tanh")   # index = kind code in gram.cu
-MAX_TILES = 65535                             # B1: gridDim.y limit, 128 z rows each
-# B3: rows of x, rows of z, k per tile; BM, BN and BK of csrc/gram_q8.cu
-# (tests/test_torch_gram_q8.py holds the two equal)
+# rows of x, rows of z, k per tile: BM, BN and BK of csrc/gram.cu (B1) and
+# csrc/gram_q8.cu (B3); tests/test_torch_gram.py and test_torch_gram_q8.py
+# hold each equal to its source
+B1_TILE = (128, 128, 64)
 Q8_TILE = (192, 128, 64)
 
 
@@ -69,10 +72,10 @@ def gram_q8_plain(values: torch.Tensor, scales: torch.Tensor, z: torch.Tensor,
 
 
 def split_bf16x3(z: torch.Tensor):
-    """B3's pre-pass in PyTorch: each row of fp32 z (m, p) scaled by 2^-e_j,
-    which brings its largest |z| into [1, 2), then split into three bf16
-    pieces w1 = bf16(w), w2 = bf16(w - w1), w3 = bf16(w - w1 - w2).  Returns
-    the pieces (3, m, p) bf16 and the powers 2^e_j (m,) fp32, so that
+    """The pre-pass's split in PyTorch (B1 splits x alike): each row of fp32
+    z (m, p) scaled by 2^-e_j, which brings its largest |z| into [1, 2), then
+    split into three bf16 pieces w1 = bf16(w), w2 = bf16(w - w1),
+    w3 = bf16(w - w1 - w2).  Returns the pieces (3, m, p) bf16 and the powers 2^e_j (m,) fp32, so that
     (w1 + w2 + w3) 2^e_j == z exactly for every element within 2^110 of its
     row's largest (subnormals included; a zero may come back as +0).  A row
     that is all zero or holds an infinity keeps e_j = 0."""
@@ -99,31 +102,29 @@ def _launcher(lib: str, name: str, argtypes):
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_GRAM_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P]
+_GRAM_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P]
 _GRAM_Q8_ARGS = [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P]
 _SPLIT_ARGS = [_P, _P, _P, _I, _I, _I, _P]
 
 
-def _check_grid(name: str, n: int, m: int, p: int) -> None:
-    if -(-m // 128) > MAX_TILES or max(n, m, p) >= 2 ** 31:
-        raise ValueError(f"{name}: ({n}, {m}, {p}) exceeds the launch grid")
-
-
-def _q8_padded(p: int) -> int:
-    """B3's scratch width: p rounded up to its k tile (at least one tile)."""
-    k = Q8_TILE[2]
+def _padded(p: int) -> int:
+    """The pieces' width: p rounded up to the k tile (at least one tile)."""
+    k = B1_TILE[2]
     return max(1, -(-p // k)) * k
 
 
-def _check_q8_grid(n: int, m: int, p: int) -> None:
-    """B3's grid is one dimension of (192-row x tile, 128-row z tile) pairs."""
-    bm, bn, _ = Q8_TILE
-    if -(-n // bm) * -(-m // bn) >= 2 ** 31 or max(n, m, _q8_padded(p)) >= 2 ** 31:
-        raise ValueError(f"gram_q8_kernel: ({n}, {m}, {p}) exceeds the launch grid")
+def _check_grid(name: str, tile, n: int, m: int, p: int) -> None:
+    """B1's and B3's grids are one dimension of (x tile, z tile) pairs."""
+    bm, bn, _ = tile
+    if -(-n // bm) * -(-m // bn) >= 2 ** 31 or max(n, m, _padded(p)) >= 2 ** 31:
+        raise ValueError(f"{name}: ({n}, {m}, {p}) exceeds the launch grid")
 
 
 def gram_kernel(x: torch.Tensor, z: torch.Tensor, params) -> torch.Tensor:
-    """Launch kernel B1 on CUDA tensors; returns the (n, m) fp32 matrix."""
+    """Launch kernel B1 on CUDA tensors; returns the (n, m) fp32 matrix.
+    Ragged n, m and p are masked in the kernel.  Its scratch, z's pieces
+    (3, m, p rounded up to 64) bf16 and (3 m + 2 n) fp32 of row tables, is
+    allocated here, per call."""
     if not (x.is_cuda and z.is_cuda and x.device == z.device):
         raise ValueError("gram_kernel: x and z must be CUDA tensors on one device")
     if x.dtype != torch.float32 or z.dtype != torch.float32:
@@ -132,17 +133,20 @@ def gram_kernel(x: torch.Tensor, z: torch.Tensor, params) -> torch.Tensor:
         raise ValueError(f"gram_kernel: shapes {tuple(x.shape)} and {tuple(z.shape)}")
     n, p = x.shape
     m = z.shape[0]
-    _check_grid("gram_kernel", n, m, p)
+    _check_grid("gram_kernel", B1_TILE, n, m, p)
     x = x.contiguous()
     z = z.contiguous()
+    p_pad = _padded(p)
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
-    norms = torch.empty((n + m,), dtype=torch.float32, device=x.device)
+    pieces = torch.empty((3, m, p_pad), dtype=torch.bfloat16, device=x.device)
+    tables = torch.empty((3 * m + 2 * n,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _launcher("gram", "gram_launch", _GRAM_ARGS)(
-            x.data_ptr(), z.data_ptr(), norms.data_ptr(), norms[n:].data_ptr(),
-            out.data_ptr(), n, m, p, KERNELS.index(params.kind),
-            float(params.gamma), float(params.coef0), int(params.degree), stream)
+            x.data_ptr(), z.data_ptr(), pieces.data_ptr(), tables.data_ptr(),
+            tables[3 * m:].data_ptr(), out.data_ptr(), n, m, p, p_pad,
+            KERNELS.index(params.kind), float(params.gamma), float(params.coef0),
+            int(params.degree), stream)
     if err != 0:
         raise RuntimeError(f"gram_kernel: launch failed with CUDA error {err}")
     gram_kernel.launches += 1
@@ -176,11 +180,11 @@ def gram_q8_kernel(values: torch.Tensor, scales: torch.Tensor, z: torch.Tensor,
     if group < 1 or tuple(scales.shape) != (-(-n // group), 2):
         raise ValueError(f"gram_q8_kernel: scales {tuple(scales.shape)} do not "
                          f"cover {n} rows in groups of {group}")
-    _check_q8_grid(n, m, p)
+    _check_grid("gram_q8_kernel", Q8_TILE, n, m, p)
     values = values.contiguous()
     scales = scales.contiguous()
     z = z.contiguous()
-    p_pad = _q8_padded(p)
+    p_pad = _padded(p)
     out = torch.empty((n, m), dtype=torch.float32, device=z.device)
     pieces = torch.empty((3, m, p_pad), dtype=torch.bfloat16, device=z.device)
     tables = torch.empty((3 * m + n,), dtype=torch.float32, device=z.device)
@@ -200,27 +204,28 @@ def gram_q8_kernel(values: torch.Tensor, scales: torch.Tensor, z: torch.Tensor,
 gram_q8_kernel.launches = 0
 
 
-def q8_order(p_pad: int) -> torch.Tensor:
-    """The k that position P of B3's pieces holds (the inverse of
-    ``position`` in gram_q8.cu): column c of k16 step kk of a 64-wide k tile
-    holds code 16 ((c % 8) // 2) + 4 kk + c % 2 + 2 (c // 8) of the tile."""
+def piece_order(p_pad: int) -> torch.Tensor:
+    """The k that position P of the pieces holds (the inverse of
+    ``position`` in gram_tc.cuh, for B1 and B3): column c of k16 step kk of
+    a 64-wide k tile holds element 16 ((c % 8) // 2) + 4 kk + c % 2 + 2 (c // 8)
+    of the tile."""
     P = torch.arange(p_pad)
-    r = P % Q8_TILE[2]
+    r = P % B1_TILE[2]
     kk, c = r // 16, r % 16
     return P - r + 16 * ((c % 8) // 2) + 4 * kk + c % 2 + 2 * (c // 8)
 
 
 def split_bf16x3_kernel(z: torch.Tensor):
     """B3's pre-pass alone on CUDA fp32 z (m, p): the pieces (3, m, p_pad)
-    bf16 put back in k order (the kernel keeps them in ``q8_order``), zero
+    bf16 put back in k order (the kernel keeps them in ``piece_order``), zero
     from p on, and the powers 2^e_j (m,), as ``split_bf16x3`` gives them.
     For the tests and ``chip_smoke.py``; not a launch of B3."""
     if not z.is_cuda or z.dtype != torch.float32 or z.ndim != 2:
         raise ValueError("split_bf16x3_kernel: a 2-D fp32 CUDA tensor")
     m, p = z.shape
-    _check_q8_grid(1, m, p)
+    _check_grid("split_bf16x3_kernel", Q8_TILE, 1, m, p)
     z = z.contiguous()
-    p_pad = _q8_padded(p)
+    p_pad = _padded(p)
     pieces = torch.empty((3, m, p_pad), dtype=torch.bfloat16, device=z.device)
     tables = torch.empty((3 * m,), dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
@@ -230,5 +235,5 @@ def split_bf16x3_kernel(z: torch.Tensor):
     if err != 0:
         raise RuntimeError(f"split_bf16x3_kernel: launch failed with CUDA error {err}")
     in_order = torch.empty_like(pieces)
-    in_order[:, :, q8_order(p_pad).to(z.device)] = pieces
+    in_order[:, :, piece_order(p_pad).to(z.device)] = pieces
     return in_order, tables[2 * m:]

@@ -38,7 +38,15 @@ def cuda():
 
 
 @pytest.mark.parametrize("n,m,p", [(130, 70, 33), (17, 300, 1100), (1, 1, 1),
-                                   (257, 129, 784)])
+                                   (257, 129, 784),
+                                   # n across 64 and 128 (a warpgroup's rows, B1's
+                                   # x tile), m across 128 (its z tile)
+                                   (63, 129, 100), (65, 127, 64), (128, 128, 128),
+                                   (129, 255, 48), (255, 257, 784),
+                                   # p below 4, % 4 != 0 (scalar loads of x), not a
+                                   # multiple of the 64-wide k tile
+                                   (70, 140, 3), (70, 140, 5), (70, 140, 17),
+                                   (70, 140, 65), (70, 140, 130)])
 @pytest.mark.parametrize("kind", ["rbf", "linear", "poly", "tanh"])
 def test_gram_kernel_matches_plain(cuda, n, m, p, kind):
     gen = torch.Generator().manual_seed(n + m + p)
@@ -73,6 +81,88 @@ def test_gram_kernel_rejects_what_it_does_not_take(cuda):
                     torch.zeros(4, 3, device=cuda, dtype=torch.float64), kp)
     with pytest.raises(ValueError):
         gram_kernel(torch.zeros(4, 3, device=cuda), torch.zeros(4, 5, device=cuda), kp)
+
+
+@pytest.mark.parametrize("p", [100, 784])
+def test_gram_kernel_single_nonzero_rows_against_fp64(cuda, p):
+    """Rows of x with one nonzero element: each inner product is one x_k z_k,
+    so B1's only errors are the three piece products it leaves out (below
+    2^-22 of x_k z_k) and its six products' additions into the tensor
+    cores' accumulator (x1 z1 last, up to an ulp of it): within about 2^-22
+    of the value in fp64.  Held at 1e-6 relative to it, which a kernel that
+    drops x3 z1 or x1 z3 misses (each up to 2^-16 of x_k z_k), as does one
+    with two pieces each; the plain version likewise.  Linear, so the
+    product is what comes out."""
+    rng = np.random.default_rng(65 + p)
+    n, m = 200, 150
+    x = np.zeros((n, p), np.float32)
+    x[np.arange(n), rng.integers(0, p, size=n)] = (rng.uniform(0.5, 1.5, size=n)
+                                                   * rng.choice([-1.0, 1.0], size=n))
+    z = rng.normal(size=(m, p)).astype(np.float32)
+    exact = x.astype(np.float64) @ z.astype(np.float64).T
+    xd, zd = torch.as_tensor(x, device=cuda), torch.as_tensor(z, device=cuda)
+    kp = KernelParams("linear")
+    for got in (gram_kernel(xd, zd, kp), gram_plain(xd, zd, kp)):
+        err = np.abs(got.double().cpu().numpy() - exact)
+        assert np.all(err <= 1e-6 * np.abs(exact))
+
+
+@pytest.mark.parametrize("scale", [1, 4])
+def test_gram_kernel_rbf_diagonal_of_k_mm(cuda, scale):
+    """K_mm (landmarks against themselves) of the main path's data (p 784) at
+    its median gamma and at 4x it: the fp32 form ||x||^2 + ||z||^2 - 2 x.z
+    cancels on and near the diagonal, where its norms and B1's tensor-core
+    dot round apart.  Every entry, the diagonal too, within the form's
+    worst-case rounding, gamma 4 p eps (||x_i||^2 + ||x_j||^2), of K in fp64
+    (tests/test_torch_gram.py::test_rbf_against_float64_oracle), and the
+    diagonal in [1 - that, 1]."""
+    x, _ = make_multiclass(2000, p=784, n_classes=10, sep=0.07, within=0.06, seed=0)
+    lm = x[np.random.default_rng(0).choice(len(x), 300, replace=False)]
+    gamma = scale * median_gamma(x)
+    K = gram_kernel(torch.as_tensor(lm, device=cuda), torch.as_tensor(lm, device=cuda),
+                    KernelParams("rbf", gamma=gamma)).double().cpu().numpy()
+    x64 = lm.astype(np.float64)
+    sq = (x64 ** 2).sum(-1)
+    K64 = np.exp(-gamma * np.clip(sq[:, None] + sq[None] - 2 * x64 @ x64.T, 0, None))
+    tol = gamma * 4 * lm.shape[1] * np.finfo(np.float32).eps * (sq[:, None] + sq[None])
+    assert np.all(np.abs(K - K64) <= tol)
+    assert np.all(np.diag(K) <= 1.0) and np.all(np.diag(K) >= 1.0 - np.diag(tol))
+
+
+def test_gram_kernel_cancelling_sums_against_fp64(cuda):
+    """x and z of both signs, each element from 2^-60 to 2^60: the sums
+    cancel, so neither B1's nor the plain version's relative error means
+    anything.  Both are held against the product in fp64 at 2e-4 of
+    sum_k |x_ik| |z_jk| (the size of the terms)."""
+    rng = np.random.default_rng(66)
+    n, m, p = 150, 140, 100
+    x, z = (np.float32(_spanning(rng, r, p, False, signed=True)) for r in (n, m))
+    exact = x.astype(np.float64) @ z.astype(np.float64).T
+    size = np.abs(x.astype(np.float64)) @ np.abs(z.astype(np.float64)).T
+    xd, zd = torch.as_tensor(x, device=cuda), torch.as_tensor(z, device=cuda)
+    kp = KernelParams("linear")
+    for got in (gram_kernel(xd, zd, kp), gram_plain(xd, zd, kp)):
+        err = np.abs(got.double().cpu().numpy() - exact)
+        assert np.all(err <= 2e-4 * size)
+
+
+@pytest.mark.parametrize("large", ["z", "x"])
+def test_gram_kernel_takes_values_up_to_the_largest_float(cuda, large):
+    """Each row of x and of z is scaled into [1, 2) before the split, and
+    dot = acc 2^(e_i + e_j) is taken in fp64: rows up to the largest fp32
+    value on either side, against rows of 1e-12 on the other, give K as the
+    plain version does.  Positive rows, so that the sums do not cancel."""
+    rng = np.random.default_rng(39)
+    big = rng.uniform(0, 1, size=(130, 96))
+    big = np.float32(big / big.max(1, keepdims=True) * np.finfo(np.float32).max)
+    small = np.float32(rng.uniform(0.5, 1.5, size=(70, 96)) * 1e-12)
+    x, z = (small, big) if large == "z" else (big, small)
+    xd, zd = torch.as_tensor(x, device=cuda), torch.as_tensor(z, device=cuda)
+    kp = KernelParams("linear")
+    got = gram_kernel(xd, zd, kp)
+    want = gram_plain(xd, zd, kp)
+    assert bool(torch.isfinite(want).all())
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
 def _smo_state(cuda, T, n_pad, n_rows, B, seed):

@@ -25,7 +25,7 @@ from repro_torch.core.kernel_fn import KernelParams
 from repro_torch.core.quant import quantize_rows
 from repro_torch.kernels import ops
 from repro_torch.kernels import build
-from repro_torch.kernels.gram import (Q8_TILE, _check_q8_grid, apply_epilogue,
+from repro_torch.kernels.gram import (Q8_TILE, _check_grid, apply_epilogue,
                                       dequant_rows, gram_q8_kernel,
                                       gram_q8_plain, split_bf16x3)
 
@@ -227,11 +227,11 @@ def test_cpu_route_is_the_plain_version():
 def test_launch_grid_check():
     """B3's own grid check: one dimension of 192 x 128 tiles, and every
     extent (p padded to the k tile) below 2^31."""
-    _check_q8_grid(2 ** 20, 2 ** 20, 784)
+    _check_grid("gram_q8_kernel", Q8_TILE, 2 ** 20, 2 ** 20, 784)
     for n, m, p in ((2 ** 31, 1, 1), (1, 2 ** 31, 1), (1, 1, 2 ** 31 - 1),
                     (2 ** 27, 2 ** 27, 1)):
         with pytest.raises(ValueError, match="launch grid"):
-            _check_q8_grid(n, m, p)
+            _check_grid("gram_q8_kernel", Q8_TILE, n, m, p)
 
 
 def test_q8_tile_is_the_kernel_source_tile():

@@ -81,7 +81,7 @@ def main() -> int:
         return 1
     from repro_torch import KernelParams, median_gamma
     from repro_torch.core.quant import quantize_rows
-    from repro_torch.kernels.gram import (_GRAM_Q8_ARGS, KERNELS, _q8_padded,
+    from repro_torch.kernels.gram import (_GRAM_Q8_ARGS, KERNELS, _padded,
                                           gram_q8_kernel, gram_q8_plain)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -103,7 +103,7 @@ def main() -> int:
         """Both B3s on one input, each writing into ``out``."""
         n, p = v.shape
         m = z.shape[0]
-        pieces = torch.empty((3, m, _q8_padded(p)), dtype=torch.bfloat16, device=dev)
+        pieces = torch.empty((3, m, _padded(p)), dtype=torch.bfloat16, device=dev)
         tables = torch.empty((3 * m + n,), device=dev)
         kind = KERNELS.index(kp.kind)
         stream = torch.cuda.current_stream().cuda_stream
@@ -120,7 +120,7 @@ def main() -> int:
             "tree": lambda: check("tree", tree.gram_q8_launch(
                 v.data_ptr(), sc.data_ptr(), GROUP, z.data_ptr(), pieces.data_ptr(),
                 tables.data_ptr(), tables[3 * m:].data_ptr(), out.data_ptr(), n, m, p,
-                _q8_padded(p), kind, kp.gamma, kp.coef0, kp.degree, stream)),
+                _padded(p), kind, kp.gamma, kp.coef0, kp.degree, stream)),
         }
 
     def b2b(call) -> float:
