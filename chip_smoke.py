@@ -30,6 +30,13 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 dropped) and cancelling sums (2e-4 of sum |x||z|)
   B3 vs plain   int8 gram kernel against dequantise-then-gram, four kinds at
                 ragged shapes, affine and symmetric codecs
+  B3 vs fp64    B3 against K in fp64 at the streamed chunk's shape
+                (tools/b3_probe.py's cases: symmetric linear, RBF at 1/p, the
+                cancelling sums of both codecs), each at or under the SIMT
+                B3's largest error
+  B1 / B3 tiny elements   rows of one 2^20 and 2^-115 elsewhere, the tiny
+                terms the only nonzero ones: fp32 keeps them, B1 and B3
+                return 0 (a deliberate difference)
   data          an MNIST-shaped 10-class problem: 60000 + 10000 rows, p = 784
   B1 vs plain, main-path shapes   K_mm, K_nm and the prediction features;
                 K_mm against fp64 within the fp32 form's rounding bound, at
@@ -42,6 +49,17 @@ failure raises and exits non-zero, nothing is caught and carried on:
   B2 vs plain, main-path shape    a full epoch from zero and a cheap epoch
                 from the fitted state
   card vs cpu   a small fit on the card against the same fit on the CPU
+  polished main path   the main path's fit with polish=True on its factor,
+                counts reset around it: a line a level (rows, routing,
+                epochs, B2 launches, gap, seconds), held against the cold
+                fit (violations under tol, alphas in their box, w within
+                0.05 of its scale, test error within 0.03, predictions
+                agreeing on 98%, every gap within the C tol m_t that the
+                KKT stop implies); the duality gaps measured against the
+                cold fit and a cold solve at the ladder's cadence, per task
+                (tests/test_polish.py's slack) and largest against largest
+                (benchmarks/polish.py's); the final level's fp64 warm start
+                timed
   timing        CUDA-event times of each kernel at the main path's shapes,
                 beside its plain version, a library call and its bound (B1
                 one call alone and back to back at K_nm and predict); the
@@ -56,6 +74,10 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 streaming, counts reset just before and read just after,
                 held against the monolithic fit; stage 1 alone and stage 2
                 alone (f32, then bf16 blocks) for their peak device memory
+  polished streamed path   the streamed path's fit (stage 1 included) with
+                polish=True, counts reset around it: the final level streams,
+                each coarse level's routing printed, held against the cold
+                streamed fit as above
   windowed B2 vs plain            B2's window form on one streamed G block
   timing, streamed kernels        B3 at the chunk shape and windowed B2 on
                 one block, beside plain versions, library calls and bounds
@@ -80,6 +102,9 @@ failure raises and exits non-zero, nothing is caught and carried on:
   class signal by depth           the driver's head on the same documents at
                 0 layers (the mean input embedding) and at the 2-layer cut;
                 the 0-layer error must lie ten standard errors below chance
+  driver --polish                 launch/train_svm.py --polish through its
+                CLI (reduced backbone, 400 documents): exit code 0, its
+                polish level lines, test error below chance
 
 Then one JSON line {"kernels": [...]} and, last, the {"ok": true, ...} line.
 """
@@ -88,6 +113,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -107,6 +133,14 @@ RAGGED = [(130, 70, 33), (17, 300, 1100), (128, 128, 512), (256, 128, 512)]
 GRAM_RTOL = GRAM_ATOL = 2e-4     # fp32 sums in two orders (as tests/test_kernels_pallas.py)
 SINGLE_TERM_RTOL = 1e-6          # B1 on rows with one nonzero: its six products' roundings
 CANCEL_TOL = 2e-4                # of sum |x||z|, where the sums cancel
+# B3 against fp64 at 6281 x 2048 x 784 (tools/b3_probe.py's cases): the SIMT
+# B3's largest errors (gram_q8.cu's head note), the bar its per-tile sums meet
+B3_FP64_BARS = {"symmetric linear / sum |x||z|": 2.5e-6, "symmetric rbf 1/p": 1.1e-6,
+                "cancelling symmetric / sum |x||z|": 8.1e-7,
+                "cancelling affine / sum |x||z|": 9.6e-7}
+POLISH_W_SHARE = 0.05            # polished w against the cold fit's, of max |w|
+POLISH_ERR_DIFF = 0.03           # test error, polished against cold
+POLISH_MIN_AGREE = 0.98          # predictions, polished against cold
 ALPHA_ATOL = 1e-4                # C = 1 scale
 W_RTOL = 1e-3                    # of max |w|
 VIOL_RTOL = 1e-3
@@ -588,6 +622,69 @@ def main() -> int:
                         torch.as_tensor(sc, device=dev), z, kp, 32,
                         f"{kind:6s} {codec:9s} {n}x{m}x{p}"))
 
+    with phase("B3 vs fp64"):
+        # the per-tile sums (C4) at the streamed chunk's shape, on
+        # tools/b3_probe.py's cases, each held at the SIMT B3's error
+        rng = np.random.default_rng(0)
+        n, m, p = 6281, 2048, 784
+        lin = KernelParams("linear")
+        cases = []
+        x = rng.uniform(0, 1, size=(n, p)).astype(np.float32)
+        z = rng.uniform(0, 1, size=(m, p)).astype(np.float32)
+        cases.append(("symmetric linear / sum |x||z|", x, z, True, lin))
+        cases.append(("symmetric rbf 1/p", x, z, True, KernelParams("rbf", gamma=1.0 / p)))
+        xc = (rng.normal(size=(n, p)) + 0.5).astype(np.float32)
+        zc = np.float32(np.ldexp(rng.choice([-1.0, 1.0], size=(m, p))
+                                 * rng.uniform(1, 2, size=(m, p)),
+                                 rng.integers(-60, 61, size=(m, p))))
+        cases.append(("cancelling symmetric / sum |x||z|", xc, zc, True, lin))
+        cases.append(("cancelling affine / sum |x||z|", xc, zc, False, lin))
+        b3_fp64 = {}
+        for label, xa, za, sym, kpa in cases:
+            v, sc = quantize_rows(xa, 32, symmetric=sym)
+            v_d, sc_d = torch.as_tensor(v, device=dev), torch.as_tensor(sc, device=dev)
+            z_d = torch.as_tensor(za, device=dev)
+            rows = sc_d.double().repeat_interleave(32, dim=0)[:n]
+            x64, z64 = v_d.double() * rows[:, :1] + rows[:, 1:], z_d.double()
+            dot64 = x64 @ z64.T
+            if kpa.kind == "linear":
+                want64, size = dot64, x64.abs() @ z64.abs().T
+            else:
+                d2 = (x64 * x64).sum(1)[:, None] + (z64 * z64).sum(1)[None] - 2 * dot64
+                want64, size = torch.exp(-kpa.gamma * d2.clamp(min=0)), 1.0
+            got = gram_q8_kernel(v_d, sc_d, z_d, kpa, 32)
+            b3_fp64[label] = ((got.double() - want64).abs() / size).max().item()
+            print(f"B3 {n}x{m}x{p} {label}: largest error against fp64 "
+                  f"{b3_fp64[label]:.4g} (the SIMT B3's {B3_FP64_BARS[label]:.2g})")
+            del dot64, want64, size, got, x64, z64
+        check(all(b3_fp64[k] <= bar for k, bar in B3_FP64_BARS.items()),
+              "B3's error against fp64 is above the SIMT B3's")
+
+    with phase("B1 / B3 tiny elements"):
+        # C5, a deliberate difference: an element below 2^-133 of its row's
+        # largest leaves no bit in a bf16 piece.  One large element (2^20)
+        # and the rest 2^-115 in the split operand, 0 where the other
+        # operand meets the large one: fp32 keeps the tiny terms, B1 and B3
+        # return 0
+        rng = np.random.default_rng(1)
+        n, m, p = 70, 50, 100
+        tiny = np.full((n, p), 2.0 ** -115, np.float32)
+        tiny[:, 0] = 2.0 ** 20
+        other = rng.uniform(0.5, 1.5, size=(m, p)).astype(np.float32)
+        other[:, 0] = 0.0
+        fp32 = tiny @ other.T
+        got1 = gram_kernel(torch.as_tensor(tiny, device=dev),
+                           torch.as_tensor(other, device=dev), KernelParams("linear"))
+        v, sc = quantize_rows(other, 32, symmetric=True)
+        got3 = gram_q8_kernel(torch.as_tensor(v, device=dev), torch.as_tensor(sc, device=dev),
+                              torch.as_tensor(tiny, device=dev), KernelParams("linear"), 32)
+        print(f"rows of one 2^20 and 2^-115 elsewhere: an fp32 product keeps the tiny "
+              f"terms ({fp32.min():.4g} .. {fp32.max():.4g}); B1 returns "
+              f"{got1.abs().max().item()} at most, B3 {got3.abs().max().item()}")
+        check(bool(np.all(fp32 > 0)), "fp32 lost the tiny terms")
+        check(not bool(got1.any()) and not bool(got3.any()),
+              "B1 or B3 no longer returns 0 for elements below bf16's range")
+
     with phase("data"):
         x, y = make_multiclass(70000, p=784, n_classes=10, sep=0.07, within=0.06,
                                seed=0)
@@ -761,6 +858,134 @@ def main() -> int:
               f"(max 5e-3), epochs card {res['cuda'][3].tolist()} cpu "
               f"{res['cpu'][3].tolist()}")
         check(agree >= 0.99 and rel <= 5e-3, "the card's fit disagrees with the CPU's")
+
+    def polish_levels(ptrace) -> int:
+        """One line a level; returns the B2 launches the levels account for
+        (a monolithic level launches B2 once an epoch while a task is live,
+        a streamed one once a block)."""
+        total = 0
+        for lv in ptrace.levels:
+            calls = (lv.stream_stats.kernel_calls if lv.streamed
+                     else int(lv.epochs.max()))
+            total += calls
+            print(f"polish level {lv.fraction:.4g}: {lv.n_rows} rows, n_pad {lv.n_pad}, "
+                  f"{'streamed' if lv.streamed else 'monolithic'}, tol {lv.tol:.3g}, "
+                  f"epochs max {int(lv.epochs.max())} mean {lv.epochs.mean():.2f}, "
+                  f"B2 launches {calls}, largest gap {np.nanmax(lv.duality_gap):.4g}, "
+                  f"{lv.seconds:.3f} s")
+        return total
+
+    def task_gaps(G_d, tasks_c, alpha) -> np.ndarray:
+        return np.array([float(dual_solver.duality_gap(
+            G_d, tasks_c.idx[t], tasks_c.y[t], tasks_c.c[t], alpha[t]))
+            for t in range(tasks_c.n_tasks)])
+
+    def against_cold(pol, cold, G_d, pred_p, pred_c, label, same_cadence):
+        """tests/test_polish.py::_assert_matches_cold's checks on the card
+        (violations under tol, alphas in their box, w within 0.05 of its
+        scale), and the test errors and predictions of the two fits.
+
+        The duality gap is measured, per task against the cold fit with the
+        test's slack tol (1 + |dual_t|) and in benchmarks/polish.py's form
+        (the largest gap against the cold's largest plus tol (1 + max
+        |dual_t|)), each also against ``same_cadence``, a cold solve at the
+        final level's cadence (that benchmark's cold_p1 baseline).  At this
+        width neither form holds on both routes (PERF.md, PR 22): both fits
+        stop at the same KKT tolerance, but the ladder's final level checks
+        it every epoch (period 1; 5 streamed) and stops at the first pass
+        under it, where the cold fit's cheap epochs between full passes
+        (period 20) end deeper inside it; the cold solve at the ladder's
+        cadence has gaps of the same size.  Held instead: every gap, of both
+        fits, within what the stop implies, C tol m_t: the gap is the sum
+        over a task's m_t rows of alpha_i G_i + C max(0, -G_i) (G_i the
+        dual gradient, y_i w.g_i - 1), and a projected gradient of at most
+        tol bounds each term by C tol."""
+        tasks_c = cold.tasks_
+        tol = cold.config.tol
+        viol = pol.stats.violations
+        a, c = pol.alpha_, tasks_c.c
+        dual_c = (cold.alpha_.sum(-1) - 0.5 * (cold.W_ * cold.W_).sum(-1)).cpu().numpy()
+        slack = tol * (1.0 + np.abs(dual_c))
+        gp = task_gaps(G_d, tasks_c, pol.alpha_)
+        base = {"cold": task_gaps(G_d, tasks_c, cold.alpha_),
+                "cold at the final level's cadence": task_gaps(G_d, tasks_c,
+                                                               same_cadence.alpha)}
+        for name, gc in base.items():
+            ex = gp - gc - slack
+            t = int(ex.argmax())
+            target = gc.max() + tol * (1.0 + np.abs(dual_c).max())
+            print(f"{label}: largest gap {gp.max():.4g}, {name} {gc.max():.4g} (measured, "
+                  f"not held): per task {int((ex > 0).sum())} of {len(ex)} above the "
+                  f"{name}'s gap + tol (1 + |dual_t|), worst task {t} {gp[t]:.4g} against "
+                  f"{gc[t]:.4g} + {slack[t]:.4g}; largest against the {name}'s largest "
+                  f"+ tol (1 + max |dual_t|) = {target:.4g}: "
+                  f"{'within' if gp.max() <= target else 'above'}")
+        print(f"{label}: epochs max {int(cold.stats.epochs.max())} cold, "
+              f"{int(same_cadence.epochs.max())} cold at the final level's cadence, "
+              f"dual up to {np.abs(dual_c).max():.4g}")
+        rows = (tasks_c.c > 0).sum(-1).cpu().numpy()
+        kkt_bound = float(tasks_c.c.max()) * tol * rows
+        within = bool(np.all(gp <= kkt_bound) and np.all(base["cold"] <= kkt_bound))
+        wscale = max(1.0, cold.W_.abs().max().item())
+        w_diff = (pol.W_ - cold.W_).abs().max().item()
+        err_p, err_c = float(np.mean(pred_p != yte)), float(np.mean(pred_c != yte))
+        agree = float(np.mean(pred_p == pred_c))
+        print(f"{label} against the cold fit: largest violation {viol.max():.4g} (tol "
+              f"{tol}); alphas in [{a.min().item():.4g}, box]: "
+              f"{bool((a >= 0).all() and (a <= c + 1e-5).all())}; every gap within C "
+              f"tol m_t ({kkt_bound.min():.4g} .. {kkt_bound.max():.4g}): {within}; max "
+              f"|w - w_cold| {w_diff:.4g} (limit {POLISH_W_SHARE * wscale:.4g}); test "
+              f"error {err_p:.4f} (cold {err_c:.4f}), prediction agreement {agree:.4f}; "
+              f"stage 2 {pol.stats.stage2_seconds:.3f} s (cold "
+              f"{cold.stats.stage2_seconds:.3f} s)")
+        check(bool(np.all(viol < tol)), f"{label}: a final violation is not under tol")
+        check(bool((a >= 0).all() and (a <= c + 1e-5).all()),
+              f"{label}: an alpha left its box")
+        check(within, f"{label}: a duality gap above what the KKT stop implies")
+        check(w_diff <= POLISH_W_SHARE * wscale, f"{label}: w strays from the cold fit's")
+        check(abs(err_p - err_c) <= POLISH_ERR_DIFF, f"{label}: test error off the cold fit's")
+        check(agree >= POLISH_MIN_AGREE, f"{label}: predictions agree {agree} < "
+              f"{POLISH_MIN_AGREE}")
+
+    with phase("polished main path"):
+        # the main path's data, solver and budget with polish=True on the
+        # main path's factor; counts reset just before and read just after
+        svm_p = LPDSVM(kernel=kp, C=1.0, budget=budget, tol=1e-2, polish=True)
+        for fn in (gram_kernel, gram_q8_kernel, smo_epoch_kernel):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        svm_p.fit(xtr, ytr, factor=svm.factor)
+        pred_p = svm_p.predict(xte)
+        wall_p = time.perf_counter() - t0
+        p_launches = {"gram": gram_kernel.launches, "gram_q8": gram_q8_kernel.launches,
+                      "smo_epoch": smo_epoch_kernel.launches}
+        ptr = svm_p.stats.polish_trace
+        accounted = polish_levels(ptr)
+        print(f"launches {p_launches}; the levels account for {accounted} B2 launches; "
+              f"fit (stage 2) -> predict wall {wall_p:.3f} s")
+        check(svm_p.stats.polished and len(ptr.levels) >= 2, "the ladder did not run")
+        check(not any(lv.streamed for lv in ptr.levels), "a monolithic level streamed")
+        check(all(int(lv.epochs.max()) > 0 for lv in ptr.levels),
+              "a level ran no epoch of B2")
+        check(p_launches["smo_epoch"] == accounted > 0,
+              "B2 launches differ from the levels' epochs")
+        check(p_launches["gram"] == 1 and p_launches["gram_q8"] == 0,
+              "B1 not launched once for the predict features")
+        cold_p1 = dual_solver.solve_batch(svm.factor.G, svm.tasks_, dataclasses.replace(
+            svm.config, full_pass_period=svm_p.polish_schedule.full_pass_period))
+        against_cold(svm_p, svm, svm.factor.G, pred_p, pred, "polished main path", cold_p1)
+        del cold_p1
+        # the warm start every level after the first takes: w0 = sum alpha y g
+        # a task, in fp64 (dual_solver._init_w), at the final level's width
+        tasks = svm.tasks_
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dual_solver._init_w(svm.factor.G, tasks.idx.to(torch.int32), tasks.y,
+                            svm_p.alpha_)
+        torch.cuda.synchronize()
+        print(f"warm-start w0 of the final level ({tasks.n_tasks} tasks x "
+              f"{tasks.idx.shape[1]} rows x {svm.factor.G.shape[1]}, fp64): "
+              f"{time.perf_counter() - t0:.4f} s")
 
     with phase("timing"):
         n, m, p = xtr_d.shape[0], lm.shape[0], xtr_d.shape[1]
@@ -1027,6 +1252,47 @@ def main() -> int:
         check(agree16 >= 0.99, f"bf16 predictions agree {agree16} < 0.99")
         check(peak16 <= limit2,
               "bf16 stage 2 peak device memory above the budget plus the allowance")
+
+    with phase("polished streamed path"):
+        # the streamed path's configuration (256 MiB, int8 stage 1) with
+        # polish=True, stage 1 included; counts reset just before and read
+        # just after
+        svm_ps = LPDSVM(kernel=kp, C=1.0, budget=budget, tol=1e-2, stream_config=cfg,
+                        polish=True)
+        for fn in (gram_kernel, gram_q8_kernel, smo_epoch_kernel):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        svm_ps.fit(xtr, ytr)
+        pred_ps = svm_ps.predict(xte)
+        wall_ps = time.perf_counter() - t0
+        ps_launches = {"gram": gram_kernel.launches, "gram_q8": gram_q8_kernel.launches,
+                       "smo_epoch": smo_epoch_kernel.launches}
+        st_ps = svm_ps.stats
+        ptr = st_ps.polish_trace
+        accounted = polish_levels(ptr)
+        print(f"route: stage 1 streamed {st_ps.stage1_streamed}, coarse levels "
+              f"{['streamed' if lv.streamed else 'monolithic' for lv in ptr.levels[:-1]]}, "
+              f"final level streamed {ptr.final.streamed}; launches {ps_launches}; the "
+              f"levels account for {accounted} B2 launches; stage1 "
+              f"{st_ps.stage1_seconds:.3f} s, stage2 {st_ps.stage2_seconds:.3f} s, "
+              f"fit -> predict wall {wall_ps:.3f} s")
+        check(st_ps.polished and st_ps.stage1_streamed, "the polished fit did not stream "
+              "stage 1 or run the ladder")
+        check(ptr.final.streamed and st_ps.stage2_streamed
+              and st_ps.stage2_stats is ptr.final.stream_stats is not None,
+              "the final level did not stream, or its stream stats are missing")
+        check(ps_launches["gram_q8"] == st_ps.stage1_stats.chunks > 1,
+              "B3 was not launched once per stage-1 chunk")
+        check(ps_launches["smo_epoch"] == accounted > 0
+              and all(int(lv.epochs.max()) > 0 for lv in ptr.levels),
+              "B2 launches differ from the levels' epochs and blocks")
+        cold_p5 = solve_batch_streamed(svm_s.factor.G, svm_s.tasks_, dataclasses.replace(
+            svm_s.config, full_pass_period=svm_ps.polish_schedule.stream_full_pass_period),
+            stream_config=cfg)
+        G_check = svm_ps.factor.G.to(dev)      # for the checks only
+        against_cold(svm_ps, svm_s, G_check, pred_ps, pred_s, "polished streamed path",
+                     cold_p5)
+        del G_check, cold_p5
 
     with phase("windowed B2 vs plain"):
         # block 1 of the streamed grid (row0 = tile), every task from zero
@@ -1353,6 +1619,26 @@ def main() -> int:
         check(by_depth[0] < chance - margin,
               "the documents' mean input embedding carries no class signal")
         del cut, backbone, f0
+
+    with phase("driver --polish"):
+        # the paper's driver through its CLI (the reduced backbone from seed
+        # 0, as the reference's CLI builds it) with --polish, in a process
+        # of its own
+        argv = ["--classes", "3", "--n", "400", "--seq", "16", "--budget", "64", "--polish"]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train_svm", *argv],
+                             cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        print(run.stdout.strip())
+        levels = [l for l in run.stdout.splitlines() if l.startswith("polish level ")]
+        found = re.search(r"test error: ([0-9.]+) \(chance ([0-9.]+)\)", run.stdout)
+        print(f"train_svm {' '.join(argv)}: exit code {run.returncode}, "
+              f"{len(levels)} polish level lines, {time.perf_counter() - t0:.3f} s")
+        check(run.returncode == 0, f"the driver failed:\n{run.stderr[-4000:]}")
+        check(len(levels) >= 1 and "polish total:" in run.stdout,
+              "the driver printed no polish level lines")
+        check(found is not None and float(found.group(1)) < float(found.group(2)),
+              "the driver's polished head does not beat chance")
 
     kernels = [
         {"name": "gram", "route": "cuda",

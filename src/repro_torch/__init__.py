@@ -6,12 +6,15 @@ imported here).  Two routes of ``LPDSVM(...).fit(x, y)`` then
 (gram) in stage 1 and prediction and kernel B2 (SMO epoch) in stage 2, and
 the out-of-core one (``stream`` / ``stream_config``), where x and G stay in
 host memory, stage-1 chunks cross the bus as int8 through kernel B3 (or as
-fp32 through B1) and stage 2 streams G's row blocks through B2.
+fp32 through B1) and stage 2 streams G's row blocks through B2.  Either
+route's stage 2 can run as the paper's polish ladder (``polish=True``).
 """
 from repro_torch.core import (LPDSVM, FitStats, KernelParams, LowRankFactor,
-                              SolverConfig, StreamConfig, TaskBatch,
-                              compute_factor, median_gamma, solve_batch)
+                              PolishSchedule, PolishTrace, SolverConfig,
+                              StreamConfig, TaskBatch, compute_factor,
+                              make_schedule, median_gamma, solve_batch)
 
 __all__ = ["LPDSVM", "FitStats", "KernelParams", "LowRankFactor",
-           "SolverConfig", "StreamConfig", "TaskBatch", "compute_factor",
-           "median_gamma", "solve_batch"]
+           "PolishSchedule", "PolishTrace", "SolverConfig", "StreamConfig",
+           "TaskBatch", "compute_factor", "make_schedule", "median_gamma",
+           "solve_batch"]

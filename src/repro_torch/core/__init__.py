@@ -1,5 +1,5 @@
 """LPD-SVM core, PyTorch port: the monolithic and the out-of-core (streamed)
-fit -> predict routes."""
+fit -> predict routes, and the polish ladder over stage 2."""
 from repro_torch.core.dual_solver import (SolveResult, SolverConfig, TaskBatch,
                                           dual_objective, duality_gap,
                                           primal_objective, solve_batch,
@@ -10,6 +10,8 @@ from repro_torch.core.nystrom import (LowRankFactor, compute_factor,
                                       landmark_rows, select_landmarks)
 from repro_torch.core.ovo import (build_ovo_tasks, class_pairs,
                                   ovo_decision_values, ovo_vote)
+from repro_torch.core.polish import (PolishSchedule, PolishTrace,
+                                     make_schedule, solve_polished)
 from repro_torch.core.quant import (GROUP_ROWS, QuantBlock, dequant_rows,
                                     dequantize_rows, quantize_rows)
 from repro_torch.core.solver_stream import (Stage2StreamStats, auto_tile_rows,
@@ -28,6 +30,7 @@ __all__ = [
     "KernelParams", "apply_epilogue", "gram", "kernel_diag", "median_gamma",
     "LowRankFactor", "compute_factor", "landmark_rows", "select_landmarks",
     "build_ovo_tasks", "class_pairs", "ovo_decision_values", "ovo_vote",
+    "PolishSchedule", "PolishTrace", "make_schedule", "solve_polished",
     "GROUP_ROWS", "QuantBlock", "dequant_rows", "dequantize_rows",
     "quantize_rows",
     "Stage2StreamStats", "auto_tile_rows", "route_stage2",

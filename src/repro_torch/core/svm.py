@@ -13,9 +13,11 @@ Out-of-core training routes as in the reference: ``stream=True`` forces it,
 and a ``stream_config`` streams each stage whose monolithic working set
 exceeds its device budget.  Stage 1 then builds G in pinned host memory
 (kernel B3 on the int8 wire, ``core/streaming.py``) and stage 2 streams G's
-row blocks through B2 (``core/solver_stream.py``).  The polished,
-checkpointed and traced routes of the reference are not ported yet: their
-arguments raise ``NotImplementedError``.
+row blocks through B2 (``core/solver_stream.py``).  ``polish=True`` (or a
+``polish_schedule``) solves stage 2 as the reference's coarse-to-fine ladder
+(``core/polish.py``), each level through B2, the final level routed as an
+unpolished fit.  The checkpointed and traced routes of the reference are not
+ported yet: their arguments raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from repro_torch.core.dual_solver import SolveResult, SolverConfig, solve_batch
 from repro_torch.core.kernel_fn import KernelParams, gram
 from repro_torch.core.nystrom import LowRankFactor, compute_factor
 from repro_torch.core.ovo import build_ovo_tasks, ovo_decision_values, ovo_vote
+from repro_torch.core.polish import (PolishSchedule, PolishTrace, make_schedule,
+                                     solve_polished)
 from repro_torch.core.solver_stream import (Stage2StreamStats, route_stage2,
                                             solve_batch_streamed)
 from repro_torch.core.streaming import Stage1StreamStats, StreamConfig
@@ -49,6 +53,8 @@ class FitStats:
     stage1_stats: Optional[Stage1StreamStats] = None
     stage2_streamed: bool = False   # True -> the solver streamed G row blocks
     stage2_stats: Optional[Stage2StreamStats] = None
+    polished: bool = False          # True -> stage 2 ran the polish ladder
+    polish_trace: Optional[PolishTrace] = None
 
 
 def _not_ported(**args) -> None:
@@ -85,13 +91,10 @@ class LPDSVM:
         stream_config: Optional[StreamConfig] = None,
         polish: bool = False,
         polish_levels: int = 3,
-        polish_schedule=None,
+        polish_schedule: Optional[PolishSchedule] = None,
         polish_gap_trace: bool = True,
         device=None,
     ):
-        _not_ported(polish=bool(polish), polish_levels=polish_levels != 3,
-                    polish_schedule=polish_schedule is not None,
-                    polish_gap_trace=polish_gap_trace is not True)
         if stream_config is not None and not isinstance(stream_config, StreamConfig):
             raise TypeError("stream_config must be a repro_torch StreamConfig")
         self.device = resolve_device(device)
@@ -104,6 +107,13 @@ class LPDSVM:
         self.solve_fn = solve_fn
         self.stream = stream
         self.stream_config = stream_config
+        # polishing (core/polish.py): polish=True builds the geometric ladder
+        # polish_levels deep; an explicit polish_schedule wins
+        self.polish_schedule = (
+            polish_schedule if polish_schedule is not None
+            else make_schedule(levels=polish_levels) if polish else None)
+        # per-level duality gaps in the trace: one sweep of G a task a level
+        self.polish_gap_trace = polish_gap_trace
         # fitted state
         self.factor: Optional[LowRankFactor] = None
         self.classes_: Optional[np.ndarray] = None
@@ -172,11 +182,24 @@ class LPDSVM:
         return self
 
     def _solve_stage2(self, tasks) -> SolveResult:
-        """Stage-2 dispatch (``solver_stream.route_stage2``): the streamed
-        row-block solver when G is host-resident or must be, else
-        ``solve_fn`` on G on the device."""
+        """Stage-2 dispatch (``solver_stream.route_stage2``): the polish
+        ladder when enabled, the streamed row-block solver when G is
+        host-resident or must be, else ``solve_fn`` on G on the device."""
         self.stats.stage2_streamed = False     # a refit must not report the
         self.stats.stage2_stats = None         # previous fit's stream stats
+        self.stats.polished = False
+        self.stats.polish_trace = None
+        if self.polish_schedule is not None:
+            res, ptrace = solve_polished(
+                self.factor, tasks, self.config, self.polish_schedule,
+                stream=self.stream, stream_config=self.stream_config,
+                solve_fn=self.solve_fn, gap_trace=self.polish_gap_trace,
+                return_trace=True)
+            self.stats.polished = True
+            self.stats.polish_trace = ptrace
+            self.stats.stage2_streamed = ptrace.final.streamed
+            self.stats.stage2_stats = ptrace.final.stream_stats
+            return res
         G = self.factor.G
         if route_stage2(self.factor, tasks, self.stream, self.stream_config,
                         self.solve_fn, solve_batch):

@@ -18,7 +18,10 @@
 // brings its largest |value| into [1, 2) (exact), and each scaled value w
 // splits exactly into three bf16 pieces w1 = bf16(w), w2 = bf16(w - w1),
 // w3 = bf16(w - w1 - w2) (split3; below 2^-110 of its row's largest, bits
-// fall under bf16's least subnormal).  Every piece product is exact in the
+// fall under bf16's least subnormal, and an element below 2^-133 of it
+// leaves no bit at all, where an fp32 product keeps it: a deliberate
+// difference, pinned by a card test, one 2^20 and 2^-115 elsewhere giving
+// K = 0).  Every piece product is exact in the
 // fp32 accumulator (8 x 8 bits).  Of the nine, the six
 //   x1 z1, x1 z2, x2 z1, x1 z3, x2 z2, x3 z1
 // are summed; the three left out, x2 z3 and x3 z2 (each at most about 2^-24

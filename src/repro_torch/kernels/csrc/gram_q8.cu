@@ -24,33 +24,42 @@
 //     exactly into three bf16 pieces: w1 = bf16(w), w2 = bf16(w - w1),
 //     w3 = bf16(w - w1 - w2).  fp32 carries 24 significant bits and bf16 8;
 //     each remainder is exact in fp32 and holds at most 16, then 8 of them.
-//     This holds for every element within 2^110 of its row's largest (below
-//     that, bits fall under bf16's least subnormal, 2^-133); the scaled
-//     pieces never overflow, so every finite z is taken;
+//     This holds for every element within 2^110 of its row's largest; an
+//     element below 2^-133 of it leaves no bit in any piece (bf16's least
+//     subnormal), where an fp32 product keeps it: a deliberate difference,
+//     pinned by a card test (one 2^20 and 2^-115 elsewhere: K comes out 0).
+//     The scaled pieces never overflow, so every finite z is taken;
 //   - each product q w_c is exact in the fp32 accumulator (8 x 8 bits).
-// So no bit of x or z is lost before the sums; K differs from an fp32
-// product of the dequantised rows in how the sums are taken.  The tensor
-// cores add each wgmma's products into the fp32 accumulator in their own
-// way, not as a chain of round-to-nearest FMAs, and the two terms above are
-// rounded apart (where they cancel, a zero z0_i large against row i's
-// values, the error is that of the larger term).  Measured against K in
-// fp64 (tools/b3_probe.py, 6281 x 2048 x 784, rows uniform in [0, 1);
-// NVIDIA H100 80GB HBM3, 700 W), the largest errors are, here against the
-// SIMT B3 this replaces (which, with the symmetric codec, rounds nearly as
-// gram_q8_plain does: the two differ by 1.8e-7 at RBF 1/p, 0 for linear):
-//   symmetric codec, linear, over sum |x||z|   3.3e-6 against 2.5e-6
-//   symmetric codec, RBF at gamma 1/p / 6/p    1.5e-6 / 4.1e-6 against
-//                                              1.1e-6 / 3.0e-6
-//   affine codec, linear, over sum |x||z|      4.8e-7 against 2.4e-6
-//   mixed signs, z over 2^+-60, linear, over sum |x||z|: symmetric 2.9e-6
-//   against 8.1e-7, affine 4.4e-6 against 9.6e-7.
-// With the symmetric codec every piece and product is exact (the card test
-// with one code a row holds each value within 1e-6 of fp64), so its excess
-// is the accumulation's.  Measured against gram_q8_plain instead, the
-// difference looks ten times the SIMT B3's (2.0e-6 against 1.8e-7 at
-// RBF 1/p), since that B3 shares the plain version's rounding.  Every
-// card test holds B3 at the plain version's 2e-4, at the median
-// heuristic's gamma too, and against fp64 where the sums cancel.
+// So no bit of x or z is lost before the sums.  The sums: the tensor cores
+// add each wgmma's products into the fp32 accumulator with an error of up
+// to an ulp of the running sum, not as round-to-nearest FMAs, and those
+// errors add up over the wgmmas of a long sum (one accumulator over all of
+// p, 147 wgmmas at p 784, erred 2.9e-6 of sum |x||z| on cancelling sums
+// against the 8.1e-7 of an fp32 FMA chain).  So, as B1 (gram.cu) does, each
+// 64-wide k tile starts a fresh accumulator, takes its w3 and w2 products
+// first and w1 last, and is added into the running dot by round-to-nearest
+// FADDs.  The pre-pass sums each row of z's scaled elements in fp64 (each
+// exact there) and rounds once; the epilogue forms s_i dot + z0_i sum_j in
+// fp64 (both products exact) and times 2^e_j, then rounds once to fp32.
+// Measured against K in fp64 (tools/b3_probe.py, 6281 x 2048 x 784, rows
+// uniform in [0, 1); NVIDIA H100 80GB HBM3, 700 W), the largest errors,
+// here against the SIMT B3 it first was (an fp32 FMA chain, which with the
+// symmetric codec rounds as gram_q8_plain does) and the one-accumulator
+// form this replaced:
+//                                              here     SIMT     one acc.
+//   symmetric codec, linear, over sum |x||z|   3.6e-7   2.5e-6   3.3e-6
+//   symmetric codec, RBF at gamma 1/p          2.4e-7   1.1e-6   1.5e-6
+//   symmetric codec, RBF at the median gamma   5.4e-7   3.0e-6   4.1e-6
+//   affine codec, linear, over sum |x||z|      9.9e-8   2.4e-6   4.8e-7
+//   mixed signs, z over 2^+-60, linear, over sum |x||z|:
+//     symmetric codec                          3.0e-7   8.1e-7   2.9e-6
+//     affine codec                             3.7e-7   9.6e-7   4.4e-6
+// (54413 rows: 3.8e-7, 2.7e-7 and 6.0e-7 for the first three.)  The
+// affine codec's zero-point term leaves no residual of its own above the
+// accumulation's.  Against gram_q8_plain B3 differs by up to 1.2e-6 at RBF
+// 1/p, since the plain version rounds as the fp32 chain does.  A card test
+// holds the cancelling sums at 1e-6 of sum |x||z| on 1024 x 512 x 784 (this
+// form 2.7e-7 / 3.2e-7 there, the one-accumulator form 2.7e-6 / 3.3e-6).
 //
 // Two kernels per launch:
 //   1. a pre-pass writes the scaled pieces of z into a scratch (3, m, p_pad)
@@ -60,17 +69,25 @@
 //      per row of z its squared norm (RBF), the sum of its scaled elements
 //      and 2^e_j; for RBF also the squared norms of the dequantised rows of
 //      x.  Four warps a row of z, four rows of x a warp;
-//   2. the product.  A block owns BM = 192 rows of x by BN = 128 rows of z:
-//      three consumer warpgroups (64 rows of x each) and one producer warp.
-//      The three pieces make the z tile 3x the bytes of a plain bf16 GEMM's,
-//      and its traffic per FLOP falls only with BM, so BM is as large as the
-//      registers allow (416 threads, at most 128 registers each); BN = 128
-//      keeps the accumulator at 64 registers and the ring at four 48 KB
-//      stages.  At the streamed chunk (6281 rows) that is 528 tiles, four
-//      waves of 132 SMs.
+//   2. the product.  A block owns BM = 192 rows of x by BN = 64 rows of z:
+//      three consumer warpgroups (64 rows of x each) and one producer warp,
+//      416 threads (at most 152 registers each).  The three pieces make the
+//      z tile 3x the bytes of a plain bf16 GEMM's, and its traffic per FLOP
+//      falls only with BM, so BM is as large as the registers allow.  The
+//      per-tile sum needs a second accumulator (the tile's and the running
+//      dot), so BN is 64: two 32-register accumulators take the 64 that one
+//      of BN 128 took (114 registers, 0 spills).  The cost is twice the
+//      code loads per FLOP, one byte a code, and a wgmma of half the width.
+//      Measured against B1's layout instead (two consumer warpgroups of 128
+//      x 128 and a producer warpgroup, setmaxnreg 24 / 240; 168 registers):
+//      0.169 against 0.192 ms back to back at the streamed chunk, 1.285
+//      against 1.247 at 54413 rows, where a tail of 800 tiles over 132 SMs
+//      does not weigh; the streamed chunk, this kernel's shape on the
+//      streamed path, decides.  At the streamed chunk that is 1056 tiles,
+//      eight waves of 132 SMs.
 //      - the producer warp's lane 0 loads each 64-wide k tile of the three
-//        pieces (one 3-D TMA box, 48 KB, 128-byte swizzle) into a ring of
-//        STAGES stages paced by full / empty mbarriers;
+//        pieces (one 3-D TMA box of 64 rows, 24 KB, 128-byte swizzle) into
+//        a ring of STAGES stages paced by full / empty mbarriers;
 //      - A comes from registers (the RS form of wgmma), so the codes never
 //        pass through shared memory, whose bandwidth the SS form (A from
 //        shared memory) spends on A three times per k16 step.  Each thread
@@ -79,13 +96,14 @@
 //        where p and the base allow, else bytes: a code row's stride is p
 //        bytes, so TMA cannot take every p), and converts them exactly to
 //        bf16 pairs;
-//      - per k16 step, three wgmma m64n128k16 (bf16 in, fp32 accumulate)
-//        on the same A fragments, one per piece, into the same
-//        accumulator; each warpgroup waits for its own group, and the other
+//      - per k tile, twelve wgmma m64n64k16 (bf16 in, fp32 accumulate), the
+//        four k16 steps of w3, then of w2, then of w1, on the same A
+//        fragments; each warpgroup waits for its own group, and the other
 //        two keep the tensor cores busy meanwhile;
-//      - epilogue in registers: dot = (s_i acc + z0_i colsum_j) 2^e_j, then
-//        the kernel function; ragged n and m are masked in the stores.
-//      tools/b3_probe.py times this against the SIMT B3 it replaced.
+//      - epilogue in registers: dot = (s_i dot + z0_i colsum_j) 2^e_j in
+//        fp64, then the kernel function; ragged n and m are masked in the
+//        stores.
+//      tools/b3_probe.py times this against other builds of B3.
 #include "gram_tc.cuh"   // pieces, TMA map, mbarriers, wgmma (shared with B1)
 
 namespace {
@@ -93,18 +111,21 @@ namespace {
 // BM, BN and BK are Q8_TILE in kernels/gram.py (a CPU test holds them equal).
 constexpr int WGS = 3;                // consumer warpgroups, 64 rows of x each
 constexpr int BM = 64 * WGS;          // rows of x per block
-constexpr int BN = 128;               // rows of z per block: the wgmma's N
+constexpr int BN = 64;                // rows of z per block: the wgmma's N
 constexpr int BK = 64;                // k tile: 64 bf16, 128 bytes, the swizzle span
 constexpr int STAGES = 4;             // depth of the ring of z pieces
 constexpr int CONSUMERS = 128 * WGS;
 constexpr int THREADS = CONSUMERS + 32;   // and the producer warp
-static_assert(BK == PIECE_K && BN == PIECE_ROWS, "the tile is the pieces' TMA box");
+constexpr int ACC = BN / 2;           // accumulator registers a thread: 64 x BN over 128
+constexpr uint32_t Q8_PIECE_BYTES = BN * BK * 2;          // [64][64] bf16, 8 KB
+constexpr uint32_t Q8_STAGE_BYTES = PIECES * Q8_PIECE_BYTES;   // one TMA box, 24 KB
+static_assert(BK == PIECE_K, "the k tile is the pieces' k tile");
 
 // Shared memory, in bytes from a 1024-aligned base: the ring of z pieces,
 // then the barriers full[STAGES] and empty[STAGES].
 struct Smem {
   static constexpr uint32_t B = 0;
-  static constexpr uint32_t BAR = B + STAGES * STAGE_BYTES;
+  static constexpr uint32_t BAR = B + STAGES * Q8_STAGE_BYTES;
   static constexpr uint32_t BYTES = BAR + 16 * STAGES + ATOM;   // + alignment slack
 };
 static_assert(Smem::BYTES <= 232448, "above the 227 KB a block can use");
@@ -217,8 +238,8 @@ gram_q8_tc(const __grid_constant__ CUtensorMap tz, const int8_t* __restrict__ q,
       for (int kt = 0; kt < k_tiles; ++kt) {
         const int s = kt % STAGES;
         mbar_wait(empty + 8 * s, ((kt / STAGES) & 1) ^ 1);   // the first round passes
-        mbar_expect_tx(full + 8 * s, STAGE_BYTES);
-        tma_load(base + Smem::B + s * STAGE_BYTES, &tz, full + 8 * s, kt * BK, col0, 0);
+        mbar_expect_tx(full + 8 * s, Q8_STAGE_BYTES);
+        tma_load(base + Smem::B + s * Q8_STAGE_BYTES, &tz, full + 8 * s, kt * BK, col0, 0);
       }
     }
     return;
@@ -269,9 +290,10 @@ gram_q8_tc(const __grid_constant__ CUtensorMap tz, const int8_t* __restrict__ q,
     }
   };
 
-  float acc[64];
+  // acc: the wgmma sum of one k tile; dot: the sum of the tiles, by FADDs
+  float acc[ACC], dot[ACC];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < ACC; ++i) acc[i] = dot[i] = 0.f;
   uint32_t a[4][4];   // the A fragments of the four k16 steps
 
   if (VEC && k_tiles > 0) fetch(0);
@@ -288,14 +310,19 @@ gram_q8_tc(const __grid_constant__ CUtensorMap tz, const int8_t* __restrict__ q,
     }
     if (VEC && kt + 1 < k_tiles) fetch(kt + 1);   // in flight during the products
     mbar_wait(full + 8 * s, (kt / STAGES) & 1);
-    const uint32_t b_stage = base + Smem::B + s * STAGE_BYTES;
+    const uint32_t b_stage = base + Smem::B + s * Q8_STAGE_BYTES;
     pin(acc);
     wgmma_fence();
+    // The tensor cores add each wgmma's products into the accumulator with
+    // an error of up to an ulp of the running sum, so the order matters:
+    // the small pieces first, into an accumulator that starts the tile at
+    // 0, then w1; the tile's sum then goes into dot by round-to-nearest
+    // FADDs, as in B1 (gram.cu).
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
+    for (int c = PIECES - 1; c >= 0; --c)
 #pragma unroll
-      for (int c = 0; c < PIECES; ++c)
-        wgmma_rs_n128(acc, a[kk], desc_k_major(b_stage + c * PIECE_BYTES + kk * 32));
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs_n64(acc, a[kk], desc_k_major(b_stage + c * Q8_PIECE_BYTES + kk * 32));
     wgmma_commit();
     // the group's own wait: the other warpgroups keep the tensor cores busy
     // meanwhile, and the fragments are free for the next k tile
@@ -303,12 +330,18 @@ gram_q8_tc(const __grid_constant__ CUtensorMap tz, const int8_t* __restrict__ q,
     pin(acc);
     pin(a);
     mbar_arrive(empty + 8 * s);
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) {
+      dot[i] += acc[i];
+      acc[i] = 0.f;
+    }
   }
 
-  // ---- epilogue: acc[4 i + 2 h + e] is row warp * 16 + g + 8 h of the
+  // ---- epilogue: dot[4 i + 2 h + e] is row warp * 16 + g + 8 h of the
   // warpgroup, column 8 i + 2 t + e of the tile
   long rr[2];
-  float rs[2], rz0[2], rx[2];
+  float rx[2];
+  double rs[2], rz0[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     rr[h] = r0 + 8 * h;
@@ -327,11 +360,15 @@ gram_q8_tc(const __grid_constant__ CUtensorMap tz, const int8_t* __restrict__ q,
     for (int e = 0; e < 2; ++e) {
       const int cc = c + e < m ? c + e : c;
       const float zsq = kind == RBF ? zcol[cc] : 0.f;
-      const float sum = zcol[m + cc], pow2 = zcol[2 * m + cc];
+      const double sum = zcol[m + cc], pow2 = zcol[2 * m + cc];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float dot = fmaf(rs[h], acc[4 * i + 2 * h + e], rz0[h] * sum) * pow2;
-        v[h][e] = epilogue(dot, rx[h], zsq, kind, gamma, coef0, degree);
+        // s_i dot and z0_i sum are exact in fp64 (24 x 24 bits), so is the
+        // product with 2^e_j: the two terms are added and rounded to fp32
+        // once
+        const float d = __double2float_rn(
+            fma(rs[h], (double)dot[4 * i + 2 * h + e], rz0[h] * sum) * pow2);
+        v[h][e] = epilogue(d, rx[h], zsq, kind, gamma, coef0, degree);
       }
     }
 #pragma unroll
@@ -386,7 +423,7 @@ extern "C" int gram_q8_launch(const int8_t* q, const float* scales, int group,
                         p_pad, st);
   if (err != cudaSuccess) return err;
   CUtensorMap map;
-  if (!tensor_map(&map, pieces, m, p_pad)) return cudaErrorInvalidValue;
+  if (!tensor_map(&map, pieces, m, p_pad, BN)) return cudaErrorInvalidValue;
   const long m_tiles = ((long)m + BN - 1) / BN, tiles = m_tiles * (((long)n + BM - 1) / BM);
   if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
   const bool vec = p % 16 == 0 && aligned(q, 16);

@@ -1,8 +1,9 @@
 // The tensor-core machinery that kernels B1 (gram.cu) and B3 (gram_q8.cu)
 // share: z split exactly into three bf16 pieces by a pre-pass, in the order
 // the A fragments of an RS wgmma take their operand (position()), a TMA map
-// of those pieces, mbarriers, the wgmma m64n128k16 (bf16 in, fp32
-// accumulate) with A in registers, and the kernel functions' epilogue.
+// of those pieces, mbarriers, the wgmma m64nNk16 (bf16 in, fp32
+// accumulate; N 128 for B1, 64 for B3) with A in registers, and the kernel
+// functions' epilogue.
 //
 // Each file includes this header into its own translation unit (and its own
 // shared library); everything here is internal to that unit.
@@ -18,11 +19,11 @@ namespace {
 enum Kind { RBF = 0, LINEAR = 1, POLY = 2, TANH = 3 };   // order of gram.py's KERNELS
 
 constexpr int PIECE_K = 64;           // k tile of the pieces: 64 bf16, 128 bytes, the swizzle span
-constexpr int PIECE_ROWS = 128;       // rows of z a TMA box of the pieces holds: the wgmma's N
+constexpr int PIECE_ROWS = 128;       // rows of z in B1's TMA box of the pieces: its wgmma's N
 constexpr int PIECES = 3;
 constexpr uint32_t ATOM = 1024;       // 8 rows of 128 bytes: the swizzle's repeat
 constexpr uint32_t PIECE_BYTES = PIECE_ROWS * PIECE_K * 2;   // [128][64] bf16, 16 KB
-constexpr uint32_t STAGE_BYTES = PIECES * PIECE_BYTES;       // one TMA box, 48 KB
+constexpr uint32_t STAGE_BYTES = PIECES * PIECE_BYTES;       // B1's TMA box, 48 KB
 
 __device__ __forceinline__ float warp_sum(float s) {
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -71,12 +72,19 @@ __device__ __forceinline__ int position(int k) {
 constexpr int PRE_THREADS = 256;   // a block of a pre-pass
 constexpr int Z_THREADS = 128;     // threads a row of z: two rows a block
 
+__device__ __forceinline__ double warp_sum(double s) {
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+
 // The pre-pass's rows of z, two a block (block b of the z blocks takes rows
 // 2 b and 2 b + 1), Z_THREADS threads a row; for row j: pieces[c][j][position(k)]
 // (c = 0, 1, 2; k < p_pad, 0 from p on), zcol[j] = sum z^2, zcol[m + j] =
-// sum of the scaled elements, zcol[2 m + j] = 2^e_j, where 2^-e_j brings the
-// row's largest |z| into [1, 2).  VEC: p % 4 == 0 and z 16-byte aligned, so a
-// thread takes four elements a load.  Every thread of the block calls it.
+// sum of the scaled elements (taken in fp64, each element exact there, and
+// rounded once: B3's zero-point term, which B1 does not read), zcol[2 m + j]
+// = 2^e_j, where 2^-e_j brings the row's largest |z| into [1, 2).  VEC:
+// p % 4 == 0 and z 16-byte aligned, so a thread takes four elements a load.
+// Every thread of the block calls it.
 template <bool VEC>
 __device__ __forceinline__ void split_rows_of_z(int block, const float* __restrict__ z,
                                                 __nv_bfloat16* __restrict__ pieces,
@@ -84,7 +92,8 @@ __device__ __forceinline__ void split_rows_of_z(int block, const float* __restri
                                                 int p_pad) {
   constexpr int V = VEC ? 4 : 1;           // elements of z a thread takes at once
   const int lane = threadIdx.x & 31;
-  __shared__ float red[PRE_THREADS / Z_THREADS][Z_THREADS / 32][3];
+  __shared__ float red[PRE_THREADS / Z_THREADS][Z_THREADS / 32][2];
+  __shared__ double red_sum[PRE_THREADS / Z_THREADS][Z_THREADS / 32];
   const int half = threadIdx.x / Z_THREADS, tid = threadIdx.x % Z_THREADS, wz = tid / 32;
   const long j = (long)block * (PRE_THREADS / Z_THREADS) + half;
   const bool valid = j < m;
@@ -113,7 +122,8 @@ __device__ __forceinline__ void split_rows_of_z(int block, const float* __restri
   const float f1 = tiny ? 0x1p64f : 1.f, f2 = ldexpf(1.f, tiny ? -e - 64 : -e);
   const long plane = (long)m * p_pad;
   __nv_bfloat16* out = pieces + (valid ? j : 0) * (long)p_pad;
-  float sq = 0.f, sum = 0.f;
+  float sq = 0.f;
+  double sum = 0.0;
   if (valid) {
 #pragma unroll 4
     for (int k = V * tid; k < p_pad; k += Z_THREADS * V) {
@@ -144,18 +154,19 @@ __device__ __forceinline__ void split_rows_of_z(int block, const float* __restri
   __syncthreads();   // every thread has read the maxima
   if (lane == 0) {
     red[half][wz][1] = sq;
-    red[half][wz][2] = sum;
+    red_sum[half][wz] = sum;
   }
   __syncthreads();
   if (valid && tid == 0) {
-    sq = sum = 0.f;
+    sq = 0.f;
+    sum = 0.0;
 #pragma unroll
     for (int w = 0; w < Z_THREADS / 32; ++w) {
       sq += red[half][w][1];
-      sum += red[half][w][2];
+      sum += red_sum[half][w];
     }
     zcol[j] = sq;
-    zcol[m + j] = sum;
+    zcol[m + j] = __double2float_rn(sum);
     zcol[2 * m + j] = ldexpf(1.f, e);
   }
 }
@@ -277,6 +288,19 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 64, fp32) += A (64 x 16, bf16 pairs in registers) B^T (16 x 64),
+// B K-major from shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -301,13 +325,15 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// The (p_pad, m, 3) bf16 map of the pieces, PIECE_K x PIECE_ROWS x 3 boxes in
-// the 128-byte swizzle; rows of z past m read as zeros.
-bool tensor_map(CUtensorMap* map, const void* pieces, int m, int p_pad) {
+// The (p_pad, m, 3) bf16 map of the pieces, PIECE_K x rows x 3 boxes in the
+// 128-byte swizzle (rows: B1 takes PIECE_ROWS, B3 its own BN); rows of z past
+// m read as zeros.
+bool tensor_map(CUtensorMap* map, const void* pieces, int m, int p_pad,
+                int rows = PIECE_ROWS) {
   const EncodeTiled encode = encoder();
   const cuuint64_t dims[3] = {(cuuint64_t)p_pad, (cuuint64_t)m, PIECES};
   const cuuint64_t strides[2] = {2ull * p_pad, 2ull * p_pad * m};   // bytes, dims 1..2
-  const cuuint32_t box[3] = {PIECE_K, PIECE_ROWS, PIECES};
+  const cuuint32_t box[3] = {PIECE_K, (cuuint32_t)rows, PIECES};
   const cuuint32_t step[3] = {1, 1, 1};
   return encode != nullptr &&
          encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(pieces), dims,

@@ -29,7 +29,7 @@ KERNELS = ("rbf", "linear", "poly", "tanh")   # index = kind code in gram.cu
 # csrc/gram_q8.cu (B3); tests/test_torch_gram.py and test_torch_gram_q8.py
 # hold each equal to its source
 B1_TILE = (128, 128, 64)
-Q8_TILE = (192, 128, 64)
+Q8_TILE = (192, 64, 64)
 
 
 def apply_epilogue(dot: torch.Tensor, x_sq: torch.Tensor, z_sq: torch.Tensor,

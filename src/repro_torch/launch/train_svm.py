@@ -17,8 +17,9 @@ As in the reference the CLI builds the ``reduced()`` backbone from seed 0
 ``extract_features`` takes any ``Model``, the full-width one included.
 
 The monolithic route and the streamed route (the ``StreamConfig`` fields the
-port reads) are served.  Flags of routes not ported yet stop with an error
-that names them.
+port reads) are served, each with or without ``--polish`` (the coarse-to-fine
+stage 2 of ``core/polish.py``, ``--polish-levels`` deep).  Flags of routes
+not ported yet stop with an error that names them.
 """
 from __future__ import annotations
 
@@ -87,6 +88,18 @@ def _report(svm: LPDSVM) -> None:
               f"blocks, 1 device, prefetch {s2.prefetch_final}, "
               f"{s2.epochs} epochs, {s2.bytes_h2d / 2**20:.1f} MiB H2D / "
               f"{s2.bytes_d2h / 2**20:.1f} MiB D2H, active {s2.active_history}")
+    tr = svm.stats.polish_trace
+    if tr is not None:
+        for lv in tr.levels:
+            finite = np.isfinite(lv.duality_gap)
+            gap = float(np.max(lv.duality_gap[finite])) if finite.any() \
+                else float("nan")
+            print(f"polish level {lv.fraction:.4g}: {lv.n_rows} rows, "
+                  f"tol {lv.tol:.3g}, {int(lv.epochs.max())} epochs max, "
+                  f"gap {gap:.3g}, {lv.row_visits} row-visits"
+                  f"{', streamed' if lv.streamed else ''}")
+        print(f"polish total: {tr.total_row_visits} row-visits over "
+              f"{len(tr.levels)} levels")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -121,12 +134,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "streaming without a budget)")
     ap.add_argument("--quant-group-rows", type=int, default=0,
                     help="rows per int8 scale group (0 = default 32)")
+    ap.add_argument("--polish", action="store_true",
+                    help="coarse-to-fine stage 2: solve nested row subsamples "
+                         "(n/16 -> n/4 -> n by default) with tolerance "
+                         "annealing, each level warm-starting the next, so the "
+                         "full-data pass is a short polish (core/polish.py)")
+    ap.add_argument("--polish-levels", type=int, default=3,
+                    help="depth of the polish ladder (default 3)")
     # routes of the reference that are not ported yet: refused by main()
     ap.add_argument("--no-overlap", action="store_true")
     ap.add_argument("--cache-budget-mb", type=float, default=-1.0)
     ap.add_argument("--no-cache", action="store_true")
-    ap.add_argument("--polish", action="store_true")
-    ap.add_argument("--polish-levels", type=int, default=3)
     ap.add_argument("--grid-cs", default=None)
     ap.add_argument("--grid-gammas", default=None)
     ap.add_argument("--grid-folds", type=int, default=3)
@@ -155,8 +173,6 @@ def _unported(args) -> Optional[str]:
              ("--grid-cs", args.grid_cs is not None),
              ("--grid-gammas", args.grid_gammas is not None),
              ("--grid-folds", args.grid_folds != 3),
-             ("--polish", args.polish),
-             ("--polish-levels", args.polish_levels != 3),
              ("--checkpoint-dir", args.checkpoint_dir is not None),
              ("--checkpoint-every", args.checkpoint_every != 1),
              ("--resume", args.resume),
@@ -186,6 +202,8 @@ def main(argv=None) -> float:
         ap.error(f"--tile-rows must be >= 0, got {args.tile_rows}")
     if args.quant_group_rows < 0:
         ap.error(f"--quant-group-rows must be >= 0, got {args.quant_group_rows}")
+    if args.polish_levels < 1:
+        ap.error(f"--polish-levels must be >= 1, got {args.polish_levels}")
 
     stream_config, force = stream_args(args)
     return _run(args, ap, stream_config, force).test_error
@@ -246,7 +264,8 @@ def _run(args, ap, stream_config, force, *, model: Optional[Model] = None,
     svm = LPDSVM(KernelParams("rbf", gamma=args.gamma), C=args.C,
                  budget=args.budget, tol=1e-2,
                  stream=True if force else None,
-                 stream_config=stream_config, device=device)
+                 stream_config=stream_config, polish=args.polish,
+                 polish_levels=args.polish_levels, device=device)
     factor = None
     if landmark_idx is not None:
         factor = compute_factor(feats[:n_tr], svm.kernel, args.budget,

@@ -1,6 +1,7 @@
 """Kernels B1, B2 (whole and windowed), B3 and B4 on the card against their
-plain versions, the streamed route against the monolithic one, and the
-backbone's features on the card against the CPU's.
+plain versions, the streamed route against the monolithic one, the polish
+ladder against the CPU's, and the backbone's features on the card against
+the CPU's.
 
 These need a CUDA card and nvcc: each test asks for the ``cuda`` fixture,
 which skips where there is none.  On the machine with the card:
@@ -14,7 +15,11 @@ import pytest
 import torch
 
 from repro_torch import LPDSVM, KernelParams, StreamConfig, median_gamma
+from repro_torch.core import polish
 from repro_torch.core import solver_stream as ss
+from repro_torch.core.dual_solver import SolverConfig
+from repro_torch.core.ovo import build_ovo_tasks
+from repro_torch.core.streaming import host_buffer
 from repro_torch.core.nystrom import compute_factor
 from repro_torch.core.quant import quantize_rows
 from repro_torch.data import make_multiclass
@@ -220,9 +225,11 @@ def test_fit_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("n,m,p", [(64, 24, 32), (70, 9, 33), (33, 40, 100),
                                    (257, 129, 784), (1, 1, 1),
                                    # n across 64, 128 and 192 (a warpgroup's
-                                   # rows, B3's x tile), m across 128 (its z tile)
+                                   # rows, B3's x tile), m across 64 (its z
+                                   # tile) and 128
                                    (63, 129, 100), (65, 127, 64), (128, 128, 128),
                                    (191, 255, 48), (193, 257, 784), (384, 130, 200),
+                                   (200, 63, 100), (200, 65, 784), (200, 64, 64),
                                    # p below 16, % 16 != 0 (byte loads of the
                                    # codes), % 4 != 0, not a multiple of 64
                                    (70, 140, 5), (70, 140, 15), (70, 140, 17),
@@ -309,9 +316,10 @@ def test_gram_q8_kernel_cancelling_sums_against_fp64(cuda, symmetric):
     """z of both signs from 2^-60 to 2^60 and x of both signs: the sums
     cancel, and there neither version's relative error means anything.
     Both are held against the product in fp64 at 2e-4 of sum_k |x_ik|
-    |z_jk| (the size of the terms).  The factored form s (q . z) + z0 sum z
-    rounds its two terms apart, each up to |z0| sum |z| for the affine
-    codec."""
+    |z_jk| (the size of the terms).  B3's factored form s (q . z) + z0 sum z
+    is added in fp64 and rounded once, sum z rounded to fp32 once before
+    (test_gram_q8_kernel_cancelling_sums_per_tile_against_fp64 holds B3
+    alone at 1e-6)."""
     rng = np.random.default_rng(62)
     m, p, n = 140, 100, 150
     z = np.float32(_spanning(rng, m, p, False, signed=True))
@@ -362,7 +370,7 @@ def test_gram_q8_kernel_rbf_at_the_median_gamma(cuda, symmetric, scale):
     here, near where K's error from an error in d2 peaks) and at 4x that:
     d2 = ||x||^2 + ||z||^2 - 2 x.z cancels, and B3's inner products carry a
     larger error than an fp32 product's (gram_q8.cu's head note), so this is
-    where it shows most.  n and m straddle B3's 192 x 128 tiles."""
+    where it shows most.  n and m straddle B3's 192 x 64 tiles."""
     rng = np.random.default_rng(64 + scale)
     n, m, p = 300, 260, 784
     x = rng.uniform(0, 1, size=(n, p)).astype(np.float32)
@@ -418,6 +426,87 @@ def test_gram_q8_prepass_pieces_equal_the_plain_split(cuda):
     assert torch.equal(pow2.cpu(), want_pow2)
     total = want.double().sum(0) * want_pow2.double()[:, None]
     assert torch.equal(total, zt.double())
+
+
+# B3's largest error against fp64 on the cancelling sums, over sum |x||z|,
+# that a per-tile sum stays under and one accumulator over all of p does not
+# (tools/b3_probe.py's cancelling case, cut to 1024 x 512 x 784)
+Q8_CANCEL_TOL = 1e-6
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_gram_q8_kernel_cancelling_sums_per_tile_against_fp64(cuda, symmetric):
+    """x of both signs, z of both signs from 2^-60 to 2^60, p 784: B3 against
+    K in fp64 at Q8_CANCEL_TOL of sum_k |x_ik| |z_jk|, for both codecs.  The
+    tensor cores add each wgmma into their fp32 accumulator with an error of
+    up to an ulp of the running sum; B3 takes a fresh accumulator each k
+    tile and adds the tiles by FADDs, and forms s_i (q_i . z_j) + z0_i
+    sum z_j in fp64.  A B3 with one accumulator over all of p (147 wgmmas
+    here) errs some three times more and fails this test."""
+    rng = np.random.default_rng(67 + symmetric)
+    n, m, p = 1024, 512, 784
+    x = (rng.normal(size=(n, p)) + 0.5).astype(np.float32)
+    z = np.float32(_spanning(rng, m, p, False, signed=True))
+    v, sc = quantize_rows(x, 32, symmetric=symmetric)
+    rows = np.repeat(sc, 32, axis=0)[:n].astype(np.float64)
+    xd = v.astype(np.float64) * rows[:, :1] + rows[:, 1:]
+    exact = xd @ z.astype(np.float64).T
+    size = np.abs(xd) @ np.abs(z.astype(np.float64)).T
+    vd, scd, zd = (torch.as_tensor(a, device=cuda) for a in (v, sc, z))
+    got = gram_q8_kernel(vd, scd, zd, KernelParams("linear"), 32)
+    worst = float((np.abs(got.double().cpu().numpy() - exact) / size).max())
+    print(f"B3, {'symmetric' if symmetric else 'affine'} codec: largest error over "
+          f"sum |x||z| {worst:.4g}")
+    assert worst <= Q8_CANCEL_TOL
+
+
+def _tiny_rows(rng, n, p):
+    """Rows with one large element (2^20, at k 0) and the rest 2^-115:
+    scaled by 2^-20 for the split, the tiny ones fall to 2^-135, below
+    bf16's least subnormal (2^-133) by more than half of it."""
+    x = np.full((n, p), 2.0 ** -115, np.float32)
+    x[:, 0] = 2.0 ** 20
+    return x
+
+
+def test_gram_kernel_drops_elements_below_2_pow_minus_133_of_the_row(cuda):
+    """A deliberate difference (ROADMAP, gram.cu's head note): B1 splits each
+    row scaled into [1, 2), so elements below 2^-133 of their row's largest
+    leave no bit in a bf16 piece.  Here z is 0 where x is large, so the
+    tiny terms are the only nonzero ones: fp32 keeps them (an fp32 product
+    gives (p - 1) 2^-115 z within 1e-6), and B1 returns exactly 0."""
+    rng = np.random.default_rng(68)
+    n, m, p = 70, 50, 100
+    x = _tiny_rows(rng, n, p)
+    z = rng.uniform(0.5, 1.5, size=(m, p)).astype(np.float32)
+    z[:, 0] = 0.0
+    exact = x.astype(np.float64) @ z.astype(np.float64).T
+    fp32 = x @ z.T
+    assert np.all(fp32 > 0) and np.all(np.abs(fp32 - exact) <= 1e-6 * exact)
+    got = gram_kernel(torch.as_tensor(x, device=cuda), torch.as_tensor(z, device=cuda),
+                      KernelParams("linear"))
+    assert torch.equal(got.cpu(), torch.zeros(n, m))
+
+
+def test_gram_q8_kernel_drops_elements_below_2_pow_minus_133_of_the_row(cuda):
+    """B3 alike, where z is split: z's rows have one large element (2^20)
+    and the rest 2^-115; x's code is 0 where z is large (symmetric codec,
+    so no zero-point term), so the tiny terms are the only nonzero ones.
+    fp32 keeps them (within 1e-6 of fp64); B3 returns exactly 0."""
+    rng = np.random.default_rng(69)
+    n, m, p = 70, 50, 100
+    z = _tiny_rows(rng, m, p)
+    x = rng.uniform(0.5, 1.5, size=(n, p)).astype(np.float32)
+    x[:, 0] = 0.0
+    v, sc = quantize_rows(x, 32, symmetric=True)
+    assert np.all(v[:, 0] == 0) and not np.any(sc[:, 1])
+    xd = v.astype(np.float32) * np.repeat(sc[:, :1], 32, axis=0)[:n]
+    exact = xd.astype(np.float64) @ z.astype(np.float64).T
+    fp32 = xd @ z.T
+    assert np.all(fp32 > 0) and np.all(np.abs(fp32 - exact) <= 1e-6 * exact)
+    vd, scd, zd = (torch.as_tensor(a, device=cuda) for a in (v, sc, z))
+    got = gram_q8_kernel(vd, scd, zd, KernelParams("linear"), 32)
+    assert torch.equal(got.cpu(), torch.zeros(n, m))
 
 
 @pytest.mark.parametrize("full_pass", [True, False])
@@ -695,6 +784,61 @@ def test_streamed_fit_equals_monolithic_on_card(cuda, block_dtype):
     torch.testing.assert_close(s.alpha_, m.alpha_, rtol=0, atol=1e-6)
     torch.testing.assert_close(s.W_, m.W_, rtol=0, atol=1e-6)
     assert np.mean(s.predict(x) == m.predict(x)) >= 0.99
+
+
+@pytest.mark.parametrize("route", ["monolithic", "streamed", "streamed coarse levels"])
+def test_polished_solve_on_card_matches_cpu(cuda, route):
+    """The polish ladder (core/polish.py) on the card against the port's CPU
+    ladder on the same factor: the same levels (rows, padding, routing),
+    the final dual objective within rtol 5e-3 (B2 against its plain
+    version, fp32 sums in other orders), violations under tol, and B2
+    launched as often as the levels account for.  "monolithic": G on the
+    card, the final gap taken there; "streamed": G pinned on the host,
+    stream=True, the coarse levels gathered and moved to the card;
+    "streamed coarse levels": a 24 KiB budget, so that the coarse levels
+    stream too, from gathers in pinned memory."""
+    x, y = make_multiclass(900, p=8, n_classes=3, seed=3)
+    _, labels = np.unique(y, return_inverse=True)
+    fac = compute_factor(x, KernelParams("rbf", gamma=0.2), 128, device="cpu")
+    cfg = SolverConfig(tol=1e-3, max_epochs=4000)
+    kw = {"monolithic": {}, "streamed": dict(stream=True, stream_config=StreamConfig(
+        tile_rows=128)), "streamed coarse levels": dict(stream=True, stream_config=StreamConfig(
+            tile_rows=64, device_budget_bytes=24 << 10))}[route]
+    out = {}
+    for d in ("cpu", cuda):
+        G = fac.G
+        if d != "cpu":
+            G = fac.G.to(d) if route == "monolithic" else \
+                host_buffer(tuple(G.shape), torch.float32, d).copy_(G)
+        f = dataclasses.replace(fac, G=G, streamed=route != "monolithic")
+        tasks, _ = build_ovo_tasks(labels, 3, 4.0, device=d)
+        before = smo_epoch_kernel.launches
+        res, tr = polish.solve_polished(f, tasks, cfg, polish.make_schedule(3),
+                                        return_trace=True, **kw)
+        out[str(d)] = (res, tr, smo_epoch_kernel.launches - before)
+    (rc, tc, _), (rg, tg, launches) = out["cpu"], out["cuda"]
+    assert [(lv.n_rows, lv.n_pad, lv.streamed) for lv in tg.levels] == \
+        [(lv.n_rows, lv.n_pad, lv.streamed) for lv in tc.levels]
+    assert len(tg.levels) == 3 and tg.final.streamed == (route != "monolithic")
+    assert all(lv.streamed == (route == "streamed coarse levels") for lv in tg.levels[:-1])
+    np.testing.assert_allclose(rg.dual_obj.cpu().numpy(), rc.dual_obj.numpy(), rtol=5e-3)
+    assert bool((rg.violation < cfg.tol).all()) and rg.alpha.is_cuda
+    assert all(np.all(np.isfinite(lv.duality_gap)) for lv in tg.levels)
+    assert launches == sum(lv.stream_stats.kernel_calls if lv.streamed
+                           else int(lv.epochs.max()) for lv in tg.levels) > 0
+
+
+def test_polished_fit_on_card(cuda):
+    """LPDSVM(polish=True) on the card: the ladder runs through B2 and the
+    fit predicts as the unpolished fit on the same factor does (98%)."""
+    x, y = make_multiclass(2000, p=20, n_classes=5, seed=3)
+    kp = KernelParams("rbf", gamma=median_gamma(x))
+    fac = compute_factor(x, kp, 256, device=cuda)
+    cold = LPDSVM(kernel=kp, C=1.0, budget=256, tol=1e-2).fit(x, y, factor=fac)
+    pol = LPDSVM(kernel=kp, C=1.0, budget=256, tol=1e-2, polish=True).fit(x, y, factor=fac)
+    assert pol.stats.polished and len(pol.stats.polish_trace.levels) >= 2
+    assert np.all(pol.stats.violations < 1e-2)
+    assert np.mean(pol.predict(x) == cold.predict(x)) >= 0.98
 
 
 def test_forced_streaming_of_a_factor_on_the_card(cuda):

@@ -225,7 +225,7 @@ def test_cpu_route_is_the_plain_version():
 
 
 def test_launch_grid_check():
-    """B3's own grid check: one dimension of 192 x 128 tiles, and every
+    """B3's own grid check: one dimension of 192 x 64 tiles, and every
     extent (p padded to the k tile) below 2^31."""
     _check_grid("gram_q8_kernel", Q8_TILE, 2 ** 20, 2 ** 20, 784)
     for n, m, p in ((2 ** 31, 1, 1), (1, 2 ** 31, 1), (1, 1, 2 ** 31 - 1),

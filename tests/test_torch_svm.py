@@ -1,7 +1,7 @@
 """Port vs reference, end to end on the CPU: ``LPDSVM.fit -> predict`` on
 checker, two spirals and 10-class blobs with the reference's landmarks, a
-JAX-fitted model carried across by ``repro_torch.convert``, and the
-estimator's refusals (no card, unported arguments)."""
+JAX-fitted model carried across by ``repro_torch.convert``, the polish
+arguments, and the estimator's refusals (no card, unported arguments)."""
 import jax
 import numpy as np
 import pytest
@@ -11,7 +11,7 @@ from repro.core.kernel_fn import KernelParams as JKP
 from repro.core.ovo import build_ovo_tasks as jax_tasks
 from repro.core.streaming import StreamConfig as JStreamConfig
 from repro.core.svm import LPDSVM as JaxSVM
-from repro_torch import LPDSVM, KernelParams, StreamConfig
+from repro_torch import LPDSVM, KernelParams, PolishSchedule, StreamConfig
 from repro_torch.convert import factor_from_reference, from_reference
 from repro_torch.core.kernel_fn import full_fp32
 from repro_torch.core.nystrom import compute_factor
@@ -143,12 +143,29 @@ def test_no_card_raises_without_explicit_cpu(monkeypatch):
     assert LPDSVM(device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("arg,value", [
-    ("polish", True), ("polish_levels", 4), ("polish_schedule", object()),
-    ("polish_gap_trace", False)])
-def test_unported_constructor_arguments_raise(arg, value):
-    with pytest.raises(NotImplementedError, match=arg):
-        LPDSVM(device="cpu", **{arg: value})
+def _polish_levels(svm):
+    return [lv.fraction for lv in svm.stats.polish_trace.levels]
+
+
+@pytest.mark.parametrize("kwargs,check", [
+    (dict(polish=True),
+     lambda s: _polish_levels(s) == [1 / 16, 1 / 4, 1.0]),
+    (dict(polish=True, polish_levels=2),
+     lambda s: _polish_levels(s) == [1 / 4, 1.0]),
+    (dict(polish_schedule=PolishSchedule((0.5, 1.0), (2.0, 1.0))),
+     lambda s: _polish_levels(s) == [0.5, 1.0]),
+    (dict(polish=True, polish_gap_trace=False),
+     lambda s: all(np.isnan(lv.duality_gap).all() for lv in s.stats.polish_trace.levels))],
+    ids=["polish", "polish_levels", "polish_schedule", "polish_gap_trace"])
+def test_polish_constructor_arguments_take_effect(kwargs, check):
+    """Each polish argument of the constructor (core/polish.py) on a CPU fit:
+    the ladder ran, and as deep as asked; the fit stays a fit."""
+    x, y = make_multiclass(1200, p=6, n_classes=3, seed=4)
+    svm = LPDSVM(KernelParams("rbf", gamma=0.2), C=1.0, budget=32, tol=1e-2,
+                 device="cpu", **kwargs).fit(x, y)
+    assert svm.stats.polished and check(svm)
+    assert not svm.stats.stage2_streamed and np.all(svm.stats.violations < 1e-2)
+    assert svm.error(x, y) < 0.2
 
 
 @pytest.mark.parametrize("arg,value", [

@@ -134,7 +134,6 @@ def test_stream_args_are_the_references(argv, want):
     (["--libsvm", "data.txt"], "--libsvm"), (["--n-features", "5"], "--n-features"),
     (["--on-bad-row", "skip"], "--on-bad-row"), (["--grid-cs", "1,4"], "--grid-cs"),
     (["--grid-gammas", "0.1"], "--grid-gammas"), (["--grid-folds", "4"], "--grid-folds"),
-    (["--polish"], "--polish"), (["--polish-levels", "2"], "--polish-levels"),
     (["--checkpoint-dir", "ck"], "--checkpoint-dir"),
     (["--checkpoint-every", "2"], "--checkpoint-every"), (["--resume"], "--resume"),
     (["--shard-dir", "sh"], "--shard-dir"), (["--shard-rows", "64"], "--shard-rows"),
@@ -148,6 +147,42 @@ def test_unported_flags_stop_with_their_name(argv, flag, capsys):
         driver.main(argv)
     assert exc.value.code == 2
     assert f"{flag} is not ported to repro_torch yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,levels", [
+    (["--polish"], (1 / 16, 1 / 4, 1.0)), (["--polish", "--polish-levels", "2"], (1 / 4, 1.0)),
+    (["--polish-levels", "2"], None)])
+def test_polish_flags_reach_the_estimator(backbone, argv, levels, capsys):
+    """--polish / --polish-levels parse and reach LPDSVM, as in the reference
+    (--polish-levels alone does not polish); a polished run prints a
+    ``polish level`` line for each level it kept (here n/16 is floored to
+    n/4's rows and dropped) and the ``polish total`` line.  C 1 keeps the
+    CPU's epochs few."""
+    _, _, _, port = backbone
+    ap = driver.build_parser()
+    args = ap.parse_args(ARGV + ["--C", "1"] + argv)
+    res = driver._run(args, ap, None, False, model=port, device="cpu")
+    out = capsys.readouterr().out
+    st = res.svm.stats
+    if levels is None:
+        assert res.svm.polish_schedule is None and not st.polished
+        assert "polish level" not in out
+        return
+    assert res.svm.polish_schedule.fractions == levels and st.polished
+    kept = [lv.fraction for lv in st.polish_trace.levels]
+    assert kept[-2:] == [1 / 4, 1.0]
+    lines = [l for l in out.splitlines() if l.startswith("polish level ")]
+    assert [l.split(":")[0] for l in lines] == [f"polish level {f:.4g}" for f in kept]
+    assert f"polish total: {st.polish_trace.total_row_visits} row-visits over " \
+        f"{len(kept)} levels" in out
+    assert res.test_error < 1 - 1 / 3
+
+
+def test_polish_levels_below_one_stop_with_an_error(capsys):
+    with pytest.raises(SystemExit) as exc:
+        driver.main(["--polish", "--polish-levels", "0"])
+    assert exc.value.code == 2
+    assert "--polish-levels must be >= 1, got 0" in capsys.readouterr().err
 
 
 def test_unknown_arch_stops_with_an_error(capsys):

@@ -1,30 +1,32 @@
 #!/usr/bin/env python3
 """Time kernel B3 (the int8 gram, src/repro_torch/kernels/csrc/gram_q8.cu)
-against the SIMT B3 of another gram.cu, and measure both against fp64, on
-one CUDA card.
+against other builds of B3, and measure them all against fp64, on one CUDA
+card.
 
-    python3 tools/b3_probe.py --parent OLD_GRAM.cu [--out PATH]
+    python3 tools/b3_probe.py --parent OLD.cu [OLD.cu ...] [--out PATH]
 
-OLD_GRAM.cu is a gram.cu that still holds B3 (its `gram_q8_launch` on B1's
-SIMT body, before B3 moved to gram_q8.cu); it is built with the tree's nvcc
-flags into a temporary directory, beside the tree's build.
+Each OLD.cu is either a gram.cu that still holds B3 (its `gram_q8_launch`
+on B1's SIMT body, before B3 moved to gram_q8.cu) or a gram_q8.cu with the
+tree's C interface (the pieces scratch), built against the gram_tc.cuh
+beside it.  Each is built with the tree's nvcc flags into a temporary
+directory, beside the tree's build, and is named by its path.
 
 Times: chip_smoke.py's two stage-1 chunk shapes, 6281 x 2048 x 784 (the
 streamed path) and 54413 x 2048 x 784 (stage 1 at scale), the symmetric
 codec of uniform [0, 1) rows in groups of 32, RBF with gamma 1/p; CUDA
-events over 50 calls back to back (device time per call, the tree's
-pre-pass included), in turns parent, tree, tree, parent; the tree's two
-kernels apart with torch.profiler.
+events over 50 calls back to back (device time per call, pre-passes
+included), in turns parent, tree, tree, parent for each parent; the tree's
+two kernels apart with torch.profiler.
 
-Errors: each of tree, parent and gram_q8_plain against K in fp64 from the
-same codes, scales and z (max abs error), for RBF at gamma 1/p and at the
-median heuristic's gamma, and for the linear kernel (also relative to
+Errors: each of tree, the parents and gram_q8_plain against K in fp64 from
+the same codes, scales and z (max abs error), for RBF at gamma 1/p and at
+the median heuristic's gamma, and for the linear kernel (also relative to
 sum_k |x_ik| |z_jk|, the size of the terms); both codecs at the first
 shape, the symmetric one at the second; at the first shape also the linear
 kernel on tests/test_torch_cuda.py's cancelling sums (x of both signs, z
-of both signs from 2^-60 to 2^60).  Tree and parent are also held against
-gram_q8_plain at 2e-4, and their largest difference from it is reported.  Prints one JSON
-object last, and writes it to --out PATH where given.
+of both signs from 2^-60 to 2^60).  Tree and parents are also held against
+gram_q8_plain at 2e-4, and their largest difference from it is reported.
+Prints one JSON object last, and writes it to --out PATH where given.
 """
 from __future__ import annotations
 
@@ -40,37 +42,62 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))        # chip_smoke.py's build report
 
 SHAPES = ((6281, 2048, 784), (54413, 2048, 784))
 GROUP = 32
 CALLS = 50
 
 
-def build(parent: Path):
-    """The tree's gram_q8 library and the parent's, built in parallel."""
+def simt_form(path: Path) -> bool:
+    """A gram.cu holds the SIMT B3 (the old C interface); a gram_q8.cu has
+    the tree's."""
+    return path.name == "gram.cu"
+
+
+def build(parents):
+    """The tree's gram_q8 library and each parent's, built in parallel."""
     from repro_torch.kernels import build as tree_build
     tmp = Path(tempfile.mkdtemp(prefix="b3_probe_"))
     atexit.register(shutil.rmtree, tmp, True)
-    so = tmp / "parent.so"
-    proc = subprocess.Popen([tree_build.cuda_tool(), *tree_build.NVCC_FLAGS, "-o", str(so),
-                             str(parent)], stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    procs = []
     try:
+        for i, parent in enumerate(parents):
+            so = tmp / f"parent{i}.so"
+            procs.append((parent, so, subprocess.Popen(
+                [tree_build.cuda_tool(), *tree_build.NVCC_FLAGS, "-o", str(so),
+                 str(parent)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         tree_build.build_all(["gram_q8"])
-        log, _ = proc.communicate()
+        libs = []
+        for parent, so, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {parent}:\n{log}")
+            libs.append((ctypes.CDLL(str(so)), so, log))
     finally:                         # stop nvcc, also after a failure
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {parent}:\n{log}")
-    return ctypes.CDLL(str(tree_build.library_path("gram_q8"))), ctypes.CDLL(str(so))
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tree_so = tree_build.library_path("gram_q8")
+    return (ctypes.CDLL(str(tree_so)), tree_so,
+            tree_so.with_suffix(".log").read_text()), libs
+
+
+def product_report(so: Path, log: str) -> dict:
+    """Registers, spilled bytes and HGMMA count of each product kernel (the
+    entries whose name holds gram_q8) of a built library."""
+    from chip_smoke import ptxas_entries, sass_hgmma
+    hgmma = sass_hgmma(so)
+    return {name: dict(r, hgmma=hgmma.get(name, 0))
+            for name, r in ptxas_entries(log, "gram_q8").items()}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", type=Path, required=True,
-                    help="a gram.cu that holds the SIMT B3")
+    ap.add_argument("--parent", type=Path, required=True, nargs="+",
+                    help="a gram.cu that holds the SIMT B3, or a gram_q8.cu with "
+                         "the tree's C interface (its gram_tc.cuh beside it)")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
 
@@ -92,12 +119,21 @@ def main() -> int:
     result = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "ms": {}, "kernels_us": {}, "errors": {}}
 
-    tree, parent = build(args.parent)
+    tree, parent_libs = build(args.parent)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tree.gram_q8_launch.argtypes = _GRAM_Q8_ARGS
-    parent.gram_q8_launch.argtypes = [P, P, I, P, P, P, P, I, I, I, I, F, F, I, P]
-    for lib in (tree, parent):
+    simt_args = [P, P, I, P, P, P, P, I, I, I, I, F, F, I, P]
+    libs = {"tree": (tree[0], False)}
+    result["build"] = {"tree": product_report(*tree[1:])}
+    for path, (lib, so, log) in zip(args.parent, parent_libs):
+        libs[str(path)] = (lib, simt_form(path))
+        result["build"][str(path)] = product_report(so, log)
+    for name, entries in result["build"].items():
+        for entry, r in entries.items():
+            print(f"{name} {entry}: {r}")
+    for lib, simt in libs.values():
+        lib.gram_q8_launch.argtypes = simt_args if simt else _GRAM_Q8_ARGS
         lib.gram_q8_launch.restype = I
+    result["parents"] = [str(p) for p in args.parent]
 
     def launchers(v, sc, z, kp, out):
         """Both B3s on one input, each writing into ``out``."""
@@ -112,16 +148,18 @@ def main() -> int:
             if err != 0:
                 raise RuntimeError(f"b3_probe: {name} failed to launch ({err})")
 
-        return {
-            "parent": lambda: check("parent", parent.gram_q8_launch(
-                v.data_ptr(), sc.data_ptr(), GROUP, z.data_ptr(), tables.data_ptr(),
-                tables[n:].data_ptr(), out.data_ptr(), n, m, p, kind, kp.gamma, kp.coef0,
-                kp.degree, stream)),
-            "tree": lambda: check("tree", tree.gram_q8_launch(
+        def launcher(name, lib, simt):
+            if simt:
+                return lambda: check(name, lib.gram_q8_launch(
+                    v.data_ptr(), sc.data_ptr(), GROUP, z.data_ptr(), tables.data_ptr(),
+                    tables[n:].data_ptr(), out.data_ptr(), n, m, p, kind, kp.gamma,
+                    kp.coef0, kp.degree, stream))
+            return lambda: check(name, lib.gram_q8_launch(
                 v.data_ptr(), sc.data_ptr(), GROUP, z.data_ptr(), pieces.data_ptr(),
                 tables.data_ptr(), tables[3 * m:].data_ptr(), out.data_ptr(), n, m, p,
-                _padded(p), kind, kp.gamma, kp.coef0, kp.degree, stream)),
-        }
+                _padded(p), kind, kp.gamma, kp.coef0, kp.degree, stream))
+
+        return {name: launcher(name, lib, simt) for name, (lib, simt) in libs.items()}
 
     def b2b(call) -> float:
         call()
@@ -202,9 +240,10 @@ def main() -> int:
                  for a in quantize_rows(x, GROUP, symmetric=True))
         kp = KernelParams("rbf", gamma=1.0 / p)
         calls = launchers(v, sc, z, kp, torch.empty((n, m), device=dev))
-        ms = {"parent": [], "tree": []}
-        for name in ("parent", "tree", "tree", "parent"):
-            ms[name].append(b2b(calls[name]))
+        ms = {name: [] for name in calls}
+        for parent in args.parent:
+            for name in (str(parent), "tree", "tree", str(parent)):
+                ms[name].append(b2b(calls[name]))
         result["ms"][shape] = ms
         gram_q8_kernel(v, sc, z, kp, GROUP)
         torch.cuda.synchronize()
@@ -215,9 +254,9 @@ def main() -> int:
         result["kernels_us"][shape] = {
             ("pre-pass" if "prepass" in e.key else "product"): e.device_time
             for e in prof.key_averages() if e.device_time > 0}
-        print(f"{shape}: parent {' / '.join(f'{t:.4f}' for t in ms['parent'])} ms, tree "
-              f"{' / '.join(f'{t:.4f}' for t in ms['tree'])} ms back to back; tree's "
-              f"kernels {result['kernels_us'][shape]} us", flush=True)
+        print(f"{shape}, ms back to back: " + "; ".join(
+            f"{name} {' / '.join(f'{t:.4f}' for t in ts)}" for name, ts in ms.items())
+            + f"; tree's kernels {result['kernels_us'][shape]} us", flush=True)
         del calls, x, z, v, sc
 
     line = json.dumps(result)
