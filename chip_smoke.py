@@ -890,7 +890,7 @@ def main() -> int:
         (the largest gap against the cold's largest plus tol (1 + max
         |dual_t|)), each also against ``same_cadence``, a cold solve at the
         final level's cadence (that benchmark's cold_p1 baseline).  At this
-        width neither form holds on both routes (PERF.md, PR 22): both fits
+        width neither form holds on both routes (PERF.md, section 6): both fits
         stop at the same KKT tolerance, but the ladder's final level checks
         it every epoch (period 1; 5 streamed) and stops at the first pass
         under it, where the cold fit's cheap epochs between full passes
