@@ -105,6 +105,34 @@ failure raises and exits non-zero, nothing is caught and carried on:
   driver --polish                 launch/train_svm.py --polish through its
                 CLI (reduced backbone, 400 documents): exit code 0, its
                 polish level lines, test error below chance
+  grid search, main path          core/cv.py's grid_search on the main path's
+                data at full width: gammas g/2, g, 2g (g the median gamma) x
+                C 0.25, 1, 4 x 3 folds, 1215 binary SVMs, T = 135 tasks a
+                cell; a line a cell (T, n_pad, epochs, B2 launches read
+                around it, the seconds of its fp64 warm start, stage-2
+                seconds, CV error); B1 launched twice a gamma and never a
+                cell, each cell's B2 launches its largest epoch count, the
+                best error below chance; the cold ladder at g within 0.03
+  grid cell, held                 one cell (g, C 1) through solve_batch:
+                violations under tol, alphas in their box, padding alphas 0;
+                B2's full and cheap epoch at T = 135 beside T = 45, and the
+                blocks an SM and waves; at a reduced size (6000 x 784, 10
+                classes, sep 0.1, B 512, C 1/16) the card's dual objectives
+                against the CPU's solve of the same cell (5e-3)
+  grid search, card vs cpu        the reduced grid (1 gamma x C 1/16, 1/4)
+                on the card and on the CPU: errors within 0.01, same cell
+  grid search, polished           the reduced grid with polish=True: the
+                same cell, errors within 0.03
+  grid search, streamed serial    at 256 MiB with farm=False: the main
+                path's factor from pinned host memory through cross_validate
+                equals the card factor's errors; a grid whose f32 stage 1
+                streams (so every cell streams) within 0.01 of the
+                monolithic grid; with farm=None the same grid refuses,
+                naming the farm
+  driver --grid                   launch/train_svm.py --grid-cs 1,4
+                --grid-gammas g/2,g --grid-folds 3 through its CLI: exit 0,
+                the grid lines, the refit below chance; with --stream its
+                main (in this process) stops naming the farm
 
 Then one JSON line {"kernels": [...]} and, last, the {"ok": true, ...} line.
 """
@@ -112,6 +140,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -347,9 +376,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
 
-    from repro_torch import LPDSVM, KernelParams, StreamConfig, median_gamma
+    from repro_torch import LPDSVM, KernelParams, SolverConfig, StreamConfig, median_gamma
     from repro_torch.convert import tasks_from_reference
-    from repro_torch.core import dual_solver
+    from repro_torch.core import cv, dual_solver
     from repro_torch.core.nystrom import compute_factor, select_landmarks
     from repro_torch.core.quant import quantize_rows
     from repro_torch.core.solver_stream import (_row_sq, block_windows,
@@ -367,6 +396,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (bf16_kv_tile, flash_attention_kernel,
                                                      flash_attention_plain,
                                                      flash_attention_rounding_slack)
+    from repro_torch.launch import train_svm as driver
     from repro_torch.launch.train_svm import class_conditioned_tokens, extract_features
     from repro_torch.models import init_model
     from repro_torch.models.model import trunk
@@ -1640,6 +1670,323 @@ def main() -> int:
         check(found is not None and float(found.group(1)) < float(found.group(2)),
               "the driver's polished head does not beat chance")
 
+    # ---------------------------------------- model selection (core/cv.py)
+    gcfg = SolverConfig(tol=1e-2, max_epochs=1000)     # LPDSVM's, at tol 1e-2
+    Cs_main = [0.25, 1.0, 4.0]
+    folds = 3
+    chance = 0.9
+
+    def grid_cells(grid, counts=None) -> None:
+        """One line a cell; ``counts``: each cell's (B2 launches, _init_w s)."""
+        for k, c in enumerate(grid.cells):
+            st = c.stream_stats
+            extra = (f", B2 launches {counts[k][0]}, _init_w {counts[k][1]:.4f} s"
+                     if counts else "")
+            if st is not None:
+                extra += (f", streamed: {st.kernel_calls} B2 launches, bytes_g {st.bytes_g}, "
+                          f"tile {st.tile_rows}, init pass {st.init_seconds:.4f} s")
+            print(f"cell gamma {c.gamma:.6e} C {c.C:g}: T {c.n_tasks}, n_pad {c.n_pad}, "
+                  f"epochs max {int(c.epochs.max())} mean {c.epochs.mean():.2f}{extra}, "
+                  f"stage 2 {c.seconds:.4f} s, CV error {c.error:.4f}")
+
+    def counted_grid(*args, **kw):
+        """grid_search with each cell's B2 launches (the kernel's counter,
+        read around the cell) and the seconds of its fp64 warm start
+        (dual_solver._init_w, synchronised); every count reset just before."""
+        counts, init_s = [], []
+        solve_routed, init_w = cv._solve_routed, dual_solver._init_w
+
+        def timed_init_w(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w = init_w(*a)
+            torch.cuda.synchronize()
+            init_s.append(time.perf_counter() - t0)
+            return w
+
+        def counted(*a, **k):
+            before = smo_epoch_kernel.launches
+            init_s.clear()
+            out = solve_routed(*a, **k)
+            counts.append((smo_epoch_kernel.launches - before, sum(init_s)))
+            return out
+
+        cv._solve_routed, dual_solver._init_w = counted, timed_init_w
+        try:
+            for fn in (gram_kernel, gram_q8_kernel, smo_epoch_kernel):
+                fn.launches = 0
+            t0 = time.perf_counter()
+            grid = cv.grid_search(*args, **kw)
+            wall = time.perf_counter() - t0
+            total = {"gram": gram_kernel.launches, "gram_q8": gram_q8_kernel.launches,
+                     "smo_epoch": smo_epoch_kernel.launches}
+        finally:
+            cv._solve_routed, dual_solver._init_w = solve_routed, init_w
+        return grid, counts, total, wall
+
+    with phase("grid search, main path"):
+        # the main path's data and solver at full width: 3 gammas x 3 Cs x 3
+        # folds x 45 pairs, one stage 1 per gamma, T = 135 tasks a cell
+        gammas = [gamma / 2, gamma, 2 * gamma]
+        grid, counts, g_launches, g_wall = counted_grid(
+            xtr, ytr, gammas, Cs_main, budget=budget, folds=folds, config=gcfg, seed=0)
+        grid_cells(grid, counts)
+        print(f"grid {len(gammas)} gammas x {len(Cs_main)} Cs x {folds} folds: "
+              f"{grid.n_binary_solved} binary SVMs, stage 1 {grid.stage1_seconds:.3f} s, "
+              f"stage 2 {grid.stage2_seconds:.3f} s, wall {g_wall:.3f} s; launches "
+              f"{g_launches}; best gamma {grid.best_gamma:.6e} C {grid.best_C:g} CV error "
+              f"{grid.best_error:.4f}")
+        check(grid.n_binary_solved == 1215, "the grid did not solve 1215 binary SVMs")
+        check(len(grid.cells) == 9 and all(c.n_tasks == 135 for c in grid.cells),
+              "a cell is not 3 folds x 45 pairs")
+        check(g_launches["gram"] == 2 * len(gammas) and g_launches["gram_q8"] == 0,
+              "B1 not launched twice (K_mm, K_nm) per gamma and never per cell")
+        check(all(n == int(c.epochs.max()) > 0 for (n, _), c in zip(counts, grid.cells)),
+              "a cell's B2 launches differ from its largest epoch count")
+        check(sum(n for n, _ in counts) == g_launches["smo_epoch"],
+              "B2 launched outside the cells")
+        check(np.isfinite(grid.errors).all() and grid.best_error < chance,
+              "the grid's best CV error is not below chance")
+        g_i = 1                                    # gamma g's row
+        cold, _, _, _ = counted_grid(xtr, ytr, [gamma], Cs_main, budget=budget, folds=folds,
+                                     config=gcfg, seed=0, warm_start=False)
+        ladder_diff = float(np.abs(cold.errors[0] - grid.errors[g_i]).max())
+        print(f"gamma {gamma:.6e}: warm ladder CV errors {grid.errors[g_i].tolist()} stage 2 "
+              f"{grid.per_cell_seconds[g_i].tolist()} s; cold {cold.errors[0].tolist()} "
+              f"stage 2 {cold.per_cell_seconds[0].tolist()} s; largest difference "
+              f"{ladder_diff:.4f} (max 0.03)")
+        check(ladder_diff <= 0.03, "the cold ladder's CV errors stray from the warm ladder's")
+        grid_smo_launches = g_launches["smo_epoch"]
+
+    with phase("grid cell, held"):
+        # one cell of the main-path grid (gamma g, C 1, cold) through
+        # solve_batch on the card, on the main path's factor
+        _, labels_tr = np.unique(ytr, return_inverse=True)
+        masks = cv.kfold_masks(len(xtr), folds, 0)
+        ctasks, _ = cv.build_cv_tasks(labels_tr, 10, 1.0, masks, device=dev)
+        smo_epoch_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cres = dual_solver.solve_batch(fac.G, ctasks, gcfg)
+        torch.cuda.synchronize()
+        c_s = time.perf_counter() - t0
+        real_c = ctasks.c > 0
+        pad_zero = bool((cres.alpha[~real_c] == 0).all())
+        in_box = bool(((cres.alpha >= 0) & (cres.alpha <= ctasks.c)).all())
+        rows_t = real_c.sum(1)
+        print(f"cell C 1: T {ctasks.n_tasks}, n_pad {ctasks.idx.shape[1]}, real rows "
+              f"{int(rows_t.min())}..{int(rows_t.max())} a task; epochs max "
+              f"{int(cres.epochs.max())}, {smo_epoch_kernel.launches} B2 launches, "
+              f"{c_s:.3f} s; largest violation {cres.violation.max().item():.4g} (tol "
+              f"{gcfg.tol}); alphas in their box {in_box}; padding alphas 0 {pad_zero}")
+        check(bool((cres.violation < gcfg.tol).all()), "a cell's task ends above tol")
+        check(in_box and pad_zero, "a cell's alpha left its box or a padding alpha moved")
+        check(smo_epoch_kernel.launches == int(cres.epochs.max()),
+              "the cell's B2 launches differ from its epochs")
+        # B2 at T = 135 on the main path's factor: a full epoch from zero and
+        # a cheap epoch from the solved cell, as the timing phase at T = 45
+        Tc, n_pad_c = ctasks.idx.shape
+        T45, n_pad45 = svm.tasks_.idx.shape
+        live_c = torch.ones(Tc, dtype=torch.bool, device=dev)
+        cv0 = smo_state(G, ctasks, torch.zeros((Tc, n_pad_c), device=dev),
+                        torch.zeros((Tc, n_pad_c), dtype=torch.int32, device=dev),
+                        torch.zeros((Tc, G.shape[1]), device=dev), live_c)
+        bound_c = (cres.alpha <= 0) | (cres.alpha >= ctasks.c)
+        cv1 = smo_state(G, ctasks, cres.alpha.clone(),
+                        torch.where(bound_c, 5, 0).to(torch.int32), cres.w.clone(), live_c)
+        t135_ms = cuda_ms(lambda: smo_epoch_kernel(**work, full_pass=True, shrink_k=5), 5,
+                          reset(cv0))
+        t135_cheap = cuda_ms(lambda: smo_epoch_kernel(**work, full_pass=False, shrink_k=5), 5,
+                             reset(cv1))
+        free_c = (~bound_c & real_c).sum(1)
+        # blocks an SM by ptxas's registers and the launch's dynamic shared
+        # memory (w and the row ring in registers at B' <= 2048: D stages of
+        # B' floats, smo.cu's launch), each block 256 threads
+        # (the SM's limits as the device reports them; the H100's data-sheet
+        # figures where this PyTorch does not report one)
+        props = torch.cuda.get_device_properties(dev)
+        sm = {k: getattr(props, k, v) for k, v in (
+            ("regs_per_multiprocessor", 65536), ("shared_memory_per_multiprocessor", 233472),
+            ("max_threads_per_multi_processor", 2048))}
+        cols = 1 if Bp <= 256 else 2 if Bp <= 512 else 4 if Bp <= 1024 else 8
+        regs = b2_build[(ring_stages(Bp), cols)]["registers"]
+        by_regs = sm["regs_per_multiprocessor"] // (-(-regs * 32 // 256) * 256 * 8)
+        smem = 4 * Bp * ring_stages(Bp)
+        by_smem = sm["shared_memory_per_multiprocessor"] // (smem + 1024)
+        per_sm = min(by_regs, by_smem, sm["max_threads_per_multi_processor"] // 256)
+        waves = -(-Tc // (props.multi_processor_count * per_sm))
+        print(f"SM limits: {sm}; reported by the device: "
+              f"{[k for k in sm if hasattr(props, k)]}")
+        print(f"B2 at T={Tc} x {n_pad_c} (real rows up to {int(rows_t.max())}), B'={Bp}: full "
+              f"epoch from 0 {t135_ms:.3f} ms ({t135_ms * 1e6 / int(rows_t.max()):.1f} ns per "
+              f"real row of the largest task), cheap epoch from the cell {t135_cheap:.3f} ms "
+              f"({int(free_c.max())} free rows in the largest task); at T={T45} x {n_pad45}: "
+              f"{s_ms:.3f} / {cheap_ms:.3f} ms; {per_sm} blocks an SM ({regs} registers: "
+              f"{by_regs}, {smem} B of shared memory: {by_smem}) on "
+              f"{props.multi_processor_count} SMs: {waves} wave(s) at T={Tc}, "
+              f"{-(-T45 // (props.multi_processor_count * per_sm))} at T={T45}")
+        del cv0, cv1
+        work.clear()
+        # at a reduced size the port's CPU solve of the same cell on the same
+        # factor: each task's dual objective within rtol 5e-3.  6000 rows of
+        # a 10-class problem of the main path's shape with its classes set
+        # further apart (sep 0.1): cut to 6000 rows, the main path's own
+        # data sit near chance at every C whose cell the CPU solves in
+        # seconds (CV errors 0.89 and 0.81 at C 1/16 and 1/4)
+        xr, yr = make_multiclass(6000, p=784, n_classes=10, sep=0.1, within=0.06, seed=1)
+        _, labels_r = np.unique(yr, return_inverse=True)
+        kp_r = KernelParams("rbf", gamma=median_gamma(xr))
+        fac_r = compute_factor(xr, kp_r, 512, seed=0, device=dev)
+        masks_r = cv.kfold_masks(len(xr), folds, 0)
+        duals = {}
+        for d in ("cuda", "cpu"):
+            f = fac_r.G if d == "cuda" else fac_r.G.cpu()
+            t_r, _ = cv.build_cv_tasks(labels_r, 10, 1 / 16, masks_r, device=d)
+            smo_epoch_kernel.launches = 0
+            t0 = time.perf_counter()
+            r = dual_solver.solve_batch(f, t_r, gcfg)
+            duals[d] = (r.dual_obj.cpu().numpy(), int(r.epochs.max()),
+                        time.perf_counter() - t0, smo_epoch_kernel.launches,
+                        bool((r.violation < gcfg.tol).all()))
+        rel = float(np.max(np.abs(duals["cuda"][0] - duals["cpu"][0])
+                           / np.abs(duals["cpu"][0])))
+        print(f"cell at 6000 x 784, B 512, C 1/16 ({t_r.n_tasks} tasks x {t_r.idx.shape[1]}): "
+              f"dual objective max rel diff card vs cpu {rel:.3e} (max 5e-3); epochs max "
+              f"card {duals['cuda'][1]} cpu {duals['cpu'][1]}; card {duals['cuda'][2]:.3f} s "
+              f"({duals['cuda'][3]} B2 launches), cpu {duals['cpu'][2]:.3f} s")
+        check(rel <= 5e-3, "the card's cell disagrees with the CPU's")
+        check(duals["cuda"][3] == duals["cuda"][1] and duals["cpu"][3] == 0,
+              "B2 launches differ from the card's epochs, or the CPU launched B2")
+        check(duals["cuda"][4] and duals["cpu"][4], "a reduced cell's task ends above tol")
+
+    Cs_r = [1 / 16, 1 / 4]
+    with phase("grid search, card vs cpu"):
+        # the same grid at the reduced size on the card and on the CPU: the
+        # same seed draws the same landmark rows
+        kw_r = dict(budget=512, folds=folds, config=gcfg, seed=0)
+        grid_r = {}
+        for d in ("cuda", "cpu"):
+            smo_epoch_kernel.launches = 0
+            grid_r[d] = cv.grid_search(xr, yr, [kp_r.gamma], Cs_r, device=d, **kw_r)
+            grid_r[d] = (grid_r[d], smo_epoch_kernel.launches)
+        (gc, lc), (gp, lp) = grid_r["cuda"], grid_r["cpu"]
+        diff_r = float(np.abs(gc.errors - gp.errors).max())
+        print(f"reduced grid gamma {kp_r.gamma:.6e} x C {Cs_r}: CV errors card "
+              f"{gc.errors[0].tolist()} cpu {gp.errors[0].tolist()} (max diff {diff_r:.4f}, "
+              f"max 0.01); best card C {gc.best_C:g} cpu C {gp.best_C:g}; stage 2 card "
+              f"{gc.stage2_seconds:.3f} s ({lc} B2 launches), cpu {gp.stage2_seconds:.3f} s")
+        check(diff_r <= 0.01, "the card's CV errors disagree with the CPU's")
+        check((gc.best_gamma, gc.best_C) == (gp.best_gamma, gp.best_C),
+              "the card and the CPU select different cells")
+        check(lc == sum(int(c.epochs.max()) for c in gc.cells) > 0 and lp == 0,
+              "B2 launches differ from the card's cells, or the CPU launched B2")
+
+    with phase("grid search, polished"):
+        smo_epoch_kernel.launches = 0
+        pol_r = cv.grid_search(xr, yr, [kp_r.gamma], Cs_r, polish=True, **kw_r)
+        diff_p = float(np.abs(pol_r.errors - gc.errors).max())
+        for cp, cu in zip(pol_r.cells, gc.cells):
+            print(f"cell C {cp.C:g}: polished CV error {cp.error:.4f}, stage 2 "
+                  f"{cp.seconds:.4f} s; unpolished {cu.error:.4f}, {cu.seconds:.4f} s")
+        print(f"polished grid: best C {pol_r.best_C:g} (unpolished {gc.best_C:g}), errors "
+              f"max diff {diff_p:.4f} (max 0.03), {smo_epoch_kernel.launches} B2 launches")
+        check((pol_r.best_gamma, pol_r.best_C) == (gc.best_gamma, gc.best_C),
+              "the polished grid selects another cell")
+        check(diff_p <= 0.03 and smo_epoch_kernel.launches > 0,
+              "the polished grid's errors stray, or B2 never ran")
+        del fac_r
+
+    with phase("grid search, streamed serial"):
+        Cs_s = Cs_main[:2]                 # the main grid's first two cells at gamma g
+        s_cfg = StreamConfig(device_budget_bytes=256 << 20, prefetch=2,
+                             autotune_prefetch=False)
+        # same factor: the main path's, its G in pinned host memory; each
+        # cell streams, bit-equal to solve_batch, so the errors are equal
+        G_h = host_buffer(tuple(G.shape), torch.float32, dev).copy_(G)
+        fac_h = dataclasses.replace(fac, G=G_h, streamed=True)
+        for C in Cs_s:
+            kw_c = dict(budget=budget, folds=folds, config=gcfg, seed=0)
+            t0 = time.perf_counter()
+            e_card, _ = cv.cross_validate(xtr, ytr, kp, C, factor=fac, **kw_c)
+            t_card = time.perf_counter() - t0
+            smo_epoch_kernel.launches = 0
+            t0 = time.perf_counter()
+            e_host, _ = cv.cross_validate(xtr, ytr, kp, C, factor=fac_h,
+                                          stream_config=s_cfg, **kw_c)
+            t_host = time.perf_counter() - t0
+            print(f"cross_validate C {C:g} on the main path's factor: card G {e_card:.4f} "
+                  f"({t_card:.3f} s), pinned host G streamed {e_host:.4f} ({t_host:.3f} s, "
+                  f"{smo_epoch_kernel.launches} B2 launches)")
+            check(e_host == e_card, "the streamed cross_validate differs from the card's")
+            check(smo_epoch_kernel.launches > 0, "the streamed cell never launched B2")
+        del G_h, fac_h
+        # routed factor: an f32 stage 1 that streams, so every cell streams
+        s_grid, s_counts, s_launches, s_wall = counted_grid(
+            xtr, ytr, [gamma], Cs_s, budget=budget, folds=folds, config=gcfg, seed=0,
+            stream_config=s_cfg, farm=False)
+        grid_cells(s_grid, s_counts)
+        diff_s = float(np.abs(s_grid.errors[0] - grid.errors[g_i, :2]).max())
+        print(f"streamed serial grid: stage 1 {s_grid.stage1_seconds:.3f} s, stage 2 "
+              f"{s_grid.stage2_seconds:.3f} s, wall {s_wall:.3f} s, launches {s_launches}; "
+              f"CV errors {s_grid.errors[0].tolist()} vs the monolithic grid's "
+              f"{grid.errors[g_i, :2].tolist()} (max diff {diff_s:.4f}, max 0.01)")
+        check(all(c.stream_stats is not None for c in s_grid.cells), "a cell did not stream")
+        check(all(n == c.stream_stats.kernel_calls > 0 for (n, _), c in
+                  zip(s_counts, s_grid.cells)), "a streamed cell's B2 launches differ "
+              "from its blocks")
+        check(diff_s <= 0.01, "the streamed grid's CV errors stray from the monolithic grid's")
+        try:
+            cv.grid_search(xtr, ytr, [gamma], Cs_s, budget=budget, folds=folds, config=gcfg,
+                           seed=0, stream_config=s_cfg)
+            refused = None
+        except NotImplementedError as e:
+            refused = str(e)
+        print(f"the same grid with farm=None: {refused}")
+        check(refused is not None and "grid task farm" in refused,
+              "farm=None on a streamed grid did not refuse naming the farm")
+
+    with phase("driver --grid"):
+        # the paper's driver through its CLI with the grid flags; the gamma
+        # grid around the median gamma of the features it extracts (the
+        # reduced backbone from seed 0, as the CLI builds it)
+        cfg_r = get_config("qwen3-0.6b", reduced=True)
+        toks_r, _ = class_conditioned_tokens(400, 3, 16, cfg_r.vocab_size)
+        m_r = init_model(torch.Generator(device=dev).manual_seed(0), cfg_r, device=dev)
+        g_r = median_gamma(extract_features(cfg_r, m_r, toks_r))
+        del m_r
+        argv = ["--classes", "3", "--n", "400", "--seq", "16", "--budget", "64",
+                "--grid-cs", "1,4", "--grid-gammas", f"{g_r / 2:.6g},{g_r:.6g}",
+                "--grid-folds", "3"]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        run_g = subprocess.run([sys.executable, "-m", "repro_torch.launch.train_svm", *argv],
+                               cwd=ROOT, env=env, capture_output=True, text=True,
+                               timeout=600)
+        out = run_g.stdout
+        print(out.strip())
+        print(f"train_svm {' '.join(argv)}: exit code {run_g.returncode}, "
+              f"{time.perf_counter() - t0:.3f} s")
+        found = re.search(r"test error: ([0-9.]+) \(chance ([0-9.]+)\)", out)
+        gamma_lines = [l for l in out.splitlines() if l.startswith("  gamma ")]
+        check(run_g.returncode == 0, f"the driver failed:\n{run_g.stderr[-4000:]}")
+        check("grid: 2 gammas x 2 Cs, 36 binary SVMs" in out and len(gamma_lines) == 2
+              and "grid best: " in out, "the driver printed no grid lines")
+        check(found is not None and float(found.group(1)) < float(found.group(2)),
+              "the driver's refit does not beat chance")
+        # the same flags with --stream: main stops before any work, so it
+        # runs in this process
+        err_s = io.StringIO()
+        with contextlib.redirect_stderr(err_s):
+            try:
+                driver.main(argv + ["--stream"])
+                code = 0
+            except SystemExit as e:
+                code = e.code
+        print(f"train_svm {' '.join(argv)} --stream: exit code {code}; "
+              f"{err_s.getvalue().strip().splitlines()[-1:]}")
+        check(code not in (0, None) and "grid task farm" in err_s.getvalue(),
+              "--grid-cs with --stream did not stop naming the farm")
+
     kernels = [
         {"name": "gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram.cu",
@@ -1649,13 +1996,14 @@ def main() -> int:
          "bound_ms_cuda_cores": g_bound_cc, "ms_back_to_back": g_b2b,
          "ms_predict": pr_ms, "ms_predict_back_to_back": pr_b2b, "bound_ms_predict": pr_bound,
          "ms_at_scale": b1b_ms, "ms_at_scale_back_to_back": b1b_b2b,
-         "bound_ms_at_scale": b1b_bound},
+         "bound_ms_at_scale": b1b_bound, "launches_grid": g_launches["gram"]},
         {"name": "smo_epoch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/smo.cu",
          "replaces": "src/repro/kernels/smo.py:100",
          "launches": launches["smo_epoch"], "max_abs_err": smo_err, "ms": s_ms,
          "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
-         "library_ms": None, "ms_cheap": cheap_ms},
+         "library_ms": None, "ms_cheap": cheap_ms, "launches_grid": grid_smo_launches,
+         "ms_t135": t135_ms, "ms_cheap_t135": t135_cheap, "waves_t135": waves},
         {"name": "gram_q8", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram_q8.cu",
          "replaces": "src/repro/kernels/gram.py:157",

@@ -7,14 +7,19 @@ imported here).  Two routes of ``LPDSVM(...).fit(x, y)`` then
 the out-of-core one (``stream`` / ``stream_config``), where x and G stay in
 host memory, stage-1 chunks cross the bus as int8 through kernel B3 (or as
 fp32 through B1) and stage 2 streams G's row blocks through B2.  Either
-route's stage 2 can run as the paper's polish ladder (``polish=True``).
+route's stage 2 can run as the paper's polish ladder (``polish=True``), and
+``grid_search`` / ``cross_validate`` select gamma and C by k-fold
+cross-validation on one factor per gamma.
 """
-from repro_torch.core import (LPDSVM, FitStats, KernelParams, LowRankFactor,
-                              PolishSchedule, PolishTrace, SolverConfig,
-                              StreamConfig, TaskBatch, compute_factor,
-                              make_schedule, median_gamma, solve_batch)
+from repro_torch.core import (LPDSVM, FitStats, GridResult, KernelParams,
+                              LowRankFactor, PolishSchedule, PolishTrace,
+                              SolverConfig, StreamConfig, TaskBatch,
+                              build_cv_grid_tasks, compute_factor,
+                              cross_validate, grid_search, make_schedule,
+                              median_gamma, solve_batch)
 
-__all__ = ["LPDSVM", "FitStats", "KernelParams", "LowRankFactor",
-           "PolishSchedule", "PolishTrace", "SolverConfig", "StreamConfig",
-           "TaskBatch", "compute_factor", "make_schedule", "median_gamma",
-           "solve_batch"]
+__all__ = ["LPDSVM", "FitStats", "GridResult", "KernelParams",
+           "LowRankFactor", "PolishSchedule", "PolishTrace", "SolverConfig",
+           "StreamConfig", "TaskBatch", "build_cv_grid_tasks",
+           "compute_factor", "cross_validate", "grid_search", "make_schedule",
+           "median_gamma", "solve_batch"]

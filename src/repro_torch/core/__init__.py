@@ -1,5 +1,9 @@
 """LPD-SVM core, PyTorch port: the monolithic and the out-of-core (streamed)
-fit -> predict routes, and the polish ladder over stage 2."""
+fit -> predict routes, the polish ladder over stage 2, and serial
+cross-validation and grid search over them."""
+from repro_torch.core.cv import (CellStats, GridResult, build_cv_grid_tasks,
+                                 build_cv_tasks, cross_validate, grid_search,
+                                 kfold_masks)
 from repro_torch.core.dual_solver import (SolveResult, SolverConfig, TaskBatch,
                                           dual_objective, duality_gap,
                                           primal_objective, solve_batch,
@@ -25,6 +29,8 @@ from repro_torch.core.streaming import (Stage1StreamStats, StreamConfig,
 from repro_torch.core.svm import LPDSVM, FitStats
 
 __all__ = [
+    "CellStats", "GridResult", "build_cv_grid_tasks", "build_cv_tasks",
+    "cross_validate", "grid_search", "kfold_masks",
     "SolveResult", "SolverConfig", "TaskBatch", "dual_objective",
     "duality_gap", "primal_objective", "solve_batch", "solve_one",
     "KernelParams", "apply_epilogue", "gram", "kernel_diag", "median_gamma",

@@ -24,27 +24,30 @@ def class_pairs(n_classes: int) -> List[Tuple[int, int]]:
     return list(itertools.combinations(range(n_classes), 2))
 
 
-def build_ovo_tasks(
+def ovo_arrays(
     labels: np.ndarray,
     n_classes: int,
     C: float,
     *,
+    include_mask: Optional[np.ndarray] = None,
+    n_pad: Optional[int] = None,
+    pad_multiple: int = PAD_MULTIPLE,
     alpha0: Optional[Sequence[np.ndarray]] = None,
-    device="cuda",
-) -> Tuple[TaskBatch, List[Tuple[int, int]]]:
-    """Build the padded one-vs-one task batch on ``device``.
-
-    labels:  (n,) integer class labels, referring to rows of the shared G
-    alpha0:  optional warm starts, one (task_size,) array per pair
-
-    Every task is padded to the largest pair's size, rounded up to
-    ``PAD_MULTIPLE``; padding rows have c = 0 and are inert.
-    """
+):
+    """The host numpy arrays of ``build_ovo_tasks``: (idx, y, c, alpha0),
+    each (T, n_pad), and the pairs.  Cross-validation stacks folds x Cs of
+    them, so it builds them here and uploads the stack once."""
     labels = np.asarray(labels)
+    if include_mask is None:
+        include_mask = np.ones(labels.shape[0], dtype=bool)
     pairs = class_pairs(n_classes)
-    sel = [np.where((labels == a) | (labels == b))[0] for a, b in pairs]
+    sel = [np.where(include_mask & ((labels == a) | (labels == b)))[0]
+           for a, b in pairs]
     max_n = max((len(s) for s in sel), default=1)
-    n_pad = -(-max_n // PAD_MULTIPLE) * PAD_MULTIPLE
+    if n_pad is None:
+        n_pad = -(-max_n // pad_multiple) * pad_multiple
+    if max_n > n_pad:
+        raise ValueError(f"n_pad={n_pad} smaller than largest pair ({max_n})")
 
     T = len(pairs)
     idx = np.zeros((T, n_pad), dtype=np.int32)
@@ -58,11 +61,36 @@ def build_ovo_tasks(
         c[t, :m] = C
         if alpha0 is not None and alpha0[t] is not None:
             a0[t, :m] = np.clip(alpha0[t][:m], 0.0, C)
+    return (idx, y, c, a0), pairs
 
-    def put(a):
-        return torch.as_tensor(a, device=device)
 
-    return TaskBatch(idx=put(idx), y=put(y), c=put(c), alpha0=put(a0)), pairs
+def build_ovo_tasks(
+    labels: np.ndarray,
+    n_classes: int,
+    C: float,
+    *,
+    include_mask: Optional[np.ndarray] = None,
+    n_pad: Optional[int] = None,
+    pad_multiple: int = PAD_MULTIPLE,
+    alpha0: Optional[Sequence[np.ndarray]] = None,
+    device="cuda",
+) -> Tuple[TaskBatch, List[Tuple[int, int]]]:
+    """Build the padded one-vs-one task batch on ``device``.
+
+    labels:        (n,) integer class labels, referring to rows of the shared G
+    include_mask:  optional (n,) bool: rows to use (CV training folds)
+    n_pad:         pad every task to this many rows (default: the largest
+                   pair's size, rounded up to ``pad_multiple``); a pair
+                   larger than an explicit n_pad raises ``ValueError``
+    alpha0:        optional warm starts, one (task_size,) array per pair
+
+    Padding rows have c = 0 and are inert.
+    """
+    arrays, pairs = ovo_arrays(labels, n_classes, C, include_mask=include_mask,
+                               n_pad=n_pad, pad_multiple=pad_multiple,
+                               alpha0=alpha0)
+    idx, y, c, a0 = (torch.as_tensor(a, device=device) for a in arrays)
+    return TaskBatch(idx=idx, y=y, c=c, alpha0=a0), pairs
 
 
 @full_fp32()

@@ -143,6 +143,7 @@ class Stage2StreamStats(StreamTimes):
     # ^ active-row union size at each compaction
     block_dtype: str = "f32"
     compact_seconds: float = 0.0      # host time building compactions
+    init_seconds: float = 0.0         # a warm start's init pass, to its end
     prefetch_final: int = 0           # queue depth after autotune
     scratch_bytes: int = 0            # B2's active-list scratch on the card
 
@@ -426,7 +427,11 @@ def solve_batch_streamed(
         return comp
 
     if bool((alpha != 0).any()):
+        t0 = time.perf_counter()
         shared_pass("init")
+        if lanes.cuda:
+            torch.cuda.synchronize(dev)
+        st.init_seconds = time.perf_counter() - t0
     comp = None
     tuned = not cfg.autotune_prefetch
     for epoch in range(config.max_epochs):

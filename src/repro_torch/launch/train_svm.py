@@ -18,8 +18,11 @@ As in the reference the CLI builds the ``reduced()`` backbone from seed 0
 
 The monolithic route and the streamed route (the ``StreamConfig`` fields the
 port reads) are served, each with or without ``--polish`` (the coarse-to-fine
-stage 2 of ``core/polish.py``, ``--polish-levels`` deep).  Flags of routes
-not ported yet stop with an error that names them.
+stage 2 of ``core/polish.py``, ``--polish-levels`` deep), and model selection
+(``--grid-cs`` / ``--grid-gammas`` / ``--grid-folds``: ``core/cv.py``'s serial
+grid search on the training split, then a refit at the best cell).  Flags of
+routes not ported yet stop with an error that names them, and so does a grid
+the reference would train on its grid task farm.
 """
 from __future__ import annotations
 
@@ -32,7 +35,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, list_configs
-from repro_torch.core import KernelParams, LPDSVM, StreamConfig, median_gamma
+from repro_torch.core import (GridResult, KernelParams, LPDSVM, StreamConfig,
+                              grid_search, median_gamma)
+from repro_torch.core.cv import FARM_NOT_PORTED
 from repro_torch.core.nystrom import compute_factor
 from repro_torch.core.quant import GROUP_ROWS
 from repro_torch.core.svm import resolve_device
@@ -102,6 +107,20 @@ def _report(svm: LPDSVM) -> None:
               f"{len(tr.levels)} levels")
 
 
+def _report_grid(res: GridResult, gammas, Cs) -> None:
+    """Per-grid summary for --grid-*: the grid, each gamma's CV errors over
+    the ascending Cs, and the selection (the grid task farm's per-gamma
+    stream line is not ported with it)."""
+    print(f"grid: {len(gammas)} gammas x {len(Cs)} Cs, "
+          f"{res.n_binary_solved} binary SVMs, "
+          f"stage1 {res.stage1_seconds:.2f}s stage2 {res.stage2_seconds:.2f}s")
+    for gi, gamma in enumerate(gammas):
+        errs = " ".join(f"{e:.4f}" for e in res.errors[gi])
+        print(f"  gamma {gamma:.4g}: err [{errs}]")
+    print(f"grid best: gamma={res.best_gamma:.4g} C={res.best_C:.4g} "
+          f"err={res.best_error:.4f}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The reference's flags, those of routes not ported yet included (they
     are refused by ``main``)."""
@@ -141,13 +160,19 @@ def build_parser() -> argparse.ArgumentParser:
                          "full-data pass is a short polish (core/polish.py)")
     ap.add_argument("--polish-levels", type=int, default=3,
                     help="depth of the polish ladder (default 3)")
+    ap.add_argument("--grid-cs", default=None,
+                    help="comma-separated C grid: k-fold CV model selection "
+                         "(core/cv.py) on the training split, then a refit "
+                         "at the best cell")
+    ap.add_argument("--grid-gammas", default=None,
+                    help="comma-separated gamma grid (default: --gamma or the "
+                         "median heuristic); needs --grid-cs")
+    ap.add_argument("--grid-folds", type=int, default=3,
+                    help="CV folds of the grid search (default 3)")
     # routes of the reference that are not ported yet: refused by main()
     ap.add_argument("--no-overlap", action="store_true")
     ap.add_argument("--cache-budget-mb", type=float, default=-1.0)
     ap.add_argument("--no-cache", action="store_true")
-    ap.add_argument("--grid-cs", default=None)
-    ap.add_argument("--grid-gammas", default=None)
-    ap.add_argument("--grid-folds", type=int, default=3)
     ap.add_argument("--libsvm", default=None)
     ap.add_argument("--n-features", type=int, default=0)
     ap.add_argument("--on-bad-row", choices=("raise", "skip"), default="raise")
@@ -170,9 +195,6 @@ def _unported(args) -> Optional[str]:
     given = (("--libsvm", args.libsvm is not None),
              ("--n-features", args.n_features != 0),
              ("--on-bad-row", args.on_bad_row != "raise"),
-             ("--grid-cs", args.grid_cs is not None),
-             ("--grid-gammas", args.grid_gammas is not None),
-             ("--grid-folds", args.grid_folds != 3),
              ("--checkpoint-dir", args.checkpoint_dir is not None),
              ("--checkpoint-every", args.checkpoint_every != 1),
              ("--resume", args.resume),
@@ -204,9 +226,24 @@ def main(argv=None) -> float:
         ap.error(f"--quant-group-rows must be >= 0, got {args.quant_group_rows}")
     if args.polish_levels < 1:
         ap.error(f"--polish-levels must be >= 1, got {args.polish_levels}")
+    if args.grid_folds < 2:
+        ap.error(f"--grid-folds must be >= 2, got {args.grid_folds}")
+    if args.grid_gammas is not None and args.grid_cs is None:
+        ap.error("--grid-gammas requires --grid-cs")
 
     stream_config, force = stream_args(args)
-    return _run(args, ap, stream_config, force).test_error
+    if (force and args.grid_cs is not None and not args.polish
+            and len(_floats(args.grid_cs)) > 1):
+        # forced streaming routes a grid of more than one C onto the farm
+        ap.error(f"--grid-cs with streaming forced: {FARM_NOT_PORTED}")
+    try:
+        return _run(args, ap, stream_config, force).test_error
+    except NotImplementedError as e:   # a grid that streams under a budget
+        ap.error(str(e))
+
+
+def _floats(csv: str):
+    return [float(v) for v in csv.split(",")]
 
 
 def stream_args(args):
@@ -237,6 +274,7 @@ class DriverResult:
     svm: LPDSVM
     predictions: np.ndarray       # of the test rows
     test_error: float
+    grid: Optional[GridResult] = None   # with --grid-cs: the search's result
 
 
 def _run(args, ap, stream_config, force, *, model: Optional[Model] = None,
@@ -260,12 +298,30 @@ def _run(args, ap, stream_config, force, *, model: Optional[Model] = None,
     if args.gamma is None:
         args.gamma = median_gamma(feats)
     n_tr = int(args.n * 0.8)
+    stream = True if force else None
 
-    svm = LPDSVM(KernelParams("rbf", gamma=args.gamma), C=args.C,
-                 budget=args.budget, tol=1e-2,
-                 stream=True if force else None,
-                 stream_config=stream_config, polish=args.polish,
-                 polish_levels=args.polish_levels, device=device)
+    grid = None
+    if args.grid_cs is not None:
+        Cs = _floats(args.grid_cs)
+        gammas = _floats(args.grid_gammas) if args.grid_gammas else [args.gamma]
+        t0 = time.perf_counter()
+        grid = grid_search(feats[:n_tr], y[:n_tr], gammas, Cs,
+                           budget=args.budget, folds=args.grid_folds,
+                           stream=stream, stream_config=stream_config,
+                           polish=args.polish,
+                           polish_levels=args.polish_levels, device=device)
+        print(f"features: {feats.shape} in {t_feat:.1f}s; "
+              f"grid search {time.perf_counter() - t0:.1f}s")
+        _report_grid(grid, gammas, Cs)
+        # the refit at the best cell, unpolished, as the reference refits
+        svm = LPDSVM(KernelParams("rbf", gamma=grid.best_gamma), C=grid.best_C,
+                     budget=args.budget, tol=1e-2, stream=stream,
+                     stream_config=stream_config, device=device)
+    else:
+        svm = LPDSVM(KernelParams("rbf", gamma=args.gamma), C=args.C,
+                     budget=args.budget, tol=1e-2, stream=stream,
+                     stream_config=stream_config, polish=args.polish,
+                     polish_levels=args.polish_levels, device=device)
     factor = None
     if landmark_idx is not None:
         factor = compute_factor(feats[:n_tr], svm.kernel, args.budget,
@@ -274,11 +330,12 @@ def _run(args, ap, stream_config, force, *, model: Optional[Model] = None,
     svm.fit(feats[:n_tr], y[:n_tr], factor=factor)
     pred = svm.predict(feats[n_tr:])
     err = float(np.mean(pred != y[n_tr:]))
-    print(f"features: {feats.shape} in {t_feat:.1f}s")
-    _report(svm)
+    if grid is None:
+        print(f"features: {feats.shape} in {t_feat:.1f}s")
+        _report(svm)
     print(f"test error: {err:.4f} (chance {1 - 1/args.classes:.2f})")
     return DriverResult(features=feats, n_train=n_tr, svm=svm, predictions=pred,
-                        test_error=err)
+                        test_error=err, grid=grid)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Kernels B1, B2 (whole and windowed), B3 and B4 on the card against their
 plain versions, the streamed route against the monolithic one, the polish
-ladder against the CPU's, and the backbone's features on the card against
-the CPU's.
+ladder and the cross-validation cells and grid against the CPU's, and the
+backbone's features on the card against the CPU's.
 
 These need a CUDA card and nvcc: each test asks for the ``cuda`` fixture,
 which skips where there is none.  On the machine with the card:
@@ -15,9 +15,9 @@ import pytest
 import torch
 
 from repro_torch import LPDSVM, KernelParams, StreamConfig, median_gamma
-from repro_torch.core import polish
+from repro_torch.core import cv, polish
 from repro_torch.core import solver_stream as ss
-from repro_torch.core.dual_solver import SolverConfig
+from repro_torch.core.dual_solver import SolverConfig, solve_batch
 from repro_torch.core.ovo import build_ovo_tasks
 from repro_torch.core.streaming import host_buffer
 from repro_torch.core.nystrom import compute_factor
@@ -854,6 +854,70 @@ def test_forced_streaming_of_a_factor_on_the_card(cuda):
     assert s.stats.stage2_streamed and not m.stats.stage2_streamed
     np.testing.assert_array_equal(s.stats.epochs, m.stats.epochs)
     torch.testing.assert_close(s.W_, m.W_, rtol=0, atol=1e-6)
+
+
+def test_cv_cell_on_card_matches_cpu(cuda):
+    """One cross-validation cell (3 folds x 10 pairs = 30 tasks, padded to
+    the two largest classes of all rows) through solve_batch on the card
+    against the port's CPU solve of the same cell on the same factor: each
+    task's dual objective within rtol 5e-3, violations under tol, alphas in
+    their box, padding alphas 0, and B2 launched once an epoch."""
+    x, y = make_multiclass(1200, p=12, n_classes=5, seed=8)
+    _, labels = np.unique(y, return_inverse=True)
+    fac = compute_factor(x, KernelParams("rbf", gamma=median_gamma(x)), 128, device=cuda)
+    masks = cv.kfold_masks(len(x), 3, 0)
+    cfg = SolverConfig(tol=1e-3, max_epochs=4000)
+    out = {}
+    for d in ("cpu", cuda):
+        tasks, _ = cv.build_cv_tasks(labels, 5, 2.0, masks, device=d)
+        before = smo_epoch_kernel.launches
+        res = solve_batch(fac.G.to(d), tasks, cfg)
+        out[str(d)] = (tasks, res, smo_epoch_kernel.launches - before)
+    (_, rc, lc), (tasks, rg, lg) = out["cpu"], out["cuda"]
+    assert tasks.n_tasks == 30 and lc == 0 and lg == int(rg.epochs.max()) > 0
+    np.testing.assert_allclose(rg.dual_obj.cpu().numpy(), rc.dual_obj.numpy(), rtol=5e-3)
+    assert bool((rg.violation < cfg.tol).all())
+    real = tasks.c > 0
+    assert bool((rg.alpha[~real] == 0).all()) and not bool(real.all())
+    assert bool(((rg.alpha >= 0) & (rg.alpha <= tasks.c)).all())
+
+
+def test_grid_search_on_card_matches_cpu(cuda):
+    """grid_search on the card and with device="cpu" (the same seed, so the
+    same landmark rows; B1 against its plain version): every cell's CV
+    error within 0.01, the same cell selected, and each card cell's B2
+    launches its largest epoch count."""
+    x, y = make_multiclass(900, p=8, n_classes=4, seed=12)
+    kw = dict(gammas=[0.05, 0.2], Cs=[0.5, 2.0], budget=128, folds=3,
+              config=SolverConfig(tol=1e-2, max_epochs=2000))
+    before = smo_epoch_kernel.launches
+    card = cv.grid_search(x, y, **kw)
+    launches = smo_epoch_kernel.launches - before
+    cpu = cv.grid_search(x, y, device="cpu", **kw)
+    assert np.abs(card.errors - cpu.errors).max() <= 0.01
+    assert (card.best_gamma, card.best_C) == (cpu.best_gamma, cpu.best_C)
+    assert card.n_binary_solved == cpu.n_binary_solved == 2 * 2 * 3 * 6
+    assert launches == sum(int(c.epochs.max()) for c in card.cells) > 0
+
+
+def test_streamed_serial_cross_validate_on_card_equals_monolithic(cuda):
+    """The card factor and a pinned host copy of it (streamed=True): the
+    streamed stage 2 is bit-equal to solve_batch, so the CV error is equal;
+    the host copy's decisions are taken on the host."""
+    x, y = make_multiclass(1200, p=10, n_classes=3, seed=9)
+    kp = KernelParams("rbf", gamma=0.1)
+    fac = compute_factor(x, kp, 128, device=cuda)
+    host = dataclasses.replace(
+        fac, G=host_buffer(tuple(fac.G.shape), torch.float32, cuda).copy_(fac.G),
+        streamed=True)
+    kw = dict(folds=3, config=SolverConfig(tol=1e-2, max_epochs=2000))
+    for C in (0.5, 4.0):
+        mono, _ = cv.cross_validate(x, y, kp, C, factor=fac, **kw)
+        before = smo_epoch_kernel.launches
+        streamed, _ = cv.cross_validate(x, y, kp, C, factor=host,
+                                        stream_config=StreamConfig(tile_rows=256), **kw)
+        assert smo_epoch_kernel.launches > before
+        assert streamed == mono
 
 
 def assert_flash_close(got, q, k, v, causal):

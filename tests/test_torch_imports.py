@@ -36,7 +36,8 @@ def test_port_covers_its_layout():
     rel = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES[:-1]}
     for name in ("core/kernel_fn.py", "core/nystrom.py", "core/dual_solver.py",
                  "core/ovo.py", "core/svm.py", "core/quant.py", "core/streaming.py",
-                 "core/solver_stream.py", "kernels/build.py", "kernels/gram.py",
+                 "core/solver_stream.py", "core/polish.py", "core/cv.py",
+                 "kernels/build.py", "kernels/gram.py",
                  "kernels/smo.py", "kernels/ops.py", "data/synthetic.py",
                  "convert.py", "kernels/flash_attention.py", "configs/base.py",
                  "configs/qwen3_0_6b.py", "configs/tinyllama_1_1b.py",

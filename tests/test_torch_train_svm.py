@@ -132,8 +132,7 @@ def test_stream_args_are_the_references(argv, want):
 
 @pytest.mark.parametrize("argv,flag", [
     (["--libsvm", "data.txt"], "--libsvm"), (["--n-features", "5"], "--n-features"),
-    (["--on-bad-row", "skip"], "--on-bad-row"), (["--grid-cs", "1,4"], "--grid-cs"),
-    (["--grid-gammas", "0.1"], "--grid-gammas"), (["--grid-folds", "4"], "--grid-folds"),
+    (["--on-bad-row", "skip"], "--on-bad-row"),
     (["--checkpoint-dir", "ck"], "--checkpoint-dir"),
     (["--checkpoint-every", "2"], "--checkpoint-every"), (["--resume"], "--resume"),
     (["--shard-dir", "sh"], "--shard-dir"), (["--shard-rows", "64"], "--shard-rows"),
@@ -176,6 +175,111 @@ def test_polish_flags_reach_the_estimator(backbone, argv, levels, capsys):
     assert f"polish total: {st.polish_trace.total_row_visits} row-visits over " \
         f"{len(kept)} levels" in out
     assert res.test_error < 1 - 1 / 3
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--grid-cs", "4,1"], dict(Cs=[4.0, 1.0], gammas=None, folds=3, polish=False)),
+    (["--grid-cs", "1,4", "--grid-gammas", "0.02,0.08", "--grid-folds", "2", "--polish",
+      "--polish-levels", "2"], dict(Cs=[1.0, 4.0], gammas=[0.02, 0.08], folds=2, polish=True)),
+    (["--grid-cs", "2", "--stream", "--chunk-rows", "96", "--tile-rows", "100"],
+     dict(Cs=[2.0], gammas=None, folds=3, polish=False))],
+    ids=["one gamma", "gammas, folds, polish", "one C, streamed"])
+def test_grid_flags_reach_grid_search(backbone, monkeypatch, argv, want):
+    """--grid-cs / --grid-gammas / --grid-folds parse and reach grid_search on
+    the training split (the gamma grid defaults to the median gamma), with
+    --polish and the streaming flags, as the reference passes them; the
+    refit runs at the best cell, unpolished.  One C under forced streaming
+    runs the serial loop (the reference farms only more than one C), and
+    every cell streams."""
+    _, _, _, port = backbone
+    seen = {}
+    real = driver.grid_search
+
+    def spy(x, y, gammas, Cs, **kw):
+        seen.update(x=x, gammas=gammas, Cs=Cs, **kw)
+        return real(x, y, gammas, Cs, **kw)
+
+    monkeypatch.setattr(driver, "grid_search", spy)
+    ap = driver.build_parser()
+    args = ap.parse_args(ARGV + argv)
+    cfg, force = driver.stream_args(args)
+    res = driver._run(args, ap, cfg, force, model=port, device="cpu")
+    gammas = want["gammas"] or [args.gamma]
+    assert seen["x"].shape == (320, 256) and seen["gammas"] == gammas
+    assert seen["Cs"] == want["Cs"] and seen["folds"] == want["folds"]
+    assert seen["polish"] == want["polish"] and seen["budget"] == 64
+    assert seen["stream"] == (True if force else None) and seen["stream_config"] is cfg
+    grid = res.grid
+    assert grid.errors.shape == (len(gammas), len(want["Cs"]))
+    assert grid.n_binary_solved == len(gammas) * len(want["Cs"]) * want["folds"] * 3
+    assert (res.svm.kernel.gamma, res.svm.C) == (grid.best_gamma, grid.best_C)
+    assert res.svm.polish_schedule is None
+    assert all((c.stream_stats is not None) == force for c in grid.cells)
+    assert res.test_error < 1 - 1 / 3
+
+
+def test_grid_report_lines(backbone, capsys):
+    """The reference's _report_grid lines: the grid, one line of CV errors a
+    gamma over the ascending Cs, the selection, then the refit's test
+    error."""
+    _, _, _, port = backbone
+    ap = driver.build_parser()
+    args = ap.parse_args(ARGV + ["--grid-cs", "4,1", "--grid-gammas", "0.01,0.04"])
+    res = driver._run(args, ap, None, False, model=port, device="cpu")
+    out = capsys.readouterr().out.splitlines()
+    g = res.grid
+    i = next(k for k, l in enumerate(out) if l.startswith("grid: "))
+    assert out[i] == (f"grid: 2 gammas x 2 Cs, 36 binary SVMs, stage1 "
+                      f"{g.stage1_seconds:.2f}s stage2 {g.stage2_seconds:.2f}s")
+    assert out[i + 1] == f"  gamma 0.01: err [{g.errors[0, 0]:.4f} {g.errors[0, 1]:.4f}]"
+    assert out[i + 2] == f"  gamma 0.04: err [{g.errors[1, 0]:.4f} {g.errors[1, 1]:.4f}]"
+    assert out[i + 3] == (f"grid best: gamma={g.best_gamma:.4g} C={g.best_C:.4g} "
+                          f"err={g.best_error:.4f}")
+    assert out[i + 4] == f"test error: {res.test_error:.4f} (chance 0.67)"
+    assert out[i - 1].startswith("features: (400, 256) in ") and "grid search" in out[i - 1]
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--grid-cs", "1,4", "--grid-folds", "1"], "--grid-folds must be >= 2, got 1"),
+    (["--grid-gammas", "0.1"], "--grid-gammas requires --grid-cs")])
+def test_grid_flags_stop_with_the_references_messages(argv, message, capsys):
+    with pytest.raises(SystemExit) as exc:
+        driver.main(argv)
+    assert exc.value.code == 2
+    assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [["--stream"], ["--chunk-rows", "64"]])
+def test_grid_under_forced_streaming_stops_naming_the_farm(argv, capsys):
+    """More than one C with streaming forced: the reference trains the grid
+    on its task farm, which is not ported, so the driver stops before any
+    work rather than run the serial loop in its place."""
+    with pytest.raises(SystemExit) as exc:
+        driver.main(["--grid-cs", "1,4"] + argv)
+    assert exc.value.code == 2
+    assert "grid task farm" in capsys.readouterr().err
+
+
+def test_grid_streamed_by_the_budget_raises_naming_the_farm(backbone, monkeypatch, capsys):
+    """Under a device budget alone the route shows only after stage 1:
+    grid_search raises where the reference would farm, and main stops with
+    its message."""
+    _, _, _, port = backbone
+    ap = driver.build_parser()
+    args = ap.parse_args(ARGV + ["--grid-cs", "1,4", "--device-budget-mb", "0.05"])
+    cfg, force = driver.stream_args(args)
+    assert not force
+    with pytest.raises(NotImplementedError, match="grid task farm"):
+        driver._run(args, ap, cfg, force, model=port, device="cpu")
+
+    def farmed(*a, **k):
+        raise NotImplementedError("grid_search: the grid task farm is not ported")
+
+    monkeypatch.setattr(driver, "_run", farmed)
+    with pytest.raises(SystemExit) as exc:
+        driver.main(["--grid-cs", "1,4", "--device-budget-mb", "0.05"])
+    assert exc.value.code == 2
+    assert "the grid task farm is not ported" in capsys.readouterr().err
 
 
 def test_polish_levels_below_one_stop_with_an_error(capsys):
