@@ -123,16 +123,37 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 on the card and on the CPU: errors within 0.01, same cell
   grid search, polished           the reduced grid with polish=True: the
                 same cell, errors within 0.03
+  grid task farm, ladder and concurrent   at the reduced size (T = 270:
+                C 1/16 and 1/4 x 3 folds x 45 pairs, G from pinned host
+                memory): with every epoch a full pass the farm's per-cell
+                alphas and epochs equal the serial streamed C loop's on the
+                card; without the ladder each cell equals its cold solo
+                streamed solve and the grid's G bytes stay within 1.3x of
+                the largest cell's; the farm on the card against the farm on
+                the CPU (dual objectives within 5e-3, the same cell)
   grid search, streamed serial    at 256 MiB with farm=False: the main
                 path's factor from pinned host memory through cross_validate
                 equals the card factor's errors; a grid whose f32 stage 1
                 streams (so every cell streams) within 0.01 of the
-                monolithic grid; with farm=None the same grid refuses,
-                naming the farm
+                monolithic grid; with farm=None the same grid on the grid
+                task farm at full width (T = 270): CV errors within 0.01 of
+                the serial streamed grid's and the same best cell where its
+                lead is over 0.01, epochs, G bytes, B2 launches and seconds
+                beside the serial grid's sums, the farm's peak device memory
+                within the budget plus the task-state allowance; without the
+                ladder (warm_start=False) the concurrent farm beside the cold
+                serial streamed grid: equal errors and epochs, G bytes
+                against the largest cell's and the cells' sum
   driver --grid                   launch/train_svm.py --grid-cs 1,4
                 --grid-gammas g/2,g --grid-folds 3 through its CLI: exit 0,
-                the grid lines, the refit below chance; with --stream its
-                main (in this process) stops naming the farm
+                the grid lines, the refit below chance; then with --stream
+                (in this process): the farm's line a gamma, exit 0
+  solve_compact                   the main path's largest OVO task (its rows of
+                the main path's factor gathered on the card) through
+                core/compact.py's bucket-compaction solver, B2 with T = 1:
+                one launch an epoch, its dual objective within 1e-3 of
+                solve_batch's on the task, fewer rows swept than without
+                shrinking
 
 Then one JSON line {"kernels": [...]} and, last, the {"ok": true, ...} line.
 """
@@ -379,6 +400,7 @@ def main() -> int:
     from repro_torch import LPDSVM, KernelParams, SolverConfig, StreamConfig, median_gamma
     from repro_torch.convert import tasks_from_reference
     from repro_torch.core import cv, dual_solver
+    from repro_torch.core.compact import solve_compact
     from repro_torch.core.nystrom import compute_factor, select_landmarks
     from repro_torch.core.quant import quantize_rows
     from repro_torch.core.solver_stream import (_row_sq, block_windows,
@@ -1894,7 +1916,90 @@ def main() -> int:
               "the polished grid selects another cell")
         check(diff_p <= 0.03 and smo_epoch_kernel.launches > 0,
               "the polished grid's errors stray, or B2 never ran")
-        del fac_r
+
+    farm_launches = {}
+    with phase("grid task farm, ladder and concurrent"):
+        # the reduced grid's cells on the grid task farm: T = 270, the
+        # reduced factor's G (6000 x 512) from pinned host memory
+        G_rh = host_buffer(tuple(fac_r.G.shape), torch.float32, dev).copy_(fac_r.G)
+        f_scfg = StreamConfig(device_budget_bytes=256 << 20, prefetch=2,
+                              autotune_prefetch=False)
+        twice = lambda c: dataclasses.replace(c, max_epochs=c.max_epochs * 2 + 2)
+
+        def farm_solve(G_f, cfg_f, ladder, device=dev):
+            t_f, _, ch = cv.build_cv_grid_tasks(labels_r, 10, Cs_r, masks_r,
+                                                ladder=ladder, device=device)
+            smo_epoch_kernel.launches = 0
+            t0 = time.perf_counter()
+            r_f, s_f = solve_batch_streamed(G_f, t_f, cfg_f, stream_config=f_scfg,
+                                            chain_next=ch, return_stats=True)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            return r_f, s_f, smo_epoch_kernel.launches, time.perf_counter() - t0
+
+        def cells_equal(r_f, solos):
+            FPr = r_f.alpha.shape[0] // len(solos)
+            sl = [slice(ci * FPr, (ci + 1) * FPr) for ci in range(len(solos))]
+            return (all(torch.equal(r_f.alpha[k], r.alpha) for k, r in zip(sl, solos)),
+                    all(torch.equal(r_f.epochs[k], r.epochs) for k, r in zip(sl, solos)))
+
+        # the ladder with every epoch a full pass: the serial streamed C loop,
+        # each cell warm-started from the one before it
+        p1 = dataclasses.replace(gcfg, full_pass_period=1)
+        warm, serial_c = None, []
+        for C in Cs_r:
+            t_c, _ = cv.build_cv_tasks(labels_r, 10, C, masks_r, warm=warm, device=dev)
+            serial_c.append(solve_batch_streamed(G_rh, t_c, p1, stream_config=f_scfg))
+            warm = serial_c[-1].alpha
+        lad, lad_st, lad_l, lad_s = farm_solve(G_rh, twice(p1), True)
+        same_a, same_e = cells_equal(lad, serial_c)
+        print(f"ladder at period 1, T {lad.alpha.shape[0]}: per-cell alphas equal to the "
+              f"serial C loop's {same_a}, epochs equal {same_e}; epochs max "
+              f"{[int(r.epochs.max()) for r in serial_c]}; farm {lad_st.epochs} epochs, "
+              f"{lad_st.full_passes} full passes, {lad_l} B2 launches, tile "
+              f"{lad_st.tile_rows}, {lad_s:.3f} s")
+        check(same_a and same_e, "the ladder's cells differ from the serial C loop's")
+        check(lad_l == lad_st.kernel_calls > 0, "B2 launches differ from the farm's blocks")
+        # concurrent: no ladder, the default schedule, each cell from zero
+        cold_c = [solve_batch_streamed(G_rh, cv.build_cv_tasks(labels_r, 10, C, masks_r,
+                                                              device=dev)[0], gcfg,
+                                       stream_config=f_scfg, return_stats=True)
+                  for C in Cs_r]
+        con, con_st, con_l, con_s = farm_solve(G_rh, gcfg, False)
+        same_a, same_e = cells_equal(con, [r for r, _ in cold_c])
+        most = max(st_c.bytes_g for _, st_c in cold_c)
+        print(f"concurrent: cells equal to their cold solo solves: alphas {same_a}, epochs "
+              f"{same_e}; G bytes {con_st.bytes_g} against the largest cell's {most} "
+              f"({con_st.bytes_g / most:.3f}x, max 1.3) and the cells' sum "
+              f"{sum(st_c.bytes_g for _, st_c in cold_c)}; {con_l} B2 launches, "
+              f"{con_s:.3f} s")
+        check(same_a and same_e, "a concurrent cell differs from its cold solo solve")
+        check(con_st.bytes_g <= 1.3 * most, "the concurrent grid streamed over 1.3x a cell")
+        # the farm (ladder, default schedule) on the card against the CPU
+        val_r = cv._fold_val_sets(fac_r, labels_r, masks_r)
+        farm_r = {}
+        for d in ("cuda", "cpu"):
+            r_d, s_d, l_d, secs = farm_solve(G_rh if d == "cuda" else fac_r.G.cpu(),
+                                             twice(gcfg), True, device=d)
+            FPr = r_d.alpha.shape[0] // len(Cs_r)
+            errs = [cv._cv_error_from(val_r, 10, r_d.w[ci * FPr:(ci + 1) * FPr])
+                    for ci in range(len(Cs_r))]
+            farm_r[d] = (r_d.dual_obj.cpu().numpy(), errs, l_d, secs, s_d)
+        rel_f = float(np.max(np.abs(farm_r["cuda"][0] - farm_r["cpu"][0])
+                             / np.abs(farm_r["cpu"][0])))
+        print(f"farm card vs cpu: dual objective max rel diff {rel_f:.3e} (max 5e-3); CV "
+              f"errors card {farm_r['cuda'][1]} cpu {farm_r['cpu'][1]}; card "
+              f"{farm_r['cuda'][3]:.3f} s ({farm_r['cuda'][2]} B2 launches, "
+              f"{farm_r['cuda'][4].epochs} epochs), cpu {farm_r['cpu'][3]:.3f} s "
+              f"({farm_r['cpu'][4].epochs} epochs)")
+        check(rel_f <= 5e-3, "the card's farm disagrees with the CPU's")
+        check(int(np.argmin(farm_r["cuda"][1])) == int(np.argmin(farm_r["cpu"][1])),
+              "the card's farm and the CPU's select different cells")
+        check(farm_r["cuda"][2] == farm_r["cuda"][4].kernel_calls > 0
+              and farm_r["cpu"][2] == 0, "B2 launches differ from the card farm's "
+              "blocks, or the CPU launched B2")
+        farm_launches["reduced"] = lad_l + con_l + farm_r["cuda"][2]
+        del fac_r, G_rh, lad, con, cold_c, serial_c, val_r
 
     with phase("grid search, streamed serial"):
         Cs_s = Cs_main[:2]                 # the main grid's first two cells at gamma g
@@ -1921,13 +2026,13 @@ def main() -> int:
             check(smo_epoch_kernel.launches > 0, "the streamed cell never launched B2")
         del G_h, fac_h
         # routed factor: an f32 stage 1 that streams, so every cell streams
-        s_grid, s_counts, s_launches, s_wall = counted_grid(
+        s_grid, s_counts, sg_launches, s_wall = counted_grid(
             xtr, ytr, [gamma], Cs_s, budget=budget, folds=folds, config=gcfg, seed=0,
             stream_config=s_cfg, farm=False)
         grid_cells(s_grid, s_counts)
         diff_s = float(np.abs(s_grid.errors[0] - grid.errors[g_i, :2]).max())
         print(f"streamed serial grid: stage 1 {s_grid.stage1_seconds:.3f} s, stage 2 "
-              f"{s_grid.stage2_seconds:.3f} s, wall {s_wall:.3f} s, launches {s_launches}; "
+              f"{s_grid.stage2_seconds:.3f} s, wall {s_wall:.3f} s, launches {sg_launches}; "
               f"CV errors {s_grid.errors[0].tolist()} vs the monolithic grid's "
               f"{grid.errors[g_i, :2].tolist()} (max diff {diff_s:.4f}, max 0.01)")
         check(all(c.stream_stats is not None for c in s_grid.cells), "a cell did not stream")
@@ -1935,15 +2040,103 @@ def main() -> int:
                   zip(s_counts, s_grid.cells)), "a streamed cell's B2 launches differ "
               "from its blocks")
         check(diff_s <= 0.01, "the streamed grid's CV errors stray from the monolithic grid's")
+        init_s = [c.stream_stats.init_seconds for c in s_grid.cells]
+        print(f"the warm cell's init pass (its fp64 w0 sums, one product shape a "
+              f"block): {init_s[1]:.4f} s")
+        # the same grid with farm=None: the grid task farm, every (C, fold,
+        # pair) cell of gamma g in one streamed TaskBatch; its stage 2 alone
+        # measured for its peak device memory (the byte model leaves out the
+        # task state, as in the streamed path phase: 13 words a task
+        # position, one a row of G for q, and B2's scratch)
+        farm_peak = {}
+        solve_auto = cv.solve_streamed_auto
+
+        def peaked(G_f, tasks_f, *a, **k):
+            base_f = peak_start()
+            out = solve_auto(G_f, tasks_f, *a, **k)
+            farm_peak.update(peak=peak_since(base_f), T=tasks_f.n_tasks,
+                             n_pad=int(tasks_f.idx.shape[1]), n=int(G_f.shape[0]))
+            return out
+
+        cv.solve_streamed_auto = peaked
         try:
-            cv.grid_search(xtr, ytr, [gamma], Cs_s, budget=budget, folds=folds, config=gcfg,
-                           seed=0, stream_config=s_cfg)
-            refused = None
-        except NotImplementedError as e:
-            refused = str(e)
-        print(f"the same grid with farm=None: {refused}")
-        check(refused is not None and "grid task farm" in refused,
-              "farm=None on a streamed grid did not refuse naming the farm")
+            f_grid, _, f_launches, f_wall = counted_grid(
+                xtr, ytr, [gamma], Cs_s, budget=budget, folds=folds, config=gcfg, seed=0,
+                stream_config=s_cfg)
+        finally:
+            cv.solve_streamed_auto = solve_auto
+        grid_cells(f_grid)
+        fst = f_grid.stream_stats[0] if f_grid.stream_stats else None
+        check(fst is not None and f_launches["smo_epoch"] == fst.kernel_calls > 0,
+              "farm=None did not run the farm, or its B2 launches differ from its blocks")
+        ser = [c.stream_stats for c in s_grid.cells]
+        allow_f = 4 * (13 * farm_peak["T"] * farm_peak["n_pad"] + farm_peak["n"]) \
+            + fst.scratch_bytes
+        limit_f = s_cfg.device_budget_bytes + allow_f
+        diff_f = float(np.abs(f_grid.errors[0] - s_grid.errors[0]).max())
+        lead = np.sort(s_grid.errors[0])
+        print(f"grid task farm, T {farm_peak['T']} x {farm_peak['n_pad']}: {fst.epochs} "
+              f"epochs ({fst.full_passes} full passes), bytes_g {fst.bytes_g}, "
+              f"{fst.kernel_calls} B2 launches, stage 2 {f_grid.stage2_seconds:.3f} s, "
+              f"wall {f_wall:.3f} s, tile {fst.tile_rows}, B2 scratch {fst.scratch_bytes} B, "
+              f"drain {fst.drain_seconds:.3f} s, compaction {fst.compact_seconds:.3f} s, "
+              f"h2d {fst.h2d_gbps:.2f} GB/s; epochs max by C "
+              f"{[int(c.epochs.max()) for c in f_grid.cells]}")
+        print(f"serial streamed grid's sums: {sum(st_c.epochs for st_c in ser)} epochs, "
+              f"bytes_g {sum(st_c.bytes_g for st_c in ser)}, "
+              f"{sum(st_c.kernel_calls for st_c in ser)} B2 launches, stage 2 "
+              f"{s_grid.stage2_seconds:.3f} s; farm / serial: bytes_g "
+              f"{fst.bytes_g / sum(st_c.bytes_g for st_c in ser):.3f}, stage 2 "
+              f"{f_grid.stage2_seconds / s_grid.stage2_seconds:.3f}")
+        print(f"farm CV errors {f_grid.errors[0].tolist()} vs the serial streamed grid's "
+              f"{s_grid.errors[0].tolist()} (max diff {diff_f:.4f}, max 0.01); best C farm "
+              f"{f_grid.best_C:g} serial {s_grid.best_C:g} (serial lead "
+              f"{lead[1] - lead[0]:.4f})")
+        print(f"farm stage 2 peak device memory {farm_peak['peak']} B: budget "
+              f"{s_cfg.device_budget_bytes} + task-state allowance {allow_f} = {limit_f}")
+        check(farm_peak["T"] == 2 * 135, "the farm's batch is not 2 Cs x 3 folds x 45 pairs")
+        check(diff_f <= 0.01, "the farm's CV errors stray from the serial streamed grid's")
+        check(lead[1] - lead[0] <= 0.01 or f_grid.best_C == s_grid.best_C,
+              "the farm selects another cell than the serial streamed grid")
+        check(farm_peak["peak"] <= limit_f,
+              "the farm's peak device memory above the budget plus the allowance")
+        # the concurrent farm (warm_start=False: no chain, every cell from
+        # zero) beside the cold serial streamed grid: each farmed cell is the
+        # cold cell's solve, so the errors are equal; the G bytes of the
+        # whole grid against the largest cell's and the cells' sum
+        c_grid, _, _, c_wall = counted_grid(
+            xtr, ytr, [gamma], Cs_s, budget=budget, folds=folds, config=gcfg, seed=0,
+            stream_config=s_cfg, farm=False, warm_start=False)
+        cf_grid, _, cf_launches, cf_wall = counted_grid(
+            xtr, ytr, [gamma], Cs_s, budget=budget, folds=folds, config=gcfg, seed=0,
+            stream_config=s_cfg, warm_start=False)
+        cser = [c.stream_stats for c in c_grid.cells]
+        cfs = cf_grid.stream_stats[0] if cf_grid.stream_stats else None
+        check(cfs is not None and cf_launches["smo_epoch"] == cfs.kernel_calls > 0,
+              "the concurrent farm did not run, or its B2 launches differ from its blocks")
+        big = max(st_c.bytes_g for st_c in cser)
+        print(f"concurrent farm: {cfs.epochs} epochs ({cfs.full_passes} full passes), bytes_g "
+              f"{cfs.bytes_g} against the largest cold cell's {big} "
+              f"({cfs.bytes_g / big:.3f}x) and the cold cells' sum "
+              f"{sum(st_c.bytes_g for st_c in cser)} "
+              f"({cfs.bytes_g / sum(st_c.bytes_g for st_c in cser):.3f}x); {cfs.kernel_calls} "
+              f"B2 launches against {sum(st_c.kernel_calls for st_c in cser)}; stage 2 "
+              f"{cf_grid.stage2_seconds:.3f} s against {c_grid.stage2_seconds:.3f} s, "
+              f"compaction {cfs.compact_seconds:.3f} s against "
+              f"{sum(st_c.compact_seconds for st_c in cser):.3f} s; epochs max by C farm "
+              f"{[int(c.epochs.max()) for c in cf_grid.cells]} cold "
+              f"{[int(c.epochs.max()) for c in c_grid.cells]}; CV errors farm "
+              f"{cf_grid.errors[0].tolist()} cold {c_grid.errors[0].tolist()}")
+        # the farm's budget is the grid's (max_epochs x |Cs| + |Cs|): a cold
+        # cell that stops at max_epochs runs on in the farm, by design
+        if max(int(c.epochs.max()) for c in c_grid.cells) < gcfg.max_epochs:
+            check(np.array_equal(cf_grid.errors, c_grid.errors)
+                  and all(np.array_equal(f.epochs, c.epochs)
+                          for f, c in zip(cf_grid.cells, c_grid.cells)),
+                  "a concurrent farm cell differs from its cold serial cell")
+        else:
+            print("a cold serial cell stopped at max_epochs: cells not compared")
+        farm_launches["full width"] = fst.kernel_calls + cfs.kernel_calls
 
     with phase("driver --grid"):
         # the paper's driver through its CLI with the grid flags; the gamma
@@ -1973,19 +2166,71 @@ def main() -> int:
               and "grid best: " in out, "the driver printed no grid lines")
         check(found is not None and float(found.group(1)) < float(found.group(2)),
               "the driver's refit does not beat chance")
-        # the same flags with --stream: main stops before any work, so it
-        # runs in this process
-        err_s = io.StringIO()
-        with contextlib.redirect_stderr(err_s):
+        # the same flags with --stream: the grid task farm, a farm line a
+        # gamma (in this process, whose kernels are built and loaded)
+        out_s = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out_s):
             try:
-                driver.main(argv + ["--stream"])
+                test_err = driver.main(argv + ["--stream"])
                 code = 0
             except SystemExit as e:
                 code = e.code
-        print(f"train_svm {' '.join(argv)} --stream: exit code {code}; "
-              f"{err_s.getvalue().strip().splitlines()[-1:]}")
-        check(code not in (0, None) and "grid task farm" in err_s.getvalue(),
-              "--grid-cs with --stream did not stop naming the farm")
+        out = out_s.getvalue()
+        print(out.strip())
+        print(f"train_svm {' '.join(argv)} --stream: exit code {code}, "
+              f"{time.perf_counter() - t0:.3f} s")
+        farm_lines = [l for l in out.splitlines() if l.startswith("  gamma ") and "  farm: " in l]
+        found = re.search(r"test error: ([0-9.]+) \(chance ([0-9.]+)\)", out)
+        check(code == 0 and len(farm_lines) == 2,
+              "--grid-cs with --stream did not run the farm for each gamma")
+        check(found is not None and float(found.group(1)) < float(found.group(2)),
+              "the streamed driver's refit does not beat chance")
+
+    with phase("solve_compact"):
+        # the main path's largest OVO task: its rows of the main path's
+        # factor gathered on the card, through the bucket-compaction solver
+        real_m = svm.tasks_.c > 0
+        t_big = int(real_m.sum(1).argmax())
+        keep = real_m[t_big]
+        rows_m = svm.tasks_.idx[t_big][keep].long()
+        G_rows = G[rows_m]
+        y_t, c_t = svm.tasks_.y[t_big][keep], svm.tasks_.c[t_big][keep]
+        smo_epoch_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a_c, w_c, st_c = solve_compact(G_rows, y_t, c_t, gcfg)
+        torch.cuda.synchronize()
+        c_secs = time.perf_counter() - t0
+        c_launches = smo_epoch_kernel.launches
+        one = dual_solver.TaskBatch(svm.tasks_.idx[t_big:t_big + 1],
+                                    svm.tasks_.y[t_big:t_big + 1],
+                                    svm.tasks_.c[t_big:t_big + 1],
+                                    torch.zeros_like(svm.tasks_.c[t_big:t_big + 1]))
+        r_one = dual_solver.solve_batch(G, one, gcfg)
+        d_c = float(a_c.double().sum() - 0.5 * torch.dot(w_c.double(), w_c.double()))
+        d_b = float(r_one.dual_obj[0])
+        rel_c = abs(d_c - d_b) / abs(d_b)
+        t0 = time.perf_counter()
+        _, _, st_off = solve_compact(G_rows, y_t, c_t,
+                                     dataclasses.replace(gcfg, shrink=False))
+        torch.cuda.synchronize()
+        off_secs = time.perf_counter() - t0
+        buckets = sorted(set(st_c.active_history))
+        print(f"task {t_big}: {len(rows_m)} rows x {G.shape[1]}; solve_compact {st_c.epochs} "
+              f"epochs ({st_c.full_passes} full), {c_launches} B2 launches, {c_secs:.3f} s, "
+              f"final violation {st_c.final_violation:.4g}, rows swept {st_c.rows_streamed}, "
+              f"buckets {buckets}; dual objective {d_c:.6f} against solve_batch's "
+              f"{d_b:.6f} ({int(r_one.epochs[0])} epochs): rel diff {rel_c:.3e} (max 1e-3); "
+              f"without shrinking {st_off.epochs} epochs, rows swept "
+              f"{st_off.rows_streamed}, {off_secs:.3f} s")
+        check(c_launches == st_c.epochs > 0 and a_c.is_cuda,
+              "solve_compact did not launch B2 once an epoch on the card")
+        check(rel_c <= 1e-3 and st_c.final_violation < gcfg.tol,
+              "solve_compact disagrees with solve_batch or ends above tol")
+        check(st_c.rows_streamed < st_off.rows_streamed,
+              "shrinking did not sweep fewer rows than no shrinking")
+        del G_rows, a_c, w_c, r_one
 
     kernels = [
         {"name": "gram", "route": "cuda",
@@ -2003,7 +2248,10 @@ def main() -> int:
          "launches": launches["smo_epoch"], "max_abs_err": smo_err, "ms": s_ms,
          "plain_ms": s_plain, "bound_ms": s_bound, "bound_by": s_by,
          "library_ms": None, "ms_cheap": cheap_ms, "launches_grid": grid_smo_launches,
-         "ms_t135": t135_ms, "ms_cheap_t135": t135_cheap, "waves_t135": waves},
+         "ms_t135": t135_ms, "ms_cheap_t135": t135_cheap, "waves_t135": waves,
+         "launches_farm": farm_launches["full width"],
+         "launches_farm_reduced": farm_launches["reduced"],
+         "launches_compact": c_launches},
         {"name": "gram_q8", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram_q8.cu",
          "replaces": "src/repro/kernels/gram.py:157",
@@ -2018,6 +2266,8 @@ def main() -> int:
          "launches": e2e["flash_attention"], "max_abs_err": flash_err,
          **flash_times["qwen3-0.6b pipeline"]},
     ]
+    check(all(k["launches"] > 0 for k in kernels),
+          "a kernel of the main paths was launched no time")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

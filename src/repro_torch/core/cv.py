@@ -1,5 +1,5 @@
 """Cross-validation, grid search and warm starts (paper sec. 4, Table 3):
-PyTorch port of the serial route of ``repro.core.cv``.
+PyTorch port of ``repro.core.cv`` on one card.
 
 The paper's point: parameter tuning is where the two-stage design pays off.
 The factor G depends only on the kernel (gamma), not on C or the fold split,
@@ -11,8 +11,10 @@ All (fold x pair) tasks of one (gamma, C) cell are solved as one
 ``TaskBatch`` of T = folds x pairs tasks, fold-major, so one launch of kernel
 B2 runs an epoch of every live task of the cell.  The cell's stage 2 is
 routed as ``LPDSVM``'s (``_solve_routed``): the polish ladder, the streamed
-row-block solver, or ``solve_fn`` on G on the device.  Validation errors
-come from rows of G, never from new kernel evaluations.
+row-block solver, or ``solve_fn`` on G on the device.  Where the cells
+would stream, the grid task farm puts every (C, fold, pair) cell of a gamma
+in one streamed ``TaskBatch``, the C ladder chained inside the solver.
+Validation errors come from rows of G, never from new kernel evaluations.
 
 Differences from the reference:
 
@@ -25,12 +27,10 @@ Differences from the reference:
     on the card for a device G, on the host for a host (streamed) G, which
     never goes to the card whole.  The two routes then vote alike on the
     same G and W.
-  * The grid task farm (every (C, fold, pair) cell of a gamma in one G
-    stream, chained by ``chain_next``) is not ported: ``farm=True``, and
-    ``farm=None`` where the reference would farm, raise
-    ``NotImplementedError``; ``farm=False`` runs the serial loop, whose
-    cells stream one by one.  ``build_cv_grid_tasks``, the farm's task
-    layout, is ported.
+  * The grid task farm runs on one card, through kernel B2's window form
+    (``solve_batch_streamed(..., chain_next=...)``); the multi-device farm
+    is not ported.  Beside the reference's per-gamma ``stream_stats``,
+    ``GridResult.cells`` holds one ``CellStats`` a C of a farmed gamma.
   * The per-gamma and per-C checkpoint and shard directories come with the
     resilience and shard modules, which are not ported.
 """
@@ -52,13 +52,6 @@ from repro_torch.core.solver_stream import (Stage2StreamStats, route_stage2,
                                             solve_streamed_auto)
 from repro_torch.core.streaming import StreamConfig
 from repro_torch.core.svm import resolve_device
-
-FARM_NOT_PORTED = (
-    "the grid task farm (every (C, fold, pair) cell of a gamma in one G "
-    "stream, the C ladder chained by chain_next) is not ported to "
-    "repro_torch yet; farm=False runs the serial per-cell loop, which "
-    "streams each cell")
-
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -219,15 +212,23 @@ def build_cv_grid_tasks(
         raise ValueError("build_cv_grid_tasks requires ascending Cs")
     cell, pairs = _cv_cells(labels, n_classes, val_masks, n_pad,
                             resolve_device(device))
+    tasks, chain = _grid_batch(cell, Cs, len(val_masks) * len(pairs), warm,
+                               ladder)
+    return tasks, pairs, chain
+
+
+def _grid_batch(cell, Cs: Sequence[float], FP: int, warm, ladder: bool):
+    """The level-major grid batch of ``_cv_cells``' ``cell`` over the
+    ascending ``Cs`` (``warm`` seeds level 0) and the C ladder's
+    ``chain_next`` (None without a ladder or with one C)."""
     levels = [cell(C, warm if ci == 0 else None) for ci, C in enumerate(Cs)]
     tasks = TaskBatch(*(torch.cat([getattr(b, k) for b in levels])
                         for k in TaskBatch._fields))
     chain = None
-    FP = len(val_masks) * len(pairs)
     if ladder and len(Cs) > 1:
         chain = np.full((len(Cs) * FP,), -1, np.int64)
         chain[:(len(Cs) - 1) * FP] = np.arange((len(Cs) - 1) * FP) + FP
-    return tasks, pairs, chain
+    return tasks, chain
 
 
 @dataclasses.dataclass
@@ -239,9 +240,12 @@ class CellStats:
     n_tasks: int                  # folds x pairs
     n_pad: int
     epochs: np.ndarray            # (T,) epochs each task was live
-    seconds: float                # the cell's stage 2, synchronised
+    seconds: float                # the cell's stage 2, synchronised (farm:
+    #                               the gamma's over its Cs)
     error: float                  # its CV error
-    stream_stats: Optional[Stage2StreamStats] = None   # set where it streamed
+    stream_stats: Optional[Stage2StreamStats] = None
+    # ^ set where the cell streamed alone; None on the farm, whose record of
+    #   the whole gamma is GridResult.stream_stats[gi]
 
 
 @dataclasses.dataclass
@@ -254,8 +258,10 @@ class GridResult:
     stage2_seconds: float
     n_binary_solved: int
     per_cell_seconds: np.ndarray  # (n_gamma, n_C)
-    stream_stats: Optional[list] = None      # the farm's; None on the serial route
-    bytes_h2d: Optional[np.ndarray] = None   # the farm's; None on the serial route
+    stream_stats: Optional[list] = None
+    # ^ farm: one Stage2StreamStats a gamma (None for a gamma the serial loop
+    #   ran); None where no gamma was farmed
+    bytes_h2d: Optional[np.ndarray] = None   # (n_gamma,) the farm's H2D bytes
     cells: List[CellStats] = dataclasses.field(default_factory=list)
     # ^ the port's: every cell in the order solved (gamma-major, C ascending)
 
@@ -289,10 +295,14 @@ def grid_search(
     predecessor (alphas clipped into the new box); the first best cell in
     that order wins ties.
 
-    ``farm`` selects the grid task farm, which is not ported: ``True``
-    raises, and so does ``None`` where the reference would farm (more than
-    one C, no polish ladder, and a grid batch that ``route_stage2`` would
-    stream); ``False`` pins the per-cell serial loop.
+    ``farm`` selects the grid task farm: every (C, fold, pair) cell of a
+    gamma rides one streamed ``TaskBatch`` (``build_cv_grid_tasks``) with
+    the C ladder run inside the solver (``chain_next``), so each G block
+    updates every live cell of the grid.  ``None`` farms where the cells
+    would stream anyway (``route_stage2`` on the grid batch), ``True``
+    forces it, ``False`` pins the per-cell serial loop; a polish ladder or
+    a single C always runs the serial loop.  Without ``warm_start`` the
+    farm's cells run side by side, each from zero.
 
     ``warm_start_gamma`` (beyond-paper): also seed the first C of each new
     gamma from the previous gamma's alphas at the same C.
@@ -300,8 +310,6 @@ def grid_search(
     ``polish`` runs every cell through the coarse-to-fine ladder
     (`core/polish.py`); it composes with both warm-start axes.
     """
-    if farm is True:
-        raise NotImplementedError(f"grid_search(farm=True): {FARM_NOT_PORTED}")
     dev = resolve_device(device)
     x = np.asarray(x, np.float32)
     classes, labels = np.unique(np.asarray(y), return_inverse=True)
@@ -310,7 +318,8 @@ def grid_search(
     Cs = sorted(float(c) for c in Cs)
     if polish and polish_schedule is None:
         polish_schedule = make_schedule(levels=polish_levels)
-    cell_tasks, _ = _cv_cells(labels, n_classes, val_masks, None, dev)
+    cell_tasks, pairs = _cv_cells(labels, n_classes, val_masks, None, dev)
+    FP = folds * len(pairs)
 
     errors = np.zeros((len(gammas), len(Cs)))
     cell_sec = np.zeros_like(errors)
@@ -319,6 +328,8 @@ def grid_search(
     n_solved = 0
     best = (np.inf, None, None)
     cells: List[CellStats] = []
+    gamma_stats: List[Optional[Stage2StreamStats]] = [None] * len(gammas)
+    gamma_bytes = np.zeros((len(gammas),), np.int64)
 
     warm_first_c = None       # cross-gamma seed (beyond-paper)
     for gi, gamma in enumerate(gammas):
@@ -331,17 +342,48 @@ def grid_search(
         t_stage1 += time.perf_counter() - t0
 
         warm = warm_first_c if warm_start_gamma else None
-        if farm is None and polish_schedule is None and len(Cs) > 1:
-            grid = TaskBatch(*(torch.cat([getattr(cell_tasks(C), k) for C in Cs])
-                               for k in TaskBatch._fields))
-            if route_stage2(factor, grid, stream, stream_config, solve_fn,
-                            solve_batch):
-                raise NotImplementedError(
-                    f"grid_search: this grid streams, where the reference "
-                    f"trains it on the grid task farm: {FARM_NOT_PORTED}")
-            del grid
-
         val_sets = _fold_val_sets(factor, labels, val_masks)
+        use_farm = False
+        if farm is not False and polish_schedule is None and len(Cs) > 1:
+            gtasks, chain = _grid_batch(cell_tasks, Cs, FP,
+                                        warm if warm_start else None, warm_start)
+            use_farm = farm is True or route_stage2(
+                factor, gtasks, stream, stream_config, solve_fn, solve_batch)
+            if not use_farm:
+                del gtasks
+        if use_farm:
+            # one streamed solve trains every cell of this gamma; the ladder
+            # runs inside it, so the epoch budget covers the whole ladder
+            # (the + 1 a level pays each seeded cell's w0 pass)
+            t0 = time.perf_counter()
+            farm_cfg = dataclasses.replace(
+                config, max_epochs=config.max_epochs * len(Cs) + len(Cs))
+            res, sstats = solve_streamed_auto(
+                factor.G, gtasks, farm_cfg, stream_config=stream_config,
+                chain_next=chain, return_stats=True)
+            _sync(dev)
+            dt = time.perf_counter() - t0
+            t_stage2 += dt
+            cell_sec[gi, :] = dt / len(Cs)
+            n_solved += gtasks.n_tasks
+            gamma_stats[gi] = sstats
+            gamma_bytes[gi] = sstats.bytes_h2d
+            epochs = res.epochs.cpu().numpy()
+            for ci, C in enumerate(Cs):
+                err = _cv_error_from(val_sets, n_classes,
+                                     res.w[ci * FP:(ci + 1) * FP])
+                errors[gi, ci] = err
+                cells.append(CellStats(
+                    gamma=float(gamma), C=C, n_tasks=FP,
+                    n_pad=int(gtasks.idx.shape[1]),
+                    epochs=epochs[ci * FP:(ci + 1) * FP], seconds=dt / len(Cs),
+                    error=err))
+                if err < best[0]:
+                    best = (err, float(gamma), C)
+            warm_first_c = res.alpha[:FP]
+            del val_sets, factor, gtasks, res
+            continue
+
         for ci, C in enumerate(Cs):
             t0 = time.perf_counter()
             tasks = cell_tasks(C, warm if warm_start else None)
@@ -365,10 +407,13 @@ def grid_search(
                 best = (err, float(gamma), C)
         del val_sets, factor
 
+    farmed = any(s is not None for s in gamma_stats)
     return GridResult(
         errors=errors, best_gamma=best[1], best_C=best[2], best_error=best[0],
         stage1_seconds=t_stage1, stage2_seconds=t_stage2,
-        n_binary_solved=n_solved, per_cell_seconds=cell_sec, cells=cells)
+        n_binary_solved=n_solved, per_cell_seconds=cell_sec,
+        stream_stats=gamma_stats if farmed else None,
+        bytes_h2d=gamma_bytes if farmed else None, cells=cells)
 
 
 def cross_validate(

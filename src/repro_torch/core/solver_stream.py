@@ -26,8 +26,18 @@ pinned buffer (and their q on the card), and the cheap epochs until the next
 full pass stream only that union.  A compacted index table maps each
 position to its row in the union; an inactive position takes the next
 active one's row, so the table stays monotone and every window contiguous
-(the kernel skips inactive positions without reading them).  The ``tol`` test runs on full passes, and
-a warm start accumulates w0 block by block in a streamed init pass first.
+(the kernel skips inactive positions without reading them).  The ``tol``
+test runs on full passes, and a warm start accumulates w0 block by block in
+a streamed init pass first: fp64 products of the warm tasks' coefficients
+with the block, rounded once at the end.
+
+The task axis can carry C ladders (``chain_next``, the grid task farm of
+``core/cv.py``): a successor task starts dormant; when its predecessor
+converges at a full pass it takes the converged alphas clipped into its own
+box (on the card), sums its w0 from the blocks of the next pass, which that
+promotes to a full pass, and sweeps from the epoch after.  The live, pending
+and done flags come to the host once per full pass with the convergence
+test; alpha, w and the counters never leave the card.
 
 Blocks go through a ring of ``prefetch`` device slots: the H2D stream fills
 a slot, the compute stream waits for that copy by event and launches B2, and
@@ -214,6 +224,10 @@ class _Ring:
 # fewer rows it widens the lanes per row and adds in another order.
 ROW_SQ_MIN_ROWS = 16
 
+# the warm-start sums' products: rows of a block by pending tasks at a time
+INIT_ROWS = 1024
+INIT_TASKS = 16
+
 
 def _row_sq(gb: torch.Tensor, out: torch.Tensor, piece: int = 1024) -> None:
     """q = ||g_r||^2 of every row of a block, in the order of ``solve_batch``'s
@@ -284,6 +298,27 @@ def _compaction(sidx: np.ndarray, m: np.ndarray, active: np.ndarray,
     return union, cidx.astype(np.int32), bounds.astype(np.int32), visits
 
 
+def _chain(chain_next, T: int, perm: np.ndarray, m: np.ndarray,
+           sidx: np.ndarray) -> np.ndarray:
+    """``chain_next`` as a (T,) int64 table (-1: no successor), checked: a
+    successor is another task of the batch and covers its predecessor's rows
+    in the same sorted layout, so that seeding copies alphas position for
+    position."""
+    nxt = np.full((T,), -1, np.int64)
+    if chain_next is None:
+        return nxt
+    nxt[:] = np.asarray(chain_next, np.int64).reshape(T)
+    for t in np.flatnonzero(nxt >= 0):
+        s = int(nxt[t])
+        if s >= T or s == t:
+            raise ValueError(f"chain_next[{t}] = {s} is not another task of {T}")
+        if (m[s] != m[t] or not np.array_equal(perm[s], perm[t])
+                or not np.array_equal(sidx[s, :m[t]], sidx[t, :m[t]])):
+            raise ValueError(f"chain_next[{t}] = {s}: a successor must cover its "
+                             f"predecessor's rows in the same layout")
+    return nxt
+
+
 @full_fp32()
 def solve_batch_streamed(
     G,
@@ -291,6 +326,7 @@ def solve_batch_streamed(
     config: SolverConfig = SolverConfig(),
     *,
     stream_config: Optional[StreamConfig] = None,
+    chain_next=None,
     return_stats: bool = False,
 ):
     """Drop-in ``solve_batch`` over a host G, on the device of ``tasks``.
@@ -301,7 +337,12 @@ def solve_batch_streamed(
     ``SolveResult`` on the tasks' device, laid out as ``solve_batch``'s, and
     a ``Stage2StreamStats`` with ``return_stats=True``.  Each task's real
     rows must be unique; sorted rows (what ``build_ovo_tasks`` gives) make
-    the trajectory the monolithic one."""
+    the trajectory the monolithic one.
+
+    ``chain_next[t] = s`` (-1: none) makes task s the warm-start successor
+    of task t over the same rows, the C ladder of
+    ``cv.build_cv_grid_tasks`` (see the module docstring).  A task that
+    never converged, or was never seeded, reports ``max_epochs``."""
     t_start = time.perf_counter()
     cfg = stream_config or StreamConfig()
     dev = tasks.idx.device
@@ -328,6 +369,7 @@ def solve_batch_streamed(
         raise ValueError(f"task indices must lie in [0, {n})")
     perm_h, m = _sorted_layout(idx_h, c_h)
     sidx_h = np.take_along_axis(idx_h, perm_h, axis=1)
+    nxt_h = _chain(chain_next, T, perm_h, m, sidx_h)
     bounds_h = np.stack([block_windows(sidx_h[t, :m[t]], tile, n_blocks)
                          for t in range(T)], axis=1).astype(np.int32)
     perm = _upload(perm_h, dev, st)
@@ -342,36 +384,72 @@ def solve_batch_streamed(
     alpha = torch.gather(tasks.alpha0.to(torch.float32), 1, perm).contiguous()
     unchanged = torch.zeros_like(sidx)
     w = torch.zeros((T, rank), dtype=torch.float32, device=dev)
-    live = torch.ones((T,), dtype=torch.bool, device=dev)
-    live_h = np.ones((T,), bool)
+    # the task states, on the host: B2 sees only ``live`` (its copy on the
+    # card); a pending task sums its w0 in the next pass over all of G; a
+    # dormant successor (no flag set) waits for its predecessor
+    chained = bool((nxt_h >= 0).any())
+    succ = np.zeros((T,), bool)
+    succ[nxt_h[nxt_h >= 0]] = True
+    warm = ((alpha != 0) & (c > 0)).any(1).cpu().numpy()
+    pending_h = ~succ & warm
+    live_h = ~succ & ~warm
+    done_h = np.zeros((T,), bool)
+    live = torch.as_tensor(live_h, device=dev)
     q = torch.empty((n,), dtype=torch.float32, device=dev)   # from pass one
     q_summed = False
     epochs = torch.zeros((T,), dtype=torch.int32, device=dev)
     violation = torch.full((T,), float("inf"), dtype=torch.float32, device=dev)
     period = config.full_pass_period if config.shrink else 1
     shrink_k = config.shrink_k if config.shrink else INT32_MAX
+    no_tasks = np.zeros((0,), np.int64)
 
-    def shared_pass(kind: str):
-        """One pass over all of G: "init" accumulates warm-start w0, "full"
-        and "cheap" sweep; returns the largest violation per task.  The
-        first pass of the solve sums q."""
+    def init_sums(pend: np.ndarray, ps: torch.Tensor, w0: torch.Tensor, b: int,
+                  gb: torch.Tensor, s: int) -> None:
+        """w0 += (alpha * y) @ G over the pending tasks' windows of block b:
+        a coefficient matrix, zero off each task's rows, times the block in
+        fp64.  The products run ``INIT_ROWS`` rows of the block by
+        ``INIT_TASKS`` tasks at a time (the last group zero-padded), so every
+        product has one shape and a task's sum does not depend on which
+        other tasks are pending with it."""
+        width = int((bounds_h[b + 1, pend] - bounds_h[b, pend]).max(initial=0))
+        if width == 0:
+            return
+        pos = bounds[b, ps].long()[:, None] + torch.arange(width, device=dev)
+        inside = pos < bounds[b + 1, ps].long()[:, None]
+        pos = pos.clamp(max=n_pad - 1)
+        rows = torch.where(inside, sidx[ps].gather(1, pos).long() - s, 0)
+        vals = torch.where(inside, (alpha[ps] * y[ps]).gather(1, pos).double(), 0.0)
+        groups = -(-len(pend) // INIT_TASKS)
+        coef = torch.zeros((groups * INIT_TASKS, gb.shape[0]), dtype=torch.float64,
+                           device=dev)
+        coef[:len(pend)].scatter_add_(1, rows, vals)
+        coef = coef.view(groups, INIT_TASKS, -1)
+        sums = w0.view(groups, INIT_TASKS, -1)
+        for p0 in range(0, gb.shape[0], INIT_ROWS):
+            g64 = gb[p0:p0 + INIT_ROWS].double()
+            for k in range(groups):
+                sums[k] += coef[k, :, p0:p0 + INIT_ROWS] @ g64
+
+    def shared_pass(kind: str, pend: np.ndarray):
+        """One pass over all of G: the ``pend`` tasks sum their w0 (in fp64,
+        as ``dual_solver._init_w``) from its blocks, and on "full" and
+        "cheap" passes the live tasks sweep them; returns the largest
+        violation per task and the fp64 w0.  The first pass sums q."""
         nonlocal q_summed
         viol = torch.zeros((T,), dtype=torch.float32, device=dev)
-        w0 = torch.zeros((T, rank), dtype=torch.float64, device=dev) \
-            if kind == "init" else None
+        w0 = torch.zeros((-(-len(pend) // INIT_TASKS) * INIT_TASKS, rank),
+                         dtype=torch.float64, device=dev)
+        ps = _upload(pend, dev, st) if len(pend) else None
+        sweep = kind != "init" and bool(live_h.any())
+        full = kind == "full"
         for b in range(n_blocks):
             s, e = b * tile, min((b + 1) * tile, n)
             gb, slot = ring.load(G[s:e])
             if not q_summed:
                 _row_sq(gb, q[s:e])
-            if kind == "init":      # fp64 sums, as dual_solver._init_w takes
-                for t in range(T):
-                    lo, hi = int(bounds_h[b, t]), int(bounds_h[b + 1, t])
-                    if lo < hi:
-                        rows = gb[sidx[t, lo:hi].long() - s].double()
-                        w0[t] += (alpha[t, lo:hi] * y[t, lo:hi]).double() @ rows
-            else:
-                full = kind == "full"
+            if ps is not None:
+                init_sums(pend, ps, w0, b, gb, s)
+            if sweep:
                 v = smo_epoch(gb, q[s:e], sidx, y, c, alpha,
                               unchanged, w, live, full_pass=full,
                               shrink_k=shrink_k, lo=bounds[b], hi=bounds[b + 1],
@@ -382,9 +460,7 @@ def solve_batch_streamed(
                     viol = torch.maximum(viol, v)
             ring.release(slot)
         q_summed = True
-        if w0 is not None:
-            w.copy_(w0)
-        return viol
+        return viol, w0
 
     def compacted_pass(comp):
         act_G, act_q, cidx, cbounds, visits = comp
@@ -426,20 +502,58 @@ def solve_batch_streamed(
         st.compact_seconds += time.perf_counter() - t0
         return comp
 
-    if bool((alpha != 0).any()):
+    def promote(pend: np.ndarray, w0: torch.Tensor) -> None:
+        """The tasks whose w0 a pass summed take it, rounded once, and sweep
+        from the next epoch."""
+        if len(pend):
+            w[_upload(pend, dev, st)] = w0[:len(pend)].float()
+            pending_h[pend] = False
+            live_h[pend] = True
+
+    def seed(conv_h: np.ndarray, seeds_alpha: np.ndarray) -> None:
+        """Each task that converged in this full pass seeds its dormant
+        successor, in task order: its alphas clipped into the successor's
+        box, the successor's counters reset.  Seeded with zero alphas, a
+        successor sweeps from the next epoch (its w0 is 0); else it first
+        sums its w0 in the next pass, which that promotes to a full one."""
+        frm, to = [], []
+        for t in np.flatnonzero(conv_h & (nxt_h >= 0)):
+            s = int(nxt_h[t])
+            if live_h[s] or done_h[s] or pending_h[s]:
+                continue
+            frm.append(t)
+            to.append(s)
+            if seeds_alpha[t]:
+                pending_h[s] = True
+            else:
+                live_h[s] = True
+        if to:
+            src = _upload(np.asarray(frm, np.int64), dev, st)
+            dst = _upload(np.asarray(to, np.int64), dev, st)
+            box = c[dst]
+            alpha[dst] = torch.where(box > 0.0,
+                                     torch.minimum(alpha[src].clamp(min=0.0), box),
+                                     alpha[dst])
+            unchanged[dst] = 0
+
+    if pending_h.any():                 # warm roots: an init pass first
         t0 = time.perf_counter()
-        shared_pass("init")
+        pend = np.flatnonzero(pending_h)
+        promote(pend, shared_pass("init", pend)[1])
+        live.copy_(torch.from_numpy(live_h))
         if lanes.cuda:
             torch.cuda.synchronize(dev)
         st.init_seconds = time.perf_counter() - t0
     comp = None
     tuned = not cfg.autotune_prefetch
     for epoch in range(config.max_epochs):
-        full = epoch % period == 0
+        # a pending task needs a pass over all of G: it promotes the epoch
+        full = epoch % period == 0 or bool(pending_h.any())
         mark = st.bytes_g
         put0, drain0 = st.put_seconds, st.drain_seconds
+        pend = np.flatnonzero(pending_h) if full else no_tasks
         if full or comp is None:
-            viol = shared_pass("full" if full else "cheap")
+            viol, w0 = shared_pass("full" if full else "cheap", pend)
         else:
             compacted_pass(comp)
         epochs += live.to(torch.int32)
@@ -447,23 +561,34 @@ def solve_batch_streamed(
         if full:
             st.full_passes += 1
             violation = torch.where(live, viol, violation)
-            live &= ~(viol < config.tol)
+            flags = [live & (viol < config.tol)]
+            if chained:                 # would a task seed nonzero alphas?
+                flags.append(((alpha > 0.0) & (c > 0.0)).any(1))
             t0 = time.perf_counter()
-            live_h = live.cpu().numpy()       # one host sync per full pass
+            flags_h = torch.stack(flags).cpu().numpy()   # one host sync per full pass
             st.drain_seconds += time.perf_counter() - t0
-            st.bytes_d2h += live_h.nbytes
+            st.bytes_d2h += flags_h.nbytes
+            live_h &= ~flags_h[0]
+            done_h |= flags_h[0]
+            if chained:
+                seed(flags_h[0], flags_h[1])
+            promote(pend, w0)
+            del w0
+            live.copy_(torch.from_numpy(live_h))
         st.epoch_bytes.append(st.bytes_g - mark)
         if full:
-            if not live_h.any():
+            if not (live_h.any() or pending_h.any()):
                 break
             if not tuned:
                 tuned = True
                 _autotune(ring, cfg, rank, T, tile,
                           st.put_seconds - put0, st.drain_seconds - drain0)
             if config.shrink:
-                comp = recompact()
+                comp = recompact() if live_h.any() else None
 
     t0 = time.perf_counter()
+    epochs = torch.where(torch.as_tensor(done_h, device=dev), epochs,
+                         config.max_epochs).to(torch.int32)
     out_alpha = torch.empty_like(alpha).scatter_(1, perm, alpha)
     dual = out_alpha.sum(-1) - 0.5 * (w * w).sum(-1)
     n_sv = (out_alpha > 0.0).sum(-1)
@@ -488,8 +613,8 @@ def _autotune(ring: _Ring, cfg: StreamConfig, rank: int, T: int, tile: int,
     ring.prefetch = tune_prefetch(put, drain, ring.prefetch, cap)
 
 
-# the streamed stage-2 route of ``LPDSVM.fit`` on one card (the reference's
-# multi-device task farm is not ported)
+# the streamed stage-2 route of ``LPDSVM.fit`` and of the grid task farm on
+# one card (the reference's multi-device task farm is not ported)
 solve_streamed_auto = solve_batch_streamed
 
 

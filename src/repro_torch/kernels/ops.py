@@ -60,6 +60,28 @@ def smo_epoch(G, q, idx, y, c, alpha, unchanged, w, live, *,
                             row0=row0, scratch=scratch)
 
 
+def smo_epoch_flat(G, y, c, q, alpha, unchanged, w, *, full_pass: bool,
+                   shrink_k: int):
+    """One task's epoch over every row of G in order, with the reference's
+    flat signature (``repro``'s ``kernels/ops.py`` ``smo_epoch``): y, c, q,
+    alpha, unchanged (n,), w (B,).  ``smo_epoch`` with T = 1 on copies of
+    alpha, unchanged and w, so that the inputs stay as they were; returns
+    (alpha, unchanged, w, viol) with viol a 0-d tensor."""
+    dev = G.device
+    n = G.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=dev)[None]
+    a = alpha.to(torch.float32).reshape(1, n).clone()
+    u = unchanged.to(torch.int32).reshape(1, n).clone()
+    wv = w.to(torch.float32).reshape(1, -1).clone()
+    live = torch.ones((1,), dtype=torch.bool, device=dev)
+    viol = smo_epoch(G.to(torch.float32).contiguous(), q.to(torch.float32).contiguous(),
+                     idx, y.to(torch.float32).reshape(1, n).contiguous(),
+                     c.to(torch.float32).reshape(1, n).contiguous(), a, u, wv, live,
+                     full_pass=full_pass, shrink_k=shrink_k,
+                     scratch=smo_epoch_scratch(1, n, dev))
+    return a[0], u[0], wv[0], viol[0]
+
+
 def smo_epoch_scratch(n_tasks: int, positions: int, device):
     """The scratch ``smo_epoch`` lists active rows in, for windows of up to
     ``positions`` positions per task: allocated once per solve on the card,

@@ -19,10 +19,10 @@ As in the reference the CLI builds the ``reduced()`` backbone from seed 0
 The monolithic route and the streamed route (the ``StreamConfig`` fields the
 port reads) are served, each with or without ``--polish`` (the coarse-to-fine
 stage 2 of ``core/polish.py``, ``--polish-levels`` deep), and model selection
-(``--grid-cs`` / ``--grid-gammas`` / ``--grid-folds``: ``core/cv.py``'s serial
-grid search on the training split, then a refit at the best cell).  Flags of
-routes not ported yet stop with an error that names them, and so does a grid
-the reference would train on its grid task farm.
+(``--grid-cs`` / ``--grid-gammas`` / ``--grid-folds``: ``core/cv.py``'s grid
+search on the training split, on the grid task farm where it streams, then a
+refit at the best cell).  Flags of routes not ported yet stop with an error
+that names them.
 """
 from __future__ import annotations
 
@@ -37,7 +37,6 @@ import torch
 from repro_torch.configs import get_config, list_configs
 from repro_torch.core import (GridResult, KernelParams, LPDSVM, StreamConfig,
                               grid_search, median_gamma)
-from repro_torch.core.cv import FARM_NOT_PORTED
 from repro_torch.core.nystrom import compute_factor
 from repro_torch.core.quant import GROUP_ROWS
 from repro_torch.core.svm import resolve_device
@@ -109,14 +108,22 @@ def _report(svm: LPDSVM) -> None:
 
 def _report_grid(res: GridResult, gammas, Cs) -> None:
     """Per-grid summary for --grid-*: the grid, each gamma's CV errors over
-    the ascending Cs, and the selection (the grid task farm's per-gamma
-    stream line is not ported with it)."""
+    the ascending Cs and, where the grid task farm ran, the one stream that
+    gamma's whole grid trained in; then the selection."""
     print(f"grid: {len(gammas)} gammas x {len(Cs)} Cs, "
           f"{res.n_binary_solved} binary SVMs, "
           f"stage1 {res.stage1_seconds:.2f}s stage2 {res.stage2_seconds:.2f}s")
     for gi, gamma in enumerate(gammas):
         errs = " ".join(f"{e:.4f}" for e in res.errors[gi])
-        print(f"  gamma {gamma:.4g}: err [{errs}]")
+        line = f"  gamma {gamma:.4g}: err [{errs}]"
+        if res.stream_stats is not None and res.stream_stats[gi] is not None:
+            st = res.stream_stats[gi]
+            line += (f"  farm: {st.epochs} epochs, "
+                     f"{st.bytes_h2d / 2**20:.1f} MiB H2D "
+                     f"({st.bytes_g / 2**20:.1f} MiB G blocks), "
+                     f"{st.bytes_d2h / 2**20:.1f} MiB D2H, "
+                     f"tile {st.tile_rows} x {st.block_dtype}")
+        print(line)
     print(f"grid best: gamma={res.best_gamma:.4g} C={res.best_C:.4g} "
           f"err={res.best_error:.4f}")
 
@@ -232,14 +239,7 @@ def main(argv=None) -> float:
         ap.error("--grid-gammas requires --grid-cs")
 
     stream_config, force = stream_args(args)
-    if (force and args.grid_cs is not None and not args.polish
-            and len(_floats(args.grid_cs)) > 1):
-        # forced streaming routes a grid of more than one C onto the farm
-        ap.error(f"--grid-cs with streaming forced: {FARM_NOT_PORTED}")
-    try:
-        return _run(args, ap, stream_config, force).test_error
-    except NotImplementedError as e:   # a grid that streams under a budget
-        ap.error(str(e))
+    return _run(args, ap, stream_config, force).test_error
 
 
 def _floats(csv: str):

@@ -1,7 +1,8 @@
 """Kernels B1, B2 (whole and windowed), B3 and B4 on the card against their
 plain versions, the streamed route against the monolithic one, the polish
-ladder and the cross-validation cells and grid against the CPU's, and the
-backbone's features on the card against the CPU's.
+ladder, the cross-validation cells and grid, the grid task farm and the
+bucket-compaction solver against the CPU's, and the backbone's features on
+the card against the CPU's.
 
 These need a CUDA card and nvcc: each test asks for the ``cuda`` fixture,
 which skips where there is none.  On the machine with the card:
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch import LPDSVM, KernelParams, StreamConfig, median_gamma
-from repro_torch.core import cv, polish
+from repro_torch.core import compact, cv, polish
 from repro_torch.core import solver_stream as ss
 from repro_torch.core.dual_solver import SolverConfig, solve_batch
 from repro_torch.core.ovo import build_ovo_tasks
@@ -918,6 +919,69 @@ def test_streamed_serial_cross_validate_on_card_equals_monolithic(cuda):
                                         stream_config=StreamConfig(tile_rows=256), **kw)
         assert smo_epoch_kernel.launches > before
         assert streamed == mono
+
+
+@pytest.mark.parametrize("ladder", [True, False])
+def test_grid_farm_on_card_matches_cpu(cuda, ladder):
+    """The grid task farm (solve_batch_streamed with chain_next, B2's window
+    form) on the card against the same farm on the CPU, on one factor:
+    each task's dual objective within rtol 5e-3 (B2 against its plain
+    version, fp32 sums in other orders), converged cells' epochs within one
+    full pass, B2 launched once a block of the live tasks; grid_search's
+    farm on the card selects the CPU farm's cell with errors within 0.01."""
+    x, y = make_multiclass(900, p=8, n_classes=4, seed=12)
+    _, labels = np.unique(y, return_inverse=True)
+    kp = KernelParams("rbf", gamma=0.1)
+    fac = compute_factor(x, kp, 128, device=cuda)
+    masks = cv.kfold_masks(len(x), 3, 0)
+    Cs = [0.5, 2.0, 8.0]
+    cfg = SolverConfig(tol=1e-2, max_epochs=2000 * 3 + 3)
+    scfg = StreamConfig(tile_rows=256)
+    G_h = host_buffer(tuple(fac.G.shape), torch.float32, cuda).copy_(fac.G)
+    out = {}
+    for d in ("cpu", cuda):
+        tasks, _, chain = cv.build_cv_grid_tasks(labels, 4, Cs, masks, ladder=ladder, device=d)
+        before = smo_epoch_kernel.launches
+        res, st = ss.solve_batch_streamed(G_h if d == cuda else fac.G.cpu(), tasks, cfg,
+                                          stream_config=scfg, chain_next=chain,
+                                          return_stats=True)
+        out[str(d)] = (res, st, smo_epoch_kernel.launches - before)
+    (rc, sc, lc), (rg, sg, lg) = out["cpu"], out["cuda"]
+    assert lc == 0 and lg == sg.kernel_calls > 0
+    np.testing.assert_allclose(rg.dual_obj.cpu().numpy(), rc.dual_obj.numpy(), rtol=5e-3)
+    conv = (rg.violation.cpu() < cfg.tol) & (rc.violation < cfg.tol)
+    assert bool(conv.all())
+    assert int((rg.epochs.cpu() - rc.epochs).abs().max()) <= 20
+    kw = dict(gammas=[0.1], Cs=Cs, budget=128, folds=3, farm=True, warm_start=ladder,
+              config=SolverConfig(tol=1e-2, max_epochs=2000), stream_config=scfg)
+    card = cv.grid_search(x, y, **kw)
+    cpu = cv.grid_search(x, y, device="cpu", **kw)
+    assert card.stream_stats is not None and cpu.stream_stats is not None
+    assert np.abs(card.errors - cpu.errors).max() <= 0.01
+    assert (card.best_gamma, card.best_C) == (cpu.best_gamma, cpu.best_C)
+
+
+def test_solve_compact_on_card_matches_plain_epoch(cuda):
+    """solve_compact on the card runs B2 with T = 1 (one launch an epoch, no
+    plain epoch) and ends within 1e-3 relative of the same solve on the CPU
+    (the plain epoch); shrinking sweeps fewer rows than no shrinking."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2000, 5)).astype(np.float32)
+    yv = np.where(x[:, 0] * x[:, 1] > 0, 1.0, -1.0).astype(np.float32)
+    fac = compute_factor(x, KernelParams("rbf", gamma=0.8), 256, device=cuda)
+    y, c = torch.from_numpy(yv), torch.full((2000,), 4.0)
+    cfg = SolverConfig(tol=1e-2, max_epochs=1000)
+    before = smo_epoch_kernel.launches
+    ag, wg, sg = compact.solve_compact(fac.G, y.to(cuda), c.to(cuda), cfg)
+    launches = smo_epoch_kernel.launches - before
+    ac, wc, sc = compact.solve_compact(fac.G.cpu(), y, c, cfg)
+    assert launches == sg.epochs > 0 and ag.is_cuda
+    dual = lambda a, w: float(a.double().sum() - 0.5 * torch.dot(w.double(), w.double()))
+    assert abs(dual(ag.cpu(), wg.cpu()) - dual(ac, wc)) < 1e-3 * abs(dual(ac, wc))
+    assert sg.final_violation < cfg.tol
+    _, _, off = compact.solve_compact(fac.G, y.to(cuda), c.to(cuda),
+                                      SolverConfig(tol=1e-2, max_epochs=1000, shrink=False))
+    assert sg.rows_streamed < off.rows_streamed
 
 
 def assert_flash_close(got, q, k, v, causal):

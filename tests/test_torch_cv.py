@@ -345,9 +345,30 @@ STREAM_GRID = dict(gammas=[0.2], Cs=[1.0, 4.0], budget=64, folds=3,
                          ids=["farm=True", "farm=True, polish", "farm=None, budget",
                               "farm=None, stream=True"])
 def test_the_farm_raises_where_the_reference_would_farm(kw):
+    """Every call the reference trains on its grid task farm, which the port
+    once refused, now runs the farm: one stream record for the gamma, a
+    CellStats a C without one of its own, the errors within 0.03 of the
+    serial loop's (the ladder runs on another schedule; the reference's
+    warm-vs-cold bound).  With a polish ladder the reference runs the serial
+    loop, and so does the port: each cell through the ladder, its final
+    level streamed."""
     x, y = make_multiclass(300, p=5, n_classes=3, seed=7)
-    with pytest.raises(NotImplementedError, match="grid task farm"):
-        cv.grid_search(x, y, **{**STREAM_GRID, **kw})
+    args = {**STREAM_GRID, **kw}
+    res = cv.grid_search(x, y, **args)
+    serial = cv.grid_search(x, y, **{**args, "farm": False})
+    assert res.n_binary_solved == serial.n_binary_solved == 2 * 3 * 3
+    assert np.abs(res.errors - serial.errors).max() <= 0.03
+    if kw.get("polish"):
+        assert res.stream_stats is None and res.bytes_h2d is None
+        assert all(c.stream_stats is not None for c in res.cells)
+        np.testing.assert_array_equal(res.errors, serial.errors)
+        return
+    st = res.stream_stats[0]
+    assert len(res.stream_stats) == 1 and res.bytes_h2d[0] == st.bytes_h2d > st.bytes_g > 0
+    assert st.kernel_calls > 0 and st.full_passes > 0
+    assert [c.C for c in res.cells] == [1.0, 4.0]
+    assert all(c.stream_stats is None and c.n_tasks == 9 for c in res.cells)
+    assert serial.stream_stats is None
 
 
 def test_farm_false_runs_the_serial_loop_and_streams():

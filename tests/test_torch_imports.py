@@ -37,6 +37,7 @@ def test_port_covers_its_layout():
     for name in ("core/kernel_fn.py", "core/nystrom.py", "core/dual_solver.py",
                  "core/ovo.py", "core/svm.py", "core/quant.py", "core/streaming.py",
                  "core/solver_stream.py", "core/polish.py", "core/cv.py",
+                 "core/compact.py",
                  "kernels/build.py", "kernels/gram.py",
                  "kernels/smo.py", "kernels/ops.py", "data/synthetic.py",
                  "convert.py", "kernels/flash_attention.py", "configs/base.py",

@@ -249,37 +249,57 @@ def test_grid_flags_stop_with_the_references_messages(argv, message, capsys):
     assert message in capsys.readouterr().err
 
 
+def _farm_lines(out, grid, gammas):
+    """The reference's per-gamma line with the farm's stream record."""
+    for gi, gamma in enumerate(gammas):
+        st = grid.stream_stats[gi]
+        errs = " ".join(f"{e:.4f}" for e in grid.errors[gi])
+        assert (f"  gamma {gamma:.4g}: err [{errs}]  farm: {st.epochs} epochs, "
+                f"{st.bytes_h2d / 2**20:.1f} MiB H2D ({st.bytes_g / 2**20:.1f} MiB G "
+                f"blocks), {st.bytes_d2h / 2**20:.1f} MiB D2H, tile {st.tile_rows} x "
+                f"{st.block_dtype}") in out.splitlines()
+
+
 @pytest.mark.parametrize("argv", [["--stream"], ["--chunk-rows", "64"]])
-def test_grid_under_forced_streaming_stops_naming_the_farm(argv, capsys):
-    """More than one C with streaming forced: the reference trains the grid
-    on its task farm, which is not ported, so the driver stops before any
-    work rather than run the serial loop in its place."""
-    with pytest.raises(SystemExit) as exc:
-        driver.main(["--grid-cs", "1,4"] + argv)
-    assert exc.value.code == 2
-    assert "grid task farm" in capsys.readouterr().err
+def test_grid_under_forced_streaming_stops_naming_the_farm(backbone, argv, capsys):
+    """More than one C with streaming forced, which the driver once refused:
+    the grid now trains on the task farm, as in the reference, and prints
+    its farm line; the refit at the best cell streams and beats chance."""
+    _, _, _, port = backbone
+    ap = driver.build_parser()
+    args = ap.parse_args(ARGV + ["--grid-cs", "1,4"] + argv)
+    cfg, force = driver.stream_args(args)
+    assert force
+    res = driver._run(args, ap, cfg, force, model=port, device="cpu")
+    grid = res.grid
+    assert grid.stream_stats is not None and len(grid.stream_stats) == 1
+    assert grid.n_binary_solved == 2 * 3 * 3
+    _farm_lines(capsys.readouterr().out, grid, [args.gamma])
+    assert res.svm.stats.stage2_streamed and res.test_error < 1 - 1 / 3
 
 
 def test_grid_streamed_by_the_budget_raises_naming_the_farm(backbone, monkeypatch, capsys):
-    """Under a device budget alone the route shows only after stage 1:
-    grid_search raises where the reference would farm, and main stops with
-    its message."""
+    """Under a device budget alone the route shows only after stage 1; where
+    the port once raised, the grid runs on the farm, and main returns the
+    refit's test error (exit code 0)."""
     _, _, _, port = backbone
     ap = driver.build_parser()
-    args = ap.parse_args(ARGV + ["--grid-cs", "1,4", "--device-budget-mb", "0.05"])
-    cfg, force = driver.stream_args(args)
+    argv = ARGV + ["--grid-cs", "1,4", "--device-budget-mb", "0.05"]
+    cfg, force = driver.stream_args(ap.parse_args(argv))
     assert not force
-    with pytest.raises(NotImplementedError, match="grid task farm"):
-        driver._run(args, ap, cfg, force, model=port, device="cpu")
+    seen = {}
+    real = driver._run
 
-    def farmed(*a, **k):
-        raise NotImplementedError("grid_search: the grid task farm is not ported")
+    def on_cpu(*a, **k):
+        seen["res"] = real(*a, model=port, device="cpu", **k)
+        return seen["res"]
 
-    monkeypatch.setattr(driver, "_run", farmed)
-    with pytest.raises(SystemExit) as exc:
-        driver.main(["--grid-cs", "1,4", "--device-budget-mb", "0.05"])
-    assert exc.value.code == 2
-    assert "the grid task farm is not ported" in capsys.readouterr().err
+    monkeypatch.setattr(driver, "_run", on_cpu)
+    err = driver.main(argv)
+    grid = seen["res"].grid
+    assert err == seen["res"].test_error < 1 - 1 / 3
+    assert grid.stream_stats is not None and grid.stream_stats[0].kernel_calls > 0
+    _farm_lines(capsys.readouterr().out, grid, [seen["res"].svm.kernel.gamma])
 
 
 def test_polish_levels_below_one_stop_with_an_error(capsys):
