@@ -154,8 +154,37 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 one launch an epoch, its dual objective within 1e-3 of
                 solve_batch's on the task, fewer rows swept than without
                 shrinking
+  libsvm ingest, full width       the main path's rows, each column keeping its
+                entries at a rate drawn from Beta(0.19, 0.81) (about 146 of 784
+                a row, as LIBSVM's mnist), written by data/libsvm_format.py's
+                write_libsvm (60000 + 10000 rows) and read back into CSR: rows
+                a second, nnz, bytes; the CSR's indices equal to the mask, its
+                values within %g's rounding
+  libsvm factor, CSR vs dense     compute_factor_streamed_csr at the driver's
+                --device-budget-mb 256 on the f32 (B1) and int8 (B3) wires
+                against compute_factor_streamed on the densified rows with the
+                same landmark rows: G, landmarks, projector, eigvals bit-equal;
+                stage-1 seconds, the host densify seconds against slicing
+  driver --libsvm, full width     launch/train_svm.py's main with --libsvm
+                --n-features 784 --budget 2048 --C 1 --device-budget-mb 256 (in
+                this process), then with --stage1-dtype int8, counts reset
+                around each: the reference's lines, both stages streamed, B1
+                (or B1 + B3) and B2 launched as the chunks and blocks say; the
+                votes of predict_from_factor against predict on the dense
+                training rows (0.999 alike on the f32 wire, 0.99 on the int8
+                wire's codec), the test file's error
+  libsvm bad rows                 6000 rows plus a non-finite value, a 0-based
+                index and a malformed token: --on-bad-row skip reports 3
+                skipped and gives the clean file's factor and training error
+                bit for bit; without it BadRowError names line 6001
+  save / load                     the main path's and the streamed path's fits
+                saved (.npz bytes, seconds) and loaded onto the card: decision
+                values on the test rows bit-equal; predict_from_factor raises
+  predict_from_factor, card G vs host G   the main path's factor scored from
+                its card G and from a pinned host copy: identical votes
 
-Then one JSON line {"kernels": [...]} and, last, the {"ok": true, ...} line.
+Then one JSON line {"kernels": [...]} (``launches_libsvm``: each kernel's
+launches summed over the LIBSVM phases) and, last, the {"ok": true, ...} line.
 """
 from __future__ import annotations
 
@@ -167,6 +196,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -407,8 +437,9 @@ def main() -> int:
                                                 solve_batch_streamed)
     from repro_torch.core.streaming import (auto_chunk_rows,
                                             compute_factor_streamed,
+                                            compute_factor_streamed_csr,
                                             host_buffer)
-    from repro_torch.data import make_multiclass
+    from repro_torch.data import BadRowError, make_multiclass, read_libsvm, write_libsvm
     from repro_torch.kernels import build
     from repro_torch.kernels.gram import (gram_kernel, gram_plain,
                                           gram_q8_kernel, gram_q8_plain,
@@ -2232,6 +2263,268 @@ def main() -> int:
               "shrinking did not sweep fewer rows than no shrinking")
         del G_rows, a_c, w_c, r_one
 
+    # ------------------------------------------------------- the LIBSVM route
+    libsvm_dir = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
+    lib_launches = {"gram": 0, "gram_q8": 0, "smo_epoch": 0}
+
+    def reset_counts():
+        for fn in (gram_kernel, gram_q8_kernel, smo_epoch_kernel):
+            fn.launches = 0
+
+    def read_counts(add: bool = True) -> dict:
+        got = {"gram": gram_kernel.launches, "gram_q8": gram_q8_kernel.launches,
+               "smo_epoch": smo_epoch_kernel.launches}
+        if add:
+            for k, v in got.items():
+                lib_launches[k] += v
+        return got
+
+    def run_driver(argv):
+        """launch/train_svm.py's main in this process (its kernels built and
+        loaded): its stdout, its return value and train_from_libsvm's result."""
+        seen, real = {}, driver.train_from_libsvm
+
+        def keep(*a, **kw):
+            seen["res"] = real(*a, **kw)
+            return seen["res"]
+
+        out = io.StringIO()
+        driver.train_from_libsvm = keep
+        try:
+            with contextlib.redirect_stdout(out):
+                ret = driver.main(argv)
+        finally:
+            driver.train_from_libsvm = real
+        return ret, seen["res"], out.getvalue()
+
+    with phase("libsvm ingest, full width"):
+        # the main path's rows, each keeping about 19% of its entries by a
+        # seeded mask (LIBSVM's mnist has about 150 nonzeros of 784), written
+        # as LIBSVM text and read back into CSR.  Each column keeps its
+        # entries at a rate drawn from Beta(0.19, 0.81) (mean 0.19): as in
+        # mnist, where border pixels are nearly always 0 and central ones
+        # often set, the rows share most of their support (a mask drawn
+        # alike for every entry leaves two rows 3.6% of common columns, and
+        # the RBF kernel next to no class signal)
+        col_rate = np.random.default_rng(1).beta(0.19, 0.81, size=p_tr)
+        keep = np.random.default_rng(2).random((len(xtr) + len(xte), p_tr)) < col_rate
+        xs_tr = np.where(keep[:len(xtr)], xtr, np.float32(0))
+        xs_te = np.where(keep[len(xtr):], xte, np.float32(0))
+        train_svm = os.path.join(libsvm_dir.name, "train.svm")
+        test_svm = os.path.join(libsvm_dir.name, "test.svm")
+        t0 = time.perf_counter()
+        write_libsvm(train_svm, xs_tr, ytr)
+        write_libsvm(test_svm, xs_te, yte)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data = read_libsvm(train_svm, n_features=p_tr)
+        t_read = time.perf_counter() - t0
+        sizes = (os.path.getsize(train_svm), os.path.getsize(test_svm))
+        rows_k, cols_k = np.nonzero(keep[:len(xtr)])
+        same_idx = (np.array_equal(data.indptr, np.concatenate(
+            [[0], np.cumsum(keep[:len(xtr)].sum(1))])) and np.array_equal(data.indices, cols_k))
+        want_v = xtr[rows_k, cols_k]
+        # %g keeps six significant digits: half a unit of the sixth, then
+        # fp32's rounding of the parsed value
+        v_share = float((np.abs(data.values - want_v) / (5.1e-6 * np.abs(want_v))).max())
+        print(f"wrote {len(xtr)} + {len(xte)} rows ({sizes[0]} + {sizes[1]} bytes) in "
+              f"{t_write:.3f} s; read {data.n} rows x {data.n_features}, nnz "
+              f"{len(data.values)} ({len(data.values) / data.n:.1f} a row) in {t_read:.3f} s: "
+              f"{data.n / t_read:.0f} rows/s, {sizes[0] / t_read / 1e6:.2f} MB/s")
+        print(f"CSR indices equal to the mask {same_idx}; values against the rows: largest "
+              f"share of %g's rounding {v_share:.3f} (max 1); labels equal "
+              f"{np.array_equal(data.labels, ytr)}")
+        check(same_idx and v_share <= 1.0 and np.array_equal(data.labels, ytr),
+              "the CSR read back differs from the rows written")
+        del rows_k, cols_k, want_v
+
+    with phase("libsvm factor, CSR vs dense"):
+        # the driver's --libsvm stage 1 (--device-budget-mb 256) on both
+        # wires, against compute_factor_streamed on the densified rows with
+        # the same landmark rows: bit for bit
+        lm_rows = np.sort(np.random.default_rng(0).choice(data.n, 256, replace=False))
+        kp_l = KernelParams("rbf", gamma=median_gamma(data.densify_rows(lm_rows)))
+        t0 = time.perf_counter()
+        dense_l = data.densify()
+        t_dense = time.perf_counter() - t0
+        print(f"gamma {kp_l.gamma:.6e}; the whole CSR densified on the host in "
+              f"{t_dense:.3f} s")
+        for wire in ("f32", "int8"):
+            cfg_l = StreamConfig(device_budget_bytes=256 << 20, stage1_dtype=wire)
+            runs = {}
+            for route in ("csr", "dense"):
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f = (compute_factor_streamed_csr(data, kp_l, budget, config=cfg_l, device=dev)
+                     if route == "csr" else
+                     compute_factor_streamed(dense_l, kp_l, budget, config=cfg_l, device=dev))
+                torch.cuda.synchronize()
+                runs[route] = (f, time.perf_counter() - t0, read_counts(route == "csr"))
+            (fc, tc, lc), (fd, td, _) = runs["csr"], runs["dense"]
+            same = all(torch.equal(getattr(fc, k), getattr(fd, k))
+                       for k in ("G", "landmarks", "projector", "eigvals"))
+            s1c, s1d = fc.stage1_stats, fd.stage1_stats
+            print(f"{wire} wire: CSR stage 1 {tc:.3f} s (densify {s1c.source_seconds:.3f} s, "
+                  f"encode {s1c.encode_seconds:.3f}, put {s1c.put_seconds:.3f}, drain "
+                  f"{s1c.drain_seconds:.3f}, pinned G {s1c.alloc_seconds:.3f}), dense stage 1 "
+                  f"{td:.3f} s (slicing {s1d.source_seconds:.3f} s); {s1c.chunks} chunks, "
+                  f"rank {fc.effective_rank}; G, landmarks, projector, eigvals bit-equal "
+                  f"{same}; launches {lc}")
+            want = ({"gram": 1 + s1c.chunks, "gram_q8": 0} if wire == "f32"
+                    else {"gram": 1, "gram_q8": s1c.chunks})
+            check(same, f"{wire} wire: the CSR factor differs from the dense streamed one")
+            check({k: lc[k] for k in want} == want and s1c.chunks > 1,
+                  f"{wire} wire: launches {lc}, not {want}")
+            del fc, fd, runs, f
+        del dense_l
+
+    with phase("driver --libsvm, full width"):
+        argv_l = ["--libsvm", train_svm, "--n-features", str(p_tr), "--budget", str(budget),
+                  "--C", "1", "--device-budget-mb", "256"]
+        t0 = time.perf_counter()
+        data_te = read_libsvm(test_svm, n_features=p_tr)
+        xs_te_read = data_te.densify()
+        print(f"test file: {data_te.n} rows in {time.perf_counter() - t0:.3f} s")
+        for extra in ([], ["--stage1-dtype", "int8"]):
+            reset_counts()
+            t0 = time.perf_counter()
+            ret, res_l, out = run_driver(argv_l + extra)
+            wall_l = time.perf_counter() - t0
+            cnt = read_counts()
+            print(out.strip())
+            svm_l, st = res_l.svm, res_l.svm.stats
+            wire = st.stage1_stats.wire_dtype
+            lines = out.splitlines()
+            print(f"train_svm {' '.join(argv_l[2:] + extra)}: {wall_l:.3f} s (read "
+                  f"{res_l.read_seconds:.3f} s, stage 1 {st.stage1_seconds:.3f} s, stage 2 "
+                  f"{st.stage2_seconds:.3f} s), returned {ret}; launches {cnt}")
+            check(ret == res_l.train_error and lines[-1] == f"train error: {ret:.4f}"
+                  and lines[0].startswith(f"libsvm: {len(xtr)} rows x {p_tr} features in ")
+                  and any(l.startswith("stage1 stream: ") for l in lines)
+                  and any(l.startswith("stage2 stream: ") for l in lines),
+                  "the driver's --libsvm run did not print the reference's lines")
+            check(st.stage1_streamed and st.stage2_streamed and st.n_tasks == 45,
+                  "the --libsvm route did not stream both stages over 45 tasks")
+            s1l, s2l = st.stage1_stats, st.stage2_stats
+            want = ({"gram": 1 + s1l.chunks, "gram_q8": 0} if wire == "f32"
+                    else {"gram": 1, "gram_q8": s1l.chunks})
+            want["smo_epoch"] = s2l.kernel_calls
+            check(cnt == want and min(cnt[k] for k in want if want[k]) > 0,
+                  f"--libsvm ({wire}): launches {cnt}, not {want}")
+            # the training votes from G against predict on the dense rows
+            # (features through B1), and the test file's rows
+            t0 = time.perf_counter()
+            pred_g = svm_l.predict_from_factor()
+            t_pf = time.perf_counter() - t0
+            reset_counts()
+            t0 = time.perf_counter()
+            pred_x = svm_l.predict(xs_tr)
+            t_px = time.perf_counter() - t0
+            pred_te = svm_l.predict(xs_te_read)
+            read_counts()
+            agree_l = float(np.mean(pred_g == pred_x))
+            # f32 wire: G is K(x, landmarks) @ projector through B1 as the
+            # features are, so at most a near tie may flip; int8 wire: G is
+            # K of the codec's rows, which moves G by up to 0.05, and the
+            # streamed path's bound against the f32 fit (0.99) holds
+            min_agree = 0.999 if wire == "f32" else 0.99
+            err_te = float(np.mean(pred_te != yte))
+            print(f"{wire}: predict_from_factor (host G {tuple(svm_l.factor.G.shape)}, fp64) "
+                  f"{t_pf:.3f} s against predict on the dense training rows {t_px:.3f} s: "
+                  f"agreement {agree_l:.5f} (min {min_agree}); train error {res_l.train_error:.4f}, "
+                  f"test error {err_te:.4f} (chance 0.90); stage 2 {s2l.epochs} epochs, "
+                  f"{s2l.kernel_calls} B2 launches, {s2l.bytes_g} G bytes")
+            check(agree_l >= min_agree,
+                  f"--libsvm ({wire}): votes from G agree {agree_l} < {min_agree}")
+            check(err_te < 0.9 and res_l.train_error < 0.9,
+                  f"--libsvm ({wire}): errors not below chance")
+            del res_l, svm_l
+        del xs_te_read
+
+    with phase("libsvm bad rows"):
+        # 6000 rows, then three bad lines: a non-finite value, a 0-based
+        # index and a malformed token
+        small = os.path.join(libsvm_dir.name, "small.svm")
+        bad = os.path.join(libsvm_dir.name, "bad.svm")
+        write_libsvm(small, xs_tr[:6000], ytr[:6000])
+        with open(small) as f_in, open(bad, "w") as f_out:
+            f_out.write(f_in.read())
+            f_out.write("1 3:nan 4:0.5\n2 0:1.5\n0 1:0.25 5-0.5\n")
+        argv_s = ["--n-features", str(p_tr), "--budget", "512", "--C", "1",
+                  "--device-budget-mb", "256"]
+        reset_counts()
+        _, clean_r, _ = run_driver(["--libsvm", small] + argv_s)
+        _, skip_r, out_s = run_driver(["--libsvm", bad, "--on-bad-row", "skip"] + argv_s)
+        cnt = read_counts()
+        same_s = (all(torch.equal(getattr(clean_r.svm.factor, k), getattr(skip_r.svm.factor, k))
+                      for k in ("G", "landmarks", "projector", "eigvals"))
+                  and skip_r.train_error == clean_r.train_error)
+        try:
+            run_driver(["--libsvm", bad] + argv_s)
+            raised = "nothing"
+        except BadRowError as e:
+            raised = str(e)
+        print(f"skip: {out_s.splitlines()[0]!r}; factor and train error "
+              f"({skip_r.train_error:.4f}) bit-equal to the clean file's {same_s}; without "
+              f"skip: BadRowError {raised!r}; launches {cnt}")
+        check("libsvm: skipped 3 bad row(s) (--on-bad-row skip)" in out_s and same_s,
+              "--on-bad-row skip did not drop exactly the bad rows")
+        check(raised.startswith("line 6001: non-finite value"),
+              "without --on-bad-row skip the first bad line was not named")
+        del clean_r, skip_r
+
+    with phase("save / load"):
+        # the main path's monolithic fit and the streamed path's fit, saved
+        # and loaded onto the card: bit-equal decision values on the test rows
+        reset_counts()
+        for name, fitted in (("monolithic", svm), ("streamed", svm_s)):
+            d = os.path.join(libsvm_dir.name, name)
+            t0 = time.perf_counter()
+            path = fitted.save(d)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = LPDSVM.load(d)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            same_d = np.array_equal(back.decision_function(xte), fitted.decision_function(xte))
+            try:
+                back.predict_from_factor()
+                raised = False
+            except RuntimeError:
+                raised = True
+            print(f"{name}: {os.path.getsize(path)} bytes ({os.path.basename(path)}), save "
+                  f"{t_save:.3f} s, load {t_load:.3f} s onto {back.device}; decision values "
+                  f"on {len(xte)} test rows bit-equal {same_d}; predict_from_factor raises "
+                  f"{raised}")
+            check(same_d and back.W_.is_cuda, f"{name}: the loaded model decides otherwise")
+            check(raised, f"{name}: predict_from_factor ran on a loaded model")
+            del back
+        print(f"launches {read_counts()}")
+
+    with phase("predict_from_factor, card G vs host G"):
+        G_card = svm.factor.G
+        G_pin = host_buffer(tuple(G_card.shape), torch.float32, dev).copy_(G_card)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v_card = svm.predict_from_factor()
+        t_card = time.perf_counter() - t0
+        svm.factor.G = G_pin
+        try:
+            t0 = time.perf_counter()
+            v_host = svm.predict_from_factor()
+            t_host = time.perf_counter() - t0
+        finally:
+            svm.factor.G = G_card
+        print(f"the main path's factor ({tuple(G_card.shape)}, 45 tasks): votes from the "
+              f"card G in {t_card:.3f} s, from a pinned host copy in {t_host:.3f} s; "
+              f"identical {np.array_equal(v_card, v_host)}; train error "
+              f"{float(np.mean(v_card != ytr)):.4f}")
+        check(np.array_equal(v_card, v_host), "a card G and a host G vote differently")
+        del G_pin
+    libsvm_dir.cleanup()
+    print(f"launches in the LIBSVM phases {lib_launches}")
+
     kernels = [
         {"name": "gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram.cu",
@@ -2241,7 +2534,8 @@ def main() -> int:
          "bound_ms_cuda_cores": g_bound_cc, "ms_back_to_back": g_b2b,
          "ms_predict": pr_ms, "ms_predict_back_to_back": pr_b2b, "bound_ms_predict": pr_bound,
          "ms_at_scale": b1b_ms, "ms_at_scale_back_to_back": b1b_b2b,
-         "bound_ms_at_scale": b1b_bound, "launches_grid": g_launches["gram"]},
+         "bound_ms_at_scale": b1b_bound, "launches_grid": g_launches["gram"],
+         "launches_libsvm": lib_launches["gram"]},
         {"name": "smo_epoch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/smo.cu",
          "replaces": "src/repro/kernels/smo.py:100",
@@ -2251,7 +2545,7 @@ def main() -> int:
          "ms_t135": t135_ms, "ms_cheap_t135": t135_cheap, "waves_t135": waves,
          "launches_farm": farm_launches["full width"],
          "launches_farm_reduced": farm_launches["reduced"],
-         "launches_compact": c_launches},
+         "launches_compact": c_launches, "launches_libsvm": lib_launches["smo_epoch"]},
         {"name": "gram_q8", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram_q8.cu",
          "replaces": "src/repro/kernels/gram.py:157",
@@ -2259,15 +2553,17 @@ def main() -> int:
          "plain_ms": q8_plain, "bound_ms": q8_bound, "bound_by": q8_by,
          "library_ms": q8_lib, "bound_ms_cuda_cores": q8_bound_cc,
          "ms_back_to_back": q8_b2b, "ms_at_scale": q8b_ms,
-         "bound_ms_at_scale": q8b_bound},
+         "bound_ms_at_scale": q8b_bound, "launches_libsvm": lib_launches["gram_q8"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:68",
          "launches": e2e["flash_attention"], "max_abs_err": flash_err,
-         **flash_times["qwen3-0.6b pipeline"]},
+         **flash_times["qwen3-0.6b pipeline"], "launches_libsvm": 0},
     ]
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main paths was launched no time")
+    check(all(lib_launches[k] > 0 for k in ("gram", "gram_q8", "smo_epoch")),
+          "a kernel of the LIBSVM route was launched no time")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

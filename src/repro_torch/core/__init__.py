@@ -24,7 +24,8 @@ from repro_torch.core.solver_stream import (Stage2StreamStats, auto_tile_rows,
                                             solve_streamed_auto)
 from repro_torch.core.streaming import (Stage1StreamStats, StreamConfig,
                                         auto_chunk_rows,
-                                        compute_factor_streamed, host_buffer,
+                                        compute_factor_streamed,
+                                        compute_factor_streamed_csr, host_buffer,
                                         should_stream, stream_factor_rows)
 from repro_torch.core.svm import LPDSVM, FitStats
 
@@ -42,7 +43,8 @@ __all__ = [
     "Stage2StreamStats", "auto_tile_rows", "route_stage2",
     "should_stream_stage2", "solve_batch_streamed", "solve_streamed_auto",
     "Stage1StreamStats", "StreamConfig", "auto_chunk_rows",
-    "compute_factor_streamed", "host_buffer", "should_stream",
+    "compute_factor_streamed", "compute_factor_streamed_csr", "host_buffer",
+    "should_stream",
     "stream_factor_rows",
     "LPDSVM", "FitStats",
 ]

@@ -46,7 +46,7 @@ import torch
 from repro_torch.core.dual_solver import SolverConfig, TaskBatch, solve_batch
 from repro_torch.core.kernel_fn import KernelParams, gram
 from repro_torch.core.nystrom import LowRankFactor, compute_factor
-from repro_torch.core.ovo import class_pairs, ovo_arrays, ovo_vote
+from repro_torch.core.ovo import class_pairs, factor_decisions, ovo_arrays, ovo_vote
 from repro_torch.core.polish import PolishSchedule, make_schedule, solve_polished
 from repro_torch.core.solver_stream import (Stage2StreamStats, route_stage2,
                                             solve_streamed_auto)
@@ -168,7 +168,7 @@ def _cv_error_from(val_sets: Sequence[tuple], n_classes: int, W) -> float:
         W = torch.as_tensor(W).to(val_sets[0][0].device, torch.float64)
     for f, (Gv, yv) in enumerate(val_sets):
         Wf = W[f * n_pairs:(f + 1) * n_pairs]
-        dec = (Gv.double() @ Wf.T).cpu().numpy()
+        dec = factor_decisions(Gv, Wf)
         pred = (ovo_vote(dec, pairs, n_classes) if n_pairs > 1
                 else np.where(dec[:, 0] > 0, 0, 1))
         wrong += int(np.sum(pred != yv))

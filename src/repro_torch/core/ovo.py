@@ -99,6 +99,23 @@ def ovo_decision_values(features: torch.Tensor, W: torch.Tensor) -> torch.Tensor
     return features @ W.T
 
 
+DECISION_BLOCK_ROWS = 8192   # rows of G in fp64 at a time (128 MiB at B' 2048)
+
+
+def factor_decisions(g: torch.Tensor, W: torch.Tensor) -> np.ndarray:
+    """(m, B') rows of G x (T, B') per-pair weights -> (m, T) decision values
+    as a host fp64 array, with no kernel evaluation: summed in fp64 where the
+    rows lie (a host G stays on the host), W moved there once,
+    ``DECISION_BLOCK_ROWS`` rows at a time.  So a card G and a host G of one
+    factor vote alike."""
+    W = torch.as_tensor(W).to(g.device, torch.float64)
+    out = np.empty((g.shape[0], W.shape[0]), np.float64)
+    step = DECISION_BLOCK_ROWS
+    for s in range(0, g.shape[0], step):
+        out[s:s + step] = (g[s:s + step].double() @ W.T).cpu().numpy()
+    return out
+
+
 def ovo_vote(decisions: np.ndarray, pairs: List[Tuple[int, int]],
              n_classes: int) -> np.ndarray:
     """Majority vote over pairwise decisions -> (m,) class predictions."""

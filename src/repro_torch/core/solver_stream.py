@@ -184,6 +184,7 @@ class _Ring:
                 dev=torch.empty((self.tile, self.rank), dtype=self.wire,
                                 device=self.device),
                 stage=None, done=None))
+            self.lanes.claim()
         slot = self.slots[k]
         t0 = time.perf_counter()
         wait(slot["done"])

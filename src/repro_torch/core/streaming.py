@@ -9,15 +9,19 @@ in host memory, and the card holds only a working set:
     G   (n, B') pinned, filled in place    per chunk in flight: its wire
                                            arrays, K_chunk (r, B), G_chunk (r, B')
 
-Per chunk: the host slices x (and, on the int8 wire, encodes the slice with
-the symmetric codec of ``core/quant.py``, so scale groups restart at every
-chunk), copies the wire arrays into a pinned staging slot and issues a
-non-blocking copy on the H2D stream.  The compute stream waits for that copy
-(an event, not the host), runs kernel B3 on the int8 wire or B1 on the f32
-wire, then ``@ projector`` (a plain fp32 product, as the reference leaves it
-to XLA), and the D2H stream copies the G chunk, non-blocking, into its rows
-of the pinned G.  At most ``prefetch`` chunks are in flight: before a slot is
-reused the host waits on the event of the oldest chunk only.
+Per chunk: the host slices x, or densifies the chunk's rows of a LIBSVM CSR
+triple (``compute_factor_streamed_csr``: x is then never dense whole), and
+on the int8 wire encodes the rows with the symmetric codec of
+``core/quant.py``, so scale groups restart at every chunk; it copies the
+wire arrays into a pinned staging slot and issues a non-blocking copy on the
+H2D stream.  The compute stream waits for that copy (an event, not the
+host), runs kernel B3 on the int8 wire or B1 on the f32 wire, then
+``@ projector`` (a plain fp32 product, as the reference leaves it to XLA),
+and the D2H stream copies the G chunk, non-blocking, into its rows of the
+pinned G.  At most ``prefetch`` chunks are in flight: before a slot is
+reused the host waits on the event of the oldest chunk only, and before the
+first copy into a new slot the H2D stream waits for the compute stream
+(``Lanes.claim``).
 
 On the CPU (``device="cpu"``) the same loop runs the kernels' plain versions
 and the copies are plain copies; a CPU-only PyTorch cannot pin.
@@ -132,6 +136,8 @@ class Stage1StreamStats(StreamTimes):
     rows: int = 0
     bytes_scales: int = 0
     encode_seconds: float = 0.0       # host time in the int8 encoder
+    source_seconds: float = 0.0       # host time making the row blocks (a
+                                      # slice of x, or densified CSR rows)
     alloc_seconds: float = 0.0        # host time allocating (pinning) G
     wire_dtype: str = "f32"
     prefetch_final: int = 0           # queue depth after autotune
@@ -223,6 +229,15 @@ class Lanes:
         torch.cuda.current_stream().wait_event(end)
         self.copies.append((start, end))
 
+    def claim(self) -> None:
+        """Call after allocating a device buffer that ``put`` will fill: the
+        H2D stream waits for the work queued on the compute stream so far.
+        The caching allocator hands the compute stream memory that its
+        queued kernels may still read (a freed K block, a kernel's scratch);
+        a copy on another stream would overwrite it under them."""
+        if self.cuda:
+            self.h2d.wait_event(self.mark())
+
     def fetch(self, dst: torch.Tensor, src: torch.Tensor):
         """Copy ``src`` (device) into ``dst`` (host); returns the event that
         marks the copy done (None on the CPU, where it is done at once)."""
@@ -276,6 +291,7 @@ class _Slot:
                     or self.host[j].dtype != a.dtype):
                 buf = (host_buffer(a.shape, a.dtype, device),
                        torch.empty(a.shape, dtype=a.dtype, device=device))
+                lanes.claim()
                 if j == len(self.host):
                     self.host.append(buf[0])
                     self.dev.append(buf[1])
@@ -339,7 +355,13 @@ def stream_factor_blocks(
 
     tuned = not autotune_prefetch
     s = 0
-    for xb in blocks:
+    blocks = iter(blocks)
+    while True:
+        t0 = time.perf_counter()
+        xb = next(blocks, None)
+        st.source_seconds += time.perf_counter() - t0
+        if xb is None:
+            break
         xb = np.asarray(xb, np.float32)
         e = s + xb.shape[0]
         if e > n:
@@ -383,6 +405,13 @@ def stream_factor_blocks(
     return out
 
 
+def row_blocks(x: np.ndarray, chunk_rows: int):
+    """Consecutive row slices of the host array ``x``, ``chunk_rows`` rows
+    each (the last one shorter)."""
+    n = x.shape[0]
+    return (x[s:min(s + chunk_rows, n)] for s in range(0, n, chunk_rows))
+
+
 def stream_factor_rows(x, landmarks: torch.Tensor, projector: torch.Tensor,
                        params: KernelParams, *, chunk_rows: int,
                        **kwargs) -> torch.Tensor:
@@ -390,10 +419,8 @@ def stream_factor_rows(x, landmarks: torch.Tensor, projector: torch.Tensor,
     the host array ``x`` at a time; keyword arguments go to
     ``stream_factor_blocks``."""
     x = np.asarray(x, np.float32)
-    n = x.shape[0]
-    blocks = (x[s:min(s + chunk_rows, n)] for s in range(0, n, chunk_rows))
-    return stream_factor_blocks(blocks, n, landmarks, projector, params,
-                                **kwargs)
+    return stream_factor_blocks(row_blocks(x, chunk_rows), x.shape[0], landmarks,
+                                projector, params, **kwargs)
 
 
 def host_rows(x) -> np.ndarray:
@@ -402,6 +429,15 @@ def host_rows(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
     return np.asarray(x, np.float32)
+
+
+def _landmark_rows(n: int, budget: int, seed: int, landmark_idx):
+    """``landmark_idx`` when given, else the ``nystrom.landmark_rows`` draw
+    (None: every row is a landmark)."""
+    from repro_torch.core import nystrom   # nystrom routes back into here
+    if landmark_idx is not None:
+        return np.asarray(landmark_idx)
+    return nystrom.landmark_rows(n, budget, seed)
 
 
 def compute_factor_streamed(
@@ -423,24 +459,65 @@ def compute_factor_streamed(
     ``nystrom.select_landmarks`` (gathered on the host, so x never goes to
     the card whole), or ``landmark_idx`` when given; K_mm and its eigh are
     those of the monolithic route.  Only the (n, B) part streams."""
+    x = host_rows(x)
+    n, p = x.shape
+    rows = _landmark_rows(n, budget, seed, landmark_idx)
+    return _streamed_factor_from_landmarks(
+        x if rows is None else x[rows], lambda chunk: row_blocks(x, chunk), n, p,
+        params, eig_rtol=eig_rtol, config=config, gram_fn=gram_fn, device=device)
+
+
+def compute_factor_streamed_csr(
+    data,
+    params: KernelParams,
+    budget: int,
+    *,
+    seed: int = 0,
+    landmark_idx=None,
+    eig_rtol: Optional[float] = None,
+    config: StreamConfig = StreamConfig(),
+    gram_fn: Callable = gram,
+    device=None,
+):
+    """Out-of-core stage 1 straight from a ``data.CSRData`` (LIBSVM) data set.
+
+    The sparse triple stays the only full-data host object: the landmarks
+    are gathered row by row from the CSR storage, and the (n, p) dense matrix
+    only ever exists one ``auto_chunk_rows`` block at a time, on its way to a
+    pinned staging slot (``CSRData.iter_dense_blocks`` ->
+    ``stream_factor_blocks``).  The landmark rows, chunk boundaries and tail
+    are ``compute_factor_streamed``'s, so the factor is that of
+    ``compute_factor_streamed(data.densify(), ...)`` bit for bit, on either
+    wire."""
+    n, p = data.n, data.n_features
+    rows = _landmark_rows(n, budget, seed, landmark_idx)
+    landmarks = data.densify() if rows is None else data.densify_rows(rows)
+    return _streamed_factor_from_landmarks(
+        landmarks, lambda chunk: (blk for blk, _ in data.iter_dense_blocks(chunk)),
+        n, p, params, eig_rtol=eig_rtol, config=config, gram_fn=gram_fn,
+        device=device)
+
+
+def _streamed_factor_from_landmarks(landmarks: np.ndarray, make_blocks, n: int, p: int,
+                                    params: KernelParams, *, eig_rtol: Optional[float],
+                                    config: StreamConfig, gram_fn: Callable, device):
+    """The shared tail of the streamed stage-1 constructors: the host
+    landmark rows go to the card, K_mm and its eigh, then
+    ``make_blocks(chunk_rows)``'s row blocks stream into the host G."""
     from repro_torch.core import nystrom   # nystrom routes back into here
 
     device = torch.device("cuda" if device is None else device)
     if eig_rtol is None:
         eig_rtol = nystrom.DEFAULT_EIG_RTOL
-    x = host_rows(x)
-    n, p = x.shape
-    rows = (np.asarray(landmark_idx) if landmark_idx is not None
-            else nystrom.landmark_rows(n, budget, seed))
-    landmarks = torch.as_tensor(x if rows is None else x[rows], device=device)
+    landmarks = torch.as_tensor(landmarks, device=device)
     k_mm = gram_fn(landmarks, landmarks, params)
     projector, evals, rank = nystrom.eig_projector(k_mm, eig_rtol)
     projector = projector[:, :rank].contiguous()
 
     stats = Stage1StreamStats()
-    G = stream_factor_rows(
-        x, landmarks, projector, params,
-        chunk_rows=auto_chunk_rows(n, p, landmarks.shape[0], config),
+    G = stream_factor_blocks(
+        make_blocks(auto_chunk_rows(n, p, landmarks.shape[0], config)), n,
+        landmarks, projector, params,
         prefetch=config.prefetch, wire_dtype=config.stage1_dtype,
         quant_group_rows=config.quant_group_rows,
         autotune_prefetch=config.autotune_prefetch,

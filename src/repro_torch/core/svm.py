@@ -16,7 +16,9 @@ exceeds its device budget.  Stage 1 then builds G in pinned host memory
 row blocks through B2 (``core/solver_stream.py``).  ``polish=True`` (or a
 ``polish_schedule``) solves stage 2 as the reference's coarse-to-fine ladder
 (``core/polish.py``), each level through B2, the final level routed as an
-unpolished fit.  The checkpointed and traced routes of the reference are not
+unpolished fit.  ``predict_from_factor`` scores the training rows from G;
+``save`` / ``load`` persist a fitted model as a numpy archive.  The
+checkpointed (stage-2 resume) and traced routes of the reference are not
 ported yet: their arguments raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -29,9 +31,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.dual_solver import SolveResult, SolverConfig, solve_batch
-from repro_torch.core.kernel_fn import KernelParams, gram
+from repro_torch.core.kernel_fn import KERNELS, KernelParams, gram
 from repro_torch.core.nystrom import LowRankFactor, compute_factor
-from repro_torch.core.ovo import build_ovo_tasks, ovo_decision_values, ovo_vote
+from repro_torch.core.ovo import (build_ovo_tasks, factor_decisions,
+                                  ovo_decision_values, ovo_vote)
 from repro_torch.core.polish import (PolishSchedule, PolishTrace, make_schedule,
                                      solve_polished)
 from repro_torch.core.solver_stream import (Stage2StreamStats, route_stage2,
@@ -230,8 +233,76 @@ class LPDSVM:
             pred = ovo_vote(d, self.pairs_, len(self.classes_))
         return self.classes_[pred]
 
+    def predict_from_factor(self, rows=None) -> np.ndarray:
+        """Predict TRAINING rows straight from the fitted factor's G, with no
+        kernel evaluation and no dense x (the driver's ``--libsvm`` route
+        scores its training rows this way).  The decisions are summed in fp64
+        where G lies (``ovo.factor_decisions``), so a pinned host G and a card
+        G vote alike."""
+        if self.W_ is None:
+            raise RuntimeError("fit first")
+        G = self.factor.G
+        if G.shape[0] == 0:
+            raise RuntimeError(
+                "G is not persisted in checkpoints (it is recomputable from "
+                "the landmarks); refit or use predict(x) on a loaded model")
+        if rows is not None:
+            G = G.index_select(0, torch.as_tensor(np.asarray(rows), dtype=torch.long,
+                                                  device=G.device))
+        return self._vote(factor_decisions(G, self.W_))
+
     def score(self, x, y) -> float:
         return float(np.mean(self.predict(x) == np.asarray(y)))
 
     def error(self, x, y) -> float:
         return 1.0 - self.score(x, y)
+
+    # -------------------------------------------------------------- persistence
+    def save(self, directory: str, step: int = 0) -> str:
+        """Persist the fitted model as ``directory/step_%08d.npz``: the
+        landmarks, projector, eigvals, per-pair weights W and classes, and the
+        kernel parameters and C under ``meta/`` (the reference's keys, dtypes
+        and shapes).  G is a training-time object (n x B', recomputable from
+        the landmarks) and is NOT stored.  ``step`` versions successive saves;
+        ``load`` picks the latest."""
+        if self.W_ is None:
+            raise RuntimeError("fit first")
+        from repro_torch.checkpoint import save_checkpoint
+        tree = {
+            "landmarks": self.factor.landmarks,
+            "projector": self.factor.projector,
+            "eigvals": self.factor.eigvals,
+            "W": self.W_,
+            "classes": _narrow(np.asarray(self.classes_)),
+            "meta": {
+                "gamma": np.float32(self.kernel.gamma),
+                "coef0": np.float32(self.kernel.coef0),
+                "degree": np.int32(self.kernel.degree),
+                "C": np.float32(self.C),
+                "kind": np.int32(KERNELS.index(self.kernel.kind)),
+            },
+        }
+        return save_checkpoint(directory, step, tree)
+
+    @classmethod
+    def load(cls, directory: str, step: Optional[int] = None, device=None) -> "LPDSVM":
+        """A fitted estimator from ``save``'s newest step (or ``step``), its
+        arrays on ``device`` (default the card).  Its factor has a (0, B') G:
+        ``predict`` works, ``predict_from_factor`` raises."""
+        from repro_torch.checkpoint import latest_step, read_checkpoint
+        from repro_torch.convert import from_reference   # convert builds on this module
+        if step is None:
+            step = latest_step(directory)
+            if step is None:
+                raise FileNotFoundError(f"no step_*.npz under {directory}")
+        flat = read_checkpoint(directory, step)
+        meta = {k: flat[f"meta/{k}"] for k in ("kind", "gamma", "coef0", "degree", "C")}
+        return from_reference(flat, meta, device=device)
+
+
+def _narrow(a: np.ndarray) -> np.ndarray:
+    """64-bit integers and floats as 32-bit ones, as the reference stores its
+    arrays (JAX without x64)."""
+    if a.dtype.kind in "iuf" and a.dtype.itemsize == 8:
+        return a.astype(a.dtype.kind + "4")
+    return a

@@ -21,8 +21,12 @@ port reads) are served, each with or without ``--polish`` (the coarse-to-fine
 stage 2 of ``core/polish.py``, ``--polish-levels`` deep), and model selection
 (``--grid-cs`` / ``--grid-gammas`` / ``--grid-folds``: ``core/cv.py``'s grid
 search on the training split, on the grid task farm where it streams, then a
-refit at the best cell).  Flags of routes not ported yet stop with an error
-that names them.
+refit at the best cell).  ``--libsvm FILE`` (with ``--n-features`` and
+``--on-bad-row``) trains from a LIBSVM text file instead of backbone
+features: the file is read into CSR, stage 1 streams from the CSR without
+ever building the dense (n, p) matrix, stage 2 streams, and the training
+rows are scored from G (``train_from_libsvm``).  Flags of routes not ported
+yet stop with an error that names them.
 """
 from __future__ import annotations
 
@@ -39,7 +43,9 @@ from repro_torch.core import (GridResult, KernelParams, LPDSVM, StreamConfig,
                               grid_search, median_gamma)
 from repro_torch.core.nystrom import compute_factor
 from repro_torch.core.quant import GROUP_ROWS
+from repro_torch.core.streaming import compute_factor_streamed_csr
 from repro_torch.core.svm import resolve_device
+from repro_torch.data import CSRData, IngestStats, read_libsvm
 from repro_torch.models.model import Model, init_model, trunk
 
 
@@ -70,6 +76,58 @@ def class_conditioned_tokens(n: int, n_classes: int, seq: int, vocab: int,
         toks = np.where(mask, rng.integers(c * band, (c + 1) * band,
                                            size=(n, seq)), toks)
     return toks.astype(np.int32), y
+
+
+@dataclasses.dataclass
+class LibsvmResult:
+    data: CSRData                 # the training file as read
+    svm: LPDSVM
+    train_error: float            # of predict_from_factor on the training rows
+    read_seconds: float
+    ingest: IngestStats
+
+
+def train_from_libsvm(args, stream_config: Optional[StreamConfig], *, device=None,
+                      landmark_idx=None) -> LibsvmResult:
+    """The out-of-core end-to-end route: LIBSVM file -> CSR -> streamed stage
+    1 (``compute_factor_streamed_csr``) -> streamed stage 2.  The dense (n, p)
+    matrix is never materialised; the training rows are scored from G.
+    ``device`` defaults to the card; ``landmark_idx`` replaces the seeded
+    landmark draw, so that a test can hold the route against the
+    reference's draw."""
+    device = resolve_device(device)
+    cfg = stream_config or StreamConfig()
+    gamma = args.gamma
+    ingest = IngestStats()
+    t0 = time.perf_counter()
+    data = read_libsvm(args.libsvm, n_features=args.n_features or None,
+                       on_bad_row=args.on_bad_row, stats=ingest)
+    t_read = time.perf_counter() - t0
+    n, p = data.n, data.n_features
+    if ingest.rows_skipped:
+        print(f"libsvm: skipped {ingest.rows_skipped} bad row(s) (--on-bad-row skip)")
+    if gamma is None:
+        # densify only a row subsample for the heuristic
+        rows = np.random.default_rng(0).choice(n, min(256, n), replace=False)
+        gamma = median_gamma(data.densify_rows(np.sort(rows)))
+    kp = KernelParams("rbf", gamma=gamma)
+    t0 = time.perf_counter()
+    factor = compute_factor_streamed_csr(data, kp, args.budget, seed=0,
+                                         landmark_idx=landmark_idx, config=cfg,
+                                         device=device)
+    args.gamma = gamma
+    t_factor = time.perf_counter() - t0
+    svm = LPDSVM(kp, C=args.C, budget=args.budget, tol=1e-2, stream=True,
+                 stream_config=stream_config, polish=args.polish,
+                 polish_levels=args.polish_levels, device=device)
+    svm.fit(None, data.labels, factor=factor)
+    svm.stats.stage1_seconds = t_factor   # the factor was computed out here
+    err = float(np.mean(svm.predict_from_factor() != data.labels))
+    print(f"libsvm: {n} rows x {p} features in {t_read:.1f}s")
+    _report(svm)
+    print(f"train error: {err:.4f}")
+    return LibsvmResult(data=data, svm=svm, train_error=err, read_seconds=t_read,
+                        ingest=ingest)
 
 
 def _report(svm: LPDSVM) -> None:
@@ -176,13 +234,19 @@ def build_parser() -> argparse.ArgumentParser:
                          "median heuristic); needs --grid-cs")
     ap.add_argument("--grid-folds", type=int, default=3,
                     help="CV folds of the grid search (default 3)")
+    ap.add_argument("--libsvm", default=None,
+                    help="train from a LIBSVM-format file instead of backbone "
+                         "features (the end-to-end out-of-core route)")
+    ap.add_argument("--n-features", type=int, default=0,
+                    help="feature count for --libsvm (0 = infer from the file)")
+    ap.add_argument("--on-bad-row", choices=("raise", "skip"), default="raise",
+                    help="--libsvm ingest policy for malformed or non-finite "
+                         "rows: 'raise' (default) stops naming the line, "
+                         "'skip' drops them and reports the count")
     # routes of the reference that are not ported yet: refused by main()
     ap.add_argument("--no-overlap", action="store_true")
     ap.add_argument("--cache-budget-mb", type=float, default=-1.0)
     ap.add_argument("--no-cache", action="store_true")
-    ap.add_argument("--libsvm", default=None)
-    ap.add_argument("--n-features", type=int, default=0)
-    ap.add_argument("--on-bad-row", choices=("raise", "skip"), default="raise")
     ap.add_argument("--shard-dir", default=None, metavar="DIR")
     ap.add_argument("--shard-rows", type=int, default=4096)
     ap.add_argument("--spill-g", action="store_true")
@@ -199,10 +263,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> Optional[str]:
     """The first flag of a route the port does not serve yet, or None."""
-    given = (("--libsvm", args.libsvm is not None),
-             ("--n-features", args.n_features != 0),
-             ("--on-bad-row", args.on_bad_row != "raise"),
-             ("--checkpoint-dir", args.checkpoint_dir is not None),
+    given = (("--checkpoint-dir", args.checkpoint_dir is not None),
              ("--checkpoint-every", args.checkpoint_every != 1),
              ("--resume", args.resume),
              ("--shard-dir", args.shard_dir is not None),
@@ -239,6 +300,10 @@ def main(argv=None) -> float:
         ap.error("--grid-gammas requires --grid-cs")
 
     stream_config, force = stream_args(args)
+    if args.libsvm:
+        if args.grid_cs is not None:
+            ap.error("--grid-cs is not supported with --libsvm")
+        return train_from_libsvm(args, stream_config).train_error
     return _run(args, ap, stream_config, force).test_error
 
 

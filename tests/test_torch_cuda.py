@@ -1,8 +1,9 @@
 """Kernels B1, B2 (whole and windowed), B3 and B4 on the card against their
 plain versions, the streamed route against the monolithic one, the polish
 ladder, the cross-validation cells and grid, the grid task farm and the
-bucket-compaction solver against the CPU's, and the backbone's features on
-the card against the CPU's.
+bucket-compaction solver against the CPU's, the LIBSVM route's CSR factor,
+save / load and predict_from_factor, and the backbone's features on the card
+against the CPU's.
 
 These need a CUDA card and nvcc: each test asks for the ``cuda`` fixture,
 which skips where there is none.  On the machine with the card:
@@ -982,6 +983,128 @@ def test_solve_compact_on_card_matches_plain_epoch(cuda):
     _, _, off = compact.solve_compact(fac.G, y.to(cuda), c.to(cuda),
                                       SolverConfig(tol=1e-2, max_epochs=1000, shrink=False))
     assert sg.rows_streamed < off.rows_streamed
+
+
+def _sparse_csr(tmp_path, n=3000, p=40, seed=0):
+    """make_multiclass rows, about 40% of the entries kept by a seeded mask,
+    through a LIBSVM file and back as CSR."""
+    from repro_torch.data import read_libsvm, write_libsvm
+    x, y = make_multiclass(n, p=p, n_classes=4, sep=0.8, seed=seed)
+    x[np.random.default_rng(seed + 1).random(x.shape) >= 0.4] = 0.0
+    path = str(tmp_path / "train.svm")
+    write_libsvm(path, x, y)
+    return read_libsvm(path, n_features=p)
+
+
+@pytest.mark.parametrize("stage", ["stage 1 slot", "stage 2 ring"])
+def test_new_staging_buffer_waits_for_queued_compute_on_card(cuda, stage):
+    """A product is queued behind slow work on the compute stream and its
+    input freed; the next staging buffer on the card, the same size, gets
+    that input's memory from the caching allocator.  Its H2D copy must wait
+    for the queued product (``Lanes.claim``), or it overwrites the input
+    under it: the product must come out as computed alone."""
+    from repro_torch.core.solver_stream import Stage2StreamStats, _Ring
+    from repro_torch.core.streaming import Lanes, _Slot
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    k = torch.randn(4096, 1024, device=cuda, generator=gen)
+    proj = torch.randn(1024, 1024, device=cuda, generator=gen)
+    want = k @ proj
+    big = torch.randn(8192, 8192, device=cuda, generator=gen)
+    lanes = Lanes(cuda)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        busy = big @ big                   # some 60 ms queued on the compute stream
+    got = k @ proj
+    del k, busy
+    src = np.full((4096, 1024), 7.0, np.float32)
+    if stage == "stage 1 slot":
+        (dev,) = _Slot().put([src], lanes, cuda)
+    else:
+        ring = _Ring(4096, 1024, "f32", cuda, 2, lanes, Stage2StreamStats())
+        dev, _ = ring.load(host_buffer((4096, 1024), torch.float32, cuda).copy_(
+            torch.from_numpy(src)))
+    torch.cuda.synchronize()
+    assert bool((dev == 7.0).all())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("block_rows", [None, 3000])
+def test_streamed_stage1_repeats_bit_for_bit_on_card(cuda, block_rows):
+    """The f32 wire, whose host slices x at once and so runs ahead of the
+    card, at the driver's shapes (B 2048, 256 MiB, the prefetch autotuned):
+    two runs give the same G bit for bit, and so do two streamed stage 2
+    solves on it.  Before each new staging buffer on the card the H2D stream
+    now waits for the compute stream; without that wait the copy of a chunk
+    overwrote memory (a freed K block) that the previous chunk's product
+    still read, and G differed between runs by up to 4.9."""
+    x, y = make_multiclass(40000, p=784, n_classes=10, sep=0.07, within=0.06, seed=3)
+    kp = KernelParams("rbf", gamma=median_gamma(x))
+    cfg = StreamConfig(device_budget_bytes=256 << 20, chunk_rows=block_rows)
+    runs = [compute_factor(x, kp, 2048, device=cuda, stream=True, stream_config=cfg)
+            for _ in range(2)]
+    assert runs[0].stage1_stats.chunks > 4
+    assert torch.equal(runs[0].G, runs[1].G)
+    tasks, _ = build_ovo_tasks(y[:5000] % 3, 3, 1.0, device=cuda)
+    sols = [ss.solve_batch_streamed(f.G[:5000], tasks, SolverConfig(tol=1e-2, max_epochs=40),
+                                    stream_config=StreamConfig(tile_rows=700))
+            for f in runs]
+    assert torch.equal(sols[0].alpha, sols[1].alpha) and torch.equal(sols[0].w, sols[1].w)
+
+
+@pytest.mark.parametrize("wire", ["f32", "int8"])
+def test_csr_factor_is_the_dense_streamed_factor_on_card(cuda, tmp_path, wire):
+    """compute_factor_streamed_csr on the card (B1 on the f32 wire, B3 on
+    the int8 wire, each launched once a chunk) is compute_factor_streamed on
+    the densified rows bit for bit: G, landmarks, projector, eigvals."""
+    from repro_torch.core.streaming import (compute_factor_streamed,
+                                            compute_factor_streamed_csr)
+    data = _sparse_csr(tmp_path)
+    kp = KernelParams("rbf", gamma=0.02)
+    cfg = StreamConfig(chunk_rows=700, stage1_dtype=wire, autotune_prefetch=False)
+    launcher = gram_q8_kernel if wire == "int8" else gram_kernel
+    before = launcher.launches
+    got = compute_factor_streamed_csr(data, kp, 256, config=cfg, device=cuda)
+    assert launcher.launches - before == (5 if wire == "int8" else 6)
+    want = compute_factor_streamed(data.densify(), kp, 256, config=cfg, device=cuda)
+    assert got.G.is_pinned() and got.stage1_stats.chunks == 5
+    for f in ("G", "landmarks", "projector", "eigvals"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_save_load_on_card_gives_bit_equal_decisions(cuda, tmp_path, stream):
+    """save -> load onto the card (the default device): bit-equal decision
+    values on held-out rows, for a monolithic and a streamed fit; the loaded
+    model has no G, so predict_from_factor raises."""
+    x, y = make_multiclass(1500, p=20, n_classes=4, seed=6)
+    cfg = StreamConfig(device_budget_bytes=64 << 10) if stream else None
+    s = LPDSVM(KernelParams("rbf", gamma=0.05), C=2.0, budget=128, tol=1e-2,
+               stream_config=cfg).fit(x[:1200], y[:1200])
+    assert s.stats.stage2_streamed == stream
+    s.save(str(tmp_path))
+    back = LPDSVM.load(str(tmp_path))
+    assert back.device.type == "cuda" and back.W_.is_cuda and back.factor.landmarks.is_cuda
+    np.testing.assert_array_equal(back.decision_function(x[1200:]),
+                                  s.decision_function(x[1200:]))
+    np.testing.assert_array_equal(back.predict(x[1200:]), s.predict(x[1200:]))
+    with pytest.raises(RuntimeError, match="G is not persisted"):
+        back.predict_from_factor()
+
+
+def test_predict_from_factor_card_g_and_pinned_host_g_vote_alike(cuda):
+    """One fit scored from its G on the card and from a pinned host copy:
+    fp64 sums where G lies give identical votes, which agree with predict
+    on the training rows (features through B1) on at least 99%."""
+    x, y = make_multiclass(2000, p=20, n_classes=5, seed=7)
+    s = LPDSVM(KernelParams("rbf", gamma=0.05), C=1.0, budget=256, tol=1e-2).fit(x, y)
+    on_card = s.predict_from_factor()
+    G = s.factor.G
+    s.factor.G = host_buffer(tuple(G.shape), torch.float32, cuda).copy_(G)
+    assert s.factor.G.is_pinned()
+    np.testing.assert_array_equal(s.predict_from_factor(), on_card)
+    rows = np.arange(0, 2000, 3)
+    np.testing.assert_array_equal(s.predict_from_factor(rows), on_card[rows])
+    assert np.mean(s.predict(x) == on_card) >= 0.99
 
 
 def assert_flash_close(got, q, k, v, causal):

@@ -43,14 +43,16 @@ def test_port_covers_its_layout():
                  "convert.py", "kernels/flash_attention.py", "configs/base.py",
                  "configs/qwen3_0_6b.py", "configs/tinyllama_1_1b.py",
                  "models/common.py", "models/attention.py", "models/blocks.py",
-                 "models/model.py", "launch/train_svm.py"):
+                 "models/model.py", "launch/train_svm.py",
+                 "data/libsvm_format.py", "checkpoint/ckpt.py"):
         assert name in rel
     for cu in ("gram.cu", "gram_q8.cu", "smo.cu", "flash_attention.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / cu).is_file()
 
 
 def test_import_leaves_no_jax_in_sys_modules():
-    code = ("import sys, repro_torch, repro_torch.convert, repro_torch.data; "
+    code = ("import sys, repro_torch, repro_torch.convert, repro_torch.data, "
+            "repro_torch.checkpoint; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -131,8 +131,11 @@ def test_stream_args_are_the_references(argv, want):
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["--libsvm", "data.txt"], "--libsvm"), (["--n-features", "5"], "--n-features"),
-    (["--on-bad-row", "skip"], "--on-bad-row"),
+    # the LIBSVM route's own flags are served; its unported ones stop
+    (["--libsvm", "data.txt", "--shard-dir", "sh"], "--shard-dir"),
+    (["--libsvm", "data.txt", "--n-features", "5", "--spill-g"], "--spill-g"),
+    (["--libsvm", "data.txt", "--on-bad-row", "skip", "--checkpoint-dir", "ck"],
+     "--checkpoint-dir"),
     (["--checkpoint-dir", "ck"], "--checkpoint-dir"),
     (["--checkpoint-every", "2"], "--checkpoint-every"), (["--resume"], "--resume"),
     (["--shard-dir", "sh"], "--shard-dir"), (["--shard-rows", "64"], "--shard-rows"),
@@ -321,3 +324,150 @@ def test_cli_runs_on_the_card_only(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         driver.main(["--n", "10", "--seq", "4"])
+
+
+# ------------------------------------------------------------ the --libsvm route
+
+
+def _sparse_file(path, n=600, p=12, seed=5, bad_lines=()):
+    """make_multiclass rows with half the entries zeroed by a seeded mask,
+    written by the port's write_libsvm, then ``bad_lines`` appended."""
+    from repro_torch.data import make_multiclass, write_libsvm
+    x, y = make_multiclass(n, p=p, n_classes=3, sep=0.8, seed=seed)
+    x[np.random.default_rng(seed + 1).random(x.shape) >= 0.5] = 0.0
+    write_libsvm(str(path), x, y)
+    with open(path, "a") as f:
+        f.writelines(bad_lines)
+    return x, y
+
+
+BAD_LINES = ("1 3:nan 4:0.5\n", "2 0:1.5\n", "0 1:0.25 5-0.5\n")
+
+
+@pytest.fixture(scope="module")
+def libsvm_files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("libsvm_driver")
+    x, y = _sparse_file(d / "train.svm")
+    _sparse_file(d / "bad.svm", bad_lines=BAD_LINES)
+    return str(d / "train.svm"), str(d / "bad.svm"), x, y
+
+
+LIBSVM_ARGV = ["--budget", "64", "--C", "1"]
+
+
+def _reference_libsvm_error(args):
+    import copy
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return ref_driver.train_from_libsvm(copy.copy(args), None)
+
+
+@pytest.mark.parametrize("extra", [[], ["--stage1-dtype", "int8"]], ids=["f32", "int8"])
+def test_libsvm_route_matches_the_reference_driver(libsvm_files, extra, capsys):
+    """train_from_libsvm on the reference's landmark rows: the reference
+    driver's training error on the same file (within 0.01, 6 of 600 rows;
+    equal at this size), its median gamma, and its lines."""
+    train, _, _, y = libsvm_files
+    ap = driver.build_parser()
+    args = ap.parse_args(["--libsvm", train] + LIBSVM_ARGV + extra)
+    cfg, _ = driver.stream_args(args)
+    want = _reference_libsvm_error(ap.parse_args(["--libsvm", train] + LIBSVM_ARGV + extra))
+    lm = np.asarray(jax.random.choice(jax.random.PRNGKey(0), 600, shape=(64,),
+                                      replace=False))
+    res = driver.train_from_libsvm(args, cfg, device="cpu", landmark_idx=lm)
+    out = capsys.readouterr().out
+    assert abs(res.train_error - want) <= 0.01
+    assert 0.0 < res.train_error < 0.5
+    st = res.svm.stats
+    assert st.stage1_streamed and st.stage2_streamed and st.n_tasks == 3
+    assert st.stage1_stats.wire_dtype == (extra[1] if extra else "f32")
+    assert res.data.n == 600 and res.data.n_features == 12 and res.ingest.rows_skipped == 0
+    np.testing.assert_array_equal(res.data.labels, y.astype(np.float64))
+    assert args.gamma == ref_driver.median_gamma(
+        res.data.densify_rows(np.sort(np.random.default_rng(0).choice(600, 256, replace=False))))
+    assert f"libsvm: 600 rows x 12 features in {res.read_seconds:.1f}s" in out
+    assert f"train error: {res.train_error:.4f}" in out.splitlines()[-1]
+    assert "stage1 stream: " in out and "stage2 stream: " in out
+
+
+def test_libsvm_bad_rows_skip_or_raise(libsvm_files, capsys):
+    """--on-bad-row skip drops the three bad lines (a non-finite value, a
+    0-based index, a malformed token) and gives the clean file's factor and
+    training error bit for bit; without it BadRowError names the first bad
+    line."""
+    from repro_torch.data import BadRowError
+    train, bad, _, _ = libsvm_files
+    ap = driver.build_parser()
+    runs = {}
+    for name, argv in (("clean", ["--libsvm", train]),
+                       ("skip", ["--libsvm", bad, "--on-bad-row", "skip"])):
+        args = ap.parse_args(argv + LIBSVM_ARGV)
+        runs[name] = driver.train_from_libsvm(args, None, device="cpu")
+        runs[name + " out"] = capsys.readouterr().out
+    assert "libsvm: skipped 3 bad row(s) (--on-bad-row skip)" in runs["skip out"]
+    assert "skipped" not in runs["clean out"]
+    assert runs["skip"].ingest.rows_skipped == 3 and runs["skip"].ingest.rows_read == 600
+    assert runs["skip"].train_error == runs["clean"].train_error
+    for f in ("G", "landmarks", "projector", "eigvals"):
+        assert torch.equal(getattr(runs["skip"].svm.factor, f),
+                           getattr(runs["clean"].svm.factor, f)), f
+    assert torch.equal(runs["skip"].svm.W_, runs["clean"].svm.W_)
+    with pytest.raises(BadRowError, match="line 601: non-finite value"):
+        driver.train_from_libsvm(ap.parse_args(["--libsvm", bad] + LIBSVM_ARGV), None,
+                                 device="cpu")
+
+
+def test_libsvm_n_features_widens_the_rows(libsvm_files):
+    train, _, _, _ = libsvm_files
+    ap = driver.build_parser()
+    res = driver.train_from_libsvm(
+        ap.parse_args(["--libsvm", train, "--n-features", "20"] + LIBSVM_ARGV), None,
+        device="cpu")
+    assert res.data.n_features == 20 and res.svm.factor.landmarks.shape == (64, 20)
+    assert 0.0 < res.train_error < 0.5
+    # too narrow: the row gather for the median gamma fails, as the reference's
+    narrow = ["--libsvm", train, "--n-features", "5"] + LIBSVM_ARGV
+    with pytest.raises(IndexError):
+        _reference_libsvm_error(ap.parse_args(narrow))
+    with pytest.raises(IndexError):
+        driver.train_from_libsvm(ap.parse_args(narrow), None, device="cpu")
+
+
+@pytest.mark.parametrize("extra", [["--device-budget-mb", "0.05"], ["--polish"]])
+def test_main_routes_libsvm_before_the_backbone(libsvm_files, monkeypatch, capsys, extra):
+    """main sends --libsvm to train_from_libsvm with the stream config of
+    its flags (no backbone is built) and returns its training error."""
+    train, _, _, _ = libsvm_files
+    seen = {}
+    real = driver.train_from_libsvm
+
+    def on_cpu(args, cfg, **kw):
+        seen["cfg"] = cfg
+        seen["res"] = real(args, cfg, device="cpu", **kw)
+        return seen["res"]
+
+    monkeypatch.setattr(driver, "train_from_libsvm", on_cpu)
+    monkeypatch.setattr(driver, "init_model", None)
+    err = driver.main(["--libsvm", train] + LIBSVM_ARGV + extra)
+    assert err == seen["res"].train_error
+    st = seen["res"].svm.stats
+    if extra[0] == "--polish":
+        assert seen["cfg"] is None and st.polished
+        assert "polish total: " in capsys.readouterr().out
+    else:
+        assert seen["cfg"].device_budget_bytes == int(0.05 * 2**20)
+        assert st.stage2_streamed
+
+
+def test_grid_with_libsvm_stops_with_the_references_message(capsys):
+    with pytest.raises(SystemExit) as exc:
+        driver.main(["--libsvm", "data.txt", "--grid-cs", "1,4"])
+    assert exc.value.code == 2
+    assert "--grid-cs is not supported with --libsvm" in capsys.readouterr().err
+
+
+def test_libsvm_cli_runs_on_the_card_only(libsvm_files, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        driver.main(["--libsvm", libsvm_files[0]])
