@@ -78,6 +78,25 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 polish=True, counts reset around it: the final level streams,
                 each coarse level's routing printed, held against the cold
                 streamed fit as above
+  trace, streamed path            the streamed path's fit (stage 1 included)
+                under a core/trace.py Tracer, counts reset around it: bit-equal
+                to the untraced fit (G, alphas, w, epochs, wire bytes); the
+                per-category seconds (the summary), B2's device seconds
+                (CUDA-event spans) against stage 2's wall, the H2D copies'
+                device time under B2, the compute row's idle share and largest
+                gaps in stage 2, the traced fit's seconds beside the untraced
+                one's; the trace exported and read back; then the driver with
+                --stream --trace-summary at reduced rows (in this process)
+  streamed path, int8 blocks      stage 2 of the streamed path on its factor
+                with block_dtype="int8", B2's count reset around it: the first
+                pass's bytes against the byte model of the int8 wire (codes +
+                8 B a group, tails padded to the tile) and the f32 wire's
+                n B' 4, encode seconds, stage-2 seconds beside the f32 wire's,
+                violations under tol, peak device memory within the budget
+                plus the task-state allowance; bit-equal to the monolithic
+                solve on the decoded G; predictions 0.98 alike to the f32
+                streamed fit's (as the polished fits are held), test error
+                within 0.5 points
   windowed B2 vs plain            B2's window form on one streamed G block
   timing, streamed kernels        B3 at the chunk shape and windowed B2 on
                 one block, beside plain versions, library calls and bounds
@@ -184,7 +203,9 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 its card G and from a pinned host copy: identical votes
 
 Then one JSON line {"kernels": [...]} (``launches_libsvm``: each kernel's
-launches summed over the LIBSVM phases) and, last, the {"ok": true, ...} line.
+launches summed over the LIBSVM phases; ``launches_trace`` over the traced
+fit, ``launches_int8_blocks`` over the int8 stage 2) and, last, the
+{"ok": true, ...} line.
 """
 from __future__ import annotations
 
@@ -429,10 +450,10 @@ def main() -> int:
 
     from repro_torch import LPDSVM, KernelParams, SolverConfig, StreamConfig, median_gamma
     from repro_torch.convert import tasks_from_reference
-    from repro_torch.core import cv, dual_solver
+    from repro_torch.core import cv, dual_solver, solver_stream
     from repro_torch.core.compact import solve_compact
     from repro_torch.core.nystrom import compute_factor, select_landmarks
-    from repro_torch.core.quant import quantize_rows
+    from repro_torch.core.quant import dequant_rows, quantize_rows
     from repro_torch.core.solver_stream import (_row_sq, block_windows,
                                                 solve_batch_streamed)
     from repro_torch.core.streaming import (auto_chunk_rows,
@@ -1376,6 +1397,146 @@ def main() -> int:
         against_cold(svm_ps, svm_s, G_check, pred_ps, pred_s, "polished streamed path",
                      cold_p5)
         del G_check, cold_p5
+
+    with phase("trace, streamed path"):
+        # the streamed path's fit under a tracer: device work as CUDA-event
+        # spans on the card's rows, resolved when read
+        from repro_torch.core import trace as trace_mod
+        tr = trace_mod.Tracer()
+        svm_t = LPDSVM(kernel=kp, C=1.0, budget=budget, tol=1e-2, stream_config=cfg)
+        for fn in (gram_kernel, gram_q8_kernel, smo_epoch_kernel):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        svm_t.fit(xtr, ytr, trace=tr)
+        wall_t = time.perf_counter() - t0
+        t_launches = {"gram": gram_kernel.launches, "gram_q8": gram_q8_kernel.launches,
+                      "smo_epoch": smo_epoch_kernel.launches}
+        st_t = svm_t.stats
+        t1, t2 = st_t.stage1_stats, st_t.stage2_stats
+        same_t = (torch.equal(svm_t.factor.G, fac_s.G) and torch.equal(svm_t.alpha_, svm_s.alpha_)
+                  and torch.equal(svm_t.W_, svm_s.W_)
+                  and np.array_equal(st_t.epochs, st.epochs)
+                  and t2.epoch_bytes == s2.epoch_bytes and t1.bytes_h2d == s1.bytes_h2d)
+        t_read = time.perf_counter()
+        evs = tr.events()
+        t_read = time.perf_counter() - t_read
+        rows = tr.device_tids()
+        fit_sp = {e[2]: e for e in evs if e[1] == "fit"}
+        s2_lo, s2_hi = fit_sp["stage2"][3], fit_sp["stage2"][3] + fit_sp["stage2"][4]
+        dev_evs = [e for e in evs if e[5] in rows]
+        b2 = [e for e in dev_evs if e[2] == "smo_block"]
+        b2_sec = sum(e[4] for e in b2)
+        copies2 = [e for e in dev_evs if e[2] == "copy_block"]
+        b2_iv = trace_mod._merge_intervals([(e[3], e[3] + e[4]) for e in b2])
+        copy_sec = sum(e[4] for e in copies2)
+        under = sum(trace_mod._overlap_with(e[3], e[3] + e[4], b2_iv) for e in copies2)
+        busy2, gaps2 = tr.busy("cuda:0 compute", s2_lo, s2_hi)
+        print(tr.summary())
+        print(f"traced fit: {len(evs)} events ({len(dev_evs)} device spans on "
+              f"{sorted(rows.values())}), resolved in {t_read:.3f} s; stage1 "
+              f"{st_t.stage1_seconds:.3f} s, stage2 {st_t.stage2_seconds:.3f} s against "
+              f"the untraced {st.stage1_seconds:.3f} / {st.stage2_seconds:.3f} s "
+              f"(fit wall {wall_t:.3f} s); launches {t_launches}; bit-equal to the "
+              f"untraced fit {same_t}")
+        print(f"stage 2: wall {s2_hi - s2_lo:.3f} s, B2 device {b2_sec:.3f} s over "
+              f"{len(b2)} spans ({b2_sec / (s2_hi - s2_lo):.3f} of the wall); H2D copies "
+              f"{copy_sec:.3f} s device time, {under:.3f} s of it under B2 "
+              f"({under / max(copy_sec, 1e-12):.3f}); compute row busy {busy2:.3f} s, "
+              f"idle share {1 - busy2 / (s2_hi - s2_lo):.3f}, largest gaps "
+              f"{[round(b - a, 4) for a, b in gaps2[:5]]} s")
+        print(f"stage 2 host: put {t2.put_seconds:.3f} s, drain {t2.drain_seconds:.3f} s, "
+              f"compaction {t2.compact_seconds:.3f} s, copies {t2.h2d_seconds:.3f} s at "
+              f"{t2.h2d_gbps:.2f} GB/s, device overlap of every H2D copy "
+              f"{tr.overlap_efficiency(device=True):.3f}")
+        check(same_t, "the traced fit is not bit-equal to the untraced one")
+        check(sorted(rows.values()) == ["cuda:0 compute", "cuda:0 h2d"],
+              "the device spans are not on the compute and H2D rows")
+        check(len(b2) == t2.kernel_calls == t_launches["smo_epoch"],
+              "B2's device spans differ from its launches")
+        check(all(s2_lo - 1e-3 <= e[3] <= s2_hi for e in b2),
+              "a B2 span lies outside stage 2's span")
+        check(abs(sum(e[4] for e in dev_evs if e[1] == "h2d") - t1.h2d_seconds
+                  - t2.h2d_seconds) <= 1e-6 * (t1.h2d_seconds + t2.h2d_seconds) + 1e-9,
+              "the H2D copy spans do not sum to the stages' h2d_seconds")
+        with tempfile.TemporaryDirectory() as td:
+            out_json = os.path.join(td, "trace.json")
+            tr.export(out_json)
+            nbytes = os.path.getsize(out_json)
+            with open(out_json) as f:
+                loaded = json.load(f)["traceEvents"]
+        print(f"exported {len(loaded)} trace events, {nbytes} B")
+        check(sum(e["ph"] != "M" for e in loaded) == len(evs), "the exported trace lost events")
+        del svm_t, evs, dev_evs, loaded
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            err_t = driver.main(["--classes", "3", "--n", "400", "--seq", "16",
+                                 "--budget", "64", "--stream", "--trace-summary"])
+        out_t = buf.getvalue()
+        print(out_t, end="")
+        check("trace summary (" in out_t and "device rows (CUDA events):" in out_t
+              and "cuda:0 compute" in out_t and err_t < 1 - 1 / 3,
+              "the driver's --trace-summary printed no device rows")
+
+    with phase("streamed path, int8 blocks"):
+        # stage 2 of the streamed path on its factor over the int8 wire
+        cfg8 = dataclasses.replace(cfg, block_dtype="int8")
+        svm8 = LPDSVM(kernel=kp, C=1.0, budget=budget, tol=1e-2, stream_config=cfg8)
+        smo_epoch_kernel.launches = 0
+        base = peak_start()
+        svm8.fit(xtr, ytr, factor=fac_s)
+        peak8 = peak_since(base)
+        i8_launches = smo_epoch_kernel.launches
+        pred8 = svm8.predict(xte)
+        b8 = svm8.stats.stage2_stats
+        tile8 = b8.tile_rows
+        eff8 = solver_stream.wire_group(tile8, cfg8)
+        g8 = -(-n_tr // tile8) * (tile8 * rank + -(-tile8 // eff8) * 8)
+        agree8 = float(np.mean(pred8 == pred_s))
+        print(f"int8 blocks: tile {tile8} rows, groups of {eff8} rows; first full pass "
+              f"{b8.epoch_bytes[0]} B against the int8 model {g8} and the f32 wire's "
+              f"{g_bytes} ({b8.epoch_bytes[0] / g_bytes:.4f}); scales {b8.bytes_scales} B; "
+              f"G bytes {b8.bytes_g} over {svm8.stats.epochs.max()} epochs (f32 wire "
+              f"{s2.bytes_g} over {st.epochs.max()})")
+        print(f"stage 2 {svm8.stats.stage2_seconds:.3f} s (f32 wire {st.stage2_seconds:.3f} "
+              f"s): encode {b8.encode_seconds:.3f} s, put {b8.put_seconds:.3f} s, drain "
+              f"{b8.drain_seconds:.3f} s, compaction {b8.compact_seconds:.3f} s, copies "
+              f"{b8.h2d_seconds:.3f} s at {b8.h2d_gbps:.2f} GB/s; full passes "
+              f"{b8.full_passes}, B2 launches {i8_launches}; test error "
+              f"{float(np.mean(pred8 != yte)):.4f} (f32 wire {err_s:.4f}), agreement with "
+              f"the f32 streamed fit {agree8:.4f}; largest violation "
+              f"{float(svm8.stats.violations.max()):.3e}; peak device memory {peak8} B "
+              f"(limit {limit2})")
+        check(svm8.stats.stage2_streamed and b8.block_dtype == "int8",
+              "the int8 wire did not stream stage 2")
+        check(b8.epoch_bytes[0] == g8, "the first int8 pass is off the byte model")
+        check(i8_launches == b8.kernel_calls > 0, "B2 launches differ from the int8 blocks")
+        check(bool(np.all(svm8.stats.violations < 1e-2)), "an int8 task did not converge")
+        check(peak8 <= limit2, "int8 stage 2 peak device memory above the budget "
+              "plus the allowance")
+        # a row decodes alike in every pass, so the int8 solve is the
+        # monolithic solve on the decoded G, bit for bit
+        t0 = time.perf_counter()
+        codes8, table8 = quantize_rows(fac_s.G.numpy(), eff8)
+        t_q = time.perf_counter() - t0
+        Gd = dequant_rows(torch.from_numpy(codes8).to(dev), torch.from_numpy(table8).to(dev),
+                          eff8)
+        del codes8, table8
+        mono8 = dual_solver.solve_batch(Gd, svm8.tasks_, svm8.config)
+        del Gd
+        same8 = (torch.equal(mono8.alpha, svm8.alpha_) and torch.equal(mono8.w, svm8.W_)
+                 and np.array_equal(mono8.epochs.cpu().numpy(), svm8.stats.epochs))
+        print(f"the int8 solve against the monolithic solve on the decoded G (G encoded "
+              f"whole on the host in {t_q:.3f} s): alphas, w and epochs equal {same8}")
+        check(same8, "the int8 stage 2 is not the monolithic solve on the decoded G")
+        # The int8 fit solves another problem (the decoded G) to the same KKT
+        # tol: its predictions are held as the polished fits' are against the
+        # cold one (98%; two fits of one f32 problem by different paths agree
+        # on 98.8-98.9% here), and its test error within the streamed path's
+        # 0.5 points of the f32 wire's.
+        check(agree8 >= 0.98, f"int8-block predictions agree {agree8} < 0.98")
+        check(abs(float(np.mean(pred8 != yte)) - err_s) <= 0.005,
+              "int8-block test error off by > 0.5 points")
+        del svm8, mono8
 
     with phase("windowed B2 vs plain"):
         # block 1 of the streamed grid (row0 = tile), every task from zero
@@ -2535,7 +2696,7 @@ def main() -> int:
          "ms_predict": pr_ms, "ms_predict_back_to_back": pr_b2b, "bound_ms_predict": pr_bound,
          "ms_at_scale": b1b_ms, "ms_at_scale_back_to_back": b1b_b2b,
          "bound_ms_at_scale": b1b_bound, "launches_grid": g_launches["gram"],
-         "launches_libsvm": lib_launches["gram"]},
+         "launches_libsvm": lib_launches["gram"], "launches_trace": t_launches["gram"]},
         {"name": "smo_epoch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/smo.cu",
          "replaces": "src/repro/kernels/smo.py:100",
@@ -2545,7 +2706,8 @@ def main() -> int:
          "ms_t135": t135_ms, "ms_cheap_t135": t135_cheap, "waves_t135": waves,
          "launches_farm": farm_launches["full width"],
          "launches_farm_reduced": farm_launches["reduced"],
-         "launches_compact": c_launches, "launches_libsvm": lib_launches["smo_epoch"]},
+         "launches_compact": c_launches, "launches_libsvm": lib_launches["smo_epoch"],
+         "launches_trace": t_launches["smo_epoch"], "launches_int8_blocks": i8_launches},
         {"name": "gram_q8", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram_q8.cu",
          "replaces": "src/repro/kernels/gram.py:157",
@@ -2553,7 +2715,8 @@ def main() -> int:
          "plain_ms": q8_plain, "bound_ms": q8_bound, "bound_by": q8_by,
          "library_ms": q8_lib, "bound_ms_cuda_cores": q8_bound_cc,
          "ms_back_to_back": q8_b2b, "ms_at_scale": q8b_ms,
-         "bound_ms_at_scale": q8b_bound, "launches_libsvm": lib_launches["gram_q8"]},
+         "bound_ms_at_scale": q8b_bound, "launches_libsvm": lib_launches["gram_q8"],
+         "launches_trace": t_launches["gram_q8"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:68",
@@ -2564,6 +2727,8 @@ def main() -> int:
           "a kernel of the main paths was launched no time")
     check(all(lib_launches[k] > 0 for k in ("gram", "gram_q8", "smo_epoch")),
           "a kernel of the LIBSVM route was launched no time")
+    check(all(t_launches[k] > 0 for k in ("gram", "gram_q8", "smo_epoch")) and i8_launches > 0,
+          "a kernel of the traced fit or of the int8 stage 2 was launched no time")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,17 +9,19 @@ host memory, stage-1 chunks cross the bus as int8 through kernel B3 (or as
 fp32 through B1) and stage 2 streams G's row blocks through B2.  Either
 route's stage 2 can run as the paper's polish ladder (``polish=True``), and
 ``grid_search`` / ``cross_validate`` select gamma and C by k-fold
-cross-validation on one factor per gamma.
+cross-validation on one factor per gamma.  A ``Tracer`` (``fit(trace=)``,
+``StreamConfig(trace=)`` or ``install``) records their timeline, with the
+card's work as CUDA-event spans.
 """
 from repro_torch.core import (LPDSVM, FitStats, GridResult, KernelParams,
                               LowRankFactor, PolishSchedule, PolishTrace,
                               SolverConfig, StreamConfig, TaskBatch,
                               build_cv_grid_tasks, compute_factor,
                               cross_validate, grid_search, make_schedule,
-                              median_gamma, solve_batch)
+                              median_gamma, solve_batch, Tracer)
 
 __all__ = ["LPDSVM", "FitStats", "GridResult", "KernelParams",
            "LowRankFactor", "PolishSchedule", "PolishTrace", "SolverConfig",
            "StreamConfig", "TaskBatch", "build_cv_grid_tasks",
            "compute_factor", "cross_validate", "grid_search", "make_schedule",
-           "median_gamma", "solve_batch"]
+           "median_gamma", "solve_batch", "Tracer"]

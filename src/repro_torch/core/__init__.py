@@ -1,6 +1,6 @@
 """LPD-SVM core, PyTorch port: the monolithic and the out-of-core (streamed)
-fit -> predict routes, the polish ladder over stage 2, and serial
-cross-validation and grid search over them."""
+fit -> predict routes, the polish ladder over stage 2, cross-validation and
+grid search over them, and the tracer that records their timeline."""
 from repro_torch.core.cv import (CellStats, GridResult, build_cv_grid_tasks,
                                  build_cv_tasks, cross_validate, grid_search,
                                  kfold_masks)
@@ -17,17 +17,22 @@ from repro_torch.core.ovo import (build_ovo_tasks, class_pairs,
 from repro_torch.core.polish import (PolishSchedule, PolishTrace,
                                      make_schedule, solve_polished)
 from repro_torch.core.quant import (GROUP_ROWS, QuantBlock, dequant_rows,
-                                    dequantize_rows, quantize_rows)
+                                    dequantize_rows, quantize_block,
+                                    quantize_rows)
 from repro_torch.core.solver_stream import (Stage2StreamStats, auto_tile_rows,
                                             route_stage2, should_stream_stage2,
                                             solve_batch_streamed,
-                                            solve_streamed_auto)
+                                            solve_streamed_auto, wire_group)
 from repro_torch.core.streaming import (Stage1StreamStats, StreamConfig,
                                         auto_chunk_rows,
                                         compute_factor_streamed,
                                         compute_factor_streamed_csr, host_buffer,
                                         should_stream, stream_factor_rows)
 from repro_torch.core.svm import LPDSVM, FitStats
+from repro_torch.core.trace import (NULL, NullTracer, ProgressPrinter, Tracer,
+                                    install, uninstall)
+from repro_torch.core.trace import active as active_tracer
+from repro_torch.core.trace import resolve as resolve_tracer
 
 __all__ = [
     "CellStats", "GridResult", "build_cv_grid_tasks", "build_cv_tasks",
@@ -39,12 +44,15 @@ __all__ = [
     "build_ovo_tasks", "class_pairs", "ovo_decision_values", "ovo_vote",
     "PolishSchedule", "PolishTrace", "make_schedule", "solve_polished",
     "GROUP_ROWS", "QuantBlock", "dequant_rows", "dequantize_rows",
-    "quantize_rows",
+    "quantize_block", "quantize_rows",
     "Stage2StreamStats", "auto_tile_rows", "route_stage2",
     "should_stream_stage2", "solve_batch_streamed", "solve_streamed_auto",
+    "wire_group",
     "Stage1StreamStats", "StreamConfig", "auto_chunk_rows",
     "compute_factor_streamed", "compute_factor_streamed_csr", "host_buffer",
     "should_stream",
     "stream_factor_rows",
     "LPDSVM", "FitStats",
+    "NULL", "NullTracer", "ProgressPrinter", "Tracer", "install", "uninstall",
+    "active_tracer", "resolve_tracer",
 ]

@@ -21,8 +21,9 @@ Differences from the reference:
   * ``device=None`` means the card, as for ``LPDSVM``; ``device="cpu"`` runs
     the kernels' plain versions.  ``seed`` draws the landmarks from a
     ``torch.Generator`` (``nystrom.landmark_rows``), not ``jax.random``.
-  * Stage 1 and each cell are timed with ``time.perf_counter`` after a
-    device synchronisation; the reference's tracer is not ported.
+  * Stage 1 and each cell are timed after a device synchronisation, as
+    the reference's spans ``cv`` / ``stage1_factor``, ``grid_cell`` and
+    ``grid_farm`` (``stream_config.trace``, else an installed tracer).
   * Validation decisions are summed in fp64 where the fold's rows of G lie:
     on the card for a device G, on the host for a host (streamed) G, which
     never goes to the card whole.  The two routes then vote alike on the
@@ -37,7 +38,6 @@ Differences from the reference:
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,6 +52,8 @@ from repro_torch.core.solver_stream import (Stage2StreamStats, route_stage2,
                                             solve_streamed_auto)
 from repro_torch.core.streaming import StreamConfig
 from repro_torch.core.svm import resolve_device
+from repro_torch.core.trace import resolve
+
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -331,15 +333,16 @@ def grid_search(
     gamma_stats: List[Optional[Stage2StreamStats]] = [None] * len(gammas)
     gamma_bytes = np.zeros((len(gammas),), np.int64)
 
+    tr = resolve(getattr(stream_config, "trace", None))
     warm_first_c = None       # cross-gamma seed (beyond-paper)
     for gi, gamma in enumerate(gammas):
         kp = KernelParams(kind=kernel_kind, gamma=float(gamma))
-        t0 = time.perf_counter()
+        t0 = tr.begin()
         factor = compute_factor(x, kp, budget, seed=seed, gram_fn=gram_fn,
                                 device=dev, stream=stream,
                                 stream_config=stream_config)
         _sync(dev)
-        t_stage1 += time.perf_counter() - t0
+        t_stage1 += tr.end("cv", "stage1_factor", t0, gamma=float(gamma))
 
         warm = warm_first_c if warm_start_gamma else None
         val_sets = _fold_val_sets(factor, labels, val_masks)
@@ -355,14 +358,15 @@ def grid_search(
             # one streamed solve trains every cell of this gamma; the ladder
             # runs inside it, so the epoch budget covers the whole ladder
             # (the + 1 a level pays each seeded cell's w0 pass)
-            t0 = time.perf_counter()
+            t0 = tr.begin()
             farm_cfg = dataclasses.replace(
                 config, max_epochs=config.max_epochs * len(Cs) + len(Cs))
             res, sstats = solve_streamed_auto(
                 factor.G, gtasks, farm_cfg, stream_config=stream_config,
                 chain_next=chain, return_stats=True)
             _sync(dev)
-            dt = time.perf_counter() - t0
+            dt = tr.end("cv", "grid_farm", t0, gamma=float(gamma),
+                        cells=gtasks.n_tasks)
             t_stage2 += dt
             cell_sec[gi, :] = dt / len(Cs)
             n_solved += gtasks.n_tasks
@@ -385,12 +389,12 @@ def grid_search(
             continue
 
         for ci, C in enumerate(Cs):
-            t0 = time.perf_counter()
+            t0 = tr.begin()
             tasks = cell_tasks(C, warm if warm_start else None)
             res, sstats = _solve_routed(factor, tasks, config, solve_fn,
                                         stream, stream_config, polish_schedule)
             _sync(dev)
-            dt = time.perf_counter() - t0
+            dt = tr.end("cv", "grid_cell", t0, gamma=float(gamma), C=float(C))
             t_stage2 += dt
             cell_sec[gi, ci] = dt
             n_solved += tasks.n_tasks

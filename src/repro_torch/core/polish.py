@@ -32,14 +32,14 @@ host once per solve and each level's alphas once per level; each level's
 
 The ladder overrides the solver's full-pass cadence (period 1 on
 monolithic levels, 5 on streamed ones), as the reference does: warm-started
-levels converge in a few passes.  The reference's tracer (``trace=``) is not
-ported: anything but ``None`` raises.
+levels converge in a few passes.  A tracer (``trace=``, else
+``stream_config.trace``, else an installed one) records a ``polish`` /
+``level_{i}`` span a level; it never changes a level's route.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -51,7 +51,8 @@ from repro_torch.core.solver_stream import (Stage2StreamStats, route_stage2,
                                             should_stream_stage2,
                                             solve_batch_streamed,
                                             solve_streamed_auto)
-from repro_torch.core.streaming import StreamConfig, host_buffer
+from repro_torch.core.streaming import StreamConfig, host_buffer, with_trace
+from repro_torch.core.trace import resolve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,10 +236,11 @@ def solve_polished(
     (laid out as ``solve_batch(factor.G, tasks, config)``'s, on the tasks'
     device), plus a ``PolishTrace`` with ``return_trace=True``.  Incoming
     ``tasks.alpha0`` seeds every level's not-yet-solved rows."""
-    if trace is not None:
-        raise NotImplementedError(
-            "solve_polished: `trace` is not ported to repro_torch yet; only "
-            "trace=None is")
+    # ``trace`` observes only: routing keys off ``stream_config``, and the
+    # streamed solves get a copy of it that carries the tracer
+    tr = resolve(trace if trace is not None
+                 else getattr(stream_config, "trace", None))
+    run_cfg = with_trace(stream_config, trace)
     if schedule is None:
         schedule = PolishSchedule()
     G = factor.G
@@ -275,7 +277,7 @@ def solve_polished(
     for li in keep:
         frac = schedule.fractions[li]
         final = frac >= 1.0
-        t0 = time.perf_counter()
+        t0 = tr.begin()
         sstats = None
         pos_l = sel[li]
         if final:
@@ -286,7 +288,7 @@ def solve_polished(
             cfg_l = level_config(li, streamed)
             if streamed:
                 res, sstats = solve_streamed_auto(
-                    G, tasks_l, cfg_l, stream_config=stream_config,
+                    G, tasks_l, cfg_l, stream_config=run_cfg,
                     return_stats=True)
             else:
                 res = solve_fn(G.to(dev) if host_G else G, tasks_l, cfg_l)
@@ -319,7 +321,7 @@ def solve_polished(
             level_G = _gather(G, union, dev if streamed else None)
             if streamed:
                 res_l, sstats = solve_batch_streamed(
-                    level_G, tasks_l, cfg_l, stream_config=stream_config,
+                    level_G, tasks_l, cfg_l, stream_config=run_cfg,
                     return_stats=True)
             else:
                 res_l = solve_fn(level_G.to(dev), tasks_l, cfg_l)
@@ -354,11 +356,14 @@ def solve_polished(
                     # tolerance annealing drives toward zero
                     gaps[t] = task_duality_gap(G_np[idx_l[t, :k]], y_l[t, :k],
                                                c_l[t, :k], a_np[t][:k])
+        violations = res_l.violation.cpu().numpy()
+        dt = tr.end("polish", f"level_{li}", t0, fraction=float(frac),
+                    tol=float(cfg_l.tol), rows=n_rows_l, streamed=streamed,
+                    row_visits=visits)
         ptrace.levels.append(PolishLevelStats(
             fraction=frac, tol=cfg_l.tol, n_rows=n_rows_l, n_pad=n_pad_l,
-            streamed=streamed, epochs=epochs_l,
-            violations=res_l.violation.cpu().numpy(), duality_gap=gaps,
-            row_visits=visits, seconds=time.perf_counter() - t0,
+            streamed=streamed, epochs=epochs_l, violations=violations,
+            duality_gap=gaps, row_visits=visits, seconds=dt,
             stream_stats=sstats))
 
     return (res, ptrace) if return_trace else res

@@ -44,10 +44,33 @@ a slot, the compute stream waits for that copy by event and launches B2, and
 before a slot is filled again the host waits on the event recorded after the
 launch that read it.  bf16 blocks are cast into pinned staging on the host
 and upcast on the card into one fp32 buffer of the compute stream.
+
+int8 blocks (the reference's wire): a shared-pass block is encoded on the
+host each pass with scale groups of ``wire_group(tile)`` rows, which divide
+the tile, so every group is global-row-aligned; a ragged tail is padded
+after encoding (``encode_block``).  A compaction encodes its active rows
+once, each row under its global group's (scale, zero) with one entry a row
+(``encode_compacted``), so a row decodes alike in a full pass and in a
+cheap epoch.  The ring ships codes and scale table and dequantises them on
+the card (``quant.dequant_into``) into the fp32 buffer before B2 reads it;
+every pass uses that one op sequence.  ``bytes_h2d``, ``bytes_g`` and
+``epoch_bytes`` count codes plus tables (``bytes_scales`` the tables).
+
+Under a tracer (``StreamConfig.trace``, else an installed one) the host
+spans are the reference's: ``h2d`` / ``put_block`` (their sum is
+``put_seconds``), ``drain`` (``block_wait``, ``flags``, ``result``),
+``encode`` / ``stage2_quant``, ``compact`` / ``recompact`` and ``epoch`` /
+``epoch_{k}`` with the counters ``stage2/epoch_bytes``,
+``stage2/active_rows`` and ``stage2/row_visits``; on the card the H2D copies
+(``h2d`` / ``copy_block``) and the launches (``kernel``: ``smo_block``
+around each B2 launch with its rows and tasks, ``row_sq``, ``init_sums``,
+``dequant``, ``upcast``) are device spans.  An epoch's ``viol`` attribute is
+read where the full pass already syncs; a cheap epoch has none.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import List, Optional
 
@@ -57,12 +80,15 @@ import torch
 from repro_torch.core.dual_solver import (INT32_MAX, SolveResult, SolverConfig,
                                           TaskBatch)
 from repro_torch.core.kernel_fn import full_fp32
+from repro_torch.core.quant import (ENCODE_ROWS, QuantBlock, dequant_into,
+                                    encode_rows, group_scales, quantize_block)
 from repro_torch.core.streaming import (BYTES_F32, Lanes, StreamConfig,
                                         StreamTimes, check_host, host_buffer,
                                         tune_prefetch, wait)
+from repro_torch.core.trace import NULL, resolve
 from repro_torch.kernels.ops import smo_epoch, smo_epoch_scratch
 
-WIRE = {"f32": torch.float32, "bf16": torch.bfloat16}
+WIRE = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +146,55 @@ def auto_tile_rows(n: int, rank: int, n_tasks: int, cfg: StreamConfig) -> int:
     return int(min(-(-n // 8) * 8, max(cfg.min_chunk_rows, rows, 8)))
 
 
+def wire_group(tile: int, cfg: StreamConfig) -> int:
+    """Rows of an int8 scale group for a block tile: gcd(tile, requested),
+    so that group boundaries align with block boundaries and a row's group
+    is the same in a shared-pass block and in a compacted one."""
+    return math.gcd(tile, max(1, cfg.quant_group_rows))
+
+
+def pad_quant_block(qb: QuantBlock, tile: int) -> QuantBlock:
+    """A quantised block padded to ``tile`` rows: zero codes, and inert
+    (scale 1, zero 0) entries for the scale groups that hold only pad
+    rows, which then decode to exact zeros (the reference's)."""
+    cnt, ng = qb.values.shape[0], qb.scales.shape[0]
+    values = np.zeros((tile, qb.values.shape[1]), np.int8)
+    values[:cnt] = qb.values
+    scales = np.zeros((-(-tile // qb.group), 2), np.float32)
+    scales[:ng] = qb.scales
+    scales[ng:, 0] = 1.0
+    return QuantBlock(values=values, scales=scales, group=qb.group)
+
+
+def encode_block(gb: np.ndarray, tile: int, group: int) -> QuantBlock:
+    """A shared-pass G block on the int8 wire (the reference's
+    ``prep_block``): quantised from its real rows in groups of ``group``
+    rows, then padded to ``tile`` rows."""
+    qb = quantize_block(np.asarray(gb, np.float32), group)
+    return qb if gb.shape[0] == tile else pad_quant_block(qb, tile)
+
+
+def encode_compacted(G: np.ndarray, gscales: np.ndarray, group: int,
+                     union: np.ndarray, tile: int, codes: np.ndarray,
+                     table: np.ndarray) -> int:
+    """The compacted rows ``G[union]`` on the int8 wire (the reference's
+    ``_encode_compacted``, its blocks laid end to end), written into
+    ``codes`` (int8) and ``table`` (fp32, a row an entry): each row under its
+    global group's (scale, zero) from ``gscales = group_scales(G, group)``,
+    the tail padded to whole tiles as ``pad_quant_block`` pads it.  Rows
+    are gathered ``quant.ENCODE_ROWS`` at a time.  Returns the padded row
+    count."""
+    U = len(union)
+    u_pad = -(-max(U, 1) // tile) * tile
+    table[:U] = gscales[union // group]
+    table[U:u_pad] = (1.0, 0.0)
+    codes[U:u_pad] = 0
+    for s in range(0, U, ENCODE_ROWS):
+        e = min(s + ENCODE_ROWS, U)
+        encode_rows(G[union[s:e]], table[s:e], out=codes[s:e])
+    return u_pad
+
+
 def block_windows(ids: np.ndarray, tile: int, n_blocks: int) -> np.ndarray:
     """Boundary table of a task's SORTED global row ids against the block
     grid: entry b is the first position in ``ids`` at or past row b * tile,
@@ -136,7 +211,8 @@ def block_windows(ids: np.ndarray, tile: int, n_blocks: int) -> np.ndarray:
 class Stage2StreamStats(StreamTimes):
     """Traffic and convergence accounting of one streamed stage-2 solve.
 
-    ``bytes_h2d`` counts the G blocks plus the index tables."""
+    ``bytes_h2d`` counts the G blocks plus the index tables; on the int8
+    wire a block's bytes are its codes plus its scale table."""
 
     tile_rows: int = 0
     epochs: int = 0                   # epochs run (the longest task's)
@@ -152,6 +228,8 @@ class Stage2StreamStats(StreamTimes):
     active_history: List[int] = dataclasses.field(default_factory=list)
     # ^ active-row union size at each compaction
     block_dtype: str = "f32"
+    bytes_scales: int = 0             # int8 scale tables (inside bytes_g)
+    encode_seconds: float = 0.0       # host time in the int8 encoder
     compact_seconds: float = 0.0      # host time building compactions
     init_seconds: float = 0.0         # a warm start's init pass, to its end
     prefetch_final: int = 0           # queue depth after autotune
@@ -163,53 +241,83 @@ class _Ring:
 
     ``load`` fills the next slot (after the event of the launch that last
     read it) and returns the block as fp32 on the card; ``release`` records
-    that event once the block's launches are queued."""
+    that event once the block's launches are queued.  On the int8 wire a
+    slot also holds a scale table, and ``load`` takes (codes, table) host
+    tensors padded to the tile and decodes them into the fp32 buffer."""
 
     def __init__(self, tile: int, rank: int, wire: str, device,
-                 prefetch: int, lanes: Lanes, st: Stage2StreamStats):
+                 prefetch: int, lanes: Lanes, st: Stage2StreamStats, tr=NULL):
         self.tile, self.rank, self.device = tile, rank, device
         self.wire = WIRE[wire]
+        self.quant = wire == "int8"
         self.prefetch = prefetch
-        self.lanes, self.st = lanes, st
+        self.lanes, self.st, self.tr = lanes, st, tr
         self.slots: List[dict] = []
         self.count = 0
         self.upcast = (torch.empty((tile, rank), dtype=torch.float32, device=device)
                        if self.wire != torch.float32 else None)
 
-    def load(self, src: torch.Tensor):
+    def _slot(self, k: int) -> dict:
+        while k >= len(self.slots):          # autotune may deepen the ring
+            dev = [torch.empty((self.tile, self.rank), dtype=self.wire,
+                               device=self.device)]
+            if self.quant:                   # one table entry a row at most
+                dev.append(torch.empty((self.tile, 2), dtype=torch.float32,
+                                       device=self.device))
+            self.slots.append(dict(dev=dev, stage=[None] * len(dev), done=None))
+            self.lanes.claim()
+        return self.slots[k]
+
+    def _stage(self, slot: dict, j: int, src: torch.Tensor) -> torch.Tensor:
+        """``src`` as the slot's wire dtype in memory the copy may read
+        without blocking: as it is when it already is (pinned on the card),
+        else through the slot's pinned staging buffer."""
+        want = slot["dev"][j].dtype
+        if src.dtype == want and not (self.lanes.cuda and not src.is_pinned()):
+            return src
+        if slot["stage"][j] is None:
+            slot["stage"][j] = host_buffer(tuple(slot["dev"][j].shape), want,
+                                           self.device)
+        staged = slot["stage"][j][:src.shape[0]]
+        staged.copy_(src)
+        return staged
+
+    def load(self, src, rows: Optional[int] = None, group: int = 1):
+        """The next block on the card as fp32 (its first ``rows`` rows):
+        ``src`` is a host tensor of rows, or on the int8 wire a (codes,
+        table) pair with ``group`` rows a table entry."""
         k = self.count % self.prefetch
         self.count += 1
-        while k >= len(self.slots):          # autotune may deepen the ring
-            self.slots.append(dict(
-                dev=torch.empty((self.tile, self.rank), dtype=self.wire,
-                                device=self.device),
-                stage=None, done=None))
-            self.lanes.claim()
-        slot = self.slots[k]
-        t0 = time.perf_counter()
+        slot = self._slot(k)
+        tr, st = self.tr, self.st
+        t0 = tr.begin()
         wait(slot["done"])
-        t1 = time.perf_counter()
-        self.st.drain_seconds += t1 - t0
-        r = src.shape[0]
-        if src.dtype != self.wire:           # bf16 wire from fp32 rows
-            if slot["stage"] is None:
-                slot["stage"] = host_buffer((self.tile, self.rank), self.wire,
-                                            self.device)
-            staged = slot["stage"][:r]
-            staged.copy_(src)
-            src = staged
-        dev = slot["dev"][:r]
-        self.lanes.put(dev, src)
-        self.st.put_seconds += time.perf_counter() - t1
-        nbytes = src.nbytes
-        self.st.bytes_h2d += nbytes
-        self.st.bytes_g += nbytes
-        self.st.blocks_streamed += 1
-        self.st.rows_streamed += r
+        st.drain_seconds += tr.end("drain", "block_wait", t0)
+        srcs = src if self.quant else (src,)
+        r = srcs[0].shape[0] if rows is None else rows
+        t0 = tr.begin()
+        devs, nbytes = [], 0
+        for j, a in enumerate(srcs):
+            a = self._stage(slot, j, a)
+            devs.append(slot["dev"][j][:a.shape[0]])
+            self.lanes.put(devs[-1], a, "copy_block")
+            nbytes += a.nbytes
+        st.put_seconds += tr.end("h2d", "put_block", t0, bytes=nbytes, rows=r)
+        st.bytes_h2d += nbytes
+        st.bytes_g += nbytes
+        st.blocks_streamed += 1
+        st.rows_streamed += r
         if self.upcast is None:
-            return dev, slot
+            return devs[0], slot
+        if self.quant:
+            st.bytes_scales += srcs[1].nbytes
+            g = self.upcast[:devs[0].shape[0]]
+            with tr.device_span("kernel", "dequant", self.device, rows=r):
+                dequant_into(devs[0], devs[1], group, g)
+            return g[:r], slot
         g = self.upcast[:r]
-        g.copy_(dev)
+        with tr.device_span("kernel", "upcast", self.device, rows=r):
+            g.copy_(devs[0])
         return g, slot
 
     def release(self, slot) -> None:
@@ -359,8 +467,12 @@ def solve_batch_streamed(
     tile = auto_tile_rows(n, rank, T, cfg)
     n_blocks = -(-n // tile)
     st = Stage2StreamStats(tile_rows=tile, block_dtype=cfg.block_dtype)
-    lanes = Lanes(dev)
-    ring = _Ring(tile, rank, cfg.block_dtype, dev, cfg.prefetch, lanes, st)
+    tr = resolve(cfg.trace)
+    lanes = Lanes(dev, tr)
+    ring = _Ring(tile, rank, cfg.block_dtype, dev, cfg.prefetch, lanes, st, tr)
+    quant = ring.quant
+    group = wire_group(tile, cfg)
+    G_np = G.numpy()
 
     # one-time host bookkeeping: the sorted layout and the window tables
     idx_h = tasks.idx.cpu().numpy().astype(np.int64)
@@ -445,18 +557,30 @@ def solve_batch_streamed(
         full = kind == "full"
         for b in range(n_blocks):
             s, e = b * tile, min((b + 1) * tile, n)
-            gb, slot = ring.load(G[s:e])
+            if quant:
+                t0 = tr.begin()
+                qb = encode_block(G_np[s:e], tile, group)
+                st.encode_seconds += tr.end("encode", "stage2_quant", t0, rows=e - s)
+                gb, slot = ring.load((torch.from_numpy(qb.values),
+                                      torch.from_numpy(qb.scales)), e - s, group)
+            else:
+                gb, slot = ring.load(G[s:e])
             if not q_summed:
-                _row_sq(gb, q[s:e])
+                with tr.device_span("kernel", "row_sq", dev, rows=e - s):
+                    _row_sq(gb, q[s:e])
             if ps is not None:
-                init_sums(pend, ps, w0, b, gb, s)
+                with tr.device_span("kernel", "init_sums", dev, tasks=len(pend)):
+                    init_sums(pend, ps, w0, b, gb, s)
             if sweep:
-                v = smo_epoch(gb, q[s:e], sidx, y, c, alpha,
-                              unchanged, w, live, full_pass=full,
-                              shrink_k=shrink_k, lo=bounds[b], hi=bounds[b + 1],
-                              row0=s, scratch=scratch)
+                swept = int((bounds_h[b + 1] - bounds_h[b])[live_h].sum())
+                with tr.device_span("kernel", "smo_block", dev, rows=swept,
+                                    tasks=int(live_h.sum())):
+                    v = smo_epoch(gb, q[s:e], sidx, y, c, alpha,
+                                  unchanged, w, live, full_pass=full,
+                                  shrink_k=shrink_k, lo=bounds[b], hi=bounds[b + 1],
+                                  row0=s, scratch=scratch)
                 st.kernel_calls += 1
-                st.coord_visits += int((bounds_h[b + 1] - bounds_h[b])[live_h].sum())
+                st.coord_visits += swept
                 if full:
                     viol = torch.maximum(viol, v)
             ring.release(slot)
@@ -465,42 +589,66 @@ def solve_batch_streamed(
 
     def compacted_pass(comp):
         act_G, act_q, cidx, cbounds, visits = comp
+        U = act_q.shape[0]
         for b in range(visits.shape[0]):
-            s, e = b * tile, min((b + 1) * tile, act_G.shape[0])
-            gb, slot = ring.load(act_G[s:e])
-            smo_epoch(gb, act_q[s:e], cidx, y, c, alpha, unchanged, w,
-                      live, full_pass=False, shrink_k=shrink_k, lo=cbounds[b],
-                      hi=cbounds[b + 1], row0=s, scratch=scratch)
+            s, e = b * tile, min((b + 1) * tile, U)
+            if quant:                        # whole padded tiles, a row an entry
+                gb, slot = ring.load((act_G[0][s:s + tile], act_G[1][s:s + tile]),
+                                     e - s, 1)
+            else:
+                gb, slot = ring.load(act_G[s:e])
+            swept = int(visits[b][live_h].sum())
+            with tr.device_span("kernel", "smo_block", dev, rows=swept,
+                                tasks=int(live_h.sum())):
+                smo_epoch(gb, act_q[s:e], cidx, y, c, alpha, unchanged, w,
+                          live, full_pass=False, shrink_k=shrink_k, lo=cbounds[b],
+                          hi=cbounds[b + 1], row0=s, scratch=scratch)
             st.kernel_calls += 1
-            st.coord_visits += int(visits[b][live_h].sum())
+            st.coord_visits += swept
             ring.release(slot)
 
-    act_buf: Optional[torch.Tensor] = None
+    act_buf = None
+    gscales = None
 
     def recompact():
         """After a full pass: the union of rows active for a live task,
-        gathered once into pinned memory (None: stream all of G)."""
-        nonlocal act_buf
-        t0 = time.perf_counter()
+        gathered once into pinned memory, on the int8 wire encoded there
+        (None: stream all of G)."""
+        nonlocal act_buf, gscales
+        t0 = tr.begin()
         u = unchanged.cpu().numpy()
         st.bytes_d2h += u.nbytes
         active = (u < shrink_k) & live_h[:, None]
         union, cidx_h, cb_h, visits = _compaction(sidx_h, m, active, tile)
-        st.active_history.append(int(len(union)))
-        if len(union) == n:
-            st.compact_seconds += time.perf_counter() - t0
-            return None
         U = len(union)
-        if act_buf is None or act_buf.shape[0] < U:
-            act_buf = host_buffer((max(U, 1), rank), ring.wire, dev)
-        rows = torch.from_numpy(union)
-        if ring.wire == torch.float32:
-            torch.index_select(G, 0, rows, out=act_buf[:U])
+        st.active_history.append(U)
+        if U == n:
+            st.compact_seconds += tr.end("compact", "recompact", t0, union=U)
+            return None
+        if quant:
+            u_pad = -(-max(U, 1) // tile) * tile
+            if act_buf is None or act_buf[0].shape[0] < u_pad:
+                act_buf = (host_buffer((u_pad, rank), torch.int8, dev),
+                           host_buffer((u_pad, 2), torch.float32, dev))
+            t1 = tr.begin()
+            if gscales is None:              # the shared passes' groups, once
+                gscales = group_scales(G_np, group)
+            encode_compacted(G_np, gscales, group, union, tile, act_buf[0].numpy(),
+                             act_buf[1].numpy())
+            st.encode_seconds += tr.end("encode", "stage2_quant", t1, rows=U)
+            act = act_buf
         else:
-            act_buf[:U].copy_(G.index_select(0, rows))
-        comp = (act_buf[:U], q[_upload(union, dev, st)],
+            if act_buf is None or act_buf.shape[0] < U:
+                act_buf = host_buffer((max(U, 1), rank), ring.wire, dev)
+            rows = torch.from_numpy(union)
+            if ring.wire == torch.float32:
+                torch.index_select(G, 0, rows, out=act_buf[:U])
+            else:
+                act_buf[:U].copy_(G.index_select(0, rows))
+            act = act_buf[:U]
+        comp = (act, q[_upload(union, dev, st)],
                 _upload(cidx_h, dev, st), _upload(cb_h, dev, st), visits)
-        st.compact_seconds += time.perf_counter() - t0
+        st.compact_seconds += tr.end("compact", "recompact", t0, union=U)
         return comp
 
     def promote(pend: np.ndarray, w0: torch.Tensor) -> None:
@@ -538,13 +686,13 @@ def solve_batch_streamed(
             unchanged[dst] = 0
 
     if pending_h.any():                 # warm roots: an init pass first
-        t0 = time.perf_counter()
+        t0 = tr.begin()
         pend = np.flatnonzero(pending_h)
         promote(pend, shared_pass("init", pend)[1])
         live.copy_(torch.from_numpy(live_h))
         if lanes.cuda:
             torch.cuda.synchronize(dev)
-        st.init_seconds = time.perf_counter() - t0
+        st.init_seconds = tr.end("init", "init_pass", t0, tasks=len(pend))
     comp = None
     tuned = not cfg.autotune_prefetch
     for epoch in range(config.max_epochs):
@@ -552,6 +700,8 @@ def solve_batch_streamed(
         full = epoch % period == 0 or bool(pending_h.any())
         mark = st.bytes_g
         put0, drain0 = st.put_seconds, st.drain_seconds
+        te0, cv0 = tr.begin(), st.coord_visits
+        act_rows = n if comp is None or full else comp[1].shape[0]
         pend = np.flatnonzero(pending_h) if full else no_tasks
         if full or comp is None:
             viol, w0 = shared_pass("full" if full else "cheap", pend)
@@ -565,9 +715,9 @@ def solve_batch_streamed(
             flags = [live & (viol < config.tol)]
             if chained:                 # would a task seed nonzero alphas?
                 flags.append(((alpha > 0.0) & (c > 0.0)).any(1))
-            t0 = time.perf_counter()
+            t0 = tr.begin()
             flags_h = torch.stack(flags).cpu().numpy()   # one host sync per full pass
-            st.drain_seconds += time.perf_counter() - t0
+            st.drain_seconds += tr.end("drain", "flags", t0)
             st.bytes_d2h += flags_h.nbytes
             live_h &= ~flags_h[0]
             done_h |= flags_h[0]
@@ -577,6 +727,9 @@ def solve_batch_streamed(
             del w0
             live.copy_(torch.from_numpy(live_h))
         st.epoch_bytes.append(st.bytes_g - mark)
+        if tr.enabled:
+            _trace_epoch(tr, te0, epoch, full, st, act_rows, cv0,
+                         violation if full else None)
         if full:
             if not (live_h.any() or pending_h.any()):
                 break
@@ -587,7 +740,7 @@ def solve_batch_streamed(
             if config.shrink:
                 comp = recompact() if live_h.any() else None
 
-    t0 = time.perf_counter()
+    t0 = tr.begin()
     epochs = torch.where(torch.as_tensor(done_h, device=dev), epochs,
                          config.max_epochs).to(torch.int32)
     out_alpha = torch.empty_like(alpha).scatter_(1, perm, alpha)
@@ -595,12 +748,33 @@ def solve_batch_streamed(
     n_sv = (out_alpha > 0.0).sum(-1)
     if lanes.cuda:
         torch.cuda.synchronize(dev)
-    st.drain_seconds += time.perf_counter() - t0
+    st.drain_seconds += tr.end("drain", "result", t0)
     st.h2d_seconds = lanes.h2d_seconds()
     st.prefetch_final = ring.prefetch
     st.seconds = time.perf_counter() - t_start
     res = SolveResult(out_alpha, w, epochs, violation, dual, n_sv)
     return (res, st) if return_stats else res
+
+
+def _trace_epoch(tr, t0: float, epoch: int, full: bool, st: Stage2StreamStats,
+                 active: int, cv0: int, violation: Optional[torch.Tensor]) -> None:
+    """Close an epoch's span (the ``--verbose`` printer and the trace's epoch
+    row read its attrs) and sample its counters.  ``violation`` is given on
+    full passes only, whose flags have just synced the card."""
+    eb = st.epoch_bytes[-1]
+    rows = st.coord_visits - cv0
+    attrs = dict(epoch=epoch, kind="full" if full else "cheap", bytes=int(eb),
+                 hit_bytes=0, miss_bytes=0, rows=int(rows), active=int(active),
+                 devices=1)
+    if violation is not None:
+        v = violation.cpu().numpy()
+        v = v[np.isfinite(v)]
+        if v.size:
+            attrs["viol"] = float(v.max())
+    tr.end("epoch", f"epoch_{epoch}", t0, **attrs)
+    tr.counter("stage2/epoch_bytes", eb)
+    tr.counter("stage2/active_rows", active)
+    tr.counter("stage2/row_visits", rows)
 
 
 def _autotune(ring: _Ring, cfg: StreamConfig, rank: int, T: int, tile: int,
@@ -620,7 +794,8 @@ solve_streamed_auto = solve_batch_streamed
 
 
 __all__ = ["Stage2StreamStats", "auto_tile_rows", "block_windows",
+           "encode_block", "encode_compacted", "pad_quant_block",
            "route_stage2", "should_stream_stage2", "solve_batch_streamed",
-           "solve_streamed_auto",
+           "solve_streamed_auto", "wire_group",
            "stage2_block_bytes", "stage2_monolithic_bytes",
            "stage2_resident_bytes"]

@@ -23,6 +23,13 @@ reused the host waits on the event of the oldest chunk only, and before the
 first copy into a new slot the H2D stream waits for the compute stream
 (``Lanes.claim``).
 
+Under a tracer (``StreamConfig.trace``, else an installed one) the host
+spans are the reference's: ``read`` / ``stage1_rows`` (slicing or
+densifying a block), ``encode`` / ``stage1_quant``, ``h2d`` / ``stage1_put``
+(their sum is ``put_seconds``) and ``drain`` / ``stage1_fetch``; on the card
+the H2D copies (``h2d`` / ``stage1_copy``) and each chunk's kernel and
+product (``kernel`` / ``stage1_chunk``) are device spans (``core/trace.py``).
+
 On the CPU (``device="cpu"``) the same loop runs the kernels' plain versions
 and the copies are plain copies; a CPU-only PyTorch cannot pin.
 """
@@ -38,6 +45,7 @@ import torch
 
 from repro_torch.core.kernel_fn import KernelParams, full_fp32, gram
 from repro_torch.core.quant import GROUP_ROWS, quantize_rows
+from repro_torch.core.trace import NULL, resolve
 from repro_torch.kernels.ops import gram_q8
 
 BYTES_F32 = 4
@@ -58,11 +66,14 @@ class StreamConfig:
     prefetch: int = 2                    # chunks / blocks in flight
     min_chunk_rows: int = 256
     tile_rows: Optional[int] = None      # stage-2 G block rows (None -> derived)
-    block_dtype: str = "f32"             # stage-2 wire: "f32" or "bf16"
+    block_dtype: str = "f32"             # stage-2 wire: "f32", "bf16" or "int8"
     stage1_dtype: str = "f32"            # stage-1 wire: "f32" or "int8"
     quant_group_rows: int = GROUP_ROWS   # rows per int8 scale group
     autotune_prefetch: bool = True       # deepen the queue when H2D lags
     prefetch_cap: int = 8                # autotune ceiling on queue depth
+    trace: Optional[object] = None       # core.trace.Tracer recording the
+                                         # timeline; None -> the installed
+                                         # tracer, else the no-op fast path
 
     def __post_init__(self):
         if self.prefetch < 1:
@@ -74,10 +85,6 @@ class StreamConfig:
         if self.block_dtype not in WIRE_DTYPES:
             raise ValueError(f"block_dtype must be one of {WIRE_DTYPES}, "
                              f"got {self.block_dtype!r}")
-        if self.block_dtype == "int8":
-            raise NotImplementedError(
-                "StreamConfig: int8 stage-2 blocks are not ported to "
-                "repro_torch yet; use block_dtype='f32' or 'bf16'")
         if self.stage1_dtype not in ("f32", "int8"):
             raise ValueError(f"stage1_dtype must be 'f32' or 'int8', "
                              f"got {self.stage1_dtype!r}")
@@ -85,6 +92,15 @@ class StreamConfig:
             raise ValueError("quant_group_rows must be >= 1")
         if self.prefetch_cap < 1:
             raise ValueError("prefetch_cap must be >= 1")
+
+
+def with_trace(cfg: Optional[StreamConfig], trace) -> Optional[StreamConfig]:
+    """``cfg`` carrying ``trace`` (an explicit tracer wins over
+    ``cfg.trace``), for a call whose route was already chosen on ``cfg``
+    itself: a trace never changes which path runs."""
+    if trace is None:
+        return cfg
+    return dataclasses.replace(cfg or StreamConfig(), trace=trace)
 
 
 def tune_prefetch(h2d_seconds: float, compute_seconds: float, prefetch: int,
@@ -204,17 +220,21 @@ class Lanes:
     compute stream wait for it; ``fetch`` copies a device result to host on
     the D2H stream once the compute stream has produced it; ``mark`` records
     an event on the compute stream.  The H2D copies are timed with CUDA
-    events, read by ``h2d_seconds`` once the pass has synchronised."""
+    events, read by ``h2d_seconds`` once the pass has synchronised; a
+    tracer gets the same event pairs as device spans on the H2D row."""
 
-    def __init__(self, device):
+    def __init__(self, device, trace=NULL):
+        self.device = device
         self.cuda = torch.device(device).type == "cuda"
         self.copies: List = []
         self.cpu_copy_seconds = 0.0
+        self.trace = trace
         if self.cuda:
             self.h2d = torch.cuda.Stream(device)
             self.d2h = torch.cuda.Stream(device)
+            trace.anchor(device)
 
-    def put(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+    def put(self, dst: torch.Tensor, src: torch.Tensor, name: str = "copy") -> None:
         if not self.cuda:
             t0 = time.perf_counter()
             dst.copy_(src)
@@ -228,6 +248,8 @@ class Lanes:
             end.record()
         torch.cuda.current_stream().wait_event(end)
         self.copies.append((start, end))
+        self.trace.device_events("h2d", name, start, end, self.device, "h2d",
+                                 bytes=src.nbytes)
 
     def claim(self) -> None:
         """Call after allocating a device buffer that ``put`` will fill: the
@@ -281,7 +303,7 @@ class _Slot:
         self.host: List[torch.Tensor] = []
         self.dev: List[torch.Tensor] = []
 
-    def put(self, arrays, lanes: Lanes, device) -> List[torch.Tensor]:
+    def put(self, arrays, lanes: Lanes, device, name: str = "copy") -> List[torch.Tensor]:
         out = []
         for j, a in enumerate(arrays):
             a = torch.from_numpy(np.ascontiguousarray(a))
@@ -299,7 +321,7 @@ class _Slot:
                     self.host[j], self.dev[j] = buf
             host, dev = self.host[j][:r], self.dev[j][:r]
             host.copy_(a)
-            lanes.put(dev, host)
+            lanes.put(dev, host, name)
             out.append(dev)
         return out
 
@@ -320,12 +342,14 @@ def stream_factor_blocks(
     prefetch_cap: int = 8,
     stats: Optional[Stage1StreamStats] = None,
     gram_fn: Callable = gram,
+    trace=None,
 ) -> torch.Tensor:
     """Fill a host G = K(x, landmarks) @ projector from an iterator of
     (rows, p) fp32 row blocks totalling ``n`` rows (see the module
     docstring).  ``out`` is the host G, allocated (pinned for the card) when
     not given.  ``autotune_prefetch`` deepens the queue after the first
-    window when putting took longer than draining (``tune_prefetch``)."""
+    window when putting took longer than draining (``tune_prefetch``).
+    ``trace`` records the spans of the module docstring (``resolve``)."""
     dev = landmarks.device
     rank = projector.shape[1]
     if wire_dtype not in ("f32", "int8"):
@@ -334,6 +358,7 @@ def stream_factor_blocks(
     quant = wire_dtype == "int8"
     st = stats if stats is not None else Stage1StreamStats()
     st.wire_dtype = wire_dtype
+    tr = resolve(trace)
     t_start = time.perf_counter()
     if out is None:
         out = host_buffer((n, rank), torch.float32, dev)
@@ -342,50 +367,57 @@ def stream_factor_blocks(
     if tuple(out.shape) != (n, rank):
         raise ValueError(f"out buffer {tuple(out.shape)} != {(n, rank)}")
 
-    lanes = Lanes(dev)
+    lanes = Lanes(dev, tr)
     free: List[_Slot] = []
     inflight = collections.deque()        # (slot, done event)
 
     def drain_one():
-        slot, done = inflight.popleft()
-        t0 = time.perf_counter()
+        slot, done, rows = inflight.popleft()
+        t0 = tr.begin()
         wait(done)                         # this chunk's G rows are in `out`
-        st.drain_seconds += time.perf_counter() - t0
+        st.drain_seconds += tr.end("drain", "stage1_fetch", t0, rows=rows,
+                                   bytes=rows * rank * BYTES_F32)
         free.append(slot)
 
     tuned = not autotune_prefetch
     s = 0
     blocks = iter(blocks)
     while True:
-        t0 = time.perf_counter()
+        t0 = tr.begin()
         xb = next(blocks, None)
-        st.source_seconds += time.perf_counter() - t0
         if xb is None:
+            st.source_seconds += time.perf_counter() - t0
             break
+        st.source_seconds += tr.end("read", "stage1_rows", t0, rows=len(xb))
         xb = np.asarray(xb, np.float32)
         e = s + xb.shape[0]
         if e > n:
             raise ValueError(f"block iterator produced more than {n} rows")
         if quant:
-            t0 = time.perf_counter()
+            t0 = tr.begin()
             vals, scales = quantize_rows(xb, quant_group_rows, symmetric=True)
-            st.encode_seconds += time.perf_counter() - t0
+            st.encode_seconds += tr.end("encode", "stage1_quant", t0, rows=e - s,
+                                        bytes=vals.nbytes + scales.nbytes)
             wire = (vals, scales)
             st.bytes_scales += scales.nbytes
         else:
             wire = (xb,)
         slot = free.pop() if free else _Slot()
-        t0 = time.perf_counter()
-        on_card = slot.put(wire, lanes, dev)
-        st.put_seconds += time.perf_counter() - t0
-        st.bytes_h2d += sum(a.nbytes for a in wire)
-        if quant:
-            k = gram_q8(on_card[0], on_card[1], landmarks, params,
-                        group=quant_group_rows)
-        else:
-            k = gram_fn(on_card[0], landmarks, params)
-        inflight.append((slot, lanes.fetch(out[s:e], k @ projector)))
+        nbytes = sum(a.nbytes for a in wire)
+        t0 = tr.begin()
+        on_card = slot.put(wire, lanes, dev, "stage1_copy")
+        st.put_seconds += tr.end("h2d", "stage1_put", t0, bytes=nbytes)
+        st.bytes_h2d += nbytes
+        with tr.device_span("kernel", "stage1_chunk", dev, rows=e - s):
+            if quant:
+                k = gram_q8(on_card[0], on_card[1], landmarks, params,
+                            group=quant_group_rows)
+            else:
+                k = gram_fn(on_card[0], landmarks, params)
+            g = k @ projector
         del k
+        inflight.append((slot, lanes.fetch(out[s:e], g), e - s))
+        del g
         st.chunks += 1
         st.rows += e - s
         if len(inflight) >= prefetch:
@@ -521,7 +553,8 @@ def _streamed_factor_from_landmarks(landmarks: np.ndarray, make_blocks, n: int, 
         prefetch=config.prefetch, wire_dtype=config.stage1_dtype,
         quant_group_rows=config.quant_group_rows,
         autotune_prefetch=config.autotune_prefetch,
-        prefetch_cap=config.prefetch_cap, stats=stats, gram_fn=gram_fn)
+        prefetch_cap=config.prefetch_cap, stats=stats, gram_fn=gram_fn,
+        trace=config.trace)
     return nystrom.LowRankFactor(
         G=G, landmarks=landmarks, projector=projector, eigvals=evals,
         effective_rank=rank, kernel=params, streamed=True, stage1_stats=stats)

@@ -17,14 +17,16 @@ row blocks through B2 (``core/solver_stream.py``).  ``polish=True`` (or a
 ``polish_schedule``) solves stage 2 as the reference's coarse-to-fine ladder
 (``core/polish.py``), each level through B2, the final level routed as an
 unpolished fit.  ``predict_from_factor`` scores the training rows from G;
-``save`` / ``load`` persist a fitted model as a numpy archive.  The
-checkpointed (stage-2 resume) and traced routes of the reference are not
-ported yet: their arguments raise ``NotImplementedError``.
+``save`` / ``load`` persist a fitted model as a numpy archive.
+``fit(trace=...)`` (or a ``StreamConfig.trace``, or an installed tracer)
+records the ``fit`` / ``stage1`` and ``fit`` / ``stage2`` spans and the
+streamed and polished paths' own (``core/trace.py``).  The checkpointed
+route of the reference (stage-2 snapshots and resume) is not ported yet:
+its arguments raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -39,7 +41,8 @@ from repro_torch.core.polish import (PolishSchedule, PolishTrace, make_schedule,
                                      solve_polished)
 from repro_torch.core.solver_stream import (Stage2StreamStats, route_stage2,
                                             solve_batch_streamed)
-from repro_torch.core.streaming import Stage1StreamStats, StreamConfig
+from repro_torch.core.streaming import Stage1StreamStats, StreamConfig, with_trace
+from repro_torch.core.trace import resolve
 
 
 @dataclasses.dataclass
@@ -64,8 +67,8 @@ def _not_ported(**args) -> None:
     for name, set_ in args.items():
         if set_:
             raise NotImplementedError(
-                f"LPDSVM: `{name}` is not ported to repro_torch yet; only the "
-                "monolithic and the streamed fit -> predict routes are")
+                f"LPDSVM: `{name}` is not ported to repro_torch yet: stage-2 "
+                "checkpoints and resume are not")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -131,17 +134,27 @@ class LPDSVM:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------ stage 1
+    def _tracer(self, trace):
+        """The fit's tracer: ``trace`` > ``stream_config.trace`` > installed."""
+        return resolve(trace if trace is not None
+                       else getattr(self.stream_config, "trace", None))
+
     def prepare(self, x, trace=None) -> LowRankFactor:
         """Compute (or return the cached) low-rank factor G for `x`."""
-        _not_ported(trace=trace is not None)
         if self.factor is None:
-            t0 = time.perf_counter()
+            tr = self._tracer(trace)
+            # routing keys off stream / stream_config alone: a config made
+            # only to carry the trace goes where streaming is forced anyway
+            cfg = (with_trace(self.stream_config, trace)
+                   if self.stream_config is not None or self.stream else None)
+            t0 = tr.begin()
             self.factor = compute_factor(
                 x, self.kernel, self.budget, seed=self.seed,
                 gram_fn=self.gram_fn, device=self.device, stream=self.stream,
-                stream_config=self.stream_config)
+                stream_config=cfg)
             self._sync()
-            self.stats.stage1_seconds = time.perf_counter() - t0
+            self.stats.stage1_seconds = tr.end(
+                "fit", "stage1", t0, rows=len(x), budget=self.budget)
             self._factor_stats()
         return self.factor
 
@@ -154,9 +167,11 @@ class LPDSVM:
     def fit(self, x, y, factor: Optional[LowRankFactor] = None,
             warm_alpha=None, trace=None, checkpoint_dir=None,
             checkpoint_every=None, resume=None) -> "LPDSVM":
-        """Two-stage fit on the estimator's device."""
-        _not_ported(trace=trace is not None,
-                    checkpoint_dir=checkpoint_dir is not None,
+        """Two-stage fit on the estimator's device.  ``trace`` (a
+        ``core.trace.Tracer``) records the run's timeline; it wins over
+        ``StreamConfig.trace``, which wins over an installed tracer, and
+        never changes which route runs."""
+        _not_ported(checkpoint_dir=checkpoint_dir is not None,
                     checkpoint_every=checkpoint_every is not None,
                     resume=resume is not None)
         y = np.asarray(y)
@@ -167,16 +182,17 @@ class LPDSVM:
         if factor is not None:
             self.factor = factor
             self._factor_stats()
-        self.prepare(x)
+        self.prepare(x, trace=trace)
+        tr = self._tracer(trace)
 
         warm = None if warm_alpha is None else [np.asarray(a) for a in warm_alpha]
         tasks, self.pairs_ = build_ovo_tasks(labels, n_classes, self.C,
                                              alpha0=warm, device=self.device)
         self.tasks_ = tasks
-        t0 = time.perf_counter()
-        res: SolveResult = self._solve_stage2(tasks)
+        t0 = tr.begin()
+        res: SolveResult = self._solve_stage2(tasks, trace)
         self._sync()
-        self.stats.stage2_seconds = time.perf_counter() - t0
+        self.stats.stage2_seconds = tr.end("fit", "stage2", t0, tasks=tasks.n_tasks)
         self.stats.n_tasks = tasks.n_tasks
         self.stats.epochs = res.epochs.cpu().numpy()
         self.stats.violations = res.violation.cpu().numpy()
@@ -184,10 +200,11 @@ class LPDSVM:
         self.alpha_ = res.alpha
         return self
 
-    def _solve_stage2(self, tasks) -> SolveResult:
+    def _solve_stage2(self, tasks, trace=None) -> SolveResult:
         """Stage-2 dispatch (``solver_stream.route_stage2``): the polish
         ladder when enabled, the streamed row-block solver when G is
-        host-resident or must be, else ``solve_fn`` on G on the device."""
+        host-resident or must be, else ``solve_fn`` on G on the device.
+        Routing reads ``self.stream_config``; ``trace`` only rides along."""
         self.stats.stage2_streamed = False     # a refit must not report the
         self.stats.stage2_stats = None         # previous fit's stream stats
         self.stats.polished = False
@@ -197,7 +214,7 @@ class LPDSVM:
                 self.factor, tasks, self.config, self.polish_schedule,
                 stream=self.stream, stream_config=self.stream_config,
                 solve_fn=self.solve_fn, gap_trace=self.polish_gap_trace,
-                return_trace=True)
+                return_trace=True, trace=trace)
             self.stats.polished = True
             self.stats.polish_trace = ptrace
             self.stats.stage2_streamed = ptrace.final.streamed
@@ -207,7 +224,8 @@ class LPDSVM:
         if route_stage2(self.factor, tasks, self.stream, self.stream_config,
                         self.solve_fn, solve_batch):
             res, self.stats.stage2_stats = solve_batch_streamed(
-                G, tasks, self.config, stream_config=self.stream_config,
+                G, tasks, self.config,
+                stream_config=with_trace(self.stream_config, trace),
                 return_stats=True)
             self.stats.stage2_streamed = True
             return res

@@ -25,8 +25,11 @@ refit at the best cell).  ``--libsvm FILE`` (with ``--n-features`` and
 ``--on-bad-row``) trains from a LIBSVM text file instead of backbone
 features: the file is read into CSR, stage 1 streams from the CSR without
 ever building the dense (n, p) matrix, stage 2 streams, and the training
-rows are scored from G (``train_from_libsvm``).  Flags of routes not ported
-yet stop with an error that names them.
+rows are scored from G (``train_from_libsvm``).  ``--trace OUT.json``,
+``--trace-summary`` and ``--verbose`` arm a ``core/trace.py`` tracer for the
+run (a Chrome-trace file, the summary, a line per streamed stage-2 epoch).
+Flags of routes not ported yet (stage-2 checkpoints, shards, the block
+cache, the multi-device farm) stop with an error that names them.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from repro_torch.core.nystrom import compute_factor
 from repro_torch.core.quant import GROUP_ROWS
 from repro_torch.core.streaming import compute_factor_streamed_csr
 from repro_torch.core.svm import resolve_device
+from repro_torch.core.trace import ProgressPrinter, Tracer, install, uninstall
 from repro_torch.data import CSRData, IngestStats, read_libsvm
 from repro_torch.models.model import Model, init_model, trunk
 
@@ -210,9 +214,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--stream", action="store_true",
                     help="force the out-of-core pipelines (both stages)")
     ap.add_argument("--block-dtype", choices=("f32", "bf16", "int8"), default="f32",
-                    help="wire dtype of streamed stage-2 G blocks (int8: not "
-                         "ported yet); a non-f32 dtype forces streaming "
-                         "without a budget")
+                    help="wire dtype of streamed stage-2 G blocks (int8: codes "
+                         "and a scale table, decoded on the card); a non-f32 "
+                         "dtype forces streaming without a budget")
     ap.add_argument("--stage1-dtype", choices=("f32", "int8"), default="f32",
                     help="wire dtype of streamed stage-1 x chunks (forces "
                          "streaming without a budget)")
@@ -255,9 +259,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--checkpoint-dir", default=None, metavar="DIR")
     ap.add_argument("--checkpoint-every", type=int, default=1)
     ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--trace", default=None, metavar="OUT.json")
-    ap.add_argument("--trace-summary", action="store_true")
-    ap.add_argument("--verbose", action="store_true")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="record the run's timeline (core/trace.py; the card's "
+                         "work as CUDA-event spans) and export it as "
+                         "Chrome-trace JSON (ui.perfetto.dev)")
+    ap.add_argument("--trace-summary", action="store_true",
+                    help="print the trace summary (seconds per category, H2D "
+                         "rate, overlap, the device rows' busy time)")
+    ap.add_argument("--verbose", action="store_true",
+                    help="print one line per streamed stage-2 epoch")
     return ap
 
 
@@ -270,13 +280,9 @@ def _unported(args) -> Optional[str]:
              ("--shard-rows", args.shard_rows != 4096),
              ("--spill-g", args.spill_g),
              ("--no-verify-shards", not args.verify_shards),
-             ("--trace", args.trace is not None),
-             ("--trace-summary", args.trace_summary),
-             ("--verbose", args.verbose),
              ("--cache-budget-mb", args.cache_budget_mb != -1.0),
              ("--no-cache", args.no_cache),
-             ("--no-overlap", args.no_overlap),
-             ("--block-dtype int8", args.block_dtype == "int8"))
+             ("--no-overlap", args.no_overlap))
     return next((flag for flag, set_ in given if set_), None)
 
 
@@ -300,11 +306,32 @@ def main(argv=None) -> float:
         ap.error("--grid-gammas requires --grid-cs")
 
     stream_config, force = stream_args(args)
-    if args.libsvm:
-        if args.grid_cs is not None:
-            ap.error("--grid-cs is not supported with --libsvm")
-        return train_from_libsvm(args, stream_config).train_error
-    return _run(args, ap, stream_config, force).test_error
+    if args.libsvm and args.grid_cs is not None:
+        ap.error("--grid-cs is not supported with --libsvm")
+    # any of the three flags arms a tracer, installed process-wide (every
+    # instrumented path resolves it, with or without a StreamConfig) and put
+    # in the StreamConfig where there is one; export and summary run in
+    # `finally`, so a failed run still leaves its timeline
+    tracer = None
+    if args.trace or args.trace_summary or args.verbose:
+        tracer = Tracer()
+        if args.verbose:
+            tracer.add_listener(ProgressPrinter())
+        if stream_config is not None:
+            stream_config = dataclasses.replace(stream_config, trace=tracer)
+        install(tracer)
+    try:
+        if args.libsvm:
+            return train_from_libsvm(args, stream_config).train_error
+        return _run(args, ap, stream_config, force).test_error
+    finally:
+        if tracer is not None:
+            uninstall()
+            if args.trace:
+                tracer.export(args.trace)
+                print(f"trace: {tracer.n_events} events -> {args.trace}")
+            if args.trace_summary:
+                print(tracer.summary())
 
 
 def _floats(csv: str):

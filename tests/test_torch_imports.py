@@ -37,7 +37,7 @@ def test_port_covers_its_layout():
     for name in ("core/kernel_fn.py", "core/nystrom.py", "core/dual_solver.py",
                  "core/ovo.py", "core/svm.py", "core/quant.py", "core/streaming.py",
                  "core/solver_stream.py", "core/polish.py", "core/cv.py",
-                 "core/compact.py",
+                 "core/compact.py", "core/trace.py",
                  "kernels/build.py", "kernels/gram.py",
                  "kernels/smo.py", "kernels/ops.py", "data/synthetic.py",
                  "convert.py", "kernels/flash_attention.py", "configs/base.py",
@@ -52,7 +52,7 @@ def test_port_covers_its_layout():
 
 def test_import_leaves_no_jax_in_sys_modules():
     code = ("import sys, repro_torch, repro_torch.convert, repro_torch.data, "
-            "repro_torch.checkpoint; "
+            "repro_torch.checkpoint, repro_torch.core.trace; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

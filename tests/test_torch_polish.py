@@ -269,6 +269,17 @@ def test_lpdsvm_polish_agrees_with_the_reference():
 
 
 def test_a_tracer_is_refused(mono):
+    """A tracer, which used to be refused, records one ``polish`` span a
+    level, in order, and leaves the ladder's result as it was."""
+    from repro_torch.core.trace import Tracer
     *_, pfac, tasks = mono
-    with pytest.raises(NotImplementedError, match="trace"):
-        polish.solve_polished(pfac, tasks, CFG, trace=object())
+    plain, ptrace = polish.solve_polished(pfac, tasks, CFG, return_trace=True)
+    tr = Tracer()
+    res, ptrace2 = polish.solve_polished(pfac, tasks, CFG, trace=tr,
+                                         return_trace=True)
+    levels = [e for e in tr.events() if e[1] == "polish"]
+    idx = [int(e[2].split("_")[1]) for e in levels]
+    assert idx == sorted(set(idx)) and all(e[2].startswith("level_") for e in levels)
+    assert len(levels) == len(ptrace2.levels) >= 2
+    assert [e[4] for e in levels] == [lv.seconds for lv in ptrace2.levels]
+    assert torch.equal(res.alpha, plain.alpha) and torch.equal(res.w, plain.w)

@@ -144,8 +144,9 @@ def test_autotune_deepens_the_queue_only_when_putting_lags():
 
 
 def test_config_validation_and_the_unported_int8_stage2_wire():
-    with pytest.raises(NotImplementedError, match="int8"):
-        ts.StreamConfig(block_dtype="int8")
+    """The int8 stage-2 wire is ported (it used to raise here); every other
+    invalid field still raises."""
+    assert ts.StreamConfig(block_dtype="int8").block_dtype == "int8"
     for bad in (dict(prefetch=0), dict(chunk_rows=0), dict(tile_rows=0),
                 dict(block_dtype="f16"), dict(stage1_dtype="bf16"),
                 dict(quant_group_rows=0), dict(prefetch_cap=0)):

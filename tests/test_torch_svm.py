@@ -56,7 +56,38 @@ def test_predictions_agree_with_reference(fitted):
     assert port.error(xte, yte) < 0.25
     assert port.stats.n_tasks == ref.stats.n_tasks
     assert np.all(port.stats.violations < 1e-2)
-    assert port.stats.effective_rank == ref.stats.effective_rank
+    # the rank: fp32 eigh decides it wherever an eigenvalue of K_mm lies
+    # within its error of the drop threshold rtol lam_max
+    band = _eigh_band(ref)
+    assert abs(port.stats.effective_rank - ref.stats.effective_rank) <= band
+    if band == 0:
+        assert port.stats.effective_rank == ref.stats.effective_rank
+
+
+# An fp32 eigh (Householder tridiagonalisation, then QR or divide and
+# conquer) returns each eigenvalue of a symmetric B x B matrix within about
+# c B eps32 lam_max of the exact one (its backward error, by Weyl's bound),
+# and the fp32 K_mm it is given is itself within a few eps32 of K's fp64
+# entries, which moves an eigenvalue by at most B times that: below B eps32
+# lam_max as lam_max >= 1 (an RBF K_mm has a unit diagonal).  c = 1 covers
+# both: at spirals the two packages' fp32 eigenvalues next to the threshold
+# (1.00451e-6 and 0.98164e-6 of lam_max, fp64 0.99381e-6) lie 2.3e-8 lam_max
+# apart, some 200 times inside the band (5.7e-6 lam_max), which there holds
+# one eigenvalue (the next lies 8.2e-6 lam_max up); at checker and blobs10
+# it holds none, and the ranks must be equal.
+EIGH_ERROR_C = 1.0
+
+
+def _eigh_band(ref) -> int:
+    """The eigenvalues of the reference's K_mm, in fp64, that lie within
+    ``EIGH_ERROR_C`` B eps32 lam_max of its drop threshold."""
+    from repro.core.nystrom import DEFAULT_EIG_RTOL
+    z = np.asarray(ref.factor.landmarks, np.float64)
+    d2 = (z * z).sum(1)[:, None] + (z * z).sum(1)[None, :] - 2.0 * z @ z.T
+    lam = np.linalg.eigvalsh(np.exp(-ref.kernel.gamma * np.maximum(d2, 0.0)))
+    lam_max, b = lam.max(), z.shape[0]
+    width = EIGH_ERROR_C * b * np.finfo(np.float32).eps * lam_max
+    return int(np.sum(np.abs(lam - DEFAULT_EIG_RTOL * lam_max) <= width))
 
 
 def test_carried_weights_give_reference_decisions(fitted):
@@ -169,8 +200,7 @@ def test_polish_constructor_arguments_take_effect(kwargs, check):
 
 
 @pytest.mark.parametrize("arg,value", [
-    ("trace", object()), ("checkpoint_dir", "ckpt"), ("checkpoint_every", 1),
-    ("resume", True)])
+    ("checkpoint_dir", "ckpt"), ("checkpoint_every", 1), ("resume", True)])
 def test_unported_fit_arguments_raise(arg, value):
     x, y = make_checker(40, seed=0)
     with pytest.raises(NotImplementedError, match=arg):
@@ -261,7 +291,9 @@ def test_stream_routing_of_the_estimator():
 
 
 def test_unported_stream_options_raise():
-    with pytest.raises(NotImplementedError, match="int8"):
-        LPDSVM(device="cpu", stream_config=StreamConfig(block_dtype="int8"))
+    """The int8 stage-2 wire, which used to raise here, is ported; a
+    StreamConfig of the JAX package is still refused."""
+    svm = LPDSVM(device="cpu", stream_config=StreamConfig(block_dtype="int8"))
+    assert svm.stream_config.block_dtype == "int8"
     with pytest.raises(TypeError, match="StreamConfig"):
         LPDSVM(device="cpu", stream_config=JStreamConfig())
