@@ -94,9 +94,9 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 n B' 4, encode seconds, stage-2 seconds beside the f32 wire's,
                 violations under tol, peak device memory within the budget
                 plus the task-state allowance; bit-equal to the monolithic
-                solve on the decoded G; predictions 0.98 alike to the f32
-                streamed fit's (as the polished fits are held), test error
-                within 0.5 points
+                solve on the decoded G; predictions INT8_MIN_AGREE alike to
+                the f32 streamed fit's (the f32 solve's own spread between
+                tol 1e-2 and 1e-3), test error within 0.5 points
   windowed B2 vs plain            B2's window form on one streamed G block
   timing, streamed kernels        B3 at the chunk shape and windowed B2 on
                 one block, beside plain versions, library calls and bounds
@@ -242,6 +242,12 @@ B3_FP64_BARS = {"symmetric linear / sum |x||z|": 2.5e-6, "symmetric rbf 1/p": 1.
 POLISH_W_SHARE = 0.05            # polished w against the cold fit's, of max |w|
 POLISH_ERR_DIFF = 0.03           # test error, polished against cold
 POLISH_MIN_AGREE = 0.98          # predictions, polished against cold
+# predictions, int8 stage-2 blocks against the f32 wire: the lowest share on
+# which the f32 fit at tol 1e-2 agrees with one at tol 1e-3 of the same
+# problem, over data seeds 0-4 at the streamed path's full width (0.9891-
+# 0.9917; int8 against f32 0.9895-0.9917: tools/int8_agreement.py on an
+# NVIDIA H100 80GB HBM3, 700 W)
+INT8_MIN_AGREE = 0.9891
 ALPHA_ATOL = 1e-4                # C = 1 scale
 W_RTOL = 1e-3                    # of max |w|
 VIOL_RTOL = 1e-3
@@ -512,7 +518,7 @@ def main() -> int:
             print(f"B1 {name}: {r.get('registers')} registers, {r.get('spills')} bytes "
                   f"spilled, {b1_hgmma.get(name, 0)} HGMMA in its SASS")
         b1_main = [name for name in b1_build if "gram_tc" in name]
-        check(len(b1_main) == 2 and len(b1_build) > 2
+        check(len(b1_main) == 4 and len(b1_build) > 4
               and all(r.get("spills") is not None for r in b1_build.values()),
               "B1's ptxas report is missing from the build log")
         check(all(r["spills"] == 0 for r in b1_build.values()), "B1 spills registers")
@@ -1529,11 +1535,12 @@ def main() -> int:
               f"whole on the host in {t_q:.3f} s): alphas, w and epochs equal {same8}")
         check(same8, "the int8 stage 2 is not the monolithic solve on the decoded G")
         # The int8 fit solves another problem (the decoded G) to the same KKT
-        # tol: its predictions are held as the polished fits' are against the
-        # cold one (98%; two fits of one f32 problem by different paths agree
-        # on 98.8-98.9% here), and its test error within the streamed path's
-        # 0.5 points of the f32 wire's.
-        check(agree8 >= 0.98, f"int8-block predictions agree {agree8} < 0.98")
+        # tol: its predictions are held to agree with the f32 fit's no less
+        # than the f32 solve's own tolerance moves them (INT8_MIN_AGREE), and
+        # its test error within the streamed path's 0.5 points of the f32
+        # wire's.
+        check(agree8 >= INT8_MIN_AGREE,
+              f"int8-block predictions agree {agree8} < {INT8_MIN_AGREE}")
         check(abs(float(np.mean(pred8 != yte)) - err_s) <= 0.005,
               "int8-block test error off by > 0.5 points")
         del svm8, mono8

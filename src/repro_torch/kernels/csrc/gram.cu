@@ -35,18 +35,29 @@
 // tests.  So each k tile starts a fresh accumulator, takes its 20 small
 // products first and its 4 x1 z1 products last, and is added into the
 // running dot by round-to-nearest FADDs: per tile, 4 additions at the
-// scale of its own sum.  dot 2^(e_i + e_j) is formed in fp64 (exact) and
-// rounded once to fp32, then the kernel function; RBF as ||x||^2 + ||z||^2
-// - 2 dot, clamped at 0, with the squared norms summed in fp32 by the
-// pre-pass.  Measured against K in fp64 (tools/b1_probe.py, 60000 x 2048 x
-// 784, rows uniform in [0, 1); NVIDIA H100 80GB HBM3, 700 W), the largest
-// errors, here against the SIMT B1 this replaced (an fp32 FMA chain over
-// p, which rounds as gram_plain does: the two differ by 0 to 4.5e-7):
-//   RBF at gamma 1/p                    2.7e-7 against 1.0e-6
-//   RBF at the median gamma (7.7e-3)    6.0e-7 against 2.9e-6
-//   linear, over sum |x||z|             3.7e-7 against 2.4e-6
+// scale of its own sum.  Where p fits one k tile (p <= 64) the tile's small
+// products and its x1 z1 products are two sums, each of about one wgmma's
+// error at its own scale (the x1 z1 sum is often exact there), and are
+// added in fp64.  dot 2^(e_i + e_j) is formed in fp64 (exact); the linear,
+// poly and tanh kernels take it rounded once to fp32.  RBF takes d2 =
+// ||x||^2 + ||z||^2 - 2 dot in fp64, with the squared norms summed in fp64
+// by the pre-pass (each square exact), rounded once to fp32 and clamped at
+// 0: the form's cancellation then costs no rounding of its own, and d2 errs
+// by twice the dot's error.  At small p and a large gamma, where an fp32
+// norm's rounding alone (an ulp of ||x||^2, times gamma) is about 1e-6 of
+// K on the diagonal, B1 is the nearer to fp64.  Measured against K in fp64
+// (tools/b1_probe.py; NVIDIA H100 80GB HBM3, 700 W), the largest errors,
+// here against gram_plain's (an fp32 FMA chain over p):
+//   60000 x 2048 x 784, rows uniform in [0, 1):
+//     RBF at gamma 1/p                  2.1e-7 against 1.1e-6
+//     RBF at the median gamma (7.7e-3)  4.5e-7 against 2.9e-6
+//     linear, over sum |x||z|           3.7e-7 against 2.4e-6
 //   mixed signs, each element over 2^+-60, linear, over sum |x||z|
-//   (10000 x 2048 x 784)                5.5e-7 against 7.1e-7.
+//   (10000 x 2048 x 784)                5.5e-7 against 7.1e-7
+//   K_mm at p 2: tests/test_torch_svm.py's spirals landmarks (gamma 8)
+//                                       2.4e-7 against 9.9e-7
+//   48-row checker draws (gamma 2), the worst of five
+//                                       1.4e-6 against 7.6e-6.
 // The blocked sum (a tile of 64, then the tiles) grows its error more
 // slowly than one chain over p does.  Rows with one nonzero element, where
 // each dot is one x_k z_k, come within 1.4e-7 of fp64 (the card test holds
@@ -59,8 +70,8 @@
 //      scaled pieces of z into a scratch (3, m, p_pad) bf16 (p_pad = p
 //      rounded up to the 64-wide k tile, the tail zero), within each k tile
 //      in the order the A fragments take the elements of x (position()),
-//      with per row of z its squared norm and 2^e_j; per row of x (one warp
-//      a row) its squared norm and 2^e_i;
+//      with per row of z 2^e_j; per row of x and of z (one warp a row) its
+//      squared norm in fp64, and per row of x 2^e_i;
 //   2. the product.  A block owns BM = 128 rows of x by BN = 128 rows of z:
 //      two consumer warpgroups (64 rows of x each) and one producer
 //      warpgroup.
@@ -113,44 +124,52 @@ static_assert(Smem::BYTES <= 232448, "above the 227 KB a block can use");
 
 // The pre-pass.  Blocks [0, z_blocks) take the rows of z, two a block
 // (split_rows_of_z; VEC: p % 4 == 0 and z 16-byte aligned).  The blocks
-// after them take the rows of x, one warp a row: xcol[i] = sum x^2 and
-// xcol[n + i] = 2^e_i, where 2^-e_i brings the row's largest |x| into
-// [1, 2) (e_i = 0 for a row that is all zero or not finite); xvec: p % 4 == 0
-// and x 16-byte aligned, so four elements a load.
+// after them take the n rows of x, then the m rows of z again, one warp a
+// row: the squared norms in fp64 (each square exact there), xcol[i] =
+// sum x_i^2 and xcol[2 n + j] = sum z_j^2, and xcol[n + i] = 2^e_i, where
+// 2^-e_i brings the row's largest |x| into [1, 2) (e_i = 0 for a row that
+// is all zero or not finite); xvec: p % 4 == 0 and x 16-byte aligned, so
+// four elements a load.
 template <bool VEC>
 __global__ void __launch_bounds__(PRE_THREADS)
 prepass(const float* __restrict__ x, const float* __restrict__ z,
         __nv_bfloat16* __restrict__ pieces, float* __restrict__ zcol,
-        float* __restrict__ xcol, int n, int m, int p, int p_pad, int z_blocks, int xvec) {
+        double* __restrict__ xcol, int n, int m, int p, int p_pad, int z_blocks, int xvec) {
   if ((int)blockIdx.x >= z_blocks) {
     const long i = (long)(blockIdx.x - z_blocks) * (PRE_THREADS / 32) + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
-    if (i >= n) return;
-    const float* r = x + i * (long)p;
-    float mx = 0.f, sq = 0.f;
-    if (xvec) {
+    if (i >= (long)n + m) return;
+    const bool of_x = i < n;
+    const float* r = of_x ? x + i * (long)p : z + (i - n) * (long)p;
+    float mx = 0.f;
+    double sq = 0.0;
+    if (of_x ? xvec : VEC) {
 #pragma unroll 4
       for (int k = 4 * lane; k < p; k += 4 * 32) {
         const float4 v = __ldg(reinterpret_cast<const float4*>(r + k));
         mx = fmaxf(fmaxf(mx, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
-        sq = fmaf(v.x, v.x, sq);
-        sq = fmaf(v.y, v.y, sq);
-        sq = fmaf(v.z, v.z, sq);
-        sq = fmaf(v.w, v.w, sq);
+        sq = fma((double)v.x, (double)v.x, sq);
+        sq = fma((double)v.y, (double)v.y, sq);
+        sq = fma((double)v.z, (double)v.z, sq);
+        sq = fma((double)v.w, (double)v.w, sq);
       }
     } else {
 #pragma unroll 4
       for (int k = lane; k < p; k += 32) {
         const float v = __ldg(r + k);
         mx = fmaxf(mx, fabsf(v));
-        sq = fmaf(v, v, sq);
+        sq = fma((double)v, (double)v, sq);
       }
     }
     mx = warp_max(mx);
     sq = warp_sum(sq);
     if (lane == 0) {
-      xcol[i] = sq;
-      xcol[n + i] = ldexpf(1.f, (mx > 0.f && mx <= 3.402823466e38f) ? ilogbf(mx) : 0);
+      if (of_x) {
+        xcol[i] = sq;
+        xcol[n + i] = ldexp(1.0, (mx > 0.f && mx <= 3.402823466e38f) ? ilogbf(mx) : 0);
+      } else {
+        xcol[n + i] = sq;   // 2 n + j
+      }
     }
     return;
   }
@@ -176,11 +195,12 @@ __device__ __forceinline__ void split3x2(float a, float b, uint32_t& w1, uint32_
 }
 
 // VEC: p % 4 == 0 and a 16-byte aligned base, so each four elements of x
-// are one float4 load, wholly inside or outside p.
-template <bool VEC>
+// are one float4 load, wholly inside or outside p.  ONE_TILE: p <= BK, one
+// k tile, whose x1 z1 products go into dot and the small ones into acc.
+template <bool VEC, bool ONE_TILE>
 __global__ void __launch_bounds__(THREADS, 1)
 gram_tc(const __grid_constant__ CUtensorMap tz, const float* __restrict__ x,
-        const float* __restrict__ xcol, const float* __restrict__ zcol, float* __restrict__ out,
+        const double* __restrict__ xcol, const float* __restrict__ zcol, float* __restrict__ out,
         int n, int m, int p, int m_tiles, int kind, float gamma, float coef0, int degree) {
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = (smem_u32(smem) + ATOM - 1) & ~(ATOM - 1);
@@ -232,7 +252,7 @@ gram_tc(const __grid_constant__ CUtensorMap tz, const float* __restrict__ x,
     xin[h] = r0 + 8 * h < n;
     const long row = xin[h] ? r0 + 8 * h : 0;
     xrow[h] = x + row * (long)p + 16 * t;
-    const int e = ilogbf(xcol[n + row]);
+    const int e = ilogb(xcol[n + row]);
     const bool tiny = e < -126;     // 2^-e is no fp32: scale up in two steps
     f1[h] = tiny ? 0x1p64f : 1.f;
     f2[h] = ldexpf(1.f, tiny ? -e - 64 : -e);
@@ -301,36 +321,43 @@ gram_tc(const __grid_constant__ CUtensorMap tz, const float* __restrict__ x,
       wgmma_rs_n128(acc, a[0][kk], desc_k_major(z2));   // x1 z2
       wgmma_rs_n128(acc, a[1][kk], desc_k_major(z1));   // x2 z1
     }
+    // one k tile: the x1 z1 products in a sum of their own, dot (at 0 here),
+    // which the epilogue adds to the small products' in fp64
+    float (&big)[64] = ONE_TILE ? dot : acc;
+    if (ONE_TILE) pin(dot);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t z1 = b_stage + kk * 32;
-      wgmma_rs_n128(acc, a[0][kk], desc_k_major(z1));   // x1 z1
+      wgmma_rs_n128(big, a[0][kk], desc_k_major(z1));   // x1 z1
     }
     wgmma_commit();
     // the group's own wait: the other warpgroup keeps the tensor cores busy
     // meanwhile, and the fragments are free for the next k tile
     wgmma_wait<0>();
     pin(acc);
+    if (ONE_TILE) pin(dot);
 #pragma unroll
     for (int c = 0; c < PIECES; ++c) pin(a[c]);
     mbar_arrive(empty + 8 * s);
+    if (!ONE_TILE) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      dot[i] += acc[i];
-      acc[i] = 0.f;
+      for (int i = 0; i < 64; ++i) {
+        dot[i] += acc[i];
+        acc[i] = 0.f;
+      }
     }
   }
 
-  // ---- epilogue: dot[4 i + 2 h + e] is row warp * 16 + g + 8 h of the
-  // warpgroup, column 8 i + 2 t + e of the tile
+  // ---- epilogue: dot[4 i + 2 h + e] (ONE_TILE: + acc[4 i + 2 h + e]) is
+  // row warp * 16 + g + 8 h of the warpgroup, column 8 i + 2 t + e of the
+  // tile
   long rr[2];
-  float rx[2];
-  double px[2];
+  double rx[2], px[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     rr[h] = r0 + 8 * h;
     const long row = rr[h] < n ? rr[h] : 0;
-    rx[h] = kind == RBF ? xcol[row] : 0.f;
+    rx[h] = kind == RBF ? xcol[row] : 0.0;
     px[h] = xcol[n + row];
   }
   const bool pairs = (m & 1) == 0;   // then (row m + c) is even: float2 stores
@@ -342,14 +369,19 @@ gram_tc(const __grid_constant__ CUtensorMap tz, const float* __restrict__ x,
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int cc = c + e < m ? c + e : c;
-      const float zsq = kind == RBF ? zcol[cc] : 0.f;
+      const double zsq = kind == RBF ? xcol[2 * (long)n + cc] : 0.0;
       const double pz = zcol[2 * m + cc];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        // 2^(e_i + e_j) is exact in fp64, and so is its product with acc:
-        // one rounding, to fp32
-        const float d = __double2float_rn((double)dot[4 * i + 2 * h + e] * (px[h] * pz));
-        v[h][e] = epilogue(d, rx[h], zsq, kind, gamma, coef0, degree);
+        // the two sums' total and 2^(e_i + e_j) are exact in fp64, and so
+        // is their product; RBF's d2 from it and the fp64 norms, then one
+        // rounding to fp32
+        const int k = 4 * i + 2 * h + e;
+        const double d = (ONE_TILE ? (double)dot[k] + (double)acc[k] : (double)dot[k]) *
+                         (px[h] * pz);
+        v[h][e] = kind == RBF
+                      ? expf(-gamma * fmaxf(__double2float_rn(rx[h] + zsq - 2.0 * d), 0.f))
+                      : epilogue(__double2float_rn(d), 0.f, 0.f, kind, gamma, coef0, degree);
       }
     }
 #pragma unroll
@@ -370,18 +402,19 @@ gram_tc(const __grid_constant__ CUtensorMap tz, const float* __restrict__ x,
 
 // Kernel B1.  x (n, p), z (m, p), out (n, m): contiguous fp32 on the current
 // device.  Scratch: pieces (3, m, p_pad) bf16 with a 16-byte aligned base,
-// p_pad = max(1, ceil(p / 64)) 64; zcol (3 m) and xcol (2 n) fp32.  Launches
+// p_pad = max(1, ceil(p / 64)) 64; zcol (3 m) fp32 and xcol (2 n + m) fp64,
+// 8-byte aligned.  Launches
 // the pre-pass and the product on `stream`, does not synchronise, and
 // returns cudaGetLastError() after each launch (0 = launched), or
 // cudaErrorInvalidValue for arguments it does not take.
 extern "C" int gram_launch(const float* x, const float* z, void* pieces, float* zcol,
-                           float* xcol, float* out, int n, int m, int p, int p_pad, int kind,
+                           double* xcol, float* out, int n, int m, int p, int p_pad, int kind,
                            float gamma, float coef0, int degree, void* stream) {
   if (n <= 0 || m <= 0) return 0;
   if (p < 0 || p_pad != padded(p)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long z_blocks = ((long)m + 1) / 2;
-  const long blocks = z_blocks + ((long)n + PRE_THREADS / 32 - 1) / (PRE_THREADS / 32);
+  const long blocks = z_blocks + ((long)n + m + PRE_THREADS / 32 - 1) / (PRE_THREADS / 32);
   const long m_tiles = ((long)m + BN - 1) / BN, tiles = m_tiles * (((long)n + BM - 1) / BM);
   if (blocks > 0x7fffffff || tiles > 0x7fffffff) return cudaErrorInvalidValue;
   __nv_bfloat16* pz = static_cast<__nv_bfloat16*>(pieces);
@@ -396,7 +429,9 @@ extern "C" int gram_launch(const float* x, const float* z, void* pieces, float* 
   if (err != cudaSuccess) return err;
   CUtensorMap map;
   if (!tensor_map(&map, pieces, m, p_pad)) return cudaErrorInvalidValue;
-  auto kernel = xvec ? gram_tc<true> : gram_tc<false>;
+  const bool one = p_pad == BK;
+  auto kernel = xvec ? (one ? gram_tc<true, true> : gram_tc<true, false>)
+                     : (one ? gram_tc<false, true> : gram_tc<false, false>);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)Smem::BYTES);   // above 48 KB: opt-in
   if (err != cudaSuccess) return err;

@@ -123,8 +123,8 @@ def _check_grid(name: str, tile, n: int, m: int, p: int) -> None:
 def gram_kernel(x: torch.Tensor, z: torch.Tensor, params) -> torch.Tensor:
     """Launch kernel B1 on CUDA tensors; returns the (n, m) fp32 matrix.
     Ragged n, m and p are masked in the kernel.  Its scratch, z's pieces
-    (3, m, p rounded up to 64) bf16 and (3 m + 2 n) fp32 of row tables, is
-    allocated here, per call."""
+    (3, m, p rounded up to 64) bf16, 3 m fp32 and 2 n + m fp64 of row
+    tables, is allocated here, per call."""
     if not (x.is_cuda and z.is_cuda and x.device == z.device):
         raise ValueError("gram_kernel: x and z must be CUDA tensors on one device")
     if x.dtype != torch.float32 or z.dtype != torch.float32:
@@ -139,12 +139,13 @@ def gram_kernel(x: torch.Tensor, z: torch.Tensor, params) -> torch.Tensor:
     p_pad = _padded(p)
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
     pieces = torch.empty((3, m, p_pad), dtype=torch.bfloat16, device=x.device)
-    tables = torch.empty((3 * m + 2 * n,), dtype=torch.float32, device=x.device)
+    zcol = torch.empty((3 * m,), dtype=torch.float32, device=x.device)
+    xcol = torch.empty((2 * n + m,), dtype=torch.float64, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _launcher("gram", "gram_launch", _GRAM_ARGS)(
-            x.data_ptr(), z.data_ptr(), pieces.data_ptr(), tables.data_ptr(),
-            tables[3 * m:].data_ptr(), out.data_ptr(), n, m, p, p_pad,
+            x.data_ptr(), z.data_ptr(), pieces.data_ptr(), zcol.data_ptr(),
+            xcol.data_ptr(), out.data_ptr(), n, m, p, p_pad,
             KERNELS.index(params.kind), float(params.gamma), float(params.coef0),
             int(params.degree), stream)
     if err != 0:

@@ -1353,13 +1353,14 @@ SPIRALS_LANDMARKS = [166, 210, 0, 36, 209, 234, 226, 110, 1, 40, 19, 269, 228, 2
 def test_spirals_k_mm_from_b1_near_the_threshold_no_farther_from_fp64_than_plain(cuda):
     """tests/test_torch_svm.py's spirals rank is decided by the eigenvalue of
     K_mm next to the drop threshold (about 1e-6 lam_max), and that check is
-    argued from fp32 eigh's error.  At the same landmarks B1's K_mm puts that
-    eigenvalue no farther from fp64's than the plain version's does.  Entry
-    by entry B1 is the farther one here (C10: about 2e-6 against 1e-6 on an
-    H100, on the diagonal, where B1's all but exact dot meets its norms
-    summed in fp32); both stay within the fp32 form's rounding bound, gamma
-    4 p eps (|x_i|^2 + |x_j|^2), as test_gram_kernel_rbf_diagonal_of_k_mm
-    holds B1 at the main path's data."""
+    argued from fp32 eigh's error, so the K_mm that eigh is given must be no
+    farther from fp64 than the plain fp32 form's: entry by entry (the
+    largest error), and at the smallest eigenvalue over lam_max.  Here p is
+    2 and gamma 8: an fp32 norm's rounding alone is an ulp of |x|^2, about
+    1e-6 of K, which B1's fp64 norms and fp64 d2 avoid.  Every entry also
+    within the fp32 form's rounding bound, gamma 4 p eps (|x_i|^2 + |x_j|^2),
+    as test_gram_kernel_rbf_diagonal_of_k_mm holds B1 at the main path's
+    data."""
     from repro_torch.data import make_two_spirals, train_test_split
     x, y = make_two_spirals(400, seed=2)
     xtr = train_test_split(x, y, seed=0)[0]
@@ -1385,4 +1386,5 @@ def test_spirals_k_mm_from_b1_near_the_threshold_no_farther_from_fp64_than_plain
     print(f"K_mm against fp64, max abs / smallest eigenvalue over lam_max: "
           f"B1 {err['B1'][0]:.3e} / {err['B1'][1]:.3e}, "
           f"plain {err['plain'][0]:.3e} / {err['plain'][1]:.3e}")
+    assert err["B1"][0] <= err["plain"][0]
     assert err["B1"][1] <= err["plain"][1]

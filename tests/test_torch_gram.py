@@ -196,13 +196,18 @@ def test_each_of_the_six_piece_products_is_needed(dropped):
 
 def _b1_arithmetic(x, z, kp):
     """B1's arithmetic in torch: the six piece products of the scaled
-    pieces as fp32 products summed in fp32, times 2^(e_i + e_j) (in fp64,
-    one rounding), the epilogue with fp32 squared norms."""
+    pieces as fp32 products summed in fp32, times 2^(e_i + e_j) in fp64;
+    RBF's d2 from it and fp64 squared norms, then one rounding to fp32; the
+    other kernels' epilogue on the dot rounded once to fp32."""
     xp, ex = split_bf16x3(x)
     zp, ez = split_bf16x3(z)
     acc = sum(xp[a].float() @ zp[b].float().T for a, b in PRODUCTS)
-    dot = (acc.double() * (ex.double()[:, None] * ez.double()[None, :])).float()
-    return apply_epilogue(dot, (x * x).sum(-1), (z * z).sum(-1), kp)
+    dot = acc.double() * (ex.double()[:, None] * ez.double()[None, :])
+    if kp.kind == "rbf":
+        x64, z64 = x.double(), z.double()
+        d2 = ((x64 * x64).sum(-1)[:, None] + (z64 * z64).sum(-1)[None] - 2 * dot).float()
+        return torch.exp(-kp.gamma * d2.clamp(min=0))
+    return apply_epilogue(dot.float(), None, None, kp)
 
 
 @pytest.mark.parametrize("n,m,p", [(130, 70, 33), (17, 300, 1100), (64, 40, 784)])
@@ -224,9 +229,11 @@ def test_b1_arithmetic_matches_plain_and_reference(n, m, p, kind):
 
 def test_b1_source_issues_the_six_products():
     """csrc/gram.cu issues each product of PRODUCTS once per k16 step, and
-    no other (a[c] is piece c of x, zc + 1 piece c of z)."""
+    no other (a[c] is piece c of x, zc + 1 piece c of z; the x1 z1 products
+    go into ``big``, acc or, at one k tile, dot)."""
     src = (build.CSRC / "gram.cu").read_text()
-    issued = re.findall(r"wgmma_rs_n128\(acc, a\[(\d)\]\[kk\], desc_k_major\(z(\d)\)\)", src)
+    issued = re.findall(r"wgmma_rs_n128\((?:acc|big), a\[(\d)\]\[kk\], desc_k_major\(z(\d)\)\)",
+                        src)
     assert sorted((int(a), int(b) - 1) for a, b in issued) == sorted(PRODUCTS)
 
 
