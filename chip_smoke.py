@@ -97,6 +97,28 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 solve on the decoded G; predictions INT8_MIN_AGREE alike to
                 the f32 streamed fit's (the f32 solve's own spread between
                 tol 1e-2 and 1e-3), test error within 0.5 points
+  streamed path, block cache      stage 2 of the streamed path (f32 wire) on
+                its factor at a 480 MiB budget with 224 MiB carved for the block
+                cache (core/block_cache.py), B2's count reset around it: the
+                tile (the uncached fit's), alphas, w and epochs bit-equal to the
+                uncached fit, hits + misses equal to its compacted bytes, H2D
+                bytes less the hits, hits > 0, residency within the cache
+                budget, peak device memory within the budget plus the
+                allowance; G bytes, hits, misses, evictions, the cheap epochs'
+                hit rate, copy, compaction and stage-2 seconds; the same under
+                a Tracer (the compute row's idle share); at a reduced size
+                (6000 x 784, B 512) bf16 and int8 blocks, a two-block cache
+                that evicts, and the grid task farm, each bit-equal to its
+                uncached run
+  checkpoint and resume, streamed path   the cached stage 2 with a snapshot
+                every 5 full passes, killed (faults.SimulatedKill) at the third
+                snapshot's boundary and resumed: bit-equal to the
+                uninterrupted run; snapshot bytes and seconds, resume
+                seconds, stage-2 seconds with and without snapshots; stage 1
+                on the int8 wire killed at chunk 3 by an IO fault and resumed
+                (G bit-equal, chunks read back); the driver's --libsvm route
+                (3000 rows) killed with SIGKILL once a snapshot exists, then
+                --resume: exit 0, its "resuming" line
   windowed B2 vs plain            B2's window form on one streamed G block
   timing, streamed kernels        B3 at the chunk shape and windowed B2 on
                 one block, beside plain versions, library calls and bounds
@@ -204,7 +226,8 @@ failure raises and exits non-zero, nothing is caught and carried on:
 
 Then one JSON line {"kernels": [...]} (``launches_libsvm``: each kernel's
 launches summed over the LIBSVM phases; ``launches_trace`` over the traced
-fit, ``launches_int8_blocks`` over the int8 stage 2) and, last, the
+fit, ``launches_int8_blocks`` over the int8 stage 2, ``launches_block_cache``
+over the cached one) and, last, the
 {"ok": true, ...} line.
 """
 from __future__ import annotations
@@ -215,6 +238,7 @@ import io
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -456,7 +480,8 @@ def main() -> int:
 
     from repro_torch import LPDSVM, KernelParams, SolverConfig, StreamConfig, median_gamma
     from repro_torch.convert import tasks_from_reference
-    from repro_torch.core import cv, dual_solver, solver_stream
+    from repro_torch.core import block_cache, cv, dual_solver, faults, solver_stream
+    from repro_torch.core.ovo import build_ovo_tasks
     from repro_torch.core.compact import solve_compact
     from repro_torch.core.nystrom import compute_factor, select_landmarks
     from repro_torch.core.quant import dequant_rows, quantize_rows
@@ -1544,6 +1569,258 @@ def main() -> int:
         check(abs(float(np.mean(pred8 != yte)) - err_s) <= 0.005,
               "int8-block test error off by > 0.5 points")
         del svm8, mono8
+
+    with phase("streamed path, block cache"):
+        # stage 2 of the streamed path (f32 wire) on its factor with the
+        # block cache: 480 MiB less the 224 MiB carved for the cache leaves
+        # the 256 MiB of the uncached fit to the blocks in flight
+        cfg_c = StreamConfig(device_budget_bytes=480 << 20, cache_budget_bytes=224 << 20,
+                             prefetch=2, autotune_prefetch=False)
+        mono_c = solver_stream.stage2_monolithic_bytes(n_tr, rank, T, n_pad)
+        tile_c = solver_stream.auto_tile_rows(n_tr, rank, T, cfg_c)
+        blk_c = block_cache.block_wire_nbytes(tile_c, rank, "f32", 1)
+        derived = block_cache.stage2_cache_budget(rank, T, s2.tile_rows, cfg.prefetch, cfg)
+        print(f"byte model: the monolithic stage 2 {mono_c} B against the budget "
+              f"{cfg_c.device_budget_bytes} B; tile {tile_c} rows (the uncached fit's "
+              f"{s2.tile_rows}); a block {blk_c} B, the cache {cfg_c.cache_budget_bytes} B = "
+              f"{cfg_c.cache_budget_bytes / blk_c:.3f} blocks; the streamed path's derived "
+              f"cache budget {derived} B, its hits {s2.bytes_hit} B")
+        check(mono_c > cfg_c.device_budget_bytes, "the cached stage 2 would not stream")
+        check(s2.bytes_hit == 0 and s2.bytes_miss > 0 and derived < blk_c,
+              "the streamed path's derived cache holds a block")
+        svm_c = LPDSVM(kernel=kp, C=1.0, budget=budget, tol=1e-2, stream_config=cfg_c)
+        smo_epoch_kernel.launches = 0
+        base = peak_start()
+        svm_c.fit(xtr, ytr, factor=fac_s)
+        peak_c = peak_since(base)
+        cache_launches = smo_epoch_kernel.launches
+        sc_ = svm_c.stats.stage2_stats
+        limit_c = cfg_c.device_budget_bytes + allow2
+        same_c = (torch.equal(svm_c.alpha_, svm_s.alpha_) and torch.equal(svm_c.W_, svm_s.W_)
+                  and np.array_equal(svm_c.stats.epochs, st.epochs))
+        cheap = [(h, m) for h, m in zip(sc_.epoch_hit_bytes, sc_.epoch_miss_bytes) if h + m]
+        cheap_rate = sum(h for h, _ in cheap) / max(1, sum(h + m for h, m in cheap))
+        warm_cheap = sum(1 for h, m in cheap if m == 0)
+        print(f"cached stage 2: tile {sc_.tile_rows} rows, {svm_c.stats.stage2_seconds:.3f} s "
+              f"(uncached {st.stage2_seconds:.3f} s); G bytes {sc_.bytes_g} (uncached "
+              f"{s2.bytes_g}, {sc_.bytes_g / s2.bytes_g:.4f}x); hits {sc_.cache_hits} blocks "
+              f"{sc_.bytes_hit} B, misses {sc_.cache_misses} blocks {sc_.bytes_miss} B, "
+              f"evictions {sc_.cache_evictions}, peak resident {sc_.cache_resident_bytes} B; "
+              f"cheap epochs' hit rate {cheap_rate:.4f} over {len(cheap)} cheap epochs "
+              f"({warm_cheap} with no miss); copies {sc_.h2d_seconds:.3f} s (uncached "
+              f"{s2.h2d_seconds:.3f} s), compaction {sc_.compact_seconds:.3f} s (uncached "
+              f"{s2.compact_seconds:.3f} s); active_history {sc_.active_history}; B2 "
+              f"launches {cache_launches}; peak device memory {peak_c} B (limit {limit_c}); "
+              f"alphas, w and epochs equal to the uncached fit's {same_c}")
+        check(svm_c.stats.stage2_streamed, "the cached stage 2 did not stream")
+        check(same_c, "the cached stage 2 is not the uncached one bit for bit")
+        check(sc_.bytes_hit + sc_.bytes_miss == s2.bytes_miss,
+              "hits + misses differ from the uncached fit's compacted bytes")
+        check(sc_.bytes_h2d == s2.bytes_h2d - sc_.bytes_hit,
+              "the cached fit's H2D bytes are not the uncached less the hits")
+        check(sc_.bytes_hit > 0, "the cache served no block")
+        check(sc_.cache_resident_bytes <= cfg_c.cache_budget_bytes,
+              "the cache's residency above its budget")
+        check(peak_c <= limit_c, "cached stage 2 peak device memory above the budget "
+              "plus the allowance")
+        check(cache_launches == sc_.kernel_calls == sc_.blocks_streamed + sc_.cache_hits,
+              "B2 launches differ from the blocks shipped and served")
+
+        # the same under a tracer: the compute row's idle share in stage 2
+        from repro_torch.core import trace as trace_mod
+        tr_c = trace_mod.Tracer()
+        svm_ct = LPDSVM(kernel=kp, C=1.0, budget=budget, tol=1e-2, stream_config=cfg_c)
+        svm_ct.fit(xtr, ytr, factor=fac_s, trace=tr_c)
+        evs_c = tr_c.events()
+        sp2 = [e for e in evs_c if e[1] == "fit" and e[2] == "stage2"][0]
+        lo_c, hi_c = sp2[3], sp2[3] + sp2[4]
+        busy_c, gaps_c = tr_c.busy("cuda:0 compute", lo_c, hi_c)
+        rows_c = tr_c.device_tids()
+        dev_c = [e for e in evs_c if e[5] in rows_c]
+        b2_c = sum(e[4] for e in dev_c if e[2] == "smo_block")
+        cp_c = sum(e[4] for e in dev_c if e[2] == "copy_block")
+        n_hit = sum(1 for e in evs_c if e[1] == "cache" and e[2] == "hit")
+        print(f"traced cached stage 2: wall {hi_c - lo_c:.3f} s, B2 device {b2_c:.3f} s, H2D "
+              f"copies {cp_c:.3f} s device time, compute row busy {busy_c:.3f} s, idle share "
+              f"{1 - busy_c / (hi_c - lo_c):.3f}, largest gaps "
+              f"{[round(b - a, 4) for a, b in gaps_c[:5]]} s; {n_hit} hit instants; bit-equal "
+              f"to the untraced cached fit "
+              f"{torch.equal(svm_ct.alpha_, svm_c.alpha_) and torch.equal(svm_ct.W_, svm_c.W_)}")
+        check(torch.equal(svm_ct.alpha_, svm_c.alpha_) and torch.equal(svm_ct.W_, svm_c.W_),
+              "the traced cached fit is not the untraced one")
+        check(n_hit == svm_ct.stats.stage2_stats.cache_hits > 0,
+              "the trace's hit instants differ from the cache's hits")
+        del svm_ct, evs_c, dev_c, tr_c
+
+        # reduced (6000 x 784, B 512): every wire, an evicting budget, the farm
+        xr6, yr6 = make_multiclass(6000, p=784, n_classes=10, sep=0.1, within=0.06, seed=1)
+        _, lab6 = np.unique(yr6, return_inverse=True)
+        kp6 = KernelParams("rbf", gamma=median_gamma(xr6))
+        fac6 = compute_factor(xr6, kp6, 512, seed=0, device=dev)
+        G6 = host_buffer(tuple(fac6.G.shape), torch.float32, dev).copy_(fac6.G)
+        rank6 = G6.shape[1]
+        t6, _ = build_ovo_tasks(lab6, 10, 1.0, device=dev)
+        cfg6 = SolverConfig(tol=1e-3, max_epochs=600)
+        base6 = dict(tile_rows=512, prefetch=2, autotune_prefetch=False)
+
+        def pair6(**kw):
+            on = solve_batch_streamed(G6, t6, cfg6, return_stats=True,
+                                      stream_config=StreamConfig(**base6, **kw))
+            off = solve_batch_streamed(G6, t6, cfg6, return_stats=True, stream_config=
+                                       StreamConfig(**base6, **dict(kw, cache_blocks=False)))
+            same = all(torch.equal(getattr(on[0], f), getattr(off[0], f))
+                       for f in ("alpha", "w", "epochs", "violation"))
+            return on[1], off[1], same
+
+        for wire6 in ("f32", "bf16", "int8"):
+            s_on, s_off, same6 = pair6(block_dtype=wire6)
+            print(f"reduced, {wire6} blocks: epochs {s_on.epochs}, active_history "
+                  f"{s_on.active_history}; G bytes {s_on.bytes_g} (uncached {s_off.bytes_g}); "
+                  f"hits {s_on.cache_hits} ({s_on.bytes_hit} B), misses {s_on.cache_misses}; "
+                  f"bit-equal to the uncached solve {same6}")
+            check(same6, f"the cached {wire6} solve is not the uncached one")
+            check(s_on.bytes_hit > 0 and s_on.bytes_hit + s_on.bytes_miss == s_off.bytes_miss,
+                  f"the {wire6} cache served nothing or its bytes do not add up")
+        tight = 2 * block_cache.block_wire_nbytes(512, rank6, "f32", 1)
+        s_on, s_off, same6 = pair6(cache_budget_bytes=tight)
+        print(f"reduced, a cache of two blocks ({tight} B): hits {s_on.cache_hits}, misses "
+              f"{s_on.cache_misses}, evictions {s_on.cache_evictions}, peak resident "
+              f"{s_on.cache_resident_bytes} B; bit-equal to the uncached solve {same6}")
+        check(same6 and s_on.cache_resident_bytes <= tight,
+              "the two-block cache is not exact or holds more than its budget")
+        check(s_on.cache_misses > 0 and s_on.bytes_hit > 0,
+              "the two-block cache did not serve and miss")
+        grid6 = {}
+        for on in (True, False):
+            grid6[on] = cv.grid_search(xr6, yr6, [kp6.gamma], [1 / 16, 1 / 4], budget=512,
+                                       folds=3, device=dev, stream=True, farm=True,
+                                       config=SolverConfig(tol=1e-2),
+                                       stream_config=StreamConfig(
+                                           device_budget_bytes=256 << 20, prefetch=2,
+                                           autotune_prefetch=False, cache_blocks=on))
+        fs_on, fs_off = grid6[True].stream_stats[0], grid6[False].stream_stats[0]
+        same_g = (np.array_equal(grid6[True].errors, grid6[False].errors)
+                  and all(np.array_equal(a.epochs, b.epochs)
+                          for a, b in zip(grid6[True].cells, grid6[False].cells)))
+        print(f"reduced grid task farm ({len(grid6[True].cells)} cells): "
+              f"errors {grid6[True].errors.tolist()}, G bytes {fs_on.bytes_g} (uncached "
+              f"{fs_off.bytes_g}), hits {fs_on.cache_hits} ({fs_on.bytes_hit} B); errors and "
+              f"epochs equal to the uncached farm's {same_g}")
+        check(same_g, "the cached grid farm is not the uncached one")
+        check(fs_on.bytes_hit + fs_on.bytes_miss == fs_off.bytes_miss,
+              "the farm's hit and miss bytes do not add up")
+        del fac6, G6, t6, grid6
+
+    with phase("checkpoint and resume, streamed path"):
+        # the cached stage 2 above with a snapshot every 5 full passes; a
+        # kill at the third snapshot's boundary, then the resume
+        ck_root = tempfile.TemporaryDirectory()
+        ck2 = os.path.join(ck_root.name, "stage2")
+        cfg_k = dataclasses.replace(cfg_c, checkpoint_dir=ck2, checkpoint_every=5)
+        kill_at = 20 * 14                 # the 15th full pass (period 20, no ladder)
+        faults.install(faults.FaultPlan().add("epoch_boundary", kind="kill", epoch=kill_at))
+        killed = False
+        t0 = time.perf_counter()
+        try:
+            LPDSVM(kernel=kp, C=1.0, budget=budget, tol=1e-2,
+                   stream_config=cfg_k).fit(xtr, ytr, factor=fac_s)
+        except faults.SimulatedKill:
+            killed = True
+        finally:
+            faults.uninstall()
+        t_killed = time.perf_counter() - t0
+        snaps = sorted(f for f in os.listdir(ck2) if f.startswith("step_"))
+        svm_r = LPDSVM(kernel=kp, C=1.0, budget=budget, tol=1e-2,
+                       stream_config=dataclasses.replace(cfg_k, resume=True))
+        svm_r.fit(xtr, ytr, factor=fac_s)
+        sr = svm_r.stats.stage2_stats
+        same_r = (torch.equal(svm_r.alpha_, svm_c.alpha_) and torch.equal(svm_r.W_, svm_c.W_)
+                  and np.array_equal(svm_r.stats.epochs, svm_c.stats.epochs)
+                  and np.array_equal(svm_r.stats.violations, svm_c.stats.violations))
+        sums_r = [b + h for b, h in zip(sr.epoch_bytes, sr.epoch_hit_bytes)]
+        sums_c = [b + h for b, h in zip(sc_.epoch_bytes, sc_.epoch_hit_bytes)]
+        # the uninterrupted run with the snapshots on, for their cost
+        ck_full = os.path.join(ck_root.name, "full")
+        svm_k = LPDSVM(kernel=kp, C=1.0, budget=budget, tol=1e-2, stream_config=
+                       dataclasses.replace(cfg_c, checkpoint_dir=ck_full, checkpoint_every=5))
+        svm_k.fit(xtr, ytr, factor=fac_s)
+        sk = svm_k.stats.stage2_stats
+        print(f"killed at the boundary of epoch {kill_at} after {t_killed:.3f} s: {killed}; "
+              f"snapshots on disk {snaps}; resumed from epoch {sr.resumed_from} in "
+              f"{sr.resume_seconds:.3f} s, resumed stage 2 {svm_r.stats.stage2_seconds:.3f} s; "
+              f"alphas, w, epochs and violations equal to the uninterrupted cached fit's "
+              f"{same_r}; epoch_bytes + epoch_hit_bytes equal {sums_r == sums_c}; hits "
+              f"{sr.bytes_hit} B (uninterrupted {sc_.bytes_hit} B)")
+        print(f"snapshots every 5 full passes: {sk.snapshots} of {sk.snapshot_bytes} B each, "
+              f"{sk.snapshot_seconds / max(1, sk.snapshots):.4f} s each; stage 2 "
+              f"{svm_k.stats.stage2_seconds:.3f} s with them, {svm_c.stats.stage2_seconds:.3f} "
+              f"s without; bit-equal {torch.equal(svm_k.W_, svm_c.W_)}")
+        check(killed and len(snaps) == 3, "the kill did not land after the third snapshot")
+        check(sr.resumed_from == kill_at + 1, "the resume did not start at the boundary")
+        check(same_r, "the resumed stage 2 is not the uninterrupted one bit for bit")
+        check(sums_r == sums_c, "the resumed epochs moved other compacted bytes")
+        check(torch.equal(svm_k.W_, svm_c.W_) and sk.snapshots > 2,
+              "snapshots changed the solve, or none were taken")
+
+        # stage 1 on the int8 wire: killed at chunk 3 by an IO fault, resumed
+        ck1 = os.path.join(ck_root.name, "stage1")
+        cfg_1 = dataclasses.replace(cfg, checkpoint_dir=ck1)
+        gram_q8_kernel.launches = 0
+        faults.install(faults.FaultPlan().add("stage1", kind="io", chunk=3))
+        io_hit = False
+        try:
+            compute_factor(xtr, kp, budget, seed=0, device=dev, stream_config=cfg_1)
+        except OSError:
+            io_hit = True
+        finally:
+            faults.uninstall()
+        t0 = time.perf_counter()
+        fac_r1 = compute_factor(xtr, kp, budget, seed=0, device=dev,
+                                stream_config=dataclasses.replace(cfg_1, resume=True))
+        t_r1 = time.perf_counter() - t0
+        s1r = fac_r1.stage1_stats
+        same_g1 = torch.equal(fac_r1.G, fac_s.G)
+        print(f"stage 1 (int8 wire) killed at chunk 3: {io_hit}; resumed in {t_r1:.3f} s: "
+              f"{s1r.chunks_skipped} chunks ({s1r.rows_resumed} rows) read back, "
+              f"{s1r.chunks} computed (B3 launches {gram_q8_kernel.launches}); G bit-equal "
+              f"to the streamed path's {same_g1}")
+        check(io_hit and s1r.chunks_skipped >= 1 and same_g1,
+              "the resumed stage 1 skipped nothing or its G differs")
+        del fac_r1, svm_r, svm_k
+
+        # the driver at a reduced size: SIGKILL once a snapshot exists, then --resume
+        xk, yk = make_multiclass(3000, p=16, n_classes=6, seed=0)
+        lib_k = os.path.join(ck_root.name, "train.svm")
+        write_libsvm(lib_k, xk, yk)
+        ckd = os.path.join(ck_root.name, "driver")
+        argv_k = [sys.executable, "-m", "repro_torch.launch.train_svm", "--libsvm", lib_k,
+                  "--budget", "128", "--gamma", "0.25", "--C", "64", "--chunk-rows", "512",
+                  "--tile-rows", "256", "--checkpoint-dir", ckd, "--checkpoint-every", "1"]
+        env_k = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv_k, env=env_k, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+        try:
+            while time.perf_counter() - t0 < 120 and proc.poll() is None:
+                if os.path.isdir(ckd) and any(f.startswith("step_") for f in os.listdir(ckd)):
+                    proc.send_signal(signal.SIGKILL)
+                    break
+                time.sleep(0.005)
+            proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        rc_k = proc.returncode
+        out_k = subprocess.run(argv_k + ["--resume"], env=env_k, capture_output=True,
+                               text=True, timeout=180)
+        print(f"driver killed with SIGKILL (exit {rc_k}) after {time.perf_counter() - t0:.1f} "
+              f"s; --resume exit {out_k.returncode}:")
+        print(out_k.stdout, end="")
+        check(rc_k == -signal.SIGKILL, "the driver ended before it could be killed")
+        check(out_k.returncode == 0 and "resuming" in out_k.stdout
+              and "train error" in out_k.stdout, "the driver's --resume failed")
+        ck_root.cleanup()
 
     with phase("windowed B2 vs plain"):
         # block 1 of the streamed grid (row0 = tile), every task from zero
@@ -2714,7 +2991,8 @@ def main() -> int:
          "launches_farm": farm_launches["full width"],
          "launches_farm_reduced": farm_launches["reduced"],
          "launches_compact": c_launches, "launches_libsvm": lib_launches["smo_epoch"],
-         "launches_trace": t_launches["smo_epoch"], "launches_int8_blocks": i8_launches},
+         "launches_trace": t_launches["smo_epoch"], "launches_int8_blocks": i8_launches,
+         "launches_block_cache": cache_launches},
         {"name": "gram_q8", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram_q8.cu",
          "replaces": "src/repro/kernels/gram.py:157",
@@ -2734,8 +3012,9 @@ def main() -> int:
           "a kernel of the main paths was launched no time")
     check(all(lib_launches[k] > 0 for k in ("gram", "gram_q8", "smo_epoch")),
           "a kernel of the LIBSVM route was launched no time")
-    check(all(t_launches[k] > 0 for k in ("gram", "gram_q8", "smo_epoch")) and i8_launches > 0,
-          "a kernel of the traced fit or of the int8 stage 2 was launched no time")
+    check(all(t_launches[k] > 0 for k in ("gram", "gram_q8", "smo_epoch")) and i8_launches > 0
+          and cache_launches > 0,
+          "a kernel of the traced fit, the int8 or the cached stage 2 was launched no time")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

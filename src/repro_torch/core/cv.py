@@ -38,6 +38,7 @@ Differences from the reference:
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -337,10 +338,16 @@ def grid_search(
     warm_first_c = None       # cross-gamma seed (beyond-paper)
     for gi, gamma in enumerate(gammas):
         kp = KernelParams(kind=kernel_kind, gamma=float(gamma))
+        # each gamma is its own resumable unit (G and the solver state both
+        # depend on it), as in the reference: checkpoints under gamma{gi}/
+        g_cfg = stream_config
+        if getattr(stream_config, "checkpoint_dir", None):
+            g_cfg = dataclasses.replace(stream_config, checkpoint_dir=os.path.join(
+                stream_config.checkpoint_dir, f"gamma{gi}"))
         t0 = tr.begin()
         factor = compute_factor(x, kp, budget, seed=seed, gram_fn=gram_fn,
                                 device=dev, stream=stream,
-                                stream_config=stream_config)
+                                stream_config=g_cfg)
         _sync(dev)
         t_stage1 += tr.end("cv", "stage1_factor", t0, gamma=float(gamma))
 
@@ -362,7 +369,7 @@ def grid_search(
             farm_cfg = dataclasses.replace(
                 config, max_epochs=config.max_epochs * len(Cs) + len(Cs))
             res, sstats = solve_streamed_auto(
-                factor.G, gtasks, farm_cfg, stream_config=stream_config,
+                factor.G, gtasks, farm_cfg, stream_config=g_cfg,
                 chain_next=chain, return_stats=True)
             _sync(dev)
             dt = tr.end("cv", "grid_farm", t0, gamma=float(gamma),
@@ -391,8 +398,12 @@ def grid_search(
         for ci, C in enumerate(Cs):
             t0 = tr.begin()
             tasks = cell_tasks(C, warm if warm_start else None)
+            c_cfg = g_cfg             # and each serial cell under c{ci}/
+            if getattr(g_cfg, "checkpoint_dir", None):
+                c_cfg = dataclasses.replace(g_cfg, checkpoint_dir=os.path.join(
+                    g_cfg.checkpoint_dir, f"c{ci}"))
             res, sstats = _solve_routed(factor, tasks, config, solve_fn,
-                                        stream, stream_config, polish_schedule)
+                                        stream, c_cfg, polish_schedule)
             _sync(dev)
             dt = tr.end("cv", "grid_cell", t0, gamma=float(gamma), C=float(C))
             t_stage2 += dt

@@ -241,6 +241,13 @@ def solve_polished(
     tr = resolve(trace if trace is not None
                  else getattr(stream_config, "trace", None))
     run_cfg = with_trace(stream_config, trace)
+    # checkpoints are the final level's: a coarse level is re-solved from
+    # the same warm start in a resumed run, and its own snapshots would
+    # stand in the final level's directory
+    coarse_cfg = run_cfg
+    if getattr(run_cfg, "checkpoint_dir", None):
+        coarse_cfg = dataclasses.replace(run_cfg, checkpoint_dir=None,
+                                         checkpoint_every=0, resume=False)
     if schedule is None:
         schedule = PolishSchedule()
     G = factor.G
@@ -321,7 +328,7 @@ def solve_polished(
             level_G = _gather(G, union, dev if streamed else None)
             if streamed:
                 res_l, sstats = solve_batch_streamed(
-                    level_G, tasks_l, cfg_l, stream_config=run_cfg,
+                    level_G, tasks_l, cfg_l, stream_config=coarse_cfg,
                     return_stats=True)
             else:
                 res_l = solve_fn(level_G.to(dev), tasks_l, cfg_l)

@@ -56,6 +56,21 @@ the card (``quant.dequant_into``) into the fp32 buffer before B2 reads it;
 every pass uses that one op sequence.  ``bytes_h2d``, ``bytes_g`` and
 ``epoch_bytes`` count codes plus tables (``bytes_scales`` the tables).
 
+The block cache (``core/block_cache.py``, ``StreamConfig.cache_blocks``):
+each compaction also plans which of the union's blocks to keep on the card
+(violation recency, under ``stage2_cache_budget``); a cheap epoch looks each
+block up, decodes a hit from its pinned wire arrays by the ops a shipped
+block goes through (``_Ring.decode``), and ships a miss, into memory the
+cache then owns when the plan wants it.  Shared passes never touch it.
+Evictions happen at a compaction, after the full pass's flags have been read
+back, so no queued launch reads an evicted payload.
+
+Checkpoints (``core/resilience.py``): with ``checkpoint_dir`` the solver's
+state is snapshot at full-pass boundaries; a resume restores it, re-runs
+the compaction (the cache starts cold) and continues at the next epoch, bit
+for bit.  Fault sites (``core/faults.py``): "h2d" before a block's copies,
+"epoch_boundary" after each epoch.
+
 Under a tracer (``StreamConfig.trace``, else an installed one) the host
 spans are the reference's: ``h2d`` / ``put_block`` (their sum is
 ``put_seconds``), ``drain`` (``block_wait``, ``flags``, ``result``),
@@ -65,7 +80,11 @@ spans are the reference's: ``h2d`` / ``put_block`` (their sum is
 (``h2d`` / ``copy_block``) and the launches (``kernel``: ``smo_block``
 around each B2 launch with its rows and tasks, ``row_sq``, ``init_sums``,
 ``dequant``, ``upcast``) are device spans.  An epoch's ``viol`` attribute is
-read where the full pass already syncs; a cheap epoch has none.
+read where the full pass already syncs; a cheap epoch has none, and its
+``hit_bytes`` / ``miss_bytes`` split its compacted bytes.  The cache's
+instants are ``cache`` / ``plan``, ``hit``, ``miss``, ``invalidate``; a
+resume is the span ``recovery`` / ``resume``, a snapshot the instant
+``recovery`` / ``checkpoint``, a retried copy ``fault`` / ``h2d_retry``.
 """
 from __future__ import annotations
 
@@ -77,8 +96,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.block_cache import (HotRowBlockCache, block_key,
+                                          block_wire_nbytes, stage2_cache_budget,
+                                          violation_recency_scores_tasks)
 from repro_torch.core.dual_solver import (INT32_MAX, SolveResult, SolverConfig,
                                           TaskBatch)
+from repro_torch.core.faults import check as fault_check
+from repro_torch.core.faults import classify_error
 from repro_torch.core.kernel_fn import full_fp32
 from repro_torch.core.quant import (ENCODE_ROWS, QuantBlock, dequant_into,
                                     encode_rows, group_scales, quantize_block)
@@ -137,10 +161,15 @@ def route_stage2(factor, tasks: TaskBatch, stream,
 
 def auto_tile_rows(n: int, rank: int, n_tasks: int, cfg: StreamConfig) -> int:
     """Largest row tile whose ``prefetch`` in-flight blocks fit the budget,
-    floored at ``min_chunk_rows`` and rounded to a multiple of 8."""
+    floored at ``min_chunk_rows`` and rounded to a multiple of 8.  An
+    explicit ``cache_budget_bytes`` is carved out of the budget first (with
+    the cache on); the derived cache budget is what this leaves, so it never
+    shrinks the tile."""
     if cfg.tile_rows is not None:
         return max(8, -(-min(cfg.tile_rows, n) // 8) * 8)
     free = cfg.device_budget_bytes - stage2_resident_bytes(rank, n_tasks)
+    if cfg.cache_blocks and cfg.cache_budget_bytes:
+        free -= cfg.cache_budget_bytes
     per_row = cfg.prefetch * (rank + 7 * n_tasks) * BYTES_F32
     rows = (free // per_row) // 8 * 8 if free > 0 else 0   # round down: budget
     return int(min(-(-n // 8) * 8, max(cfg.min_chunk_rows, rows, 8)))
@@ -212,7 +241,15 @@ class Stage2StreamStats(StreamTimes):
     """Traffic and convergence accounting of one streamed stage-2 solve.
 
     ``bytes_h2d`` counts the G blocks plus the index tables; on the int8
-    wire a block's bytes are its codes plus its scale table."""
+    wire a block's bytes are its codes plus its scale table.
+
+    Every block of a compacted (cheap) epoch is a hit or a miss of the block
+    cache, never both: ``bytes_miss`` crossed the bus (inside ``bytes_g``),
+    ``bytes_hit`` was decoded from the card instead.  With the cache off
+    every such block is a miss, so a cached solve's ``bytes_hit +
+    bytes_miss`` is the uncached one's ``bytes_miss``, and its ``bytes_h2d``
+    the uncached one's less ``bytes_hit``.  After a resume the counters
+    include the segments before it (``resilience.apply_carry``)."""
 
     tile_rows: int = 0
     epochs: int = 0                   # epochs run (the longest task's)
@@ -234,6 +271,27 @@ class Stage2StreamStats(StreamTimes):
     init_seconds: float = 0.0         # a warm start's init pass, to its end
     prefetch_final: int = 0           # queue depth after autotune
     scratch_bytes: int = 0            # B2's active-list scratch on the card
+    bytes_hit: int = 0                # compacted G bytes served by the cache
+    bytes_miss: int = 0               # compacted G bytes shipped
+    cache_hits: int = 0               # the same in blocks
+    cache_misses: int = 0             # (counted with the cache on only)
+    cache_evictions: int = 0
+    cache_resident_bytes: int = 0     # the cache's peak on the card
+    epoch_hit_bytes: List[int] = dataclasses.field(default_factory=list)
+    epoch_miss_bytes: List[int] = dataclasses.field(default_factory=list)
+    # ^ per epoch, index-aligned with epoch_bytes
+    snapshots: int = 0                # checkpoints written
+    snapshot_seconds: float = 0.0     # host time writing them
+    snapshot_bytes: int = 0           # the newest one's file size
+    resumed_from: int = -1            # the epoch a resume started at
+    resume_seconds: float = 0.0       # loading, restoring, recompacting
+
+    @property
+    def epoch_hit_rate(self) -> List[float]:
+        """Per epoch, the cache's share of the compacted G bytes (0.0 where
+        an epoch had none, full passes for one)."""
+        return [h / (h + m) if h + m else 0.0
+                for h, m in zip(self.epoch_hit_bytes, self.epoch_miss_bytes)]
 
 
 class _Ring:
@@ -243,15 +301,29 @@ class _Ring:
     read it) and returns the block as fp32 on the card; ``release`` records
     that event once the block's launches are queued.  On the int8 wire a
     slot also holds a scale table, and ``load`` takes (codes, table) host
-    tensors padded to the tile and decodes them into the fp32 buffer."""
+    tensors padded to the tile and decodes them into the fp32 buffer.
+
+    ``load(..., keep=True)`` copies into new device tensors instead of a
+    slot and returns them: the block cache's payload, which the ring never
+    reuses.  ``decode`` turns wire arrays on the card into the fp32 block by
+    the one op sequence of a shipped block and of a cached one.
+
+    Each block's copies pass fault site "h2d" (``epoch``, ``block``) before
+    they are issued; with ``retries`` a transient fault is retried after
+    ``backoff`` seconds, doubled each time, and the copies are issued again
+    whole, so a retried block is the block.  A persistent fault (the device
+    is lost) has no other card to go to and is raised."""
 
     def __init__(self, tile: int, rank: int, wire: str, device,
-                 prefetch: int, lanes: Lanes, st: Stage2StreamStats, tr=NULL):
+                 prefetch: int, lanes: Lanes, st: Stage2StreamStats, tr=NULL,
+                 retries: int = 0, backoff: float = 0.0):
         self.tile, self.rank, self.device = tile, rank, device
         self.wire = WIRE[wire]
         self.quant = wire == "int8"
         self.prefetch = prefetch
         self.lanes, self.st, self.tr = lanes, st, tr
+        self.retries, self.backoff = retries, backoff
+        self.epoch = -1                      # the fault site's epoch attr
         self.slots: List[dict] = []
         self.count = 0
         self.upcast = (torch.empty((tile, rank), dtype=torch.float32, device=device)
@@ -282,46 +354,86 @@ class _Ring:
         staged.copy_(src)
         return staged
 
-    def load(self, src, rows: Optional[int] = None, group: int = 1):
-        """The next block on the card as fp32 (its first ``rows`` rows):
-        ``src`` is a host tensor of rows, or on the int8 wire a (codes,
-        table) pair with ``group`` rows a table entry."""
-        k = self.count % self.prefetch
-        self.count += 1
-        slot = self._slot(k)
+    def _copy(self, devs, srcs, block: int) -> None:
+        attempt = 0
+        while True:
+            try:
+                fault_check("h2d", epoch=self.epoch, block=block)
+                for d, a in zip(devs, srcs):
+                    self.lanes.put(d, a, "copy_block")
+            except Exception as exc:
+                if attempt >= self.retries or classify_error(exc) != "transient":
+                    raise
+                self.tr.instant("fault", "h2d_retry", epoch=self.epoch, block=block,
+                                attempt=attempt, error=type(exc).__name__)
+                delay = self.backoff * (2.0 ** attempt)
+                if delay > 0:
+                    time.sleep(delay)
+                attempt += 1
+                continue
+            if attempt:
+                self.tr.instant("recovery", "h2d_retry_ok", epoch=self.epoch,
+                                block=block, attempts=attempt)
+            return
+
+    def load(self, src, rows: Optional[int] = None, group: int = 1,
+             block: int = 0, keep: bool = False):
+        """The next block on the card: (fp32 rows, its slot or None, its
+        wire arrays on the card).  ``src`` is a host tensor of rows, or on
+        the int8 wire a (codes, table) pair with ``group`` rows a table
+        entry; ``rows`` of it are real."""
         tr, st = self.tr, self.st
-        t0 = tr.begin()
-        wait(slot["done"])
-        st.drain_seconds += tr.end("drain", "block_wait", t0)
         srcs = src if self.quant else (src,)
         r = srcs[0].shape[0] if rows is None else rows
-        t0 = tr.begin()
-        devs, nbytes = [], 0
-        for j, a in enumerate(srcs):
-            a = self._stage(slot, j, a)
-            devs.append(slot["dev"][j][:a.shape[0]])
-            self.lanes.put(devs[-1], a, "copy_block")
-            nbytes += a.nbytes
+        if keep:
+            # new memory the cache owns, for host rows already in the wire
+            # dtype (a compaction's): the H2D stream waits for the compute
+            # stream's queued work, which may still read the memory the
+            # allocator hands out (Lanes.claim)
+            slot = None
+            devs = [torch.empty(a.shape, dtype=a.dtype, device=self.device)
+                    for a in srcs]
+            self.lanes.claim()
+            t0 = tr.begin()
+        else:
+            k = self.count % self.prefetch
+            self.count += 1
+            slot = self._slot(k)
+            t0 = tr.begin()
+            wait(slot["done"])
+            st.drain_seconds += tr.end("drain", "block_wait", t0)
+            t0 = tr.begin()
+            srcs = [self._stage(slot, j, a) for j, a in enumerate(srcs)]
+            devs = [slot["dev"][j][:a.shape[0]] for j, a in enumerate(srcs)]
+        self._copy(devs, srcs, block)
+        nbytes = sum(a.nbytes for a in srcs)
         st.put_seconds += tr.end("h2d", "put_block", t0, bytes=nbytes, rows=r)
         st.bytes_h2d += nbytes
         st.bytes_g += nbytes
         st.blocks_streamed += 1
         st.rows_streamed += r
-        if self.upcast is None:
-            return devs[0], slot
         if self.quant:
             st.bytes_scales += srcs[1].nbytes
+        return self.decode(devs, r, group), slot, devs
+
+    def decode(self, devs, r: int, group: int) -> torch.Tensor:
+        """The fp32 block of ``r`` rows from its wire arrays on the card."""
+        tr = self.tr
+        if self.upcast is None:
+            return devs[0][:r]
+        if self.quant:
             g = self.upcast[:devs[0].shape[0]]
             with tr.device_span("kernel", "dequant", self.device, rows=r):
                 dequant_into(devs[0], devs[1], group, g)
-            return g[:r], slot
+            return g[:r]
         g = self.upcast[:r]
         with tr.device_span("kernel", "upcast", self.device, rows=r):
-            g.copy_(devs[0])
-        return g, slot
+            g.copy_(devs[0][:r])
+        return g
 
     def release(self, slot) -> None:
-        slot["done"] = self.lanes.mark()
+        if slot is not None:
+            slot["done"] = self.lanes.mark()
 
 
 # ---------------------------------------------------------------------------
@@ -428,6 +540,22 @@ def _chain(chain_next, T: int, perm: np.ndarray, m: np.ndarray,
     return nxt
 
 
+@dataclasses.dataclass
+class _Compacted:
+    """The cheap epochs' view after a compaction: the union's rows in pinned
+    memory (a (codes, table) pair on the int8 wire), their q, the compacted
+    index and window tables, the active positions a window, and the block
+    cache's keys and wire bytes a block (None with the cache off)."""
+
+    act: object
+    q: torch.Tensor
+    cidx: torch.Tensor
+    bounds: torch.Tensor
+    visits: np.ndarray
+    keys: Optional[List[bytes]] = None
+    sizes: Optional[List[int]] = None
+
+
 @full_fp32()
 def solve_batch_streamed(
     G,
@@ -451,7 +579,18 @@ def solve_batch_streamed(
     ``chain_next[t] = s`` (-1: none) makes task s the warm-start successor
     of task t over the same rows, the C ladder of
     ``cv.build_cv_grid_tasks`` (see the module docstring).  A task that
-    never converged, or was never seeded, reports ``max_epochs``."""
+    never converged, or was never seeded, reports ``max_epochs``.
+
+    With ``stream_config.cache_blocks`` (the default) the cheap epochs look
+    each compacted block up in a ``block_cache.HotRowBlockCache`` on the
+    card (``stage2_cache_budget`` bytes), planned at each compaction; the
+    result is bit-equal to the uncached solve's.  With ``checkpoint_dir`` a
+    ``resilience.StreamGuard`` snapshots the solver every
+    ``checkpoint_every`` full passes, and ``resume`` continues from the
+    newest snapshot: after a kill the result is bit-equal to an
+    uninterrupted run's, and the cache restarts cold.  With ``fail_fast``
+    off a transient H2D fault is retried (``_Ring``); on one card a lost
+    device has no survivor to move to, and its error is raised."""
     t_start = time.perf_counter()
     cfg = stream_config or StreamConfig()
     dev = tasks.idx.device
@@ -469,10 +608,14 @@ def solve_batch_streamed(
     st = Stage2StreamStats(tile_rows=tile, block_dtype=cfg.block_dtype)
     tr = resolve(cfg.trace)
     lanes = Lanes(dev, tr)
-    ring = _Ring(tile, rank, cfg.block_dtype, dev, cfg.prefetch, lanes, st, tr)
+    ring = _Ring(tile, rank, cfg.block_dtype, dev, cfg.prefetch, lanes, st, tr,
+                 retries=0 if cfg.fail_fast else cfg.max_retries,
+                 backoff=cfg.retry_backoff)
     quant = ring.quant
     group = wire_group(tile, cfg)
     G_np = G.numpy()
+    cache = (HotRowBlockCache(stage2_cache_budget(rank, T, tile, cfg.prefetch, cfg))
+             if cfg.cache_blocks else None)
 
     # one-time host bookkeeping: the sorted layout and the window tables
     idx_h = tasks.idx.cpu().numpy().astype(np.int64)
@@ -547,7 +690,8 @@ def solve_batch_streamed(
         """One pass over all of G: the ``pend`` tasks sum their w0 (in fp64,
         as ``dual_solver._init_w``) from its blocks, and on "full" and
         "cheap" passes the live tasks sweep them; returns the largest
-        violation per task and the fp64 w0.  The first pass sums q."""
+        violation per task and the fp64 w0.  The first pass sums q.  The
+        block cache is not consulted."""
         nonlocal q_summed
         viol = torch.zeros((T,), dtype=torch.float32, device=dev)
         w0 = torch.zeros((-(-len(pend) // INIT_TASKS) * INIT_TASKS, rank),
@@ -561,10 +705,11 @@ def solve_batch_streamed(
                 t0 = tr.begin()
                 qb = encode_block(G_np[s:e], tile, group)
                 st.encode_seconds += tr.end("encode", "stage2_quant", t0, rows=e - s)
-                gb, slot = ring.load((torch.from_numpy(qb.values),
-                                      torch.from_numpy(qb.scales)), e - s, group)
+                gb, slot, _ = ring.load((torch.from_numpy(qb.values),
+                                         torch.from_numpy(qb.scales)), e - s, group,
+                                        block=b)
             else:
-                gb, slot = ring.load(G[s:e])
+                gb, slot, _ = ring.load(G[s:e], block=b)
             if not q_summed:
                 with tr.device_span("kernel", "row_sq", dev, rows=e - s):
                     _row_sq(gb, q[s:e])
@@ -587,22 +732,40 @@ def solve_batch_streamed(
         q_summed = True
         return viol, w0
 
-    def compacted_pass(comp):
-        act_G, act_q, cidx, cbounds, visits = comp
-        U = act_q.shape[0]
-        for b in range(visits.shape[0]):
+    def compacted_pass(comp: _Compacted):
+        """A cheap epoch over the compacted union: each block is a cache hit
+        (decoded on the card, no G byte on the bus) or a miss (shipped, and
+        kept when the plan wants it)."""
+        U = comp.q.shape[0]
+        for b in range(comp.visits.shape[0]):
             s, e = b * tile, min((b + 1) * tile, U)
-            if quant:                        # whole padded tiles, a row an entry
-                gb, slot = ring.load((act_G[0][s:s + tile], act_G[1][s:s + tile]),
-                                     e - s, 1)
+            key = None if comp.keys is None else comp.keys[b]
+            hit = None if key is None else cache.lookup(key)
+            slot = None
+            if hit is not None:
+                st.bytes_hit += hit.nbytes
+                st.cache_hits += 1
+                tr.instant("cache", "hit", bytes=hit.nbytes, block=b)
+                gb = ring.decode(hit.payload, e - s, 1)
             else:
-                gb, slot = ring.load(act_G[s:e])
-            swept = int(visits[b][live_h].sum())
+                src = ((comp.act[0][s:s + tile], comp.act[1][s:s + tile]) if quant
+                       else comp.act[s:e])   # int8: whole tiles, a row an entry
+                keep = key is not None and cache.wants(key, comp.sizes[b])
+                gb, slot, wire = ring.load(src, e - s, 1, block=b, keep=keep)
+                nbytes = sum(a.nbytes for a in wire)
+                st.bytes_miss += nbytes
+                if cache is not None:
+                    st.cache_misses += 1
+                    tr.instant("cache", "miss", bytes=nbytes, block=b)
+                    if keep and cache.put(key, wire, nbytes):
+                        st.cache_resident_bytes = cache.peak_resident_bytes
+            swept = int(comp.visits[b][live_h].sum())
             with tr.device_span("kernel", "smo_block", dev, rows=swept,
                                 tasks=int(live_h.sum())):
-                smo_epoch(gb, act_q[s:e], cidx, y, c, alpha, unchanged, w,
-                          live, full_pass=False, shrink_k=shrink_k, lo=cbounds[b],
-                          hi=cbounds[b + 1], row0=s, scratch=scratch)
+                smo_epoch(gb, comp.q[s:e], comp.cidx, y, c, alpha, unchanged, w,
+                          live, full_pass=False, shrink_k=shrink_k,
+                          lo=comp.bounds[b], hi=comp.bounds[b + 1], row0=s,
+                          scratch=scratch)
             st.kernel_calls += 1
             st.coord_visits += swept
             ring.release(slot)
@@ -610,19 +773,33 @@ def solve_batch_streamed(
     act_buf = None
     gscales = None
 
-    def recompact():
+    def drop_cache(record: bool = True) -> None:
+        """Nothing compacted to serve (the union is all of G, or no task is
+        live): the cache lets go of every payload.  Called after a full
+        pass's flags were read back, so no queued launch still reads one."""
+        if cache is not None:
+            cache.invalidate()
+            st.cache_evictions = cache.evictions
+            if record:
+                tr.instant("cache", "invalidate", evictions=cache.evictions)
+
+    def recompact(record: bool = True) -> Optional[_Compacted]:
         """After a full pass: the union of rows active for a live task,
-        gathered once into pinned memory, on the int8 wire encoded there
-        (None: stream all of G)."""
+        gathered once into pinned memory, on the int8 wire encoded there,
+        and the cache's plan for its blocks (None: stream all of G).
+        ``record=False`` (a restore) leaves ``active_history`` and the trace
+        as the snapshot's boundary left them."""
         nonlocal act_buf, gscales
         t0 = tr.begin()
-        u = unchanged.cpu().numpy()
+        u = unchanged.cpu().numpy()          # syncs: no launch reads an evictee
         st.bytes_d2h += u.nbytes
         active = (u < shrink_k) & live_h[:, None]
         union, cidx_h, cb_h, visits = _compaction(sidx_h, m, active, tile)
         U = len(union)
-        st.active_history.append(U)
+        if record:
+            st.active_history.append(U)
         if U == n:
+            drop_cache(record)
             st.compact_seconds += tr.end("compact", "recompact", t0, union=U)
             return None
         if quant:
@@ -646,8 +823,25 @@ def solve_batch_streamed(
             else:
                 act_buf[:U].copy_(G.index_select(0, rows))
             act = act_buf[:U]
-        comp = (act, q[_upload(union, dev, st)],
-                _upload(cidx_h, dev, st), _upload(cb_h, dev, st), visits)
+        keys = sizes = None
+        if cache is not None:
+            # keys are the blocks' global rows; violation recency ranks them
+            # from the counters this compaction reads anyway
+            nb = -(-U // tile)
+            keys = [block_key(union[b * tile:(b + 1) * tile], cfg.block_dtype)
+                    for b in range(nb)]
+            sizes = [block_wire_nbytes(tile if quant else min(tile, U - b * tile),
+                                       rank, cfg.block_dtype, 1) for b in range(nb)]
+            scores = violation_recency_scores_tasks(
+                union, tile, [u[t, :m[t]][active[t, :m[t]]] for t in range(T)],
+                [sidx_h[t, :m[t]][active[t, :m[t]]] for t in range(T)])
+            cache.plan(keys, sizes, scores)
+            st.cache_evictions = cache.evictions
+            if record:
+                tr.instant("cache", "plan", blocks=nb, evictions=cache.evictions,
+                           resident_bytes=cache.resident_bytes)
+        comp = _Compacted(act, q[_upload(union, dev, st)], _upload(cidx_h, dev, st),
+                          _upload(cb_h, dev, st), visits, keys, sizes)
         st.compact_seconds += tr.end("compact", "recompact", t0, union=U)
         return comp
 
@@ -685,23 +879,76 @@ def solve_batch_streamed(
                                      alpha[dst])
             unchanged[dst] = 0
 
-    if pending_h.any():                 # warm roots: an init pass first
-        t0 = tr.begin()
+    def state():
+        """The snapshot's arrays (``resilience.STATE_KEYS``), per task in
+        the tasks' own layout."""
+        def own(a):
+            return torch.empty_like(a).scatter_(1, perm, a).cpu().numpy()
+        return dict(alpha=own(alpha), unchanged=own(unchanged), w=w.cpu().numpy(),
+                    epochs=epochs.cpu().numpy(), violation=violation.cpu().numpy(),
+                    live=live_h.astype(np.uint8), pending=pending_h.astype(np.uint8),
+                    done=done_h.astype(np.uint8), q=q.cpu().numpy())
+
+    def segment_stats() -> Stage2StreamStats:
+        return dataclasses.replace(st, h2d_seconds=lanes.h2d_seconds(),
+                                   prefetch_final=ring.prefetch)
+
+    comp = None
+    tuned = not cfg.autotune_prefetch
+    start = 0
+    guard = None
+    if cfg.checkpoint_dir:
+        from repro_torch.core.resilience import (StreamGuard, apply_carry,
+                                                 g_fingerprint)
+        guard = StreamGuard(cfg, n=n, rank=rank, sizes=m, g_fp=g_fingerprint(G_np))
+        snap = guard.try_resume() if cfg.resume else None
+        if snap is not None:
+            t0 = tr.begin()
+            guard.adopt(snap)
+            sv = snap["state"]
+            if sv["alpha"].shape != (T, n_pad) or sv["q"].shape != (n,):
+                raise ValueError("checkpoint task layout does not match this solve")
+
+            def ours(a, dtype):
+                return torch.gather(torch.as_tensor(a, dtype=dtype, device=dev), 1, perm)
+            alpha.copy_(ours(sv["alpha"], torch.float32))
+            unchanged.copy_(ours(sv["unchanged"], torch.int32))
+            w.copy_(torch.as_tensor(sv["w"], device=dev))
+            epochs.copy_(torch.as_tensor(sv["epochs"], device=dev))
+            violation.copy_(torch.as_tensor(sv["violation"], device=dev))
+            q.copy_(torch.as_tensor(sv["q"], device=dev))
+            q_summed = True
+            live_h[:] = sv["live"].astype(bool)
+            pending_h[:] = sv["pending"].astype(bool)
+            done_h[:] = sv["done"].astype(bool)
+            live.copy_(torch.from_numpy(live_h))
+            ring.prefetch = int(snap["meta"]["prefetch"])
+            tuned = True              # the first full pass is behind it
+            start = guard.start_epoch
+            if config.shrink:         # the boundary's compaction; a cold cache
+                comp = recompact(record=False) if live_h.any() else None
+            st.resumed_from = start
+            st.resume_seconds = tr.end("recovery", "resume", t0, epoch=start)
+        guard.on_start()
+
+    if pending_h.any() and not (guard is not None and guard.init_done):
+        t0 = tr.begin()           # warm roots: an init pass first
         pend = np.flatnonzero(pending_h)
         promote(pend, shared_pass("init", pend)[1])
         live.copy_(torch.from_numpy(live_h))
         if lanes.cuda:
             torch.cuda.synchronize(dev)
         st.init_seconds = tr.end("init", "init_pass", t0, tasks=len(pend))
-    comp = None
-    tuned = not cfg.autotune_prefetch
-    for epoch in range(config.max_epochs):
+    if guard is not None:
+        guard.mark_init()
+    for epoch in range(start, config.max_epochs):
         # a pending task needs a pass over all of G: it promotes the epoch
         full = epoch % period == 0 or bool(pending_h.any())
-        mark = st.bytes_g
+        ring.epoch = epoch
+        mark, hit0, miss0 = st.bytes_g, st.bytes_hit, st.bytes_miss
         put0, drain0 = st.put_seconds, st.drain_seconds
         te0, cv0 = tr.begin(), st.coord_visits
-        act_rows = n if comp is None or full else comp[1].shape[0]
+        act_rows = n if comp is None or full else comp.q.shape[0]
         pend = np.flatnonzero(pending_h) if full else no_tasks
         if full or comp is None:
             viol, w0 = shared_pass("full" if full else "cheap", pend)
@@ -727,18 +974,28 @@ def solve_batch_streamed(
             del w0
             live.copy_(torch.from_numpy(live_h))
         st.epoch_bytes.append(st.bytes_g - mark)
+        st.epoch_hit_bytes.append(st.bytes_hit - hit0)
+        st.epoch_miss_bytes.append(st.bytes_miss - miss0)
         if tr.enabled:
             _trace_epoch(tr, te0, epoch, full, st, act_rows, cv0,
                          violation if full else None)
         if full:
             if not (live_h.any() or pending_h.any()):
                 break
+            if config.shrink:
+                comp = recompact() if live_h.any() else drop_cache()
             if not tuned:
                 tuned = True
-                _autotune(ring, cfg, rank, T, tile,
-                          st.put_seconds - put0, st.drain_seconds - drain0)
-            if config.shrink:
-                comp = recompact() if live_h.any() else None
+                planned = (cache.planned_fraction(comp.keys, comp.sizes)
+                           if cache is not None and comp is not None else 0.0)
+                _autotune(ring, cfg, rank, T, tile, st.put_seconds - put0,
+                          st.drain_seconds - drain0, planned)
+            if guard is not None and guard.on_boundary(
+                    epoch, state, segment_stats, ring.prefetch, tr):
+                st.snapshots += 1
+                st.snapshot_seconds += guard.last_seconds
+                st.snapshot_bytes = guard.last_bytes
+        fault_check("epoch_boundary", epoch=epoch)
 
     t0 = tr.begin()
     epochs = torch.where(torch.as_tensor(done_h, device=dev), epochs,
@@ -752,6 +1009,8 @@ def solve_batch_streamed(
     st.h2d_seconds = lanes.h2d_seconds()
     st.prefetch_final = ring.prefetch
     st.seconds = time.perf_counter() - t_start
+    if guard is not None:
+        apply_carry(st, guard.carry)
     res = SolveResult(out_alpha, w, epochs, violation, dual, n_sv)
     return (res, st) if return_stats else res
 
@@ -764,8 +1023,9 @@ def _trace_epoch(tr, t0: float, epoch: int, full: bool, st: Stage2StreamStats,
     eb = st.epoch_bytes[-1]
     rows = st.coord_visits - cv0
     attrs = dict(epoch=epoch, kind="full" if full else "cheap", bytes=int(eb),
-                 hit_bytes=0, miss_bytes=0, rows=int(rows), active=int(active),
-                 devices=1)
+                 hit_bytes=int(st.epoch_hit_bytes[-1]),
+                 miss_bytes=int(st.epoch_miss_bytes[-1]), rows=int(rows),
+                 active=int(active), devices=1)
     if violation is not None:
         v = violation.cpu().numpy()
         v = v[np.isfinite(v)]
@@ -778,13 +1038,20 @@ def _trace_epoch(tr, t0: float, epoch: int, full: bool, st: Stage2StreamStats,
 
 
 def _autotune(ring: _Ring, cfg: StreamConfig, rank: int, T: int, tile: int,
-              put: float, drain: float) -> None:
+              put: float, drain: float, planned: float = 0.0) -> None:
     """Deepen the block queue from the first full pass's put and drain
-    times, but never past what the byte model fits in the budget."""
+    times, but never past what the byte model fits in the budget less an
+    explicit cache carve.  ``planned`` is the share of the coming cheap
+    epochs' bytes the cache's plan pins: above one half most blocks never
+    cross the bus, and the depth stays."""
     free = cfg.device_budget_bytes - stage2_resident_bytes(rank, T)
+    if cfg.cache_blocks and cfg.cache_budget_bytes:
+        free -= cfg.cache_budget_bytes
     per_block = stage2_block_bytes(tile, rank, T)
     fit = free // per_block if per_block > 0 else cfg.prefetch_cap
     cap = max(ring.prefetch, min(cfg.prefetch_cap, int(fit)))
+    if planned > 0.5:
+        cap = ring.prefetch
     ring.prefetch = tune_prefetch(put, drain, ring.prefetch, cap)
 
 

@@ -37,12 +37,15 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
+import os
 import time
 from typing import Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core.faults import check as fault_check
 from repro_torch.core.kernel_fn import KernelParams, full_fp32, gram
 from repro_torch.core.quant import GROUP_ROWS, quantize_rows
 from repro_torch.core.trace import NULL, resolve
@@ -74,6 +77,23 @@ class StreamConfig:
     trace: Optional[object] = None       # core.trace.Tracer recording the
                                          # timeline; None -> the installed
                                          # tracer, else the no-op fast path
+    cache_blocks: bool = True            # pin compacted stage-2 blocks on the
+                                         # card (core/block_cache.py); a hit
+                                         # decodes as the shipped block would
+    cache_budget_bytes: Optional[int] = None  # the cache's bytes; None -> what
+                                         # the budget leaves after the blocks
+                                         # in flight
+    # -- checkpoints and faults (core/resilience.py, core/faults.py) --------
+    checkpoint_dir: Optional[str] = None  # stage-2 snapshots and the stage-1
+                                         # G copy live here; None -> off
+    checkpoint_every: int = 0            # full passes between stage-2
+                                         # snapshots (0: never)
+    resume: bool = False                 # continue from checkpoint_dir
+    fail_fast: bool = True               # False: a transient H2D fault
+                                         # retries with backoff
+    max_retries: int = 3                 # retries of one copy (fail_fast off)
+    retry_backoff: float = 0.05          # seconds, doubled each retry
+    checkpoint_keep: int = 3             # snapshots kept (0: all)
 
     def __post_init__(self):
         if self.prefetch < 1:
@@ -92,6 +112,18 @@ class StreamConfig:
             raise ValueError("quant_group_rows must be >= 1")
         if self.prefetch_cap < 1:
             raise ValueError("prefetch_cap must be >= 1")
+        if self.cache_budget_bytes is not None and self.cache_budget_bytes < 0:
+            raise ValueError("cache_budget_bytes must be >= 0")
+        if self.checkpoint_every < 0:
+            raise ValueError("checkpoint_every must be >= 0")
+        if self.max_retries < 0:
+            raise ValueError("max_retries must be >= 0")
+        if self.retry_backoff < 0:
+            raise ValueError("retry_backoff must be >= 0")
+        if self.checkpoint_keep < 0:
+            raise ValueError("checkpoint_keep must be >= 0")
+        if self.resume and not self.checkpoint_dir:
+            raise ValueError("resume=True requires checkpoint_dir")
 
 
 def with_trace(cfg: Optional[StreamConfig], trace) -> Optional[StreamConfig]:
@@ -150,6 +182,8 @@ class Stage1StreamStats(StreamTimes):
 
     chunks: int = 0
     rows: int = 0
+    chunks_skipped: int = 0           # chunks a resumed stage 1 read back
+    rows_resumed: int = 0             # from the checkpoint's G copy
     bytes_scales: int = 0
     encode_seconds: float = 0.0       # host time in the int8 encoder
     source_seconds: float = 0.0       # host time making the row blocks (a
@@ -343,13 +377,23 @@ def stream_factor_blocks(
     stats: Optional[Stage1StreamStats] = None,
     gram_fn: Callable = gram,
     trace=None,
+    progress=None,
+    durable: Optional[np.ndarray] = None,
 ) -> torch.Tensor:
     """Fill a host G = K(x, landmarks) @ projector from an iterator of
     (rows, p) fp32 row blocks totalling ``n`` rows (see the module
     docstring).  ``out`` is the host G, allocated (pinned for the card) when
     not given.  ``autotune_prefetch`` deepens the queue after the first
     window when putting took longer than draining (``tune_prefetch``).
-    ``trace`` records the spans of the module docstring (``resolve``)."""
+    ``trace`` records the spans of the module docstring (``resolve``).
+
+    ``progress`` (a ``resilience.Stage1Progress``) with ``durable`` (the
+    on-disk G copy, ``resilience.stage1_memmap``) makes the stream
+    resumable: a chunk the log covers is read back from ``durable`` into
+    ``out`` and not computed (``chunks_skipped``, ``rows_resumed``), and each
+    drained chunk is written to ``durable`` and flushed before its log line.
+    Each computed chunk passes the fault site "stage1" (``chunk``: its
+    index)."""
     dev = landmarks.device
     rank = projector.shape[1]
     if wire_dtype not in ("f32", "int8"):
@@ -369,20 +413,23 @@ def stream_factor_blocks(
 
     lanes = Lanes(dev, tr)
     free: List[_Slot] = []
-    inflight = collections.deque()        # (slot, done event)
+    inflight = collections.deque()        # (slot, done event, first row, end row)
 
     def drain_one():
-        slot, done, rows = inflight.popleft()
+        slot, done, s0, e0 = inflight.popleft()
         t0 = tr.begin()
         wait(done)                         # this chunk's G rows are in `out`
-        st.drain_seconds += tr.end("drain", "stage1_fetch", t0, rows=rows,
-                                   bytes=rows * rank * BYTES_F32)
+        st.drain_seconds += tr.end("drain", "stage1_fetch", t0, rows=e0 - s0,
+                                   bytes=(e0 - s0) * rank * BYTES_F32)
+        if progress is not None:           # durable before it is logged
+            durable[s0:e0] = out[s0:e0].numpy()
+            progress.mark(s0, e0, flush=durable.flush)
         free.append(slot)
 
     tuned = not autotune_prefetch
     s = 0
     blocks = iter(blocks)
-    while True:
+    for i in itertools.count():
         t0 = tr.begin()
         xb = next(blocks, None)
         if xb is None:
@@ -393,6 +440,13 @@ def stream_factor_blocks(
         e = s + xb.shape[0]
         if e > n:
             raise ValueError(f"block iterator produced more than {n} rows")
+        if progress is not None and progress.covered(s, e):
+            out[s:e].copy_(torch.from_numpy(np.asarray(durable[s:e])))
+            st.chunks_skipped += 1
+            st.rows_resumed += e - s
+            s = e
+            continue
+        fault_check("stage1", chunk=i)
         if quant:
             t0 = tr.begin()
             vals, scales = quantize_rows(xb, quant_group_rows, symmetric=True)
@@ -416,7 +470,7 @@ def stream_factor_blocks(
                 k = gram_fn(on_card[0], landmarks, params)
             g = k @ projector
         del k
-        inflight.append((slot, lanes.fetch(out[s:e], g), e - s))
+        inflight.append((slot, lanes.fetch(out[s:e], g), s, e))
         del g
         st.chunks += 1
         st.rows += e - s
@@ -547,14 +601,27 @@ def _streamed_factor_from_landmarks(landmarks: np.ndarray, make_blocks, n: int, 
     projector = projector[:, :rank].contiguous()
 
     stats = Stage1StreamStats()
-    G = stream_factor_blocks(
-        make_blocks(auto_chunk_rows(n, p, landmarks.shape[0], config)), n,
-        landmarks, projector, params,
-        prefetch=config.prefetch, wire_dtype=config.stage1_dtype,
-        quant_group_rows=config.quant_group_rows,
-        autotune_prefetch=config.autotune_prefetch,
-        prefetch_cap=config.prefetch_cap, stats=stats, gram_fn=gram_fn,
-        trace=config.trace)
+    progress = durable = None
+    if config.checkpoint_dir:
+        # resumable: G stays a pinned host tensor for stage 2, and each
+        # drained chunk is also written to <dir>/stage1_G.npy and logged
+        from repro_torch.core.resilience import Stage1Progress, stage1_memmap
+        durable = stage1_memmap(config.checkpoint_dir, n, rank, config.resume)
+        progress = Stage1Progress(
+            os.path.join(config.checkpoint_dir, "stage1_progress.log"), n, rank,
+            resume=config.resume)
+    try:
+        G = stream_factor_blocks(
+            make_blocks(auto_chunk_rows(n, p, landmarks.shape[0], config)), n,
+            landmarks, projector, params,
+            prefetch=config.prefetch, wire_dtype=config.stage1_dtype,
+            quant_group_rows=config.quant_group_rows,
+            autotune_prefetch=config.autotune_prefetch,
+            prefetch_cap=config.prefetch_cap, stats=stats, gram_fn=gram_fn,
+            trace=config.trace, progress=progress, durable=durable)
+    finally:
+        if progress is not None:
+            progress.close()
     return nystrom.LowRankFactor(
         G=G, landmarks=landmarks, projector=projector, eigvals=evals,
         effective_rank=rank, kernel=params, streamed=True, stage1_stats=stats)

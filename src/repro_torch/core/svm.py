@@ -20,9 +20,10 @@ unpolished fit.  ``predict_from_factor`` scores the training rows from G;
 ``save`` / ``load`` persist a fitted model as a numpy archive.
 ``fit(trace=...)`` (or a ``StreamConfig.trace``, or an installed tracer)
 records the ``fit`` / ``stage1`` and ``fit`` / ``stage2`` spans and the
-streamed and polished paths' own (``core/trace.py``).  The checkpointed
-route of the reference (stage-2 snapshots and resume) is not ported yet:
-its arguments raise ``NotImplementedError``.
+streamed and polished paths' own (``core/trace.py``).
+``fit(checkpoint_dir=, checkpoint_every=, resume=)`` folds into the
+``StreamConfig`` and forces the streamed route: stage 1 keeps a resumable
+copy of G and stage 2 snapshots its solver (``core/resilience.py``).
 """
 from __future__ import annotations
 
@@ -61,14 +62,6 @@ class FitStats:
     stage2_stats: Optional[Stage2StreamStats] = None
     polished: bool = False          # True -> stage 2 ran the polish ladder
     polish_trace: Optional[PolishTrace] = None
-
-
-def _not_ported(**args) -> None:
-    for name, set_ in args.items():
-        if set_:
-            raise NotImplementedError(
-                f"LPDSVM: `{name}` is not ported to repro_torch yet: stage-2 "
-                "checkpoints and resume are not")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -170,10 +163,27 @@ class LPDSVM:
         """Two-stage fit on the estimator's device.  ``trace`` (a
         ``core.trace.Tracer``) records the run's timeline; it wins over
         ``StreamConfig.trace``, which wins over an installed tracer, and
-        never changes which route runs."""
-        _not_ported(checkpoint_dir=checkpoint_dir is not None,
-                    checkpoint_every=checkpoint_every is not None,
-                    resume=resume is not None)
+        never changes which route runs.
+
+        ``checkpoint_dir`` / ``checkpoint_every`` / ``resume`` fold into the
+        ``StreamConfig`` as the reference folds them: stage 1 resumes its
+        logged G chunks from ``<dir>/stage1_G.npy`` and stage 2 snapshots
+        its solver every ``checkpoint_every`` full passes, resumable bit for
+        bit after a kill.  Any of them forces the streamed route, where
+        checkpoints exist."""
+        if (checkpoint_dir is not None or checkpoint_every is not None
+                or resume is not None):
+            upd = {}
+            if checkpoint_dir is not None:
+                upd["checkpoint_dir"] = checkpoint_dir
+            if checkpoint_every is not None:
+                upd["checkpoint_every"] = int(checkpoint_every)
+            if resume is not None:
+                upd["resume"] = bool(resume)
+            self.stream_config = dataclasses.replace(
+                self.stream_config or StreamConfig(), **upd)
+            if self.stream is None and self.stream_config.checkpoint_dir:
+                self.stream = True
         y = np.asarray(y)
         self.classes_, labels = np.unique(y, return_inverse=True)
         n_classes = len(self.classes_)

@@ -28,8 +28,11 @@ ever building the dense (n, p) matrix, stage 2 streams, and the training
 rows are scored from G (``train_from_libsvm``).  ``--trace OUT.json``,
 ``--trace-summary`` and ``--verbose`` arm a ``core/trace.py`` tracer for the
 run (a Chrome-trace file, the summary, a line per streamed stage-2 epoch).
-Flags of routes not ported yet (stage-2 checkpoints, shards, the block
-cache, the multi-device farm) stop with an error that names them.
+``--cache-budget-mb`` / ``--no-cache`` size or turn off the streamed stage
+2's block cache (``core/block_cache.py``), and ``--checkpoint-dir`` /
+``--checkpoint-every`` / ``--resume`` make both streamed stages resumable
+(``core/resilience.py``).  Flags of routes not ported yet (shards, the
+multi-device farm) stop with an error that names them.
 """
 from __future__ import annotations
 
@@ -146,7 +149,9 @@ def _report(svm: LPDSVM) -> None:
     if s1 is not None:
         scales = (f" ({s1.bytes_scales / 2**10:.1f} KiB scales)"
                   if s1.bytes_scales else "")
-        print(f"stage1 stream: {s1.chunks} x {s1.wire_dtype} chunks, "
+        resumed = (f", {s1.chunks_skipped} read back from the checkpoint"
+                   if s1.chunks_skipped else "")
+        print(f"stage1 stream: {s1.chunks} x {s1.wire_dtype} chunks{resumed}, "
               f"prefetch {s1.prefetch_final}, "
               f"{s1.bytes_h2d / 2**20:.1f} MiB H2D{scales}")
     if s2 is not None:
@@ -154,6 +159,16 @@ def _report(svm: LPDSVM) -> None:
               f"blocks, 1 device, prefetch {s2.prefetch_final}, "
               f"{s2.epochs} epochs, {s2.bytes_h2d / 2**20:.1f} MiB H2D / "
               f"{s2.bytes_d2h / 2**20:.1f} MiB D2H, active {s2.active_history}")
+        # bytes_miss accrues with the cache off too; a line only where the
+        # cache ran
+        if s2.bytes_hit or s2.cache_resident_bytes:
+            total = s2.bytes_hit + s2.bytes_miss
+            print(f"stage2 cache: {s2.bytes_hit / 2**20:.1f} MiB hit / "
+                  f"{s2.bytes_miss / 2**20:.1f} MiB miss "
+                  f"({100 * s2.bytes_hit / total:.0f}% of compacted G bytes "
+                  f"served from HBM), peak resident "
+                  f"{s2.cache_resident_bytes / 2**20:.1f} MiB, "
+                  f"{s2.cache_evictions} evictions")
     tr = svm.stats.polish_trace
     if tr is not None:
         for lv in tr.levels:
@@ -247,18 +262,31 @@ def build_parser() -> argparse.ArgumentParser:
                     help="--libsvm ingest policy for malformed or non-finite "
                          "rows: 'raise' (default) stops naming the line, "
                          "'skip' drops them and reports the count")
+    ap.add_argument("--cache-budget-mb", type=float, default=-1.0,
+                    help="bytes of the streamed stage 2's block cache on the "
+                         "card (<0: what the device budget leaves, the "
+                         "default; 0 turns the cache off)")
+    ap.add_argument("--no-cache", action="store_true",
+                    help="turn the stage-2 block cache off (every cheap epoch "
+                         "ships its compacted rows again)")
+    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="checkpoint directory (core/resilience.py): stage 1 "
+                         "keeps a resumable copy of G there, stage 2 "
+                         "snapshots its solver at full passes; forces the "
+                         "streamed pipelines")
+    ap.add_argument("--checkpoint-every", type=int, default=1,
+                    help="snapshot stage 2 every N full passes (default 1; "
+                         "needs --checkpoint-dir)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest snapshot in --checkpoint-dir; "
+                         "bit-equal to the uninterrupted run")
     # routes of the reference that are not ported yet: refused by main()
     ap.add_argument("--no-overlap", action="store_true")
-    ap.add_argument("--cache-budget-mb", type=float, default=-1.0)
-    ap.add_argument("--no-cache", action="store_true")
     ap.add_argument("--shard-dir", default=None, metavar="DIR")
     ap.add_argument("--shard-rows", type=int, default=4096)
     ap.add_argument("--spill-g", action="store_true")
     ap.add_argument("--verify-shards", action=argparse.BooleanOptionalAction,
                     default=True)
-    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR")
-    ap.add_argument("--checkpoint-every", type=int, default=1)
-    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="record the run's timeline (core/trace.py; the card's "
                          "work as CUDA-event spans) and export it as "
@@ -273,15 +301,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> Optional[str]:
     """The first flag of a route the port does not serve yet, or None."""
-    given = (("--checkpoint-dir", args.checkpoint_dir is not None),
-             ("--checkpoint-every", args.checkpoint_every != 1),
-             ("--resume", args.resume),
-             ("--shard-dir", args.shard_dir is not None),
+    given = (("--shard-dir", args.shard_dir is not None),
              ("--shard-rows", args.shard_rows != 4096),
              ("--spill-g", args.spill_g),
              ("--no-verify-shards", not args.verify_shards),
-             ("--cache-budget-mb", args.cache_budget_mb != -1.0),
-             ("--no-cache", args.no_cache),
              ("--no-overlap", args.no_overlap))
     return next((flag for flag, set_ in given if set_), None)
 
@@ -304,8 +327,16 @@ def main(argv=None) -> float:
         ap.error(f"--grid-folds must be >= 2, got {args.grid_folds}")
     if args.grid_gammas is not None and args.grid_cs is None:
         ap.error("--grid-gammas requires --grid-cs")
+    if args.checkpoint_every < 0:
+        ap.error(f"--checkpoint-every must be >= 0, got {args.checkpoint_every}")
+    if args.resume and not args.checkpoint_dir:
+        ap.error("--resume requires --checkpoint-dir")
 
     stream_config, force = stream_args(args)
+    if args.checkpoint_dir:
+        print(f"checkpoint: {args.checkpoint_dir} (every "
+              f"{args.checkpoint_every} full passes"
+              f"{', resuming' if args.resume else ''})")
     if args.libsvm and args.grid_cs is not None:
         ap.error("--grid-cs is not supported with --libsvm")
     # any of the three flags arms a tracer, installed process-wide (every
@@ -342,20 +373,30 @@ def stream_args(args):
     """(stream_config, force) from the streaming flags, as the reference
     derives them: an explicit chunk / tile size or wire dtype with no budget
     is a request to stream, not a hint to the (roomy) default budget;
-    ``--stream`` forces."""
+    ``--stream`` and ``--checkpoint-dir`` (checkpoints exist on the streamed
+    pipelines only) force.  ``--cache-budget-mb 0`` is ``--no-cache``."""
     quant = args.block_dtype != "f32" or args.stage1_dtype != "f32"
-    force = args.stream or ((args.chunk_rows > 0 or args.tile_rows > 0 or quant)
-                            and args.device_budget_mb <= 0)
+    force = args.stream or bool(args.checkpoint_dir) or (
+        (args.chunk_rows > 0 or args.tile_rows > 0 or quant)
+        and args.device_budget_mb <= 0)
+    cache_off = args.no_cache or args.cache_budget_mb == 0
     stream_config = None
     if (args.device_budget_mb > 0 or args.chunk_rows > 0 or args.tile_rows > 0
-            or args.stream or quant):
+            or args.stream or quant or cache_off or args.cache_budget_mb > 0
+            or args.checkpoint_dir):
         stream_config = StreamConfig(
             device_budget_bytes=int(args.device_budget_mb * 2**20) or 2 << 30,
             chunk_rows=args.chunk_rows or None,
             tile_rows=args.tile_rows or None,
             block_dtype=args.block_dtype,
             stage1_dtype=args.stage1_dtype,
-            quant_group_rows=args.quant_group_rows or GROUP_ROWS)
+            quant_group_rows=args.quant_group_rows or GROUP_ROWS,
+            cache_blocks=not cache_off,
+            cache_budget_bytes=(int(args.cache_budget_mb * 2**20)
+                                if args.cache_budget_mb > 0 else None),
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every if args.checkpoint_dir else 0,
+            resume=args.resume)
     return stream_config, force
 
 

@@ -996,13 +996,14 @@ def _sparse_csr(tmp_path, n=3000, p=40, seed=0):
     return read_libsvm(path, n_features=p)
 
 
-@pytest.mark.parametrize("stage", ["stage 1 slot", "stage 2 ring"])
+@pytest.mark.parametrize("stage", ["stage 1 slot", "stage 2 ring", "stage 2 cache payload"])
 def test_new_staging_buffer_waits_for_queued_compute_on_card(cuda, stage):
     """A product is queued behind slow work on the compute stream and its
     input freed; the next staging buffer on the card, the same size, gets
     that input's memory from the caching allocator.  Its H2D copy must wait
     for the queued product (``Lanes.claim``), or it overwrites the input
-    under it: the product must come out as computed alone."""
+    under it: the product must come out as computed alone.  The block
+    cache's payload (``_Ring.load(..., keep=True)``) is such a buffer."""
     from repro_torch.core.solver_stream import Stage2StreamStats, _Ring
     from repro_torch.core.streaming import Lanes, _Slot
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -1021,8 +1022,8 @@ def test_new_staging_buffer_waits_for_queued_compute_on_card(cuda, stage):
         (dev,) = _Slot().put([src], lanes, cuda)
     else:
         ring = _Ring(4096, 1024, "f32", cuda, 2, lanes, Stage2StreamStats())
-        dev, _ = ring.load(host_buffer((4096, 1024), torch.float32, cuda).copy_(
-            torch.from_numpy(src)))
+        dev, _, _ = ring.load(host_buffer((4096, 1024), torch.float32, cuda).copy_(
+            torch.from_numpy(src)), keep=stage == "stage 2 cache payload")
     torch.cuda.synchronize()
     assert bool((dev == 7.0).all())
     assert torch.equal(got, want)
@@ -1388,3 +1389,73 @@ def test_spirals_k_mm_from_b1_near_the_threshold_no_farther_from_fp64_than_plain
           f"plain {err['plain'][0]:.3e} / {err['plain'][1]:.3e}")
     assert err["B1"][0] <= err["plain"][0]
     assert err["B1"][1] <= err["plain"][1]
+
+
+# ------------------------------------------- the block cache, checkpoints
+
+def _cache_problem(cuda, n=4000, C=16.0, seed=4):
+    x, y = make_multiclass(n, p=16, n_classes=4, seed=seed)
+    _, labels = np.unique(y, return_inverse=True)
+    fac = compute_factor(x, KernelParams("rbf", gamma=median_gamma(x)), 256, device=cuda)
+    G = host_buffer(tuple(fac.G.shape), torch.float32, cuda).copy_(fac.G)
+    tasks, _ = build_ovo_tasks(labels, 4, C, device=cuda)
+    return G, tasks
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16", "int8"])
+def test_cached_solve_on_card_is_bit_equal_to_uncached(cuda, wire):
+    """The block cache on the card: alphas, w, epochs and violations equal
+    to the uncached solve's, the hit / miss identities, hits served."""
+    G, tasks = _cache_problem(cuda)
+    cfg = SolverConfig(tol=1e-4, max_epochs=400)
+    on, s_on = ss.solve_batch_streamed(G, tasks, cfg, return_stats=True,
+                                       stream_config=StreamConfig(tile_rows=512,
+                                                                  block_dtype=wire))
+    off, s_off = ss.solve_batch_streamed(G, tasks, cfg, return_stats=True, stream_config=
+                                         StreamConfig(tile_rows=512, block_dtype=wire,
+                                                      cache_blocks=False))
+    for f in ("alpha", "w", "epochs", "violation"):
+        assert torch.equal(getattr(on, f), getattr(off, f)), f
+    assert s_on.bytes_hit > 0 and s_on.bytes_hit + s_on.bytes_miss == s_off.bytes_miss
+    assert s_on.bytes_h2d == s_off.bytes_h2d - s_on.bytes_hit
+
+
+def test_cache_evict_and_refill_under_a_small_budget_on_card(cuda):
+    """Stream safety: a budget of one block, tiny blocks and a deep queue,
+    so that payloads are evicted at every compaction and new ones are copied
+    while many B2 launches are queued; the result is the uncached one."""
+    G, tasks = _cache_problem(cuda, n=6000, C=64.0, seed=5)
+    cfg = SolverConfig(tol=1e-5, max_epochs=600)
+    rank = G.shape[1]
+    kw = dict(tile_rows=64, prefetch=6, autotune_prefetch=False)
+    on, s_on = ss.solve_batch_streamed(G, tasks, cfg, return_stats=True, stream_config=
+                                       StreamConfig(cache_budget_bytes=64 * rank * 4, **kw))
+    off, s_off = ss.solve_batch_streamed(G, tasks, cfg, return_stats=True,
+                                         stream_config=StreamConfig(cache_blocks=False, **kw))
+    for f in ("alpha", "w", "epochs", "violation"):
+        assert torch.equal(getattr(on, f), getattr(off, f)), f
+    assert s_on.cache_evictions > 0 and s_on.cache_hits > 0 and s_on.cache_misses > 0
+    assert s_on.cache_resident_bytes <= 64 * rank * 4
+
+
+@pytest.mark.parametrize("wire", ["f32", "int8"])
+def test_kill_resume_on_card_is_bit_equal(cuda, tmp_path, wire):
+    """A streamed stage 2 on the card killed after a snapshot and resumed:
+    the uninterrupted run's alphas, w, epochs and violations."""
+    from repro_torch.core import faults
+    G, tasks = _cache_problem(cuda)
+    cfg = SolverConfig(tol=1e-4, max_epochs=400)
+    sc = StreamConfig(tile_rows=512, block_dtype=wire)
+    clean = ss.solve_batch_streamed(G, tasks, cfg, stream_config=sc)
+    ck = dataclasses.replace(sc, checkpoint_dir=str(tmp_path), checkpoint_every=1)
+    faults.install(faults.FaultPlan().add("epoch_boundary", kind="kill", epoch=25))
+    try:
+        with pytest.raises(faults.SimulatedKill):
+            ss.solve_batch_streamed(G, tasks, cfg, stream_config=ck)
+    finally:
+        faults.uninstall()
+    res, st = ss.solve_batch_streamed(G, tasks, cfg, return_stats=True,
+                                      stream_config=dataclasses.replace(ck, resume=True))
+    assert st.resumed_from == 21
+    for f in ("alpha", "w", "epochs", "violation"):
+        assert torch.equal(getattr(res, f), getattr(clean, f)), f

@@ -57,7 +57,8 @@ def test_streamed_equals_monolithic(tile, shrink):
     res, st = ss.solve_batch_streamed(G, tasks, cfg, return_stats=True,
                                       stream_config=StreamConfig(tile_rows=tile))
     _assert_bit_equal(mono, res)
-    assert st.kernel_calls == st.blocks_streamed > 0
+    # a B2 launch a block, shipped or served by the block cache
+    assert st.kernel_calls == st.blocks_streamed + st.cache_hits > 0
     assert st.full_passes == (st.epochs - 1) // (20 if shrink else 1) + 1
 
 

@@ -201,10 +201,23 @@ def test_polish_constructor_arguments_take_effect(kwargs, check):
 
 @pytest.mark.parametrize("arg,value", [
     ("checkpoint_dir", "ckpt"), ("checkpoint_every", 1), ("resume", True)])
-def test_unported_fit_arguments_raise(arg, value):
+def test_unported_fit_arguments_raise(arg, value, tmp_path):
+    """The checkpoint arguments of ``fit`` raised while the resilience layer
+    was not ported; now they fold into the StreamConfig as the reference
+    folds them (``checkpoint_dir`` forces the streamed route), and only what
+    the reference refuses raises: ``resume`` without a checkpoint
+    directory."""
     x, y = make_checker(40, seed=0)
-    with pytest.raises(NotImplementedError, match=arg):
-        LPDSVM(device="cpu", budget=8).fit(x, y, **{arg: value})
+    svm = LPDSVM(device="cpu", budget=8)
+    if arg == "resume":
+        with pytest.raises(ValueError, match="checkpoint_dir"):
+            svm.fit(x, y, **{arg: value})
+        return
+    if arg == "checkpoint_dir":
+        value = str(tmp_path / value)
+    svm.fit(x, y, **{arg: value})
+    assert getattr(svm.stream_config, arg) == value
+    assert svm.stats.stage2_streamed == svm.stats.stage1_streamed == (arg == "checkpoint_dir")
 
 
 def test_single_class_rejected_and_predict_needs_fit():
