@@ -223,10 +223,32 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 values on the test rows bit-equal; predict_from_factor raises
   predict_from_factor, card G vs host G   the main path's factor scored from
                 its card G and from a pinned host copy: identical votes
+  shard store, ingest and reuse   the driver's --libsvm run above with
+                --shard-dir, once to ingest the text into 4096-row f32 shards
+                and once to reuse them with every parse function raising:
+                parse, write and open seconds, bytes written, the walls against
+                --libsvm without a store, the shard io line; the reused run's
+                factor and training error bit-equal.  An int8 store written
+                with ShardWriter from the parsed CSR: its stored codes through
+                B3 give compute_factor_streamed's G at 4096-row chunks on the
+                int8 wire bit for bit, with no host encode.  A data shard
+                corrupted on read (a shard_corrupt fault): quarantined, parsed
+                again from the text, the factor unchanged
+  stage 2 off a spilled G, full width   the streamed path's fit with spill_g
+                (f32 wire): factor.G a GShardView of 15 shards, stage 1's pinned
+                host buffers (none of n rows), shard reads, bytes read and
+                verified, read GB/s, read and checksum seconds, the compute
+                row's idle share in stage 2 (tracer); its stage 2 (whose
+                derived cache holds no block) bit-equal to the uncached solve
+                off a pinned copy of G; the cached solve (480 MiB, 224 MiB of
+                cache) off the spilled G, with one G shard corrupted on read
+                and rebuilt through B1, serving cache hits and bit-equal to
+                the cached and the uncached solves off the pinned G
 
 Then one JSON line {"kernels": [...]} (``launches_libsvm``: each kernel's
-launches summed over the LIBSVM phases; ``launches_trace`` over the traced
-fit, ``launches_int8_blocks`` over the int8 stage 2, ``launches_block_cache``
+launches summed over the LIBSVM phases; ``launches_shards`` over the two
+shard phases; ``launches_trace`` over the traced fit,
+``launches_int8_blocks`` over the int8 stage 2, ``launches_block_cache``
 over the cached one) and, last, the
 {"ok": true, ...} line.
 """
@@ -2710,14 +2732,15 @@ def main() -> int:
 
     # ------------------------------------------------------- the LIBSVM route
     libsvm_dir = tempfile.TemporaryDirectory(dir=build.BUILD_DIR)
-    lib_launches = {"gram": 0, "gram_q8": 0, "smo_epoch": 0}
+    lib_launches = {"flash_attention": 0, "gram": 0, "gram_q8": 0, "smo_epoch": 0}
 
     def reset_counts():
-        for fn in (gram_kernel, gram_q8_kernel, smo_epoch_kernel):
+        for fn in (flash_attention_kernel, gram_kernel, gram_q8_kernel, smo_epoch_kernel):
             fn.launches = 0
 
     def read_counts(add: bool = True) -> dict:
-        got = {"gram": gram_kernel.launches, "gram_q8": gram_q8_kernel.launches,
+        got = {"flash_attention": flash_attention_kernel.launches,
+               "gram": gram_kernel.launches, "gram_q8": gram_q8_kernel.launches,
                "smo_epoch": smo_epoch_kernel.launches}
         if add:
             for k, v in got.items():
@@ -2824,6 +2847,7 @@ def main() -> int:
             del fc, fd, runs, f
         del dense_l
 
+    libsvm_wall = {}
     with phase("driver --libsvm, full width"):
         argv_l = ["--libsvm", train_svm, "--n-features", str(p_tr), "--budget", str(budget),
                   "--C", "1", "--device-budget-mb", "256"]
@@ -2840,6 +2864,7 @@ def main() -> int:
             print(out.strip())
             svm_l, st = res_l.svm, res_l.svm.stats
             wire = st.stage1_stats.wire_dtype
+            libsvm_wall[wire] = wall_l
             lines = out.splitlines()
             print(f"train_svm {' '.join(argv_l[2:] + extra)}: {wall_l:.3f} s (read "
                   f"{res_l.read_seconds:.3f} s, stage 1 {st.stage1_seconds:.3f} s, stage 2 "
@@ -2854,7 +2879,7 @@ def main() -> int:
             s1l, s2l = st.stage1_stats, st.stage2_stats
             want = ({"gram": 1 + s1l.chunks, "gram_q8": 0} if wire == "f32"
                     else {"gram": 1, "gram_q8": s1l.chunks})
-            want["smo_epoch"] = s2l.kernel_calls
+            want.update(smo_epoch=s2l.kernel_calls, flash_attention=0)
             check(cnt == want and min(cnt[k] for k in want if want[k]) > 0,
                   f"--libsvm ({wire}): launches {cnt}, not {want}")
             # the training votes from G against predict on the dense rows
@@ -2967,6 +2992,276 @@ def main() -> int:
               f"{float(np.mean(v_card != ytr)):.4f}")
         check(np.array_equal(v_card, v_host), "a card G and a host G vote differently")
         del G_pin
+    # ------------------------------------------------------- the disk tier
+    shard_launches = {"flash_attention": 0, "gram": 0, "gram_q8": 0, "smo_epoch": 0}
+    n_main = len(xtr)                    # the main path's rows (n_tr is the driver's now)
+
+    def add_shard_launches() -> dict:
+        got = read_counts(add=False)
+        for k, v in got.items():
+            shard_launches[k] += v
+        return got
+
+    with phase("shard store, ingest and reuse"):
+        # the driver's --libsvm run with --shard-dir: the first run parses the
+        # text into f32 shards, the second reuses them and parses nothing
+        # (every parse function raises while it runs)
+        import repro_torch.data.libsvm_format as lf_mod
+        from repro_torch.core.shards import (ShardStore, ShardWriter,
+                                             attach_source_rebuilder)
+        from repro_torch.core.streaming import (compute_factor_streamed_shards,
+                                                stream_factor_blocks)
+        shard_root = os.path.join(libsvm_dir.name, "shards")
+        argv_sh = argv_l + ["--shard-dir", shard_root]
+        reset_counts()
+        t0 = time.perf_counter()
+        ret_i, res_i, out_i = run_driver(argv_sh)
+        wall_i = time.perf_counter() - t0
+        cnt_i = add_shard_launches()
+        print(out_i.strip())
+        parse_names = ("read_libsvm", "read_libsvm_blocks", "count_libsvm_rows")
+        saved = {k: getattr(lf_mod, k) for k in parse_names}
+        saved_driver = driver.read_libsvm
+
+        def no_parse(*a, **kw):
+            raise AssertionError("the reused store parsed the text")
+
+        for k in parse_names:
+            setattr(lf_mod, k, no_parse)
+        driver.read_libsvm = no_parse
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            ret_r, res_r, out_r = run_driver(argv_sh)
+            wall_r = time.perf_counter() - t0
+        finally:
+            for k, fn in saved.items():
+                setattr(lf_mod, k, fn)
+            driver.read_libsvm = saved_driver
+        cnt_r = add_shard_launches()
+        print(out_r.strip())
+        si, sr = res_i.shard_stats, res_r.shard_stats
+        store_f = res_r.store
+        same_f = all(torch.equal(getattr(res_i.svm.factor, k), getattr(res_r.svm.factor, k))
+                     for k in ("G", "landmarks", "projector", "eigvals"))
+        print(f"ingest: parse and write {res_i.read_seconds:.3f} s, {si.shards_written} "
+              f"shards, {si.bytes_written} B written in {si.write_seconds:.3f} s (atomic, "
+              f"fsynced); reuse: open {res_r.read_seconds:.3f} s")
+        print(f"driver walls: ingesting run {wall_i:.3f} s, reusing run {wall_r:.3f} s, "
+              f"--libsvm without a store {libsvm_wall['f32']:.3f} s; stage 1 "
+              f"{res_i.svm.stats.stage1_seconds:.3f} / {res_r.svm.stats.stage1_seconds:.3f} s, "
+              f"stage 2 {res_i.svm.stats.stage2_seconds:.3f} / "
+              f"{res_r.svm.stats.stage2_seconds:.3f} s; launches {cnt_i} / {cnt_r}")
+        print(f"reused run: {sr.shards_read} shard reads, {sr.bytes_read} B at "
+              f"{sr.read_gbps:.2f} GB/s (reads {sr.read_seconds:.3f} s, checksums "
+              f"{sr.verify_seconds:.3f} s, {sr.verifications} verified); train error "
+              f"{ret_r:.4f} against {ret_i:.4f}; factor bit-equal {same_f}")
+        check(res_i.ingested and not res_r.ingested
+              and "— ingested (parsed once)" in out_i and "— reused (no parse)" in out_r
+              and any(ln.startswith("shard io: ") for ln in out_r.splitlines()),
+              "the driver's --shard-dir runs did not ingest once and then reuse")
+        check(ret_r == ret_i and same_f,
+              "the reused store's factor or training error differs from the ingesting run's")
+        check(store_f.n_shards == -(-n_main // 4096) and store_f.n == n_main,
+              "the store does not hold the file's rows in 4096-row shards")
+        check(cnt_r["gram"] == 1 + res_r.svm.stats.stage1_stats.chunks
+              and cnt_r["smo_epoch"] == res_r.svm.stats.stage2_stats.kernel_calls > 0,
+              f"the reused run's launches {cnt_r} are not its chunks and blocks")
+
+        # an int8 store, written with ShardWriter from the CSR already parsed,
+        # on the int8 wire: its stored codes through B3 give the CSR route's
+        # chunks of 4096 rows (host encoder, B3) the same G bit for bit, on
+        # the store's landmarks and projector (an int8 store's landmarks are
+        # its decoded rows, the CSR route's the parsed ones)
+        dir8 = os.path.join(shard_root, "int8")
+        t0 = time.perf_counter()
+        w8 = ShardWriter(dir8, p_tr, shard_rows=4096, dtype="int8", with_labels=True)
+        for blk, lab in data.iter_dense_blocks(4096):
+            w8.append(blk, lab)
+        w8.finish()
+        t_w8 = time.perf_counter() - t0
+        st8 = ShardStore(dir8)
+        cfg8 = StreamConfig(device_budget_bytes=256 << 20, stage1_dtype="int8")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f8 = compute_factor_streamed_shards(st8, kp_l, budget, config=cfg8, device=dev)
+        torch.cuda.synchronize()
+        t_f8 = time.perf_counter() - t0
+        cnt8 = add_shard_launches()
+        reset_counts()
+        t0 = time.perf_counter()
+        host8 = stream_factor_blocks((blk for blk, _ in data.iter_dense_blocks(4096)),
+                                     data.n, f8.landmarks, f8.projector, kp_l,
+                                     wire_dtype="int8")
+        t_h8 = time.perf_counter() - t0
+        add_shard_launches()
+        s8 = f8.stage1_stats
+        same8 = torch.equal(host8, f8.G)
+        print(f"int8 store: written from the CSR in {t_w8:.3f} s ({st8.n_shards} shards, "
+              f"{st8.stats.bytes_read} B read so far); stage 1 from it {t_f8:.3f} s "
+              f"(encode {s8.encode_seconds:.3f} s, {s8.bytes_h2d} wire B, {s8.chunks} "
+              f"chunks, launches {cnt8}); the CSR's chunks through the host encoder "
+              f"{t_h8:.3f} s; G bit-equal {same8}")
+        check(same8 and s8.encode_seconds == 0.0 and cnt8["gram_q8"] == s8.chunks == 15,
+              "the int8 store's stored codes did not give the host int8 path's G")
+        del host8, f8
+
+        # a data shard corrupted on its first read: quarantined, parsed again
+        # from the text, and the factor is the driver's
+        store_c = attach_source_rebuilder(ShardStore(os.path.join(shard_root, "data")),
+                                          train_svm)
+        kp_d = res_r.svm.kernel
+        faults.install(faults.FaultPlan().add("shard_corrupt", kind="corrupt", shard=1))
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            f_c = compute_factor_streamed_shards(
+                store_c, kp_d, budget, device=dev,
+                config=StreamConfig(device_budget_bytes=256 << 20))
+            torch.cuda.synchronize()
+            t_c = time.perf_counter() - t0
+        finally:
+            faults.uninstall()
+        add_shard_launches()
+        cst = store_c.stats
+        same_c = all(torch.equal(getattr(f_c, k), getattr(res_r.svm.factor, k))
+                     for k in ("G", "landmarks", "projector", "eigvals"))
+        print(f"shard 1 corrupted on read: {cst.checksum_failures} checksum failure, "
+              f"{cst.quarantined} quarantined, {cst.rebuilt} rebuilt from the text; "
+              f"stage 1 {t_c:.3f} s; factor bit-equal to the driver's {same_c}")
+        check(cst.checksum_failures == cst.quarantined == cst.rebuilt == 1 and same_c,
+              "a corrupt data shard was not rebuilt bit for bit")
+        check(os.path.isfile(os.path.join(shard_root, "data", "quarantine",
+                                          "shard_00001.bin")),
+              "the corrupt shard was not kept under quarantine/")
+        del f_c, res_i, res_r, store_c, store_f
+
+    with phase("stage 2 off a spilled G, full width"):
+        # the streamed path's fit with spill_g (stage 1 on the f32 wire, so
+        # that B1 makes G and rebuilds its shards): G goes to 4096-row f32
+        # shards and stage 2 reads it from disk; the pinned host memory stage
+        # 1 allocates is counted; then stage 2 on a pinned copy of the same G
+        from repro_torch.core import streaming as streaming_mod
+        from repro_torch.core import trace as trace_mod
+        from repro_torch.core.shards import GShardView
+        spill_dir = os.path.join(libsvm_dir.name, "spill")
+        cfg_sp = dataclasses.replace(cfg, stage1_dtype="f32", shard_dir=spill_dir,
+                                     spill_g=True)
+        pinned = []
+        real_hb = streaming_mod.host_buffer
+
+        def counting_host_buffer(shape, dtype, device):
+            t = real_hb(shape, dtype, device)
+            pinned.append((tuple(shape), t.nbytes))
+            return t
+
+        tr_sp = trace_mod.Tracer()
+        svm_sp = LPDSVM(kernel=kp, C=1.0, budget=budget, tol=1e-2, stream_config=cfg_sp)
+        streaming_mod.host_buffer = counting_host_buffer
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            svm_sp.fit(xtr, ytr, trace=tr_sp)
+            wall_sp = time.perf_counter() - t0
+        finally:
+            streaming_mod.host_buffer = real_hb
+        cnt_sp = add_shard_launches()
+        G_v = svm_sp.factor.G
+        sst = G_v.store.stats
+        st_sp = svm_sp.stats
+        s1v, s2v = st_sp.stage1_stats, st_sp.stage2_stats
+        evs = tr_sp.events()
+        fit_sp = {e[2]: e for e in evs if e[1] == "fit"}
+        lo2, hi2 = fit_sp["stage2"][3], fit_sp["stage2"][3] + fit_sp["stage2"][4]
+        busy_sp, _ = tr_sp.busy("cuda:0 compute", lo2, hi2)
+        disk2 = sum(e[4] for e in evs if e[1] == "disk" and e[2] == "shard_read"
+                    and lo2 <= e[3] <= hi2)
+        print(f"fit with spill_g: {wall_sp:.3f} s (stage 1 {st_sp.stage1_seconds:.3f} s, "
+              f"stage 2 {st_sp.stage2_seconds:.3f} s traced); G {type(G_v).__name__} "
+              f"{G_v.shape} in {G_v.store.n_shards} shards, {sst.bytes_written} B written "
+              f"in {sst.write_seconds:.3f} s; stage 1 pinned {sum(b for _, b in pinned)} B "
+              f"in {len(pinned)} buffers, largest {max(r for (r, *_), _ in pinned)} rows "
+              f"(a host G would be {n_main * G_v.shape[1] * 4} B); launches {cnt_sp}")
+        print(f"stage 2 off the spilled G: {sst.shards_read} shard reads, {sst.bytes_read} "
+              f"B read and {sst.verifications} verified, {sst.read_gbps:.2f} GB/s, reads "
+              f"{sst.read_seconds:.3f} s, checksums {sst.verify_seconds:.3f} s; disk spans "
+              f"in stage 2 {disk2:.3f} s; compute row busy {busy_sp:.3f} s of "
+              f"{hi2 - lo2:.3f}, idle share {1 - busy_sp / (hi2 - lo2):.3f}; {s2v.epochs} "
+              f"epochs, {s2v.full_passes} full passes, {s2v.kernel_calls} B2 launches")
+        check(isinstance(G_v, GShardView) and G_v.shape[0] == n_main
+              and G_v.store.n_shards == -(-n_main // 4096), "factor.G is not a spilled view")
+        check(max(r for (r, *_), _ in pinned) < n_main,
+              "stage 1 with spill_g allocated a host buffer of n rows")
+        check(st_sp.stage1_streamed and st_sp.stage2_streamed
+              and cnt_sp["gram"] == 1 + s1v.chunks and cnt_sp["gram_q8"] == 0
+              and cnt_sp["smo_epoch"] == s2v.kernel_calls > 0,
+              f"the spilled fit's launches {cnt_sp} are not its chunks and blocks")
+
+        # the same G, pinned (a copy for the comparison only), solved
+        # uncached at the spilled fit's 256 MiB (whose derived cache holds no
+        # block) and cached at the block cache phase's 480 MiB with 224 MiB
+        # carved for the cache; then the cached solve off the spilled G, with
+        # one G shard corrupted on its first read in the middle of it: B1
+        # makes that shard again from its stage-1 chunks, the cache serves
+        # blocks of rows gathered from the view, and the solve is the pinned
+        # G's all the same
+        G_pin = host_buffer(G_v.shape, torch.float32, dev)
+        for s0 in range(0, n_main, 4096):
+            G_pin[s0:s0 + 4096].copy_(torch.from_numpy(G_v[s0:s0 + 4096]))
+        tasks_sp, cfg_s2 = svm_sp.tasks_, svm_sp.config
+        cfg_cached = dataclasses.replace(cfg, device_budget_bytes=480 << 20,
+                                         cache_budget_bytes=224 << 20)
+        G_v.store._cache.clear()
+        runs = {}
+        for name, G_run, scfg in (
+                ("pinned, uncached", G_pin, dataclasses.replace(cfg, cache_blocks=False)),
+                ("pinned, cached", G_pin, cfg_cached),
+                ("spilled, cached, shard 7 corrupted", G_v, cfg_cached)):
+            before = dataclasses.replace(sst)
+            if G_run is G_v:
+                faults.install(faults.FaultPlan().add("shard_corrupt", kind="corrupt",
+                                                      shard=7))
+            try:
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r, rs = solve_batch_streamed(G_run, tasks_sp, cfg_s2, return_stats=True,
+                                             stream_config=scfg)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            finally:
+                faults.uninstall()
+            runs[name] = (r, rs, secs, before, add_shard_launches())
+        ru = runs["pinned, uncached"][0]
+        same_uncached = (torch.equal(ru.alpha, svm_sp.alpha_) and torch.equal(ru.w, svm_sp.W_)
+                         and np.array_equal(ru.epochs.cpu().numpy(), st_sp.epochs))
+        rc, rv = runs["pinned, cached"][0], runs["spilled, cached, shard 7 corrupted"][0]
+        same_cached = all(torch.equal(getattr(rc, f), getattr(rv, f))
+                          and torch.equal(getattr(ru, f), getattr(rv, f))
+                          for f in ("alpha", "w", "epochs"))
+        for name, (r, rs, secs, _, cnt_r2) in runs.items():
+            print(f"stage 2 {name}: {secs:.3f} s, {rs.epochs} epochs, {rs.bytes_g} G bytes "
+                  f"over the bus ({rs.bytes_hit} B hit, {rs.cache_hits} blocks), launches "
+                  f"{cnt_r2}")
+        _, rs_v, t_rv, b0, cnt_rv = runs["spilled, cached, shard 7 corrupted"]
+        print(f"the cached solve off the spilled G read {sst.shards_read - b0.shards_read} "
+              f"shards, {sst.bytes_read - b0.bytes_read} B in "
+              f"{sst.read_seconds - b0.read_seconds:.3f} s "
+              f"({(sst.bytes_read - b0.bytes_read) / max(sst.read_seconds - b0.read_seconds, 1e-12) / 1e9:.2f} GB/s), "
+              f"checksums {sst.verify_seconds - b0.verify_seconds:.3f} s; shard 7: "
+              f"{sst.quarantined - b0.quarantined} quarantined, {sst.rebuilt - b0.rebuilt} "
+              f"rebuilt by B1 ({cnt_rv['gram']} launches); alphas, w and epochs bit-equal "
+              f"to the pinned G's: the spilled fit's stage 2 (uncached) {same_uncached}, "
+              f"cached {same_cached}")
+        check(same_uncached and same_cached,
+              "stage 2 off the spilled G differs from stage 2 off the pinned G")
+        check(s2v.bytes_hit == 0 and rs_v.bytes_hit > 0 and runs["pinned, cached"][1].bytes_hit > 0,
+              "the spilled fit's stage 2 hit its cache, or the cached solves served no block")
+        check(sst.rebuilt - b0.rebuilt == 1 and sst.quarantined - b0.quarantined == 1
+              and cnt_rv["gram"] >= 1, "a corrupt G shard was not rebuilt through B1")
+        del G_pin, runs, ru, rc, rv, svm_sp, G_v, evs
+    print(f"launches in the shard phases {shard_launches}")
     libsvm_dir.cleanup()
     print(f"launches in the LIBSVM phases {lib_launches}")
 
@@ -2980,7 +3275,8 @@ def main() -> int:
          "ms_predict": pr_ms, "ms_predict_back_to_back": pr_b2b, "bound_ms_predict": pr_bound,
          "ms_at_scale": b1b_ms, "ms_at_scale_back_to_back": b1b_b2b,
          "bound_ms_at_scale": b1b_bound, "launches_grid": g_launches["gram"],
-         "launches_libsvm": lib_launches["gram"], "launches_trace": t_launches["gram"]},
+         "launches_libsvm": lib_launches["gram"], "launches_trace": t_launches["gram"],
+         "launches_shards": shard_launches["gram"]},
         {"name": "smo_epoch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/smo.cu",
          "replaces": "src/repro/kernels/smo.py:100",
@@ -2992,7 +3288,8 @@ def main() -> int:
          "launches_farm_reduced": farm_launches["reduced"],
          "launches_compact": c_launches, "launches_libsvm": lib_launches["smo_epoch"],
          "launches_trace": t_launches["smo_epoch"], "launches_int8_blocks": i8_launches,
-         "launches_block_cache": cache_launches},
+         "launches_block_cache": cache_launches,
+         "launches_shards": shard_launches["smo_epoch"]},
         {"name": "gram_q8", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram_q8.cu",
          "replaces": "src/repro/kernels/gram.py:157",
@@ -3001,17 +3298,22 @@ def main() -> int:
          "library_ms": q8_lib, "bound_ms_cuda_cores": q8_bound_cc,
          "ms_back_to_back": q8_b2b, "ms_at_scale": q8b_ms,
          "bound_ms_at_scale": q8b_bound, "launches_libsvm": lib_launches["gram_q8"],
-         "launches_trace": t_launches["gram_q8"]},
+         "launches_trace": t_launches["gram_q8"],
+         "launches_shards": shard_launches["gram_q8"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:68",
          "launches": e2e["flash_attention"], "max_abs_err": flash_err,
-         **flash_times["qwen3-0.6b pipeline"], "launches_libsvm": 0},
+         **flash_times["qwen3-0.6b pipeline"],
+         "launches_libsvm": lib_launches["flash_attention"],
+         "launches_shards": shard_launches["flash_attention"]},
     ]
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main paths was launched no time")
     check(all(lib_launches[k] > 0 for k in ("gram", "gram_q8", "smo_epoch")),
           "a kernel of the LIBSVM route was launched no time")
+    check(all(shard_launches[k] > 0 for k in ("gram", "gram_q8", "smo_epoch")),
+          "a kernel of the shard phases was launched no time")
     check(all(t_launches[k] > 0 for k in ("gram", "gram_q8", "smo_epoch")) and i8_launches > 0
           and cache_launches > 0,
           "a kernel of the traced fit, the int8 or the cached stage 2 was launched no time")

@@ -1,6 +1,7 @@
 """LPD-SVM core, PyTorch port: the monolithic and the out-of-core (streamed)
 fit -> predict routes, the polish ladder over stage 2, cross-validation and
-grid search over them, and the tracer that records their timeline."""
+grid search over them, the disk tier below host RAM (the checksummed shard
+store), and the tracer that records their timeline."""
 from repro_torch.core.cv import (CellStats, GridResult, build_cv_grid_tasks,
                                  build_cv_tasks, cross_validate, grid_search,
                                  kfold_masks)
@@ -19,6 +20,10 @@ from repro_torch.core.polish import (PolishSchedule, PolishTrace,
 from repro_torch.core.quant import (GROUP_ROWS, QuantBlock, dequant_rows,
                                     dequantize_rows, quantize_block,
                                     quantize_rows)
+from repro_torch.core.shards import (GShardView, ShardCorruptionError, ShardError,
+                                     ShardSpillSink, ShardStore, ShardStoreStats,
+                                     ShardWriter, ingest_libsvm_shards,
+                                     open_or_ingest)
 from repro_torch.core.solver_stream import (Stage2StreamStats, auto_tile_rows,
                                             route_stage2, should_stream_stage2,
                                             solve_batch_streamed,
@@ -26,8 +31,10 @@ from repro_torch.core.solver_stream import (Stage2StreamStats, auto_tile_rows,
 from repro_torch.core.streaming import (Stage1StreamStats, StreamConfig,
                                         auto_chunk_rows,
                                         compute_factor_streamed,
-                                        compute_factor_streamed_csr, host_buffer,
-                                        should_stream, stream_factor_rows)
+                                        compute_factor_streamed_csr,
+                                        compute_factor_streamed_shards, host_buffer,
+                                        should_stream, stream_factor_blocks,
+                                        stream_factor_rows)
 from repro_torch.core.svm import LPDSVM, FitStats
 from repro_torch.core.trace import (NULL, NullTracer, ProgressPrinter, Tracer,
                                     install, uninstall)
@@ -45,13 +52,16 @@ __all__ = [
     "PolishSchedule", "PolishTrace", "make_schedule", "solve_polished",
     "GROUP_ROWS", "QuantBlock", "dequant_rows", "dequantize_rows",
     "quantize_block", "quantize_rows",
+    "GShardView", "ShardCorruptionError", "ShardError", "ShardSpillSink",
+    "ShardStore", "ShardStoreStats", "ShardWriter", "ingest_libsvm_shards",
+    "open_or_ingest",
     "Stage2StreamStats", "auto_tile_rows", "route_stage2",
     "should_stream_stage2", "solve_batch_streamed", "solve_streamed_auto",
     "wire_group",
     "Stage1StreamStats", "StreamConfig", "auto_chunk_rows",
-    "compute_factor_streamed", "compute_factor_streamed_csr", "host_buffer",
-    "should_stream",
-    "stream_factor_rows",
+    "compute_factor_streamed", "compute_factor_streamed_csr",
+    "compute_factor_streamed_shards", "host_buffer", "should_stream",
+    "stream_factor_blocks", "stream_factor_rows",
     "LPDSVM", "FitStats",
     "NULL", "NullTracer", "ProgressPrinter", "Tracer", "install", "uninstall",
     "active_tracer", "resolve_tracer",

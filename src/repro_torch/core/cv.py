@@ -32,8 +32,12 @@ Differences from the reference:
     (``solve_batch_streamed(..., chain_next=...)``); the multi-device farm
     is not ported.  Beside the reference's per-gamma ``stream_stats``,
     ``GridResult.cells`` holds one ``CellStats`` a C of a farmed gamma.
-  * The per-gamma and per-C checkpoint and shard directories come with the
-    resilience and shard modules, which are not ported.
+  * Each gamma has a checkpoint directory and a shard directory of its own
+    (``<dir>/gamma{gi}``), as in the reference, and each serial cell a
+    checkpoint directory ``c{ci}`` under its gamma's.  A spilled G
+    (``StreamConfig.spill_g``) serves the grid task farm and the serial
+    cells from its shards, and the folds' validation rows are read from
+    them a block at a time (``ovo.factor_decisions``).
 """
 from __future__ import annotations
 
@@ -153,25 +157,21 @@ def build_cv_tasks(
 
 def _fold_val_sets(factor: LowRankFactor, labels: np.ndarray,
                    val_masks: Sequence[np.ndarray]) -> List[tuple]:
-    """Per-fold validation features, gathered once per gamma: each fold's
-    rows of G where G lies (a host G stays on the host) and their labels."""
-    G = factor.G
-    return [(G.index_select(0, torch.from_numpy(np.where(vm)[0]).to(G.device)),
-             labels[vm]) for vm in val_masks]
+    """Per-fold validation sets, once per gamma: (G, the fold's rows, their
+    labels).  The rows are read where G lies at scoring time (a host G on
+    the host, a spilled G from its shards)."""
+    return [(factor.G, np.where(vm)[0], labels[vm]) for vm in val_masks]
 
 
 def _cv_error_from(val_sets: Sequence[tuple], n_classes: int, W) -> float:
-    """Validation error of one (gamma, C) cell from pre-gathered fold sets.
-    W comes to the folds' device once; the decisions are summed in fp64."""
+    """Validation error of one (gamma, C) cell from the fold sets; the
+    decisions are summed in fp64 (``ovo.factor_decisions``)."""
     pairs = class_pairs(n_classes)
     n_pairs = len(pairs)
     wrong = 0
     total = 0
-    if val_sets:
-        W = torch.as_tensor(W).to(val_sets[0][0].device, torch.float64)
-    for f, (Gv, yv) in enumerate(val_sets):
-        Wf = W[f * n_pairs:(f + 1) * n_pairs]
-        dec = factor_decisions(Gv, Wf)
+    for f, (G, rows, yv) in enumerate(val_sets):
+        dec = factor_decisions(G, W[f * n_pairs:(f + 1) * n_pairs], rows=rows)
         pred = (ovo_vote(dec, pairs, n_classes) if n_pairs > 1
                 else np.where(dec[:, 0] > 0, 0, 1))
         wrong += int(np.sum(pred != yv))
@@ -339,11 +339,16 @@ def grid_search(
     for gi, gamma in enumerate(gammas):
         kp = KernelParams(kind=kernel_kind, gamma=float(gamma))
         # each gamma is its own resumable unit (G and the solver state both
-        # depend on it), as in the reference: checkpoints under gamma{gi}/
+        # depend on it), as in the reference: checkpoints and a spilled G's
+        # shards under gamma{gi}/
         g_cfg = stream_config
-        if getattr(stream_config, "checkpoint_dir", None):
-            g_cfg = dataclasses.replace(stream_config, checkpoint_dir=os.path.join(
-                stream_config.checkpoint_dir, f"gamma{gi}"))
+        ck = getattr(stream_config, "checkpoint_dir", None)
+        sd = getattr(stream_config, "shard_dir", None)
+        if ck or sd:
+            g_cfg = dataclasses.replace(
+                stream_config,
+                checkpoint_dir=os.path.join(ck, f"gamma{gi}") if ck else None,
+                shard_dir=os.path.join(sd, f"gamma{gi}") if sd else None)
         t0 = tr.begin()
         factor = compute_factor(x, kp, budget, seed=seed, gram_fn=gram_fn,
                                 device=dev, stream=stream,

@@ -14,10 +14,15 @@ Sites of the port (one card):
     "epoch_boundary"  the stage-2 loop after each epoch (after a full pass's
                       snapshot); attrs: epoch
     "stage1"          a stage-1 chunk before its copy; attrs: chunk
+    "shard_write"     the shard writer before a shard lands (core/shards.py);
+                      attrs: shard
+    "shard_read"      the shard reader before a file read; attrs: shard
+    "shard_corrupt"   the same point; attrs: shard, path.  The "corrupt" kind
+                      flips one byte of the file in place and returns: the
+                      checksum must catch it, not the injector
 
-The reference's other sites ("reader", "stall", "shard_*") belong to its
-multi-device farm and its shard store, which are not ported; the plan
-accepts them all the same.
+The reference's other sites ("reader", "stall") belong to its multi-device
+farm, which is not ported; the plan accepts them all the same.
 
 The taxonomy is also the real one: ``classify_error`` decides between a
 bounded retry (transient), device quarantine (persistent) and re-raise

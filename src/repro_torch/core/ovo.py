@@ -14,6 +14,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import shards
 from repro_torch.core.dual_solver import TaskBatch
 from repro_torch.core.kernel_fn import full_fp32
 
@@ -102,17 +103,25 @@ def ovo_decision_values(features: torch.Tensor, W: torch.Tensor) -> torch.Tensor
 DECISION_BLOCK_ROWS = 8192   # rows of G in fp64 at a time (128 MiB at B' 2048)
 
 
-def factor_decisions(g: torch.Tensor, W: torch.Tensor) -> np.ndarray:
+def factor_decisions(g, W: torch.Tensor, rows=None) -> np.ndarray:
     """(m, B') rows of G x (T, B') per-pair weights -> (m, T) decision values
     as a host fp64 array, with no kernel evaluation: summed in fp64 where the
     rows lie (a host G stays on the host), W moved there once,
     ``DECISION_BLOCK_ROWS`` rows at a time.  So a card G and a host G of one
-    factor vote alike."""
+    factor vote alike.  ``rows`` (default all) selects rows of G.  ``g`` may
+    be a ``shards.GShardView`` (a spilled G): its rows are then read from
+    disk a block at a time, in the blocks a host G's rows are summed in, so
+    it votes exactly as the host G does."""
     W = torch.as_tensor(W).to(g.device, torch.float64)
-    out = np.empty((g.shape[0], W.shape[0]), np.float64)
+    m = g.shape[0] if rows is None else len(rows)
+    out = np.empty((m, W.shape[0]), np.float64)
     step = DECISION_BLOCK_ROWS
-    for s in range(0, g.shape[0], step):
-        out[s:s + step] = (g[s:s + step].double() @ W.T).cpu().numpy()
+    buf = torch.empty((min(step, m), g.shape[1]), dtype=torch.float64, device=g.device)
+    for s in range(0, m, step):
+        e = min(s + step, m)
+        blk = (shards.rows_into(g, s, e, buf[:e - s]) if rows is None
+               else shards.gather_into(g, rows[s:e], buf[:e - s]))
+        out[s:e] = (blk @ W.T).cpu().numpy()
     return out
 
 

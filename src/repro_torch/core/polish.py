@@ -45,6 +45,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import shards
 from repro_torch.core.dual_solver import (SolveResult, SolverConfig, TaskBatch,
                                           duality_gap, solve_batch)
 from repro_torch.core.solver_stream import (Stage2StreamStats, route_stage2,
@@ -206,14 +207,14 @@ def _route_level(n_rows: int, rank: int, n_tasks: int, n_pad: int,
     return should_stream_stage2(n_rows, rank, n_tasks, n_pad, stream_config)
 
 
-def _gather(G: torch.Tensor, union: np.ndarray, pinned_for) -> torch.Tensor:
-    """G[union]: on G's device, or for a host G straight into a host buffer
-    (pinned when ``pinned_for`` is a CUDA device, for the streamed solver)."""
-    rows = torch.from_numpy(union.astype(np.int64))
+def _gather(G, union: np.ndarray, pinned_for) -> torch.Tensor:
+    """G[union]: on G's device, or for a host G (a spilled one's shards
+    included) straight into a host buffer (pinned when ``pinned_for`` is a
+    CUDA device, for the streamed solver)."""
     if G.device.type != "cpu":
-        return G.index_select(0, rows.to(G.device))
-    out = host_buffer((len(union), G.shape[1]), G.dtype, pinned_for or "cpu")
-    return torch.index_select(G, 0, rows, out=out)
+        return G.index_select(0, torch.from_numpy(union.astype(np.int64)).to(G.device))
+    out = host_buffer((len(union), G.shape[1]), torch.float32, pinned_for or "cpu")
+    return shards.gather_into(G, union, out)
 
 
 def solve_polished(
@@ -351,8 +352,9 @@ def solve_polished(
                                             tasks.c[t], res_l.alpha[t]))
         elif gap_trace:
             # host numpy: coarse levels on the small gathered factor; a final
-            # level on a host G reads it where it lies
-            G_np = level_G.cpu().numpy()
+            # level on a host G reads it where it lies (a spilled G's rows
+            # from its shards)
+            G_np = shards.numpy_rows(level_G)
             for t, p in enumerate(pos_l):
                 k = len(p)
                 if final:

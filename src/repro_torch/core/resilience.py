@@ -113,7 +113,13 @@ STATE_KEYS = ("alpha", "unchanged", "w", "epochs", "violation", "live",
 
 def g_fingerprint(G) -> float:
     """Cheap content stamp of the factor, so that a snapshot is not resumed
-    onto another G (another gamma's checkpoint directory)."""
+    onto another G (another gamma's checkpoint directory).  A spilled G
+    (``shards.GShardView``) gives its own, from its store manifest's shard
+    digests: a resume against a store that was ingested again, or spilled
+    at another gamma, is refused without reading a row."""
+    fp = getattr(G, "g_fingerprint", None)
+    if fp is not None:
+        return float(fp)
     n = G.shape[0]
     if n == 0:
         return 0.0

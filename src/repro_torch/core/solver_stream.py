@@ -71,6 +71,15 @@ the compaction (the cache starts cold) and continues at the next epoch, bit
 for bit.  Fault sites (``core/faults.py``): "h2d" before a block's copies,
 "epoch_boundary" after each epoch.
 
+The disk tier (``core/shards.py``): G may be a ``GShardView`` of a G that
+stage 1 spilled to f32 shards.  Every shared pass then reads G's shards
+from disk, checks their digests and stages the rows through the ring's
+pinned buffers; a compaction gathers the union's rows into the pinned
+``act_G`` (on the int8 wire it encodes them there, under a table computed
+shard by shard).  The cheap epochs read ``act_G`` and the card's cache,
+never the disk.  A shard that fails its checksum is rebuilt from stage 1's
+chunks (``streaming._g_rebuilder``) before its rows are used.
+
 Under a tracer (``StreamConfig.trace``, else an installed one) the host
 spans are the reference's: ``h2d`` / ``put_block`` (their sum is
 ``put_seconds``), ``drain`` (``block_wait``, ``flags``, ``result``),
@@ -105,7 +114,8 @@ from repro_torch.core.faults import check as fault_check
 from repro_torch.core.faults import classify_error
 from repro_torch.core.kernel_fn import full_fp32
 from repro_torch.core.quant import (ENCODE_ROWS, QuantBlock, dequant_into,
-                                    encode_rows, group_scales, quantize_block)
+                                    encode_rows, quantize_block)
+from repro_torch.core import shards
 from repro_torch.core.streaming import (BYTES_F32, Lanes, StreamConfig,
                                         StreamTimes, check_host, host_buffer,
                                         tune_prefetch, wait)
@@ -294,6 +304,21 @@ class Stage2StreamStats(StreamTimes):
                 for h, m in zip(self.epoch_hit_bytes, self.epoch_miss_bytes)]
 
 
+@dataclasses.dataclass
+class _ViewRows:
+    """Rows [lo, hi) of a spilled G (``shards.GShardView``) for ``_Ring.load``:
+    read from the shards into the slot's pinned staging buffer, with no
+    other host copy."""
+
+    G: object
+    lo: int
+    hi: int
+
+    @property
+    def shape(self):
+        return (self.hi - self.lo, self.G.shape[1])
+
+
 class _Ring:
     """``prefetch`` device slots of (tile, B') wire rows, fed from host rows.
 
@@ -340,18 +365,23 @@ class _Ring:
             self.lanes.claim()
         return self.slots[k]
 
-    def _stage(self, slot: dict, j: int, src: torch.Tensor) -> torch.Tensor:
+    def _stage(self, slot: dict, j: int, src) -> torch.Tensor:
         """``src`` as the slot's wire dtype in memory the copy may read
         without blocking: as it is when it already is (pinned on the card),
-        else through the slot's pinned staging buffer."""
+        else through the slot's pinned staging buffer (``_ViewRows`` are read
+        from their shards straight into it)."""
         want = slot["dev"][j].dtype
-        if src.dtype == want and not (self.lanes.cuda and not src.is_pinned()):
+        view = isinstance(src, _ViewRows)
+        if not view and src.dtype == want and not (self.lanes.cuda and not src.is_pinned()):
             return src
         if slot["stage"][j] is None:
             slot["stage"][j] = host_buffer(tuple(slot["dev"][j].shape), want,
                                            self.device)
         staged = slot["stage"][j][:src.shape[0]]
-        staged.copy_(src)
+        if view:
+            shards.rows_into(src.G, src.lo, src.hi, staged)
+        else:
+            staged.copy_(src)
         return staged
 
     def _copy(self, devs, srcs, block: int) -> None:
@@ -570,7 +600,12 @@ def solve_batch_streamed(
 
     ``G`` is a pinned CPU tensor when the tasks are on the card (pageable
     memory raises; a G on the card is first copied to pinned memory) and a
-    CPU tensor or array on the CPU.  Returns a
+    CPU tensor or array on the CPU, or a ``shards.GShardView`` of a spilled
+    G on either: its rows are read from disk, verified, for every pass (a
+    shared pass's blocks go through the ring's pinned staging, a
+    compaction's rows are gathered into the pinned union buffer, the int8
+    table is computed shard by shard) and it is never materialised; the
+    result is bit-equal to the solve over the same G in memory.  Returns a
     ``SolveResult`` on the tasks' device, laid out as ``solve_batch``'s, and
     a ``Stage2StreamStats`` with ``return_stats=True``.  Each task's real
     rows must be unique; sorted rows (what ``build_ovo_tasks`` gives) make
@@ -594,13 +629,15 @@ def solve_batch_streamed(
     t_start = time.perf_counter()
     cfg = stream_config or StreamConfig()
     dev = tasks.idx.device
-    if not isinstance(G, torch.Tensor):
-        G = torch.as_tensor(np.asarray(G, np.float32))
-    elif G.is_cuda:                    # a device factor, streamed on request
-        G = host_buffer(tuple(G.shape), G.dtype, dev).copy_(G)
-    check_host(G, dev, "G")
-    if G.dtype != torch.float32:
-        raise TypeError(f"G must be fp32, got {G.dtype}")
+    view = shards.is_shard_view(G)     # a spilled G: read, never whole
+    if not view:
+        if not isinstance(G, torch.Tensor):
+            G = torch.as_tensor(np.asarray(G, np.float32))
+        elif G.is_cuda:                # a device factor, streamed on request
+            G = host_buffer(tuple(G.shape), G.dtype, dev).copy_(G)
+        check_host(G, dev, "G")
+        if G.dtype != torch.float32:
+            raise TypeError(f"G must be fp32, got {G.dtype}")
     n, rank = G.shape
     T, n_pad = tasks.idx.shape
     tile = auto_tile_rows(n, rank, T, cfg)
@@ -613,7 +650,13 @@ def solve_batch_streamed(
                  backoff=cfg.retry_backoff)
     quant = ring.quant
     group = wire_group(tile, cfg)
-    G_np = G.numpy()
+    G_np = shards.numpy_rows(G)        # numpy rows: slices, gathers
+
+    def g_rows(s: int, e: int):
+        """G's rows [s, e) for the ring: pinned G's own (copied as they are),
+        or a view's, read into the ring's pinned staging."""
+        return _ViewRows(G, s, e) if view else G[s:e]
+
     cache = (HotRowBlockCache(stage2_cache_budget(rank, T, tile, cfg.prefetch, cfg))
              if cfg.cache_blocks else None)
 
@@ -709,7 +752,7 @@ def solve_batch_streamed(
                                          torch.from_numpy(qb.scales)), e - s, group,
                                         block=b)
             else:
-                gb, slot, _ = ring.load(G[s:e], block=b)
+                gb, slot, _ = ring.load(g_rows(s, e), block=b)
             if not q_summed:
                 with tr.device_span("kernel", "row_sq", dev, rows=e - s):
                     _row_sq(gb, q[s:e])
@@ -809,7 +852,7 @@ def solve_batch_streamed(
                            host_buffer((u_pad, 2), torch.float32, dev))
             t1 = tr.begin()
             if gscales is None:              # the shared passes' groups, once
-                gscales = group_scales(G_np, group)
+                gscales = shards.group_scales(G, group)
             encode_compacted(G_np, gscales, group, union, tile, act_buf[0].numpy(),
                              act_buf[1].numpy())
             st.encode_seconds += tr.end("encode", "stage2_quant", t1, rows=U)
@@ -817,12 +860,7 @@ def solve_batch_streamed(
         else:
             if act_buf is None or act_buf.shape[0] < U:
                 act_buf = host_buffer((max(U, 1), rank), ring.wire, dev)
-            rows = torch.from_numpy(union)
-            if ring.wire == torch.float32:
-                torch.index_select(G, 0, rows, out=act_buf[:U])
-            else:
-                act_buf[:U].copy_(G.index_select(0, rows))
-            act = act_buf[:U]
+            act = shards.gather_into(G, union, act_buf[:U])
         keys = sizes = None
         if cache is not None:
             # keys are the blocks' global rows; violation recency ranks them

@@ -30,6 +30,13 @@ densifying a block), ``encode`` / ``stage1_quant``, ``h2d`` / ``stage1_put``
 the H2D copies (``h2d`` / ``stage1_copy``) and each chunk's kernel and
 product (``kernel`` / ``stage1_chunk``) are device spans (``core/trace.py``).
 
+The disk tier (``core/shards.py``): ``compute_factor_streamed_shards``
+streams a checksummed shard store, a shard a chunk, an int8 store's codes
+going to the wire as stored; with ``StreamConfig.spill_g`` the G chunks
+come back into a pinned bounce buffer of their slot and go to f32 shards in
+row order, and the factor's G is a ``shards.GShardView`` (no host G of n
+rows exists).
+
 On the CPU (``device="cpu"``) the same loop runs the kernels' plain versions
 and the copies are plain copies; a CPU-only PyTorch cannot pin.
 """
@@ -47,7 +54,8 @@ import torch
 
 from repro_torch.core.faults import check as fault_check
 from repro_torch.core.kernel_fn import KernelParams, full_fp32, gram
-from repro_torch.core.quant import GROUP_ROWS, quantize_rows
+from repro_torch.core.quant import GROUP_ROWS, QuantBlock, dequantize_rows, quantize_rows
+from repro_torch.core.shards import ShardSpillSink
 from repro_torch.core.trace import NULL, resolve
 from repro_torch.kernels.ops import gram_q8
 
@@ -94,6 +102,16 @@ class StreamConfig:
     max_retries: int = 3                 # retries of one copy (fail_fast off)
     retry_backoff: float = 0.05          # seconds, doubled each retry
     checkpoint_keep: int = 3             # snapshots kept (0: all)
+    # -- the disk tier (core/shards.py) -------------------------------------
+    shard_dir: Optional[str] = None      # root of the shard stores; None -> off
+    shard_rows: int = 4096               # rows a shard file (a multiple of
+                                         # GROUP_ROWS: int8 groups stay aligned
+                                         # to global rows)
+    spill_g: bool = False                # stage 1 writes G to f32 shards under
+                                         # shard_dir and stage 2 reads it back
+                                         # (no host G of n rows)
+    verify_shards: bool = True           # check each shard's digest on every
+                                         # read (False trusts the bytes)
 
     def __post_init__(self):
         if self.prefetch < 1:
@@ -122,6 +140,11 @@ class StreamConfig:
             raise ValueError("retry_backoff must be >= 0")
         if self.checkpoint_keep < 0:
             raise ValueError("checkpoint_keep must be >= 0")
+        if self.shard_rows < 1 or self.shard_rows % GROUP_ROWS:
+            raise ValueError(f"shard_rows must be a positive multiple of "
+                             f"{GROUP_ROWS}, got {self.shard_rows}")
+        if self.spill_g and not self.shard_dir:
+            raise ValueError("spill_g=True requires shard_dir")
         if self.resume and not self.checkpoint_dir:
             raise ValueError("resume=True requires checkpoint_dir")
 
@@ -331,11 +354,18 @@ def wait(event) -> None:
 
 class _Slot:
     """Pinned staging and device buffers of one chunk in flight, grown to
-    the largest wire array they have carried."""
+    the largest wire array they have carried, and (for a spill) the pinned
+    bounce buffer its G rows come back to."""
 
     def __init__(self):
         self.host: List[torch.Tensor] = []
         self.dev: List[torch.Tensor] = []
+        self.bounce: Optional[torch.Tensor] = None
+
+    def rows_back(self, r: int, rank: int, device) -> torch.Tensor:
+        if self.bounce is None or self.bounce.shape[0] < r:
+            self.bounce = host_buffer((r, rank), torch.float32, device)
+        return self.bounce[:r]
 
     def put(self, arrays, lanes: Lanes, device, name: str = "copy") -> List[torch.Tensor]:
         out = []
@@ -362,14 +392,14 @@ class _Slot:
 
 @full_fp32()
 def stream_factor_blocks(
-    blocks: Iterable[np.ndarray],
+    blocks: Iterable,
     n: int,
     landmarks: torch.Tensor,
     projector: torch.Tensor,
     params: KernelParams,
     *,
     prefetch: int = 2,
-    out: Optional[torch.Tensor] = None,
+    out=None,
     wire_dtype: str = "f32",
     quant_group_rows: int = GROUP_ROWS,
     autotune_prefetch: bool = False,
@@ -382,10 +412,16 @@ def stream_factor_blocks(
 ) -> torch.Tensor:
     """Fill a host G = K(x, landmarks) @ projector from an iterator of
     (rows, p) fp32 row blocks totalling ``n`` rows (see the module
-    docstring).  ``out`` is the host G, allocated (pinned for the card) when
-    not given.  ``autotune_prefetch`` deepens the queue after the first
-    window when putting took longer than draining (``tune_prefetch``).
-    ``trace`` records the spans of the module docstring (``resolve``).
+    docstring).  A block may be a ``quant.QuantBlock`` (an int8 shard's
+    stored codes): on the int8 wire its codes and table go to the card as
+    they are, with no host encode, and on the f32 wire it is decoded on the
+    host first.  ``out`` is the host G, allocated (pinned for the card) when
+    not given, or a ``shards.ShardSpillSink``: then no host G exists, each
+    chunk comes back into its slot's pinned bounce buffer and goes to the
+    sink in row order once its copy is done.  ``autotune_prefetch`` deepens
+    the queue after the first window when putting took longer than draining
+    (``tune_prefetch``).  ``trace`` records the spans of the module
+    docstring (``resolve``).
 
     ``progress`` (a ``resilience.Stage1Progress``) with ``durable`` (the
     on-disk G copy, ``resilience.stage1_memmap``) makes the stream
@@ -404,10 +440,12 @@ def stream_factor_blocks(
     st.wire_dtype = wire_dtype
     tr = resolve(trace)
     t_start = time.perf_counter()
+    spill = isinstance(out, ShardSpillSink)
     if out is None:
         out = host_buffer((n, rank), torch.float32, dev)
         st.alloc_seconds += time.perf_counter() - t_start
-    check_host(out, dev, "out")
+    if not spill:
+        check_host(out, dev, "out")
     if tuple(out.shape) != (n, rank):
         raise ValueError(f"out buffer {tuple(out.shape)} != {(n, rank)}")
 
@@ -421,6 +459,8 @@ def stream_factor_blocks(
         wait(done)                         # this chunk's G rows are in `out`
         st.drain_seconds += tr.end("drain", "stage1_fetch", t0, rows=e0 - s0,
                                    bytes=(e0 - s0) * rank * BYTES_F32)
+        if spill:                          # or in the slot's bounce buffer
+            out[s0:e0] = slot.bounce[:e0 - s0].numpy()
         if progress is not None:           # durable before it is logged
             durable[s0:e0] = out[s0:e0].numpy()
             progress.mark(s0, e0, flush=durable.flush)
@@ -435,8 +475,13 @@ def stream_factor_blocks(
         if xb is None:
             st.source_seconds += time.perf_counter() - t0
             break
-        st.source_seconds += tr.end("read", "stage1_rows", t0, rows=len(xb))
-        xb = np.asarray(xb, np.float32)
+        st.source_seconds += tr.end("read", "stage1_rows", t0, rows=xb.shape[0])
+        pre = isinstance(xb, QuantBlock)
+        if pre and not quant:
+            xb = dequantize_rows(xb.values, xb.scales, xb.group)
+            pre = False
+        if not pre:
+            xb = np.asarray(xb, np.float32)
         e = s + xb.shape[0]
         if e > n:
             raise ValueError(f"block iterator produced more than {n} rows")
@@ -447,11 +492,15 @@ def stream_factor_blocks(
             s = e
             continue
         fault_check("stage1", chunk=i)
-        if quant:
+        group = quant_group_rows
+        if pre:                            # the stored codes, as they are
+            vals, scales, group = xb.values, xb.scales, xb.group
+        elif quant:
             t0 = tr.begin()
             vals, scales = quantize_rows(xb, quant_group_rows, symmetric=True)
             st.encode_seconds += tr.end("encode", "stage1_quant", t0, rows=e - s,
                                         bytes=vals.nbytes + scales.nbytes)
+        if quant:
             wire = (vals, scales)
             st.bytes_scales += scales.nbytes
         else:
@@ -464,13 +513,13 @@ def stream_factor_blocks(
         st.bytes_h2d += nbytes
         with tr.device_span("kernel", "stage1_chunk", dev, rows=e - s):
             if quant:
-                k = gram_q8(on_card[0], on_card[1], landmarks, params,
-                            group=quant_group_rows)
+                k = gram_q8(on_card[0], on_card[1], landmarks, params, group=group)
             else:
                 k = gram_fn(on_card[0], landmarks, params)
             g = k @ projector
         del k
-        inflight.append((slot, lanes.fetch(out[s:e], g), s, e))
+        dst = slot.rows_back(e - s, rank, dev) if spill else out[s:e]
+        inflight.append((slot, lanes.fetch(dst, g), s, e))
         del g
         st.chunks += 1
         st.rows += e - s
@@ -550,7 +599,8 @@ def compute_factor_streamed(
     rows = _landmark_rows(n, budget, seed, landmark_idx)
     return _streamed_factor_from_landmarks(
         x if rows is None else x[rows], lambda chunk: row_blocks(x, chunk), n, p,
-        params, eig_rtol=eig_rtol, config=config, gram_fn=gram_fn, device=device)
+        params, eig_rtol=eig_rtol, config=config, gram_fn=gram_fn, device=device,
+        row_provider=lambda s, e: x[s:e])
 
 
 def compute_factor_streamed_csr(
@@ -581,15 +631,82 @@ def compute_factor_streamed_csr(
     return _streamed_factor_from_landmarks(
         landmarks, lambda chunk: (blk for blk, _ in data.iter_dense_blocks(chunk)),
         n, p, params, eig_rtol=eig_rtol, config=config, gram_fn=gram_fn,
-        device=device)
+        device=device, row_provider=lambda s, e: data.densify(s, e))
+
+
+def compute_factor_streamed_shards(
+    store,
+    params: KernelParams,
+    budget: int,
+    *,
+    seed: int = 0,
+    landmark_idx=None,
+    eig_rtol: Optional[float] = None,
+    config: StreamConfig = StreamConfig(),
+    gram_fn: Callable = gram,
+    device=None,
+):
+    """Out-of-core stage 1 from a checksummed ``shards.ShardStore``: the
+    LIBSVM text was parsed once into the store, and every run streams its
+    verified shards.  A shard is one chunk (``chunk_rows`` is pinned to
+    ``store.shard_rows``), so
+
+      * an f32 store gives the chunks of ``compute_factor_streamed`` on the
+        same rows at ``chunk_rows = shard_rows``, and the factor bit for bit,
+        on either wire;
+      * an int8 store puts its stored codes on the int8 wire as they are
+        (no host encode: ``encode_seconds`` stays 0); their groups lie where
+        the host encoder would put them.
+
+    The landmark rows are gathered from the store (decoded, for an int8
+    store), from ``landmark_idx`` or the seeded draw."""
+    n, p = store.n, store.cols
+    rows = _landmark_rows(n, budget, seed, landmark_idx)
+    landmarks = store.read_rows(0, n) if rows is None else store.gather_rows(rows)
+    wire = store.dtype == "int8"
+
+    def row_provider(s, e):
+        if wire:
+            return store.read_shard(s // store.shard_rows, wire=True)
+        return store.read_rows(s, e)
+
+    return _streamed_factor_from_landmarks(
+        landmarks, lambda chunk: store.iter_blocks(wire=wire), n, p, params,
+        eig_rtol=eig_rtol, config=dataclasses.replace(config, chunk_rows=store.shard_rows),
+        gram_fn=gram_fn, device=device, row_provider=row_provider)
+
+
+def _g_rebuilder(row_provider, chunk: int, n: int, landmarks: torch.Tensor,
+                 projector: torch.Tensor, params: KernelParams, config: StreamConfig,
+                 gram_fn: Callable):
+    """The rebuilder of a spilled G's shards: G rows [lo, hi) computed again
+    from whole chunks of the first pass (the same rows, wire and groups), so
+    the rebuilt shard is bit-equal to the spilled one and its digest holds."""
+    def rebuild(lo: int, hi: int) -> np.ndarray:
+        c0 = (lo // chunk) * chunk
+        c1 = min(n, -(-hi // chunk) * chunk)
+        blocks = (row_provider(s, min(s + chunk, c1)) for s in range(c0, c1, chunk))
+        sub = stream_factor_blocks(
+            blocks, c1 - c0, landmarks, projector, params, prefetch=config.prefetch,
+            wire_dtype=config.stage1_dtype, quant_group_rows=config.quant_group_rows,
+            gram_fn=gram_fn, trace=config.trace)
+        return sub.numpy()[lo - c0:hi - c0]
+
+    return rebuild
 
 
 def _streamed_factor_from_landmarks(landmarks: np.ndarray, make_blocks, n: int, p: int,
                                     params: KernelParams, *, eig_rtol: Optional[float],
-                                    config: StreamConfig, gram_fn: Callable, device):
+                                    config: StreamConfig, gram_fn: Callable, device,
+                                    row_provider=None):
     """The shared tail of the streamed stage-1 constructors: the host
     landmark rows go to the card, K_mm and its eigh, then
-    ``make_blocks(chunk_rows)``'s row blocks stream into the host G."""
+    ``make_blocks(chunk_rows)``'s row blocks stream into the host G, or with
+    ``config.spill_g`` into f32 shards under ``<shard_dir>/g_spill``, which
+    stage 2 then reads as a ``shards.GShardView`` (the spill takes the place
+    of the stage-1 checkpoint copy: the store is G's durable copy).
+    ``row_provider(s, e)`` gives the input rows [s, e) again, for the
+    rebuild of a spilled shard that fails its checksum."""
     from repro_torch.core import nystrom   # nystrom routes back into here
 
     device = torch.device("cuda" if device is None else device)
@@ -600,9 +717,13 @@ def _streamed_factor_from_landmarks(landmarks: np.ndarray, make_blocks, n: int, 
     projector, evals, rank = nystrom.eig_projector(k_mm, eig_rtol)
     projector = projector[:, :rank].contiguous()
 
+    chunk = auto_chunk_rows(n, p, landmarks.shape[0], config)
     stats = Stage1StreamStats()
-    progress = durable = None
-    if config.checkpoint_dir:
+    progress = durable = sink = None
+    if config.spill_g:
+        sink = ShardSpillSink(os.path.join(config.shard_dir, "g_spill"), n, rank,
+                              shard_rows=config.shard_rows, trace=config.trace)
+    elif config.checkpoint_dir:
         # resumable: G stays a pinned host tensor for stage 2, and each
         # drained chunk is also written to <dir>/stage1_G.npy and logged
         from repro_torch.core.resilience import Stage1Progress, stage1_memmap
@@ -612,8 +733,7 @@ def _streamed_factor_from_landmarks(landmarks: np.ndarray, make_blocks, n: int, 
             resume=config.resume)
     try:
         G = stream_factor_blocks(
-            make_blocks(auto_chunk_rows(n, p, landmarks.shape[0], config)), n,
-            landmarks, projector, params,
+            make_blocks(chunk), n, landmarks, projector, params, out=sink,
             prefetch=config.prefetch, wire_dtype=config.stage1_dtype,
             quant_group_rows=config.quant_group_rows,
             autotune_prefetch=config.autotune_prefetch,
@@ -622,6 +742,13 @@ def _streamed_factor_from_landmarks(landmarks: np.ndarray, make_blocks, n: int, 
     finally:
         if progress is not None:
             progress.close()
+    if sink is not None:
+        rebuilder = (None if row_provider is None else
+                     _g_rebuilder(row_provider, chunk, n, landmarks, projector, params,
+                                  config, gram_fn))
+        G = sink.finish(rebuilder=rebuilder, verify=config.verify_shards,
+                        retries=0 if config.fail_fast else config.max_retries,
+                        retry_backoff=config.retry_backoff)
     return nystrom.LowRankFactor(
         G=G, landmarks=landmarks, projector=projector, eigvals=evals,
         effective_rank=rank, kernel=params, streamed=True, stage1_stats=stats)

@@ -265,8 +265,8 @@ class LPDSVM:
         """Predict TRAINING rows straight from the fitted factor's G, with no
         kernel evaluation and no dense x (the driver's ``--libsvm`` route
         scores its training rows this way).  The decisions are summed in fp64
-        where G lies (``ovo.factor_decisions``), so a pinned host G and a card
-        G vote alike."""
+        where G lies (``ovo.factor_decisions``), so a pinned host G, a card G
+        and a spilled G (read from its shards) vote alike."""
         if self.W_ is None:
             raise RuntimeError("fit first")
         G = self.factor.G
@@ -274,10 +274,8 @@ class LPDSVM:
             raise RuntimeError(
                 "G is not persisted in checkpoints (it is recomputable from "
                 "the landmarks); refit or use predict(x) on a loaded model")
-        if rows is not None:
-            G = G.index_select(0, torch.as_tensor(np.asarray(rows), dtype=torch.long,
-                                                  device=G.device))
-        return self._vote(factor_decisions(G, self.W_))
+        return self._vote(factor_decisions(
+            G, self.W_, rows=None if rows is None else np.asarray(rows)))
 
     def score(self, x, y) -> float:
         return float(np.mean(self.predict(x) == np.asarray(y)))

@@ -31,13 +31,20 @@ run (a Chrome-trace file, the summary, a line per streamed stage-2 epoch).
 ``--cache-budget-mb`` / ``--no-cache`` size or turn off the streamed stage
 2's block cache (``core/block_cache.py``), and ``--checkpoint-dir`` /
 ``--checkpoint-every`` / ``--resume`` make both streamed stages resumable
-(``core/resilience.py``).  Flags of routes not ported yet (shards, the
-multi-device farm) stop with an error that names them.
+(``core/resilience.py``).  ``--shard-dir DIR`` (``--shard-rows``,
+``--verify-shards`` / ``--no-verify-shards``) is the disk tier
+(``core/shards.py``): with ``--libsvm`` the text is parsed once into
+checksummed shards under ``DIR/data`` (int8 shards with ``--stage1-dtype
+int8``) and every later run streams them with no parse; ``--spill-g``
+writes stage 1's G to shards under ``DIR/g_spill`` and runs stage 2 off
+them.  ``--shard-dir`` forces the streamed pipelines.  The multi-device
+farm's ``--no-overlap`` stops with an error that names it.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -49,7 +56,9 @@ from repro_torch.core import (GridResult, KernelParams, LPDSVM, StreamConfig,
                               grid_search, median_gamma)
 from repro_torch.core.nystrom import compute_factor
 from repro_torch.core.quant import GROUP_ROWS
-from repro_torch.core.streaming import compute_factor_streamed_csr
+from repro_torch.core.shards import ShardStore, ShardStoreStats, open_or_ingest
+from repro_torch.core.streaming import (compute_factor_streamed_csr,
+                                        compute_factor_streamed_shards)
 from repro_torch.core.svm import resolve_device
 from repro_torch.core.trace import ProgressPrinter, Tracer, install, uninstall
 from repro_torch.data import CSRData, IngestStats, read_libsvm
@@ -87,11 +96,14 @@ def class_conditioned_tokens(n: int, n_classes: int, seq: int, vocab: int,
 
 @dataclasses.dataclass
 class LibsvmResult:
-    data: CSRData                 # the training file as read
+    data: Optional[CSRData]       # the training file as read (None: from shards)
     svm: LPDSVM
     train_error: float            # of predict_from_factor on the training rows
-    read_seconds: float
+    read_seconds: float           # the parse, or opening (or ingesting) the store
     ingest: IngestStats
+    store: Optional[ShardStore] = None   # with --shard-dir: the data set's store
+    ingested: bool = False        # the store was made by this run's parse
+    shard_stats: Optional[ShardStoreStats] = None   # its disk traffic
 
 
 def train_from_libsvm(args, stream_config: Optional[StreamConfig], *, device=None,
@@ -99,42 +111,90 @@ def train_from_libsvm(args, stream_config: Optional[StreamConfig], *, device=Non
     """The out-of-core end-to-end route: LIBSVM file -> CSR -> streamed stage
     1 (``compute_factor_streamed_csr``) -> streamed stage 2.  The dense (n, p)
     matrix is never materialised; the training rows are scored from G.
-    ``device`` defaults to the card; ``landmark_idx`` replaces the seeded
-    landmark draw, so that a test can hold the route against the
-    reference's draw."""
+
+    With ``--shard-dir`` the text is parsed once into the checksummed shard
+    store under ``<shard-dir>/data`` (``shards.open_or_ingest``; int8 shards
+    with ``--stage1-dtype int8``), and this run and every later one stream
+    the verified shards (``compute_factor_streamed_shards``): a reused store
+    parses no text.  ``device`` defaults to the card; ``landmark_idx``
+    replaces the seeded landmark draw, so that a test can hold the route
+    against the reference's draw."""
     device = resolve_device(device)
     cfg = stream_config or StreamConfig()
     gamma = args.gamma
     ingest = IngestStats()
+    data = store = sstats = None
+    ingested = False
     t0 = time.perf_counter()
-    data = read_libsvm(args.libsvm, n_features=args.n_features or None,
-                       on_bad_row=args.on_bad_row, stats=ingest)
-    t_read = time.perf_counter() - t0
-    n, p = data.n, data.n_features
+    if args.shard_dir:
+        sstats = ShardStoreStats()
+        store, ingested = open_or_ingest(
+            args.libsvm, os.path.join(args.shard_dir, "data"),
+            n_features=args.n_features or None, shard_rows=cfg.shard_rows,
+            dtype="int8" if args.stage1_dtype == "int8" else "f32",
+            on_bad_row=args.on_bad_row, verify=cfg.verify_shards,
+            retries=0 if cfg.fail_fast else cfg.max_retries,
+            retry_backoff=cfg.retry_backoff, stats=sstats, trace=cfg.trace)
+        t_read = time.perf_counter() - t0
+        n, p = store.n, store.cols
+        labels = store.labels()
+        ingest.rows_read = int(store.manifest.get("rows_read", n))
+        ingest.rows_skipped = int(store.manifest.get("rows_skipped", 0))
+        gather = store.gather_rows
+    else:
+        data = read_libsvm(args.libsvm, n_features=args.n_features or None,
+                           on_bad_row=args.on_bad_row, stats=ingest)
+        t_read = time.perf_counter() - t0
+        n, p = data.n, data.n_features
+        labels = data.labels
+        gather = data.densify_rows
     if ingest.rows_skipped:
         print(f"libsvm: skipped {ingest.rows_skipped} bad row(s) (--on-bad-row skip)")
     if gamma is None:
         # densify only a row subsample for the heuristic
         rows = np.random.default_rng(0).choice(n, min(256, n), replace=False)
-        gamma = median_gamma(data.densify_rows(np.sort(rows)))
+        gamma = median_gamma(gather(np.sort(rows)))
     kp = KernelParams("rbf", gamma=gamma)
     t0 = time.perf_counter()
-    factor = compute_factor_streamed_csr(data, kp, args.budget, seed=0,
-                                         landmark_idx=landmark_idx, config=cfg,
-                                         device=device)
+    if store is not None:
+        factor = compute_factor_streamed_shards(store, kp, args.budget, seed=0,
+                                                landmark_idx=landmark_idx, config=cfg,
+                                                device=device)
+    else:
+        factor = compute_factor_streamed_csr(data, kp, args.budget, seed=0,
+                                             landmark_idx=landmark_idx, config=cfg,
+                                             device=device)
     args.gamma = gamma
     t_factor = time.perf_counter() - t0
     svm = LPDSVM(kp, C=args.C, budget=args.budget, tol=1e-2, stream=True,
                  stream_config=stream_config, polish=args.polish,
                  polish_levels=args.polish_levels, device=device)
-    svm.fit(None, data.labels, factor=factor)
+    svm.fit(None, labels, factor=factor)
     svm.stats.stage1_seconds = t_factor   # the factor was computed out here
-    err = float(np.mean(svm.predict_from_factor() != data.labels))
+    err = float(np.mean(svm.predict_from_factor() != labels))
     print(f"libsvm: {n} rows x {p} features in {t_read:.1f}s")
+    if store is not None:
+        src = "ingested (parsed once)" if ingested else "reused (no parse)"
+        print(f"shards: {store.n_shards} x {store.shard_rows} rows ({store.dtype}) "
+              f"under {args.shard_dir} — {src}")
+        print(_shard_io_line(sstats))
     _report(svm)
     print(f"train error: {err:.4f}")
     return LibsvmResult(data=data, svm=svm, train_error=err, read_seconds=t_read,
-                        ingest=ingest)
+                        ingest=ingest, store=store, ingested=ingested,
+                        shard_stats=sstats)
+
+
+def _shard_io_line(st: ShardStoreStats) -> str:
+    """The reference's ``shard io:`` line of a store's disk traffic."""
+    line = (f"shard io: {st.shards_read} reads {st.bytes_read / 2**20:.1f} MiB "
+            f"({st.read_gbps:.2f} GB/s), {st.verifications} verified")
+    if st.checksum_failures:
+        line += (f", {st.checksum_failures} corrupt -> {st.quarantined} quarantined / "
+                 f"{st.rebuilt} rebuilt")
+    if st.retries:
+        line += f", {st.retries} retried"
+    return line
 
 
 def _report(svm: LPDSVM) -> None:
@@ -206,8 +266,8 @@ def _report_grid(res: GridResult, gammas, Cs) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The reference's flags, those of routes not ported yet included (they
-    are refused by ``main``)."""
+    """The reference's flags, the multi-device farm's ``--no-overlap``
+    included (``main`` refuses it)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen3-0.6b", choices=list_configs())
     ap.add_argument("--classes", type=int, default=10)
@@ -280,13 +340,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", action="store_true",
                     help="resume from the newest snapshot in --checkpoint-dir; "
                          "bit-equal to the uninterrupted run")
-    # routes of the reference that are not ported yet: refused by main()
-    ap.add_argument("--no-overlap", action="store_true")
-    ap.add_argument("--shard-dir", default=None, metavar="DIR")
-    ap.add_argument("--shard-rows", type=int, default=4096)
-    ap.add_argument("--spill-g", action="store_true")
+    ap.add_argument("--shard-dir", default=None, metavar="DIR",
+                    help="the disk tier (core/shards.py): with --libsvm, parse "
+                         "the text once into checksummed binary shards under "
+                         "DIR/data and stream every run from them (a later run "
+                         "parses nothing); also the home of --spill-g's store; "
+                         "forces the streamed pipelines")
+    ap.add_argument("--shard-rows", type=int, default=4096,
+                    help="rows a shard file (default 4096; a multiple of the "
+                         "int8 group, so stored groups stay aligned to global "
+                         "rows)")
+    ap.add_argument("--spill-g", action="store_true",
+                    help="write stage 1's G to f32 shards under --shard-dir and "
+                         "run stage 2 off them (no host G of n rows)")
     ap.add_argument("--verify-shards", action=argparse.BooleanOptionalAction,
-                    default=True)
+                    default=True,
+                    help="check each shard's digest on every read (default on; a "
+                         "corrupt shard is quarantined and rebuilt from its "
+                         "source; --no-verify-shards trusts the bytes)")
+    # the reference's multi-device farm, not ported yet: refused by main()
+    ap.add_argument("--no-overlap", action="store_true")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="record the run's timeline (core/trace.py; the card's "
                          "work as CUDA-event spans) and export it as "
@@ -301,12 +374,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args) -> Optional[str]:
     """The first flag of a route the port does not serve yet, or None."""
-    given = (("--shard-dir", args.shard_dir is not None),
-             ("--shard-rows", args.shard_rows != 4096),
-             ("--spill-g", args.spill_g),
-             ("--no-verify-shards", not args.verify_shards),
-             ("--no-overlap", args.no_overlap))
-    return next((flag for flag, set_ in given if set_), None)
+    return "--no-overlap" if args.no_overlap else None
 
 
 def main(argv=None) -> float:
@@ -331,6 +399,10 @@ def main(argv=None) -> float:
         ap.error(f"--checkpoint-every must be >= 0, got {args.checkpoint_every}")
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume requires --checkpoint-dir")
+    if args.shard_rows < 1:
+        ap.error(f"--shard-rows must be >= 1, got {args.shard_rows}")
+    if args.spill_g and not args.shard_dir:
+        ap.error("--spill-g requires --shard-dir")
 
     stream_config, force = stream_args(args)
     if args.checkpoint_dir:
@@ -373,17 +445,18 @@ def stream_args(args):
     """(stream_config, force) from the streaming flags, as the reference
     derives them: an explicit chunk / tile size or wire dtype with no budget
     is a request to stream, not a hint to the (roomy) default budget;
-    ``--stream`` and ``--checkpoint-dir`` (checkpoints exist on the streamed
-    pipelines only) force.  ``--cache-budget-mb 0`` is ``--no-cache``."""
+    ``--stream``, ``--checkpoint-dir`` and ``--shard-dir`` (checkpoints and
+    shards exist on the streamed pipelines only) force.
+    ``--cache-budget-mb 0`` is ``--no-cache``."""
     quant = args.block_dtype != "f32" or args.stage1_dtype != "f32"
-    force = args.stream or bool(args.checkpoint_dir) or (
+    force = args.stream or bool(args.checkpoint_dir) or bool(args.shard_dir) or (
         (args.chunk_rows > 0 or args.tile_rows > 0 or quant)
         and args.device_budget_mb <= 0)
     cache_off = args.no_cache or args.cache_budget_mb == 0
     stream_config = None
     if (args.device_budget_mb > 0 or args.chunk_rows > 0 or args.tile_rows > 0
             or args.stream or quant or cache_off or args.cache_budget_mb > 0
-            or args.checkpoint_dir):
+            or args.checkpoint_dir or args.shard_dir):
         stream_config = StreamConfig(
             device_budget_bytes=int(args.device_budget_mb * 2**20) or 2 << 30,
             chunk_rows=args.chunk_rows or None,
@@ -396,7 +469,11 @@ def stream_args(args):
                                 if args.cache_budget_mb > 0 else None),
             checkpoint_dir=args.checkpoint_dir,
             checkpoint_every=args.checkpoint_every if args.checkpoint_dir else 0,
-            resume=args.resume)
+            resume=args.resume,
+            shard_dir=args.shard_dir,
+            shard_rows=args.shard_rows,
+            spill_g=args.spill_g,
+            verify_shards=args.verify_shards)
     return stream_config, force
 
 

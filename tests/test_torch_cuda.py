@@ -2,8 +2,9 @@
 plain versions, the streamed route against the monolithic one, the polish
 ladder, the cross-validation cells and grid, the grid task farm and the
 bucket-compaction solver against the CPU's, the LIBSVM route's CSR factor,
-save / load and predict_from_factor, and the backbone's features on the card
-against the CPU's.
+save / load and predict_from_factor, the backbone's features on the card
+against the CPU's, and the disk tier (an int8 store through B3, stage 2 off
+a spilled G through B2, a corrupt spilled shard rebuilt through B1).
 
 These need a CUDA card and nvcc: each test asks for the ``cuda`` fixture,
 which skips where there is none.  On the machine with the card:
@@ -1459,3 +1460,99 @@ def test_kill_resume_on_card_is_bit_equal(cuda, tmp_path, wire):
     assert st.resumed_from == 21
     for f in ("alpha", "w", "epochs", "violation"):
         assert torch.equal(getattr(res, f), getattr(clean, f)), f
+
+
+# --------------------------------------------------------------------------
+# the disk tier (core/shards.py) on the card
+# --------------------------------------------------------------------------
+
+def _shard_problem(tmp_path, n=3000, p=40, seed=6):
+    """A seeded LIBSVM file of n x p rows in 3 classes, its parsed rows and
+    labels."""
+    from repro_torch.data import write_libsvm
+    from repro_torch.data.libsvm_format import read_libsvm_rows_range
+    x, y = make_multiclass(n, p=p, n_classes=3, seed=seed)
+    path = str(tmp_path / "train.svm")
+    write_libsvm(path, x, y)
+    return (path,) + read_libsvm_rows_range(path, 0, n, p)
+
+
+def test_int8_store_stage1_through_b3_on_card_equals_the_host_int8_path(cuda, tmp_path):
+    """An int8 store's stored codes through B3 give the host int8 path's G
+    (B3 on codes the host encodes) at chunk_rows = shard_rows, bit for bit,
+    with no host encode; B3 launched once a shard."""
+    from repro_torch.core import streaming as ts
+    from repro_torch.core.shards import ingest_libsvm_shards
+    path, x, _ = _shard_problem(tmp_path)
+    store = ingest_libsvm_shards(path, str(tmp_path / "s8"), n_features=x.shape[1],
+                                 shard_rows=512, dtype="int8")
+    kp = KernelParams("rbf", gamma=0.05)
+    before = gram_q8_kernel.launches
+    fac = ts.compute_factor_streamed_shards(store, kp, 128, device=cuda,
+                                            config=StreamConfig(stage1_dtype="int8"))
+    assert gram_q8_kernel.launches - before == store.n_shards == fac.stage1_stats.chunks
+    assert fac.stage1_stats.encode_seconds == 0.0 and fac.G.is_pinned()
+    host = ts.stream_factor_rows(x, fac.landmarks, fac.projector, kp, chunk_rows=512,
+                                 wire_dtype="int8")
+    assert torch.equal(host, fac.G)
+
+
+def test_stage2_off_a_spilled_g_on_card_equals_the_pinned_g(cuda, tmp_path):
+    """Stage 2 through B2 off a spilled G (stage 1 through B1) equals stage 2
+    off the same G pinned, cached and uncached, on the f32 and int8 wires."""
+    from repro_torch.core import streaming as ts
+    from repro_torch.core.shards import GShardView
+    x, y = make_multiclass(4000, p=24, n_classes=3, seed=8)
+    _, labels = np.unique(y, return_inverse=True)
+    kp = KernelParams("rbf", gamma=0.05)
+    cfg = StreamConfig(chunk_rows=700, shard_dir=str(tmp_path), shard_rows=512,
+                       spill_g=True)
+    fac = ts.compute_factor_streamed(x, kp, 160, device=cuda, config=cfg)
+    assert isinstance(fac.G, GShardView)
+    pinned = host_buffer(fac.G.shape, torch.float32, cuda)
+    pinned.copy_(torch.from_numpy(np.asarray(fac.G)))
+    tasks, _ = build_ovo_tasks(labels, 3, 4.0, device=cuda)
+    scfg = SolverConfig(tol=1e-3, max_epochs=300)
+    for wire in ("f32", "int8"):
+        for cache in (True, False):
+            sc = StreamConfig(tile_rows=512, block_dtype=wire, cache_blocks=cache)
+            a, sa = ss.solve_batch_streamed(pinned, tasks, scfg, stream_config=sc,
+                                            return_stats=True)
+            b, sb = ss.solve_batch_streamed(fac.G, tasks, scfg, stream_config=sc,
+                                            return_stats=True)
+            for f in ("alpha", "w", "epochs", "violation"):
+                assert torch.equal(getattr(a, f), getattr(b, f)), (wire, cache, f)
+            assert sa.bytes_hit == sb.bytes_hit and (sb.bytes_hit > 0) == cache
+
+
+def test_corrupt_spilled_shard_rebuilt_through_b1_on_card_is_bit_equal(cuda, tmp_path):
+    """A spilled G shard corrupted on disk is quarantined and rebuilt by B1
+    on the card from its stage-1 chunks, bit for bit; the stage-2 solve over
+    it is unchanged."""
+    from repro_torch.core import faults
+    from repro_torch.core import streaming as ts
+    x, y = make_multiclass(3000, p=24, n_classes=3, seed=9)
+    _, labels = np.unique(y, return_inverse=True)
+    kp = KernelParams("rbf", gamma=0.05)
+    cfg = StreamConfig(chunk_rows=700, shard_dir=str(tmp_path), shard_rows=512,
+                       spill_g=True)
+    G = ts.compute_factor_streamed(x, kp, 160, device=cuda, config=cfg).G
+    want = np.asarray(G).copy()
+    tasks, _ = build_ovo_tasks(labels, 3, 4.0, device=cuda)
+    scfg = SolverConfig(tol=1e-3, max_epochs=300)
+    sc = StreamConfig(tile_rows=512)
+    clean = ss.solve_batch_streamed(G, tasks, scfg, stream_config=sc)
+    G.store._cache.clear()
+    before = gram_kernel.launches
+    faults.install(faults.FaultPlan().add("shard_corrupt", kind="corrupt", shard=3))
+    try:
+        res = ss.solve_batch_streamed(G, tasks, scfg, stream_config=sc)
+    finally:
+        faults.uninstall()
+    assert G.store.stats.rebuilt == 1 and G.store.stats.quarantined == 1
+    # shard 3 is rows [1536, 2048): the one stage-1 chunk [1400, 2100) again
+    assert gram_kernel.launches - before == 1
+    for f in ("alpha", "w", "epochs", "violation"):
+        assert torch.equal(getattr(res, f), getattr(clean, f)), f
+    G.store._cache.clear()
+    np.testing.assert_array_equal(np.asarray(G), want)

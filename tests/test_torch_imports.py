@@ -1,5 +1,6 @@
 """The port stands alone: no file of ``src/repro_torch`` and no line of
-``chip_smoke.py`` imports JAX or the JAX package ``repro``."""
+``chip_smoke.py`` imports JAX, the JAX package ``repro`` or ``xxhash`` (the
+shard store's digests are the standard library's CRC32)."""
 import ast
 import os
 import subprocess
@@ -10,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "xxhash")
 
 
 def _imported(tree):
@@ -38,7 +39,7 @@ def test_port_covers_its_layout():
                  "core/ovo.py", "core/svm.py", "core/quant.py", "core/streaming.py",
                  "core/solver_stream.py", "core/polish.py", "core/cv.py",
                  "core/compact.py", "core/trace.py", "core/block_cache.py",
-                 "core/faults.py", "core/resilience.py",
+                 "core/faults.py", "core/resilience.py", "core/shards.py",
                  "kernels/build.py", "kernels/gram.py",
                  "kernels/smo.py", "kernels/ops.py", "data/synthetic.py",
                  "convert.py", "kernels/flash_attention.py", "configs/base.py",
@@ -55,8 +56,8 @@ def test_import_leaves_no_jax_in_sys_modules():
     code = ("import sys, repro_torch, repro_torch.convert, repro_torch.data, "
             "repro_torch.checkpoint, repro_torch.core.trace, "
             "repro_torch.core.block_cache, repro_torch.core.faults, "
-            "repro_torch.core.resilience; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]; "
+            "repro_torch.core.resilience, repro_torch.core.shards; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'xxhash')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

@@ -131,26 +131,31 @@ def test_stream_args_are_the_references(argv, want):
 
 
 @pytest.mark.parametrize("argv,flag", [
-    # the LIBSVM route's own flags are served; its unported ones stop
-    (["--libsvm", "data.txt", "--shard-dir", "sh"], "--shard-dir"),
-    (["--libsvm", "data.txt", "--n-features", "5", "--spill-g"], "--spill-g"),
+    # the LIBSVM route's own flags and the shard flags are served; the
+    # multi-device farm's --no-overlap beside them still stops
+    (["--libsvm", "data.txt", "--shard-dir", "sh", "--no-overlap"], "--no-overlap"),
+    (["--libsvm", "data.txt", "--n-features", "5", "--spill-g", "--no-overlap"],
+     "--no-overlap"),
     (["--libsvm", "data.txt", "--on-bad-row", "skip", "--checkpoint-dir", "ck",
       "--no-overlap"], "--no-overlap"),
     # the block cache's and the checkpoints' flags are served; an unported
     # flag beside them still stops
-    (["--checkpoint-dir", "ck", "--shard-dir", "sh"], "--shard-dir"),
-    (["--checkpoint-every", "2", "--spill-g"], "--spill-g"),
-    (["--resume", "--shard-rows", "64"], "--shard-rows"),
-    (["--shard-dir", "sh"], "--shard-dir"), (["--shard-rows", "64"], "--shard-rows"),
-    (["--spill-g"], "--spill-g"), (["--no-verify-shards"], "--no-verify-shards"),
+    (["--checkpoint-dir", "ck", "--shard-dir", "sh", "--no-overlap"], "--no-overlap"),
+    (["--checkpoint-every", "2", "--spill-g", "--no-overlap"], "--no-overlap"),
+    (["--resume", "--shard-rows", "64", "--no-overlap"], "--no-overlap"),
+    (["--shard-dir", "sh", "--no-overlap"], "--no-overlap"),
+    (["--shard-rows", "64", "--no-overlap"], "--no-overlap"),
+    (["--no-overlap", "--spill-g"], "--no-overlap"),
+    (["--no-verify-shards", "--no-overlap"], "--no-overlap"),
     # the trace flags and the int8 stage-2 wire are served; an unported flag
     # beside them still stops
     (["--trace", "t.json", "--no-cache", "--no-overlap"], "--no-overlap"),
-    (["--trace-summary", "--resume", "--no-verify-shards"], "--no-verify-shards"),
+    (["--trace-summary", "--resume", "--no-verify-shards", "--no-overlap"], "--no-overlap"),
     (["--verbose", "--no-overlap"], "--no-overlap"),
-    (["--cache-budget-mb", "8", "--shard-dir", "sh"], "--shard-dir"),
-    (["--no-cache", "--spill-g"], "--spill-g"), (["--no-overlap"], "--no-overlap"),
-    (["--block-dtype", "int8", "--spill-g"], "--spill-g")])
+    (["--cache-budget-mb", "8", "--shard-dir", "sh", "--no-overlap"], "--no-overlap"),
+    (["--no-cache", "--spill-g", "--no-overlap"], "--no-overlap"),
+    (["--no-overlap"], "--no-overlap"),
+    (["--block-dtype", "int8", "--spill-g", "--no-overlap"], "--no-overlap")])
 def test_unported_flags_stop_with_their_name(argv, flag, capsys):
     with pytest.raises(SystemExit) as exc:
         driver.main(argv)
