@@ -245,11 +245,46 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 and rebuilt through B1, serving cache hits and bit-equal to
                 the cached and the uncached solves off the pinned G
 
+  task farm, streamed path        core/distributed.py's farm on two workers
+                of the card ([cuda:0, cuda:0]; on every card too where there
+                are more): the streamed path's factor and 45 tasks at 256 MiB,
+                f32 wire, overlapped and serial, against one device: epochs
+                equal, alpha and w bit-equal (the reference's farm tolerance,
+                rtol 1e-4 / atol 1e-5, printed), the overlapped first pass one
+                device's bytes and
+                bytes_put above bytes_h2d, the serial first pass at least 1.9x;
+                B2 launches a worker, stage-2 seconds; traced, each device
+                row's idle share and the card's compute (either worker)
+  task farm, wires and cache      reduced (6000 x 784, B 512): the first
+                pass's bytes on f32, bf16 and int8 blocks against the byte
+                model, each wire's farm bit-equal to one device, each
+                worker's cache bit-equal to the uncached farm (f32); the
+                grid task farm's C ladders split whole over the two workers,
+                equal to the serial C loop
+  task farm, faults               reduced: a device loss at worker 1 (fault
+                site "h2d", device cuda:0/w1, fail_fast off) re-split onto
+                worker 0, equal to the clean farm (its per-epoch bytes a clean
+                one-worker run's); a kill at the third full
+                pass and the resume, bit-equal; a "stall" at the reader's
+                hand-off under watchdog_seconds 2 raises WatchdogTimeout in
+                the watchdog's time plus 5 s
+  stage 1 over devices            the streamed path's stage 1 (60000 x 784) on
+                both wires, chunks round-robin over two workers: G bit-equal
+                to one device's; B1 / B3 launches a worker
+  driver --no-overlap             launch/train_svm.py --stream --no-overlap
+                (reduced backbone, 400 documents, in this process) with the
+                local device list patched to [cuda:0, cuda:0], so LPDSVM.fit
+                routes onto the serial farm: its stage-2 line prints
+                "2 device(s)", each worker launches B2, and the first pass
+                is twice one device's bytes
+
 Then one JSON line {"kernels": [...]} (``launches_libsvm``: each kernel's
 launches summed over the LIBSVM phases; ``launches_shards`` over the two
 shard phases; ``launches_trace`` over the traced fit,
 ``launches_int8_blocks`` over the int8 stage 2, ``launches_block_cache``
-over the cached one) and, last, the
+over the cached one, ``launches_task_farm`` over the task-farm phases,
+``launches_task_farm_workers`` (B2) and ``launches_stage1_workers`` (B1, B3)
+a worker of the two-worker runs) and, last, the
 {"ok": true, ...} line.
 """
 from __future__ import annotations
@@ -264,7 +299,9 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -3265,6 +3302,359 @@ def main() -> int:
     libsvm_dir.cleanup()
     print(f"launches in the LIBSVM phases {lib_launches}")
 
+    # ------------------------------------------- the multi-device task farm
+    # core/distributed.py: a worker (host thread, engine, copy and compute
+    # streams) per device entry.  The farm always runs on two entries of the
+    # first card, [cuda:0, cuda:0], so one card suffices; with more cards it
+    # runs on them too, and the lines say which ran.
+    from repro_torch.core import distributed
+    from repro_torch.core import trace as trace_mod
+    from repro_torch.core.quant import quant_scale_bytes
+    from repro_torch.core.resilience import WatchdogTimeout
+    pair = [dev, dev]
+    n_cards = torch.cuda.device_count()
+    layouts = [("two workers on cuda:0", pair)]
+    if n_cards > 1:
+        layouts.append((f"{n_cards} cards", [torch.device("cuda", i) for i in range(n_cards)]))
+    farm_counts = {"gram": 0, "gram_q8": 0, "smo_epoch": 0}
+    farm_workers = {}
+
+    def farm_run(G_run, tasks_run, cfg_run, devs, sc, **kw):
+        """The farm once, synchronised and timed, its launches counted."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r, s = distributed.solve_tasks_streamed(G_run, tasks_run, cfg_run, devices=devs,
+                                                stream_config=sc, return_stats=True, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = read_counts(add=False)
+        for k in farm_counts:
+            farm_counts[k] += got[k]
+        return r, s, secs, got, t0
+
+    def same_fields(a, b, fields=("alpha", "w", "epochs")):
+        return all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+
+    def near(a, b):   # the reference's farm tolerance (tests/test_stage2_mesh.py)
+        return (torch.allclose(a.alpha, b.alpha, rtol=1e-4, atol=1e-5)
+                and torch.allclose(a.w, b.w, rtol=1e-4, atol=1e-5)
+                and torch.equal(a.epochs, b.epochs))
+
+    with phase("task farm, streamed path"):
+        # the streamed path's factor (60000 x rank, pinned) and its 45 OVO
+        # tasks at its 256 MiB on the f32 wire: one device, then the farm
+        # overlapped (one shared reader) and serial (each worker re-reads G)
+        G_f, tasks_f, cfg_f = fac_s.G, svm_s.tasks_, svm_s.config
+        sc_f = dataclasses.replace(cfg, block_dtype="f32")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_f, s_one = solve_batch_streamed(G_f, tasks_f, cfg_f, stream_config=sc_f,
+                                            return_stats=True)
+        torch.cuda.synchronize()
+        t_one = time.perf_counter() - t0
+        l_one = read_counts(add=False)["smo_epoch"]
+        print(f"one device: stage 2 {t_one:.3f} s, {s_one.epochs} epochs, {l_one} B2 "
+              f"launches, first full pass {s_one.epoch_bytes[0]} B, bytes_h2d "
+              f"{s_one.bytes_h2d}, bytes_put {s_one.bytes_put}, G {tuple(G_f.shape)}, "
+              f"T {tasks_f.n_tasks}")
+        check(s_one.bytes_put == s_one.bytes_h2d, "one device's bytes_put is not bytes_h2d")
+        over_pair = None
+        for label, devs in layouts:
+            for overlap in (True, False):
+                r, s, secs, got, _ = farm_run(G_f, tasks_f, cfg_f, devs, sc_f, overlap=overlap)
+                per = [p.kernel_calls for p in s.per_device]
+                bit = same_fields(r, one_f)
+                kind = "overlapped" if overlap else "serial"
+                print(f"{label}, {kind}: stage 2 {secs:.3f} s (one device {t_one:.3f} s, "
+                      f"{secs / t_one:.3f}x); {s.n_devices} workers, B2 launches a worker "
+                      f"{per} (counted {got['smo_epoch']}); epochs {s.epochs}; first full "
+                      f"pass {s.epoch_bytes[0]} B ({s.epoch_bytes[0] / s_one.epoch_bytes[0]:.3f}x "
+                      f"one device's); bytes_h2d {s.bytes_h2d}, bytes_put {s.bytes_put}; "
+                      f"alpha, w, epochs bit-equal to one device {bit}; within rtol 1e-4, "
+                      f"atol 1e-5 {near(r, one_f)}")
+                # held bit-equal: a task's trajectory does not depend on its
+                # worker (B2 sweeps a task a CUDA block), as the card showed
+                # from the first run of this phase (the reference's farm
+                # tolerance, rtol 1e-4 / atol 1e-5, printed beside it)
+                check(bit, f"the {kind} farm ({label}) is not one device's solve bit for bit")
+                check(s.n_devices == len(devs) and min(per) > 0
+                      and got["smo_epoch"] == s.kernel_calls == sum(per),
+                      f"the {kind} farm's B2 launches are not its workers' blocks")
+                if overlap:
+                    check(s.epoch_bytes[0] == s_one.epoch_bytes[0] and s.bytes_put > s.bytes_h2d,
+                          "the overlapped farm's first pass is not one device's bytes")
+                    if devs is pair:
+                        over_pair = r
+                        farm_workers["streamed"] = per
+                else:
+                    check(s.epoch_bytes[0] >= 1.9 * s_one.epoch_bytes[0],
+                          "the serial farm's first pass did not re-read G a worker")
+        # traced: each row's idle share over the farm's wall
+        tr_f = trace_mod.Tracer()
+        r_t, s_t, secs_t, _, t0_t = farm_run(G_f, tasks_f, cfg_f, pair,
+                                             dataclasses.replace(sc_f, trace=tr_f))
+        t1_t = t0_t + secs_t
+        evs_f = tr_f.events()
+        rows_f = tr_f.device_tids()
+        for row in sorted(set(rows_f.values())):
+            busy, gaps = tr_f.busy(row, t0_t, t1_t)
+            print(f"traced farm, {row}: busy {busy:.3f} s of {secs_t:.3f}, idle share "
+                  f"{1 - busy / secs_t:.3f}, largest gap {(gaps[0][1] - gaps[0][0]) if gaps else 0:.4f} s")
+        comp_tids = {t for t, nm in rows_f.items() if nm.endswith(" compute")}
+        any_busy = sum(b - a for a, b in trace_mod._merge_intervals(
+            [(max(e[3], t0_t), min(e[3] + e[4], t1_t)) for e in evs_f
+             if e[0] == "X" and e[5] in comp_tids and e[3] + e[4] > t0_t and e[3] < t1_t]))
+        idle_w = {}
+        for e in evs_f:
+            if e[0] == "X" and e[1] == "queue":
+                key = (e[2], e[6].get("device"))
+                idle_w[key] = idle_w.get(key, 0.0) + e[4]
+        print(f"traced farm: {secs_t:.3f} s; the card's compute (either worker) busy "
+              f"{any_busy:.3f} s, idle share {1 - any_busy / secs_t:.3f}; host queue spans "
+              f"{ {f'{k[0]} {k[1]}': round(v, 3) for k, v in sorted(idle_w.items())} }; "
+              f"bit-equal to the untraced farm {same_fields(r_t, over_pair)}")
+        check(same_fields(r_t, over_pair), "the traced farm is not the untraced one")
+        check({"cuda:0/w0 compute", "cuda:0/w1 compute"} <= set(rows_f.values()),
+              "the traced farm has no device row a worker")
+        del r_t, tr_f, evs_f, over_pair
+
+    with phase("task farm, wires and cache"):
+        # reduced (6000 x 784, B 512, 45 tasks at C 1, tile 512): the wires'
+        # exact first-pass bytes on the overlapped farm (each wire's farm
+        # against one device's solve), each engine's block cache against the
+        # uncached farm (f32), and the grid task farm's ladders split whole
+        # over the two workers against the serial C loop
+        xw, yw = make_multiclass(6000, p=784, n_classes=10, sep=0.1, within=0.06, seed=1)
+        _, labw = np.unique(yw, return_inverse=True)
+        kpw = KernelParams("rbf", gamma=median_gamma(xw))
+        facw = compute_factor(xw, kpw, 512, seed=0, device=dev)
+        Gw = host_buffer(tuple(facw.G.shape), torch.float32, dev).copy_(facw.G)
+        nw, rankw = Gw.shape
+        tw, _ = build_ovo_tasks(labw, 10, 1.0, device=dev)
+        cfgw = SolverConfig(tol=1e-3, max_epochs=600)
+        basew = dict(tile_rows=512, prefetch=2, autotune_prefetch=False)
+        firsts = {}
+        for wire in ("f32", "bf16", "int8"):
+            scw = StreamConfig(**basew, block_dtype=wire)
+            onew, s1w = solve_batch_streamed(Gw, tw, cfgw, stream_config=scw, return_stats=True)
+            rw, sw, secs, got, _ = farm_run(Gw, tw, cfgw, pair, scw)
+            firsts[wire] = sw.epoch_bytes[0]
+            print(f"reduced, {wire} blocks on two workers: first full pass {sw.epoch_bytes[0]} "
+                  f"B (one device {s1w.epoch_bytes[0]}); {secs:.3f} s; hits {sw.cache_hits} "
+                  f"blocks {sw.bytes_hit} B over the workers "
+                  f"({[p.bytes_hit for p in sw.per_device]}); bit-equal to one device "
+                  f"{same_fields(rw, onew)}")
+            check(sw.epoch_bytes[0] == s1w.epoch_bytes[0],
+                  f"the {wire} farm's first pass is not one device's bytes")
+            check(same_fields(rw, onew) and sw.bytes_hit > 0,
+                  f"the {wire} farm is not one device's solve, or its caches served nothing")
+            if wire == "f32":
+                ru, su, secs_u, _, _ = farm_run(Gw, tw, cfgw, pair,
+                                                dataclasses.replace(scw, cache_blocks=False))
+                print(f"reduced, f32, the farm uncached: {secs_u:.3f} s; the cached farm "
+                      f"bit-equal to it {same_fields(rw, ru)}, hits + misses "
+                      f"{sw.bytes_hit + sw.bytes_miss} B against its misses {su.bytes_miss} B")
+                check(same_fields(rw, ru) and sw.bytes_hit + sw.bytes_miss == su.bytes_miss,
+                      "the farm's caches are not exact, or their bytes do not add up")
+        nb = -(-nw // 512)
+        eff = solver_stream.wire_group(512, StreamConfig(**basew, block_dtype="int8"))
+        g32, g8 = nw * rankw * 4, nb * (512 * rankw + quant_scale_bytes(512, eff))
+        print(f"byte model: f32 {g32} B (real rows), bf16 {g32 // 2} B, int8 {g8} B (tiles "
+              f"padded, groups of {eff} rows); measured {firsts}")
+        check(firsts["f32"] == g32 and firsts["f32"] - firsts["bf16"] == g32 // 2
+              and firsts["f32"] - firsts["int8"] == g32 - g8,
+              "the farm's wire bytes are not the byte model")
+
+        # the grid task farm: C 1/16 -> 1/4 ladders, every epoch a full pass,
+        # against the serial streamed C loop, each cell warm from the last
+        masks_w = cv.kfold_masks(len(xw), 3, 0)
+        Cs_w = [1 / 16, 1 / 4]
+        p1 = SolverConfig(tol=1e-2, max_epochs=1000, full_pass_period=1)
+        f_sc = StreamConfig(device_budget_bytes=256 << 20, prefetch=2, autotune_prefetch=False)
+        warm, serial_w = None, []
+        for C in Cs_w:
+            t_c, _ = cv.build_cv_tasks(labw, 10, C, masks_w, warm=warm, device=dev)
+            serial_w.append(solve_batch_streamed(Gw, t_c, p1, stream_config=f_sc))
+            warm = serial_w[-1].alpha
+        gt, _, ch = cv.build_cv_grid_tasks(labw, 10, Cs_w, masks_w, ladder=True, device=dev)
+        lad, lst, secs, got, _ = farm_run(Gw, gt, dataclasses.replace(
+            p1, max_epochs=2 * p1.max_epochs + 2), pair, f_sc, chain_next=ch)
+        FP = lad.alpha.shape[0] // len(Cs_w)
+        cells = [slice(ci * FP, (ci + 1) * FP) for ci in range(len(Cs_w))]
+        same_a = all(torch.equal(lad.alpha[k], r.alpha) for k, r in zip(cells, serial_w))
+        same_e = all(torch.equal(lad.epochs[k], r.epochs) for k, r in zip(cells, serial_w))
+        shares = distributed.balance_chain_split((gt.c > 0).sum(1).cpu().numpy(),
+                                                 ch, 2)
+        whole = all(ch[t] < 0 or ch[t] in p for p in shares for t in p)
+        print(f"ladder farm on two workers, T {gt.n_tasks} ({[len(p) for p in shares]} tasks "
+              f"a worker, every ladder whole {whole}): {secs:.3f} s, {lst.epochs} epochs, B2 "
+              f"launches a worker {[p.kernel_calls for p in lst.per_device]}; per-cell alphas "
+              f"equal to the serial C loop's {same_a}, epochs {same_e}")
+        check(whole and same_a and same_e, "the ladder farm is not the serial C loop")
+        del facw, serial_w, lad, gt
+
+    with phase("task farm, faults"):
+        # the reduced problem on two workers: a device loss at worker 1, a
+        # kill at the third full pass and its resume, a stalled reader
+        scw = StreamConfig(**basew)
+        clean, s_clean, _, _, _ = farm_run(Gw, tw, cfgw, pair, scw)
+        _, s_alone = solve_batch_streamed(Gw, tw, cfgw, stream_config=scw, return_stats=True)
+        plan = faults.install(faults.FaultPlan().add("h2d", kind="persistent",
+                                                     device="cuda:0/w1", epoch=1))
+        err = io.StringIO()
+        try:
+            with contextlib.redirect_stderr(err):
+                lost, s_lost, secs, got, _ = farm_run(
+                    Gw, tw, cfgw, pair, dataclasses.replace(scw, fail_fast=False))
+        finally:
+            faults.uninstall()
+        print(f"device loss at cuda:0/w1 (epoch 1): fired {len(plan.fired)}; "
+              f"{err.getvalue().strip()}; re-splits {s_lost.resplits}, ended on "
+              f"{s_lost.n_devices} worker(s) in {secs:.3f} s; alpha, w, epochs bit-equal "
+              f"to the clean farm {same_fields(lost, clean)}; epoch bytes equal to a "
+              f"clean run on the survivor (one worker) "
+              f"{s_lost.epoch_bytes == s_alone.epoch_bytes}")
+        check(len(plan.fired) == 1 and s_lost.resplits == 1 and s_lost.n_devices == 1
+              and "re-split" in err.getvalue(), "the lost worker was not re-split")
+        check(same_fields(lost, clean), "the re-split farm is not the clean run")
+        check(s_lost.epoch_bytes == s_alone.epoch_bytes,
+              "the re-split farm's per-epoch bytes are not the survivor's clean run's")
+
+        ck_farm = tempfile.TemporaryDirectory()
+        sck = dataclasses.replace(scw, checkpoint_dir=ck_farm.name, checkpoint_every=1)
+        third = 2 * cfgw.full_pass_period      # full passes at epochs 0, 20, 40
+        check(s_clean.full_passes > 3, "the clean farm ran fewer than four full passes")
+        faults.install(faults.FaultPlan().add("epoch_boundary", kind="kill", epoch=third))
+        killed = False
+        try:
+            farm_run(Gw, tw, cfgw, pair, sck)
+        except faults.SimulatedKill:
+            killed = True
+        finally:
+            faults.uninstall()
+        res_k, s_k, secs, got, _ = farm_run(Gw, tw, cfgw, pair,
+                                            dataclasses.replace(sck, resume=True))
+        print(f"farm killed at the third full pass (epoch {third}): {killed}; resumed from "
+              f"epoch {s_k.resumed_from} in {s_k.resume_seconds:.3f} s, {secs:.3f} s; "
+              f"bit-equal to the clean farm {same_fields(res_k, clean)}; epoch bytes equal "
+              f"{s_k.epoch_bytes == s_clean.epoch_bytes}")
+        check(killed and s_k.resumed_from == third + 1 and same_fields(res_k, clean),
+              "the resumed farm is not the uninterrupted one")
+        ck_farm.cleanup()
+
+        faults.install(faults.FaultPlan().add("stall", kind="stall", block=2))
+        watchdog = 2.0
+        t0 = time.perf_counter()
+        tripped = ""
+        try:
+            with warnings.catch_warnings(record=True):
+                warnings.simplefilter("always")
+                distributed.solve_tasks_streamed(
+                    Gw, tw, cfgw, devices=pair,
+                    stream_config=dataclasses.replace(scw, watchdog_seconds=watchdog))
+        except WatchdogTimeout as exc:
+            tripped = str(exc)
+        finally:
+            t_trip = time.perf_counter() - t0
+            faults.uninstall()         # releases the parked worker
+        for th in [t for t in threading.enumerate() if t.name.startswith("worker/")]:
+            th.join(timeout=30)
+        left = [t.name for t in threading.enumerate() if t.name.startswith("worker/")]
+        torch.cuda.synchronize()
+        print(f"a stall at the reader's hand-off (block 2) under watchdog_seconds "
+              f"{watchdog}: WatchdogTimeout after {t_trip:.3f} s: "
+              f"{tripped.splitlines()[0] if tripped else 'none'}; worker threads left "
+              f"{left}")
+        check(bool(tripped) and "worker/cuda:0/w" in tripped and t_trip <= watchdog + 5.0,
+              "the stalled farm did not raise WatchdogTimeout in time")
+        check(not left, "a farm worker thread outlived its release")
+        del Gw, tw, clean, lost, res_k
+
+    with phase("stage 1 over devices"):
+        # the streamed path's stage 1 (60000 x 784, 256 MiB) on both wires,
+        # its chunks handed out round-robin to two workers: G bit-equal to
+        # one device's
+        s1_workers = {}
+        for wire in ("f32", "int8"):
+            c1 = dataclasses.replace(cfg, stage1_dtype=wire)
+            one1 = compute_factor_streamed(xtr, kp, budget, config=c1, device=dev)
+            for label, devs in layouts:
+                reset_counts()
+                t0 = time.perf_counter()
+                f2 = distributed.compute_factor_streamed_mesh(devs, xtr, kp, budget,
+                                                              stream_config=c1)
+                secs = time.perf_counter() - t0
+                got = read_counts(add=False)
+                for k in farm_counts:
+                    farm_counts[k] += got[k]
+                st2 = f2.stage1_stats
+                same = torch.equal(f2.G, one1.G)
+                k_chunk = "gram_q8" if wire == "int8" else "gram"
+                print(f"stage 1, {wire} wire, {label}: {secs:.3f} s (one device "
+                      f"{one1.stage1_stats.seconds:.3f} s pipeline, this {st2.seconds:.3f}); "
+                      f"{st2.chunks} chunks, a worker {st2.device_chunks}; launches {got}; "
+                      f"G bit-equal to one device's {same}")
+                check(same, f"stage 1 over devices ({wire}) is not one device's G")
+                check(len(st2.device_chunks) == len(devs) and min(st2.device_chunks) > 0
+                      and got[k_chunk] == st2.chunks + (1 if k_chunk == "gram" else 0),
+                      f"stage 1's {k_chunk} launches are not its workers' chunks")
+                if devs is pair:
+                    s1_workers[k_chunk] = st2.device_chunks
+            del one1, f2
+
+    with phase("driver --no-overlap"):
+        # the driver's streamed run (reduced backbone, 400 documents) with
+        # --no-overlap, in this process, with the local device list patched
+        # to [cuda:0, cuda:0]: LPDSVM.fit -> solve_streamed_auto -> the
+        # serial farm, each worker re-reading G.  Its stage-2 line names two
+        # devices, each worker launches B2, and the farm's first pass is
+        # twice one device's bytes on the same G and tasks.
+        out = io.StringIO()
+        real_local, real_farm = solver_stream.local_devices, distributed.solve_tasks_streamed
+        seen = []
+
+        def farm_seen(G_run, tasks_run, cfg_run, **kw):
+            r, s = real_farm(G_run, tasks_run, cfg_run, **{**kw, "return_stats": True})
+            seen.append((G_run, tasks_run, cfg_run, kw, s))
+            return (r, s) if kw.get("return_stats") else r
+
+        solver_stream.local_devices = lambda device: [dev, dev]
+        distributed.solve_tasks_streamed = farm_seen
+        reset_counts()
+        try:
+            with contextlib.redirect_stdout(out):
+                driver.main(["--classes", "3", "--n", "400", "--seq", "16", "--budget", "64",
+                             "--stream", "--no-overlap"])
+        finally:
+            solver_stream.local_devices = real_local
+            distributed.solve_tasks_streamed = real_farm
+        got = read_counts(add=False)
+        for k in farm_counts:
+            farm_counts[k] += got[k]
+        s2_line = [ln for ln in out.getvalue().splitlines() if ln.startswith("stage2 stream:")]
+        print(out.getvalue(), end="")
+        check(len(seen) == 1 and not seen[0][3].get("overlap", True),
+              "the driver's stage 2 did not go through the serial farm once")
+        G_d, tasks_d, cfg_d, kw_d, st_d = seen[0]
+        _, one_d = solver_stream.solve_batch_streamed(
+            G_d, tasks_d, cfg_d, stream_config=kw_d.get("stream_config"),
+            chain_next=kw_d.get("chain_next"), return_stats=True)
+        w_calls = [p.kernel_calls for p in (st_d.per_device or [])]
+        print(f"driver --no-overlap on [cuda:0, cuda:0]: launches {got}; B2 launches a "
+              f"worker {w_calls}; first pass {st_d.epoch_bytes[0]} B against one "
+              f"device's {one_d.epoch_bytes[0]} B")
+        check(bool(s2_line) and "2 device(s)" in s2_line[0],
+              "the driver's stage-2 line does not print its two devices")
+        check(st_d.n_devices == 2 and len(w_calls) == 2 and min(w_calls) > 0,
+              "a worker of the driver's serial farm launched no B2")
+        check(st_d.epoch_bytes[0] == 2 * one_d.epoch_bytes[0],
+              "the serial farm's first pass is not twice one device's bytes")
+        check(got["smo_epoch"] > 0 and got["flash_attention"] > 0,
+              "the driver with --no-overlap launched no B2 or no B4")
+    print(f"launches in the task-farm phases {farm_counts}")
+
     kernels = [
         {"name": "gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram.cu",
@@ -3276,7 +3666,9 @@ def main() -> int:
          "ms_at_scale": b1b_ms, "ms_at_scale_back_to_back": b1b_b2b,
          "bound_ms_at_scale": b1b_bound, "launches_grid": g_launches["gram"],
          "launches_libsvm": lib_launches["gram"], "launches_trace": t_launches["gram"],
-         "launches_shards": shard_launches["gram"]},
+         "launches_shards": shard_launches["gram"],
+         "launches_task_farm": farm_counts["gram"],
+         "launches_stage1_workers": s1_workers["gram"]},
         {"name": "smo_epoch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/smo.cu",
          "replaces": "src/repro/kernels/smo.py:100",
@@ -3289,7 +3681,9 @@ def main() -> int:
          "launches_compact": c_launches, "launches_libsvm": lib_launches["smo_epoch"],
          "launches_trace": t_launches["smo_epoch"], "launches_int8_blocks": i8_launches,
          "launches_block_cache": cache_launches,
-         "launches_shards": shard_launches["smo_epoch"]},
+         "launches_shards": shard_launches["smo_epoch"],
+         "launches_task_farm": farm_counts["smo_epoch"],
+         "launches_task_farm_workers": farm_workers["streamed"]},
         {"name": "gram_q8", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram_q8.cu",
          "replaces": "src/repro/kernels/gram.py:157",
@@ -3299,7 +3693,9 @@ def main() -> int:
          "ms_back_to_back": q8_b2b, "ms_at_scale": q8b_ms,
          "bound_ms_at_scale": q8b_bound, "launches_libsvm": lib_launches["gram_q8"],
          "launches_trace": t_launches["gram_q8"],
-         "launches_shards": shard_launches["gram_q8"]},
+         "launches_shards": shard_launches["gram_q8"],
+         "launches_task_farm": farm_counts["gram_q8"],
+         "launches_stage1_workers": s1_workers["gram_q8"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:68",
@@ -3314,6 +3710,10 @@ def main() -> int:
           "a kernel of the LIBSVM route was launched no time")
     check(all(shard_launches[k] > 0 for k in ("gram", "gram_q8", "smo_epoch")),
           "a kernel of the shard phases was launched no time")
+    check(all(farm_counts[k] > 0 for k in ("gram", "gram_q8", "smo_epoch"))
+          and min(farm_workers["streamed"]) > 0
+          and min(s1_workers["gram"] + s1_workers["gram_q8"]) > 0,
+          "a kernel of the task-farm phases was launched no time, or by no worker")
     check(all(t_launches[k] > 0 for k in ("gram", "gram_q8", "smo_epoch")) and i8_launches > 0
           and cache_launches > 0,
           "a kernel of the traced fit, the int8 or the cached stage 2 was launched no time")

@@ -1,5 +1,5 @@
 """Cross-validation, grid search and warm starts (paper sec. 4, Table 3):
-PyTorch port of ``repro.core.cv`` on one card.
+PyTorch port of ``repro.core.cv``.
 
 The paper's point: parameter tuning is where the two-stage design pays off.
 The factor G depends only on the kernel (gamma), not on C or the fold split,
@@ -28,9 +28,11 @@ Differences from the reference:
     on the card for a device G, on the host for a host (streamed) G, which
     never goes to the card whole.  The two routes then vote alike on the
     same G and W.
-  * The grid task farm runs on one card, through kernel B2's window form
-    (``solve_batch_streamed(..., chain_next=...)``); the multi-device farm
-    is not ported.  Beside the reference's per-gamma ``stream_stats``,
+  * The grid task farm runs through kernel B2's window form
+    (``solve_streamed_auto(..., chain_next=...)``): on one card, or on a
+    host with more cards over the multi-device farm of
+    ``core/distributed.py``, each C ladder whole on one worker
+    (``balance_chain_split``).  Beside the reference's per-gamma ``stream_stats``,
     ``GridResult.cells`` holds one ``CellStats`` a C of a farmed gamma.
   * Each gamma has a checkpoint directory and a shard directory of its own
     (``<dir>/gamma{gi}``), as in the reference, and each serial cell a

@@ -7,10 +7,17 @@ tested without wall-clock randomness.  The streamed pipelines call
 ``check(site, **attrs)`` at their injection points; with no plan installed
 that is one ``None`` test.
 
-Sites of the port (one card):
+Sites of the port:
 
-    "h2d"             a stage-2 block copy, before it is issued; attrs:
-                      epoch (-1: a warm start's init pass), block
+    "reader"          the shared stage-2 block reader, before it stages a
+                      block; attrs: block
+    "h2d"             a worker's copy of a stage-2 block, before it is
+                      issued; attrs: device (the worker's name, e.g.
+                      "cuda:0/w1"), epoch (-1: a warm start's init pass), block
+    "stall"           a farm worker taking a job from its queue (the hand-off
+                      from the reader); attrs: device, and block and epoch
+                      for a block's job.  The "stall" kind waits on the
+                      plan's Event until ``FaultPlan.release`` (no sleeps)
     "epoch_boundary"  the stage-2 loop after each epoch (after a full pass's
                       snapshot); attrs: epoch
     "stage1"          a stage-1 chunk before its copy; attrs: chunk
@@ -21,13 +28,10 @@ Sites of the port (one card):
                       flips one byte of the file in place and returns: the
                       checksum must catch it, not the injector
 
-The reference's other sites ("reader", "stall") belong to its multi-device
-farm, which is not ported; the plan accepts them all the same.
-
 The taxonomy is also the real one: ``classify_error`` decides between a
-bounded retry (transient), device quarantine (persistent) and re-raise
-(fatal).  On one card a persistent error has no survivor to move to and is
-raised.
+bounded retry (transient), device quarantine (persistent: the farm re-splits
+the lost worker's tasks over its survivors; a lone worker raises) and
+re-raise (fatal).
 """
 from __future__ import annotations
 

@@ -16,7 +16,9 @@ Per level:
   * solve: a coarse level routes on its own working set
     (``should_stream_stage2``) to ``solve_batch`` (kernel B2) or
     ``solve_batch_streamed`` (B2's window form); the final level goes
-    through the same ``route_stage2`` as an unpolished fit;
+    through the same ``route_stage2`` as an unpolished fit, and streams
+    through ``solve_streamed_auto`` (the multi-device farm where there is
+    more than one card);
   * prolongation: the level's alphas are scattered back into each task's
     full index space; rows not yet seen keep their incoming warm start, so
     a warm start in ``tasks.alpha0`` seeds every level.

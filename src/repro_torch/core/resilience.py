@@ -1,6 +1,5 @@
-"""Checkpoints and resume of the streamed stages on one card (port of the
-one-device part of ``repro.core.resilience``; it imports nothing of the JAX
-package).
+"""Checkpoints, resume and graceful degradation of the streamed stages (port
+of ``repro.core.resilience``; it imports nothing of the JAX package).
 
 * ``snapshot_solver`` / ``restore``: the streamed stage 2's state at a
   full-pass boundary (the reference's ``snapshot_engines`` /
@@ -10,17 +9,22 @@ package).
   (not the solver's sorted one, so a snapshot does not depend on the tile);
   q over G's rows; the next epoch, the queue depth and the stats carry.  The
   compaction and the block cache are functions of that state and are
-  rebuilt on restore (a cold cache).
+  rebuilt on restore (a cold cache).  A snapshot is keyed by the solve's
+  task indices, so the farm (``core/distributed.py``) restores it onto any
+  split of the tasks over any number of workers.
 * ``StreamGuard``: a snapshot every ``checkpoint_every`` full passes, the
   newest ``checkpoint_keep`` kept, and resume from the newest.  Snapshots
   are ``step_%08d.npz`` archives written atomically by
-  ``repro_torch.checkpoint`` (the reference writes msgpack).
+  ``repro_torch.checkpoint`` (the reference writes msgpack).  With
+  ``degrade=True`` (the farm under ``fail_fast=False``) it also keeps the
+  newest boundary's snapshot in memory (``mem``), from which the farm
+  re-splits a lost device's tasks over the survivors (``adopt_mem``).
+* ``WatchdogTimeout`` / ``WorkerStuckError``: the farm's barrier or reader
+  starved past ``StreamConfig.watchdog_seconds``; a worker thread still
+  alive when the farm closes.
 * ``Stage1Progress`` / ``stage1_memmap``: resumable stage 1.  Each drained
   chunk's rows of G are written to ``<dir>/stage1_G.npy`` and flushed, then
   the chunk is logged; a resumed stage 1 reads the logged chunks back.
-
-The reference's device-loss quarantine, its farm watchdog and
-``WorkerStuckError`` belong to the multi-device farm and are not ported.
 """
 from __future__ import annotations
 
@@ -35,12 +39,23 @@ from repro_torch.checkpoint.ckpt import (latest_step, read_checkpoint,
                                          save_checkpoint)
 from repro_torch.core.trace import NULL
 
+
+class WatchdogTimeout(RuntimeError):
+    """The farm's barrier or its shared reader starved past
+    ``StreamConfig.watchdog_seconds``: raised with every worker's state
+    instead of hanging."""
+
+
+class WorkerStuckError(RuntimeError):
+    """A farm worker thread was still alive after its join timeout when the
+    farm closed."""
+
 # ---------------------------------------------------------------------------
 # stream-stats carry: the counters of the segments before a resume
 # ---------------------------------------------------------------------------
 
 _CARRY_SUM = ("bytes_h2d", "bytes_d2h", "bytes_g", "bytes_scales", "bytes_hit",
-              "bytes_miss", "blocks_streamed", "rows_streamed", "kernel_calls",
+              "bytes_put", "bytes_miss", "blocks_streamed", "rows_streamed", "kernel_calls",
               "coord_visits", "cache_hits", "cache_misses", "cache_evictions",
               "full_passes", "snapshots")
 _CARRY_SUM_F = ("put_seconds", "drain_seconds", "h2d_seconds", "seconds",
@@ -73,7 +88,7 @@ def add_carry(carry: Dict[str, np.ndarray],
         return carry
     out = dict(carry)
     for f in _CARRY_SUM:
-        out[f] = np.asarray(int(carry[f]) + int(base[f]), np.int64)
+        out[f] = np.asarray(int(carry.get(f, 0)) + int(base.get(f, 0)), np.int64)
     for f in _CARRY_SUM_F:
         out[f] = np.asarray(float(carry[f]) + float(base[f]), np.float64)
     for f in _CARRY_MAX:
@@ -90,7 +105,7 @@ def apply_carry(stats, carry: Optional[Dict[str, np.ndarray]]):
     if carry is None:
         return stats
     for f in _CARRY_SUM:
-        setattr(stats, f, getattr(stats, f) + int(carry[f]))
+        setattr(stats, f, getattr(stats, f) + int(carry.get(f, 0)))
     for f in _CARRY_SUM_F:
         setattr(stats, f, getattr(stats, f) + float(carry[f]))
     for f in _CARRY_MAX:
@@ -129,10 +144,11 @@ def g_fingerprint(G) -> float:
 
 def snapshot_solver(state: Dict[str, np.ndarray], sizes, *, epoch_next: int,
                     init_done: bool, prefetch: int, carry: Dict[str, np.ndarray],
-                    n: int, rank: int, g_fp: float) -> Dict:
+                    n: int, rank: int, g_fp: float, q_summed: bool = True) -> Dict:
     """The snapshot tree of one streamed stage-2 solve at a full-pass
     boundary: ``state`` (``STATE_KEYS``), ``sizes[t]`` task t's real rows,
-    and the loop's position."""
+    and the loop's position.  ``q_summed`` is False only in a farm's
+    in-memory snapshot from before its first pass over G."""
     missing = [k for k in STATE_KEYS if k not in state]
     if missing:
         raise KeyError(f"snapshot state lacks {missing}")
@@ -145,6 +161,7 @@ def snapshot_solver(state: Dict[str, np.ndarray], sizes, *, epoch_next: int,
             "rank": np.asarray(rank, np.int64),
             "T": np.asarray(len(sizes), np.int64),
             "g_fp": np.asarray(g_fp, np.float64),
+            "q_summed": np.asarray(int(q_summed), np.int64),
         },
         "sizes": np.asarray(sizes, np.int64),
         "state": {k: np.asarray(state[k]) for k in STATE_KEYS},
@@ -190,19 +207,26 @@ def load_snapshot(directory: str, step: Optional[int] = None) -> Optional[Dict]:
 # ---------------------------------------------------------------------------
 
 class StreamGuard:
-    """Checkpoint policy and state of ONE streamed stage-2 solve.  The solver
-    calls ``on_start`` / ``mark_init`` / ``on_boundary``; it reads
-    ``start_epoch``, ``init_done`` and ``carry`` after ``adopt``."""
+    """Checkpoint policy and state of ONE streamed stage-2 solve.  The driver
+    calls ``on_start`` / ``mark_init`` / ``on_boundary`` with callables that
+    give the solve's state (``STATE_KEYS``, plus ``q_summed``), its stats so
+    far and its queue depth; the solve reads ``start_epoch``, ``init_done``
+    and ``carry`` after ``adopt``.  ``degrade=True`` keeps the newest
+    boundary's snapshot in ``mem`` (also before the first one: at the start
+    and after the init pass), for ``adopt_mem``."""
 
-    def __init__(self, cfg, *, n: int, rank: int, sizes, g_fp: float):
+    def __init__(self, cfg, *, n: int, rank: int, sizes, g_fp: float,
+                 degrade: bool = False):
         self.cfg = cfg
         self.dir = cfg.checkpoint_dir
         self.every = cfg.checkpoint_every if self.dir else 0
+        self.degrade = degrade
         self.n, self.rank, self.g_fp = n, rank, g_fp
         self.sizes = np.asarray(sizes, np.int64)
         self.start_epoch = 0
         self.init_done = False
         self.carry: Optional[Dict[str, np.ndarray]] = None
+        self.mem: Optional[Dict] = None   # the newest boundary's snapshot
         self.saved_steps: List[int] = []
         self.last_bytes = 0              # the newest snapshot's file
         self.last_seconds = 0.0          # and the time it took to write
@@ -226,32 +250,61 @@ class StreamGuard:
         self.start_epoch = int(snap["meta"]["epoch_next"])
         self.init_done = bool(int(snap["meta"]["init_done"]))
         self.carry = snap.get("stats")
+        if self.degrade:
+            self.mem = snap
 
-    # -- solver hooks -------------------------------------------------------
-    def on_start(self) -> None:
-        """The segment's clock starts (its stats' ``seconds``)."""
+    def adopt_mem(self) -> None:
+        """Continue from the newest in-memory snapshot (a device was lost)."""
+        if self.mem is None:
+            raise RuntimeError("no boundary snapshot to re-split from")
+        self.adopt(self.mem)
+
+    def _snapshot(self, state: Callable, stats: Callable, prefetch: int,
+                  epoch_next: int, t0: float) -> Dict:
+        cur = stats()
+        cur.seconds = t0 - self._t0
+        carry = add_carry(stats_to_carry(cur), self.carry)
+        st = dict(state())
+        q_summed = bool(st.pop("q_summed", True))
+        return snapshot_solver(st, self.sizes, epoch_next=epoch_next,
+                               init_done=self.init_done, prefetch=prefetch,
+                               carry=carry, n=self.n, rank=self.rank, g_fp=self.g_fp,
+                               q_summed=q_summed)
+
+    # -- driver hooks -------------------------------------------------------
+    def on_start(self, state: Optional[Callable] = None, stats: Optional[Callable] = None,
+                 prefetch: Optional[Callable] = None) -> None:
+        """The segment's clock starts (its stats' ``seconds``); a degrading
+        guard takes its first in-memory snapshot."""
         self._t0 = time.perf_counter()
+        if self.degrade and self.mem is None:
+            self.mem = self._snapshot(state, stats, prefetch(), self.start_epoch,
+                                      self._t0)
 
-    def mark_init(self) -> None:
+    def mark_init(self, state: Optional[Callable] = None, stats: Optional[Callable] = None,
+                  prefetch: Optional[Callable] = None) -> None:
         self.init_done = True
+        if self.degrade:
+            self.mem = self._snapshot(state, stats, prefetch(), self.start_epoch,
+                                      time.perf_counter())
 
     def on_boundary(self, epoch: int, state: Callable[[], Dict[str, np.ndarray]],
                     stats: Callable[[], object], prefetch: int, trace=NULL) -> bool:
         """After a full pass's epoch has been accounted: every
         ``checkpoint_every``-th boundary writes ``step_{epoch + 1}`` from
         ``state()`` and ``stats()`` (the segment's stats so far, ``seconds``
-        not yet set), then prunes.  True when it wrote."""
+        not yet set), then prunes; a degrading guard keeps every boundary's
+        snapshot in ``mem``.  True when it wrote."""
         self._fulls += 1
-        if not (self.every and self._fulls % self.every == 0):
+        write = bool(self.every and self._fulls % self.every == 0)
+        if not (write or self.degrade):
             return False
         t0 = time.perf_counter()
-        cur = stats()
-        cur.seconds = t0 - self._t0
-        carry = add_carry(stats_to_carry(cur), self.carry)
-        snap = snapshot_solver(state(), self.sizes, epoch_next=epoch + 1,
-                               init_done=self.init_done, prefetch=prefetch,
-                               carry=carry, n=self.n, rank=self.rank,
-                               g_fp=self.g_fp)
+        snap = self._snapshot(state, stats, prefetch, epoch + 1, t0)
+        if self.degrade:
+            self.mem = snap
+        if not write:
+            return False
         path = save_checkpoint(self.dir, epoch + 1, snap)
         self.saved_steps.append(epoch + 1)
         self.last_bytes = os.path.getsize(path)
@@ -349,7 +402,8 @@ def stage1_memmap(directory: str, n: int, rank: int,
                                      shape=(n, rank))
 
 
-__all__ = ["STATE_KEYS", "Stage1Progress", "StreamGuard", "add_carry",
+__all__ = ["STATE_KEYS", "Stage1Progress", "StreamGuard", "WatchdogTimeout",
+           "WorkerStuckError", "add_carry",
            "apply_carry", "g_fingerprint", "load_snapshot",
            "snapshot_solver", "stage1_memmap", "stats_to_carry",
            "validate_snapshot"]

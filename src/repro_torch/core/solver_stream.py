@@ -1,6 +1,5 @@
-"""Out-of-core stage 2 on one card: stream G row blocks from pinned host
-memory through kernel B2 (PyTorch port of the one-device route of
-``repro.core.solver_stream``).
+"""Out-of-core stage 2: stream G row blocks from pinned host memory through
+kernel B2 (PyTorch port of ``repro.core.solver_stream``).
 
 The paper's layout: the task state on the card, G in host RAM.
 
@@ -39,11 +38,22 @@ promotes to a full pass, and sweeps from the epoch after.  The live, pending
 and done flags come to the host once per full pass with the convergence
 test; alpha, w and the counters never leave the card.
 
+The solve is split as the reference splits it: an engine a worker
+(``_Stage2Engine``: its tasks' state on its device, its streams, ring and
+block cache), one shared reader (``_SharedReader``: each block of G read and
+staged once a shared pass, however many engines consume it) and one
+lockstep driver (``drive_streamed_engines``) that runs the epoch schedule.
+``solve_batch_streamed`` is the one-engine instance, on the caller's thread
+and stream; ``core/distributed.py``'s task farm drives an engine a device
+entry, each on a host thread of its own, and ``solve_streamed_auto`` routes
+to it where there is more than one device.
+
 Blocks go through a ring of ``prefetch`` device slots: the H2D stream fills
 a slot, the compute stream waits for that copy by event and launches B2, and
 before a slot is filled again the host waits on the event recorded after the
-launch that read it.  bf16 blocks are cast into pinned staging on the host
-and upcast on the card into one fp32 buffer of the compute stream.
+launch that read it.  bf16 blocks are cast on the host into one of the
+reader's pinned buffers and upcast on the card into one fp32 buffer of the
+compute stream.
 
 int8 blocks (the reference's wire): a shared-pass block is encoded on the
 host each pass with scale groups of ``wire_group(tile)`` rows, which divide
@@ -68,12 +78,13 @@ back, so no queued launch reads an evicted payload.
 Checkpoints (``core/resilience.py``): with ``checkpoint_dir`` the solver's
 state is snapshot at full-pass boundaries; a resume restores it, re-runs
 the compaction (the cache starts cold) and continues at the next epoch, bit
-for bit.  Fault sites (``core/faults.py``): "h2d" before a block's copies,
-"epoch_boundary" after each epoch.
+for bit.  Fault sites (``core/faults.py``): "reader" before the shared
+reader stages a block, "h2d" before a worker's copies of a block (its
+``device`` name), "epoch_boundary" after each epoch.
 
 The disk tier (``core/shards.py``): G may be a ``GShardView`` of a G that
 stage 1 spilled to f32 shards.  Every shared pass then reads G's shards
-from disk, checks their digests and stages the rows through the ring's
+from disk, checks their digests and stages the rows through the reader's
 pinned buffers; a compaction gathers the union's rows into the pinned
 ``act_G`` (on the int8 wire it encodes them there, under a table computed
 shard by shard).  The cheap epochs read ``act_G`` and the card's cache,
@@ -83,8 +94,11 @@ chunks (``streaming._g_rebuilder``) before its rows are used.
 Under a tracer (``StreamConfig.trace``, else an installed one) the host
 spans are the reference's: ``h2d`` / ``put_block`` (their sum is
 ``put_seconds``), ``drain`` (``block_wait``, ``flags``, ``result``),
-``encode`` / ``stage2_quant``, ``compact`` / ``recompact`` and ``epoch`` /
-``epoch_{k}`` with the counters ``stage2/epoch_bytes``,
+``encode`` / ``stage2_quant``, the reader's ``read`` / ``stage_block`` (a
+block cast, encoded or read from shards into its pinned buffer),
+``compact`` / ``recompact`` and ``epoch`` / ``epoch_{k}`` (its attrs summed
+over the engines, ``devices`` the live ones) with the counters
+``stage2/epoch_bytes``,
 ``stage2/active_rows`` and ``stage2/row_visits``; on the card the H2D copies
 (``h2d`` / ``copy_block``) and the launches (``kernel``: ``smo_block``
 around each B2 launch with its rows and tasks, ``row_sq``, ``init_sums``,
@@ -93,12 +107,16 @@ read where the full pass already syncs; a cheap epoch has none, and its
 ``hit_bytes`` / ``miss_bytes`` split its compacted bytes.  The cache's
 instants are ``cache`` / ``plan``, ``hit``, ``miss``, ``invalidate``; a
 resume is the span ``recovery`` / ``resume``, a snapshot the instant
-``recovery`` / ``checkpoint``, a retried copy ``fault`` / ``h2d_retry``.
+``recovery`` / ``checkpoint``, a retried copy ``fault`` / ``h2d_retry``.  On
+the farm each worker's spans lie on its own host thread's row and its
+device spans on its own rows (``cuda:0/w1 compute``, ``cuda:0/w1 h2d``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import threading
 import time
 from typing import List, Optional
 
@@ -118,7 +136,7 @@ from repro_torch.core.quant import (ENCODE_ROWS, QuantBlock, dequant_into,
 from repro_torch.core import shards
 from repro_torch.core.streaming import (BYTES_F32, Lanes, StreamConfig,
                                         StreamTimes, check_host, host_buffer,
-                                        tune_prefetch, wait)
+                                        tune_prefetch, wait, worker_context)
 from repro_torch.core.trace import NULL, resolve
 from repro_torch.kernels.ops import smo_epoch, smo_epoch_scratch
 
@@ -251,7 +269,9 @@ class Stage2StreamStats(StreamTimes):
     """Traffic and convergence accounting of one streamed stage-2 solve.
 
     ``bytes_h2d`` counts the G blocks plus the index tables; on the int8
-    wire a block's bytes are its codes plus its scale table.
+    wire a block's bytes are its codes plus its scale table.  On the farm a
+    shared-pass block counts once in ``bytes_h2d`` (the reader staged it
+    once) and once a worker in ``bytes_put`` (each worker copied it).
 
     Every block of a compacted (cheap) epoch is a hit or a miss of the block
     cache, never both: ``bytes_miss`` crossed the bus (inside ``bytes_g``),
@@ -295,6 +315,13 @@ class Stage2StreamStats(StreamTimes):
     snapshot_bytes: int = 0           # the newest one's file size
     resumed_from: int = -1            # the epoch a resume started at
     resume_seconds: float = 0.0       # loading, restoring, recompacting
+    # -- the multi-device farm (core/distributed.py) --------------------------
+    n_devices: int = 1                # workers (device entries) that solved
+    bytes_put: int = 0                # physical H2D bytes: every worker's copy
+                                      # of a shared block counts (bytes_h2d
+                                      # counts it once); == bytes_h2d at one
+    resplits: int = 0                 # device losses re-split onto survivors
+    per_device: Optional[List["Stage2StreamStats"]] = None   # a worker's own
 
     @property
     def epoch_hit_rate(self) -> List[float]:
@@ -302,21 +329,6 @@ class Stage2StreamStats(StreamTimes):
         an epoch had none, full passes for one)."""
         return [h / (h + m) if h + m else 0.0
                 for h, m in zip(self.epoch_hit_bytes, self.epoch_miss_bytes)]
-
-
-@dataclasses.dataclass
-class _ViewRows:
-    """Rows [lo, hi) of a spilled G (``shards.GShardView``) for ``_Ring.load``:
-    read from the shards into the slot's pinned staging buffer, with no
-    other host copy."""
-
-    G: object
-    lo: int
-    hi: int
-
-    @property
-    def shape(self):
-        return (self.hi - self.lo, self.G.shape[1])
 
 
 class _Ring:
@@ -327,27 +339,31 @@ class _Ring:
     that event once the block's launches are queued.  On the int8 wire a
     slot also holds a scale table, and ``load`` takes (codes, table) host
     tensors padded to the tile and decodes them into the fp32 buffer.
+    ``load(..., shared=True)`` is a copy of a block the shared reader staged
+    and counted: only ``bytes_put`` counts it here.
 
     ``load(..., keep=True)`` copies into new device tensors instead of a
     slot and returns them: the block cache's payload, which the ring never
     reuses.  ``decode`` turns wire arrays on the card into the fp32 block by
     the one op sequence of a shipped block and of a cached one.
 
-    Each block's copies pass fault site "h2d" (``epoch``, ``block``) before
-    they are issued; with ``retries`` a transient fault is retried after
-    ``backoff`` seconds, doubled each time, and the copies are issued again
-    whole, so a retried block is the block.  A persistent fault (the device
-    is lost) has no other card to go to and is raised."""
+    Each block's copies pass fault site "h2d" (``device``: the worker's
+    name, ``epoch``, ``block``) before they are issued; with ``retries`` a
+    transient fault is retried after ``backoff`` seconds, doubled each time,
+    and the copies are issued again whole, so a retried block is the block.
+    A persistent fault (the device is lost) is raised: the farm re-splits
+    the worker's tasks over its survivors, a lone worker has none."""
 
     def __init__(self, tile: int, rank: int, wire: str, device,
                  prefetch: int, lanes: Lanes, st: Stage2StreamStats, tr=NULL,
-                 retries: int = 0, backoff: float = 0.0):
+                 retries: int = 0, backoff: float = 0.0, name: str = ""):
         self.tile, self.rank, self.device = tile, rank, device
         self.wire = WIRE[wire]
         self.quant = wire == "int8"
         self.prefetch = prefetch
         self.lanes, self.st, self.tr = lanes, st, tr
         self.retries, self.backoff = retries, backoff
+        self.name = name
         self.epoch = -1                      # the fault site's epoch attr
         self.slots: List[dict] = []
         self.count = 0
@@ -368,46 +384,41 @@ class _Ring:
     def _stage(self, slot: dict, j: int, src) -> torch.Tensor:
         """``src`` as the slot's wire dtype in memory the copy may read
         without blocking: as it is when it already is (pinned on the card),
-        else through the slot's pinned staging buffer (``_ViewRows`` are read
-        from their shards straight into it)."""
+        else through the slot's pinned staging buffer."""
         want = slot["dev"][j].dtype
-        view = isinstance(src, _ViewRows)
-        if not view and src.dtype == want and not (self.lanes.cuda and not src.is_pinned()):
+        if src.dtype == want and not (self.lanes.cuda and not src.is_pinned()):
             return src
         if slot["stage"][j] is None:
             slot["stage"][j] = host_buffer(tuple(slot["dev"][j].shape), want,
                                            self.device)
         staged = slot["stage"][j][:src.shape[0]]
-        if view:
-            shards.rows_into(src.G, src.lo, src.hi, staged)
-        else:
-            staged.copy_(src)
+        staged.copy_(src)
         return staged
 
     def _copy(self, devs, srcs, block: int) -> None:
         attempt = 0
         while True:
             try:
-                fault_check("h2d", epoch=self.epoch, block=block)
+                fault_check("h2d", device=self.name, epoch=self.epoch, block=block)
                 for d, a in zip(devs, srcs):
                     self.lanes.put(d, a, "copy_block")
             except Exception as exc:
                 if attempt >= self.retries or classify_error(exc) != "transient":
                     raise
-                self.tr.instant("fault", "h2d_retry", epoch=self.epoch, block=block,
-                                attempt=attempt, error=type(exc).__name__)
+                self.tr.instant("fault", "h2d_retry", device=self.name, epoch=self.epoch,
+                                block=block, attempt=attempt, error=type(exc).__name__)
                 delay = self.backoff * (2.0 ** attempt)
                 if delay > 0:
                     time.sleep(delay)
                 attempt += 1
                 continue
             if attempt:
-                self.tr.instant("recovery", "h2d_retry_ok", epoch=self.epoch,
-                                block=block, attempts=attempt)
+                self.tr.instant("recovery", "h2d_retry_ok", device=self.name,
+                                epoch=self.epoch, block=block, attempts=attempt)
             return
 
     def load(self, src, rows: Optional[int] = None, group: int = 1,
-             block: int = 0, keep: bool = False):
+             block: int = 0, keep: bool = False, shared: bool = False):
         """The next block on the card: (fp32 rows, its slot or None, its
         wire arrays on the card).  ``src`` is a host tensor of rows, or on
         the int8 wire a (codes, table) pair with ``group`` rows a table
@@ -438,12 +449,14 @@ class _Ring:
         self._copy(devs, srcs, block)
         nbytes = sum(a.nbytes for a in srcs)
         st.put_seconds += tr.end("h2d", "put_block", t0, bytes=nbytes, rows=r)
-        st.bytes_h2d += nbytes
-        st.bytes_g += nbytes
-        st.blocks_streamed += 1
-        st.rows_streamed += r
-        if self.quant:
-            st.bytes_scales += srcs[1].nbytes
+        st.bytes_put += nbytes
+        if not shared:
+            st.bytes_h2d += nbytes
+            st.bytes_g += nbytes
+            st.blocks_streamed += 1
+            st.rows_streamed += r
+            if self.quant:
+                st.bytes_scales += srcs[1].nbytes
         return self.decode(devs, r, group), slot, devs
 
     def decode(self, devs, r: int, group: int) -> torch.Tensor:
@@ -467,7 +480,151 @@ class _Ring:
 
 
 # ---------------------------------------------------------------------------
-# the streamed solver
+# the shared block reader
+# ---------------------------------------------------------------------------
+
+class _Staged:
+    """A host block the shared reader staged once for ``users`` workers (its
+    pinned buffers, ``bufs``): free again when each of them has issued its
+    copy out of it and, on the card, that copy has completed.  A feed that
+    is skipped (the farm failed) releases it too."""
+
+    def __init__(self, bufs: List[torch.Tensor]):
+        self.bufs = bufs
+        self.cond = threading.Condition()
+        self.users = 0
+        self.events: List = []
+
+    def arm(self, users: int) -> None:
+        with self.cond:
+            self.users, self.events = users, []
+
+    def release(self, event=None) -> None:
+        with self.cond:
+            if event is not None:
+                self.events.append(event)
+            self.users -= 1
+            self.cond.notify_all()
+
+    def wait_free(self, watchdog: float, diagnose) -> None:
+        deadline = time.monotonic() + watchdog if watchdog > 0 else None
+        with self.cond:
+            while self.users > 0:
+                left = None if deadline is None else deadline - time.monotonic()
+                if left is not None and left <= 0:
+                    break
+                self.cond.wait(left)
+            starved, users = self.users > 0, self.users
+            events, self.events = self.events, []
+        if starved:
+            from repro_torch.core.resilience import WatchdogTimeout
+            raise WatchdogTimeout(
+                f"shared reader starved past {watchdog:.1f}s: a staged block is "
+                f"still held by {users} worker(s); worker states:\n" + diagnose())
+        for ev in events:
+            wait(ev)
+
+
+class _SharedReader:
+    """The shared block reader of the streamed stage 2 (the reference's
+    ``iter_shared_blocks``): each (tile, B') row block of G is read and
+    staged ONCE a shared pass, however many workers consume it, and counted
+    once in its record (``st``: ``bytes_h2d``, ``bytes_g``, ``epoch_bytes``
+    of the shared passes).  A block of an in-memory G on the f32 wire is
+    G's own pinned rows; a bf16 block is cast, an int8 block encoded
+    (``encode_block``) and a spilled G's rows are read from its shards, into
+    one of ``depth`` pinned buffers, reused once every worker's copy out of
+    it has completed.  Fault site "reader" (``block``) comes before each
+    block's staging."""
+
+    def __init__(self, G, tile: int, cfg: StreamConfig, cuda: bool, tr=NULL,
+                 depth: int = 2, diagnose=lambda: ""):
+        self.G, self.G_np = G, shards.numpy_rows(G)
+        self.view = shards.is_shard_view(G)
+        self.n, self.rank = G.shape
+        self.tile = tile
+        self.n_blocks = -(-self.n // tile)
+        self.wire = cfg.block_dtype
+        self.quant = self.wire == "int8"
+        self.group = wire_group(tile, cfg) if self.quant else 1
+        self.pin = "cuda" if cuda else "cpu"
+        self.tr = tr
+        self.watchdog = cfg.watchdog_seconds
+        self.diagnose = diagnose
+        self.st = Stage2StreamStats(tile_rows=tile, block_dtype=cfg.block_dtype)
+        self.pool: List[Optional[_Staged]] = [None] * max(2, depth)
+        self.k = 0
+
+    def _buffer(self) -> _Staged:
+        k = self.k % len(self.pool)
+        self.k += 1
+        if self.pool[k] is None:
+            shapes = [((self.tile, self.rank), WIRE[self.wire])]
+            if self.quant:
+                shapes.append(((self.tile, 2), torch.float32))
+            self.pool[k] = _Staged([host_buffer(s, d, self.pin) for s, d in shapes])
+        else:
+            self.pool[k].wait_free(self.watchdog, self.diagnose)
+        return self.pool[k]
+
+    def blocks(self, users: int):
+        """Yield ``(b, s, e, src, group, staged)`` for every block of G:
+        ``src`` the host wire rows (a (codes, table) pair on the int8 wire),
+        ``staged`` the ``_Staged`` each of the ``users`` workers releases
+        after its copy (None for G's own rows)."""
+        tr, st, tile = self.tr, self.st, self.tile
+        for b in range(self.n_blocks):
+            s, e = b * tile, min((b + 1) * tile, self.n)
+            fault_check("reader", block=b)
+            staged = None
+            if self.quant:
+                t0 = tr.begin()
+                qb = encode_block(self.G_np[s:e], tile, self.group)
+                st.encode_seconds += tr.end("encode", "stage2_quant", t0, rows=e - s)
+                t0 = tr.begin()
+                staged = self._buffer()
+                codes, table = staged.bufs
+                codes.copy_(torch.from_numpy(qb.values))
+                ng = qb.scales.shape[0]
+                table[:ng].copy_(torch.from_numpy(qb.scales))
+                src = (codes, table[:ng])
+            elif self.view or self.wire != "f32":
+                t0 = tr.begin()
+                staged = self._buffer()
+                src = shards.rows_into(self.G, s, e, staged.bufs[0][:e - s])
+            else:
+                src = self.G[s:e]
+            srcs = src if self.quant else (src,)
+            nbytes = sum(a.nbytes for a in srcs)
+            if staged is not None:
+                staged.arm(users)
+                tr.end("read", "stage_block", t0, bytes=nbytes, rows=e - s, block=b)
+            st.bytes_h2d += nbytes
+            st.bytes_g += nbytes
+            st.blocks_streamed += 1
+            st.rows_streamed += e - s
+            if self.quant:
+                st.bytes_scales += srcs[1].nbytes
+            yield b, s, e, src, self.group, staged
+
+
+class _Scales:
+    """The int8 wire's global group table of G, computed once for every
+    worker of a solve (``shards.group_scales``)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.table: Optional[np.ndarray] = None
+
+    def get(self, G, group: int) -> np.ndarray:
+        with self._lock:
+            if self.table is None:
+                self.table = shards.group_scales(G, group)
+            return self.table
+
+
+# ---------------------------------------------------------------------------
+# the streamed solver: one engine a worker, one lockstep driver
 # ---------------------------------------------------------------------------
 
 # torch's CUDA row sum of a (rows, B') tensor takes its lane layout from B'
@@ -518,6 +675,7 @@ def _sorted_layout(idx: np.ndarray, c: np.ndarray):
 
 def _upload(a: np.ndarray, device, st: Stage2StreamStats) -> torch.Tensor:
     st.bytes_h2d += a.nbytes
+    st.bytes_put += a.nbytes
     return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
 
@@ -586,138 +744,172 @@ class _Compacted:
     sizes: Optional[List[int]] = None
 
 
-@full_fp32()
-def solve_batch_streamed(
-    G,
-    tasks: TaskBatch,
-    config: SolverConfig = SolverConfig(),
-    *,
-    stream_config: Optional[StreamConfig] = None,
-    chain_next=None,
-    return_stats: bool = False,
-):
-    """Drop-in ``solve_batch`` over a host G, on the device of ``tasks``.
+def host_factor(G, devices):
+    """G as the streamed stage 2 reads it: a spilled G's view as it is, else
+    a host fp32 tensor, pinned when a device is the card (pageable memory
+    raises; a G on the card is first copied to pinned memory)."""
+    if shards.is_shard_view(G):
+        return G
+    cuda = [torch.device(d) for d in devices if torch.device(d).type == "cuda"]
+    if not isinstance(G, torch.Tensor):
+        G = torch.as_tensor(np.asarray(G, np.float32))
+    elif G.is_cuda:                    # a device factor, streamed on request
+        G = host_buffer(tuple(G.shape), G.dtype, G.device).copy_(G)
+    for d in cuda[:1] or [torch.device("cpu")]:
+        check_host(G, d, "G")
+    if G.dtype != torch.float32:
+        raise TypeError(f"G must be fp32, got {G.dtype}")
+    return G
 
-    ``G`` is a pinned CPU tensor when the tasks are on the card (pageable
-    memory raises; a G on the card is first copied to pinned memory) and a
-    CPU tensor or array on the CPU, or a ``shards.GShardView`` of a spilled
-    G on either: its rows are read from disk, verified, for every pass (a
-    shared pass's blocks go through the ring's pinned staging, a
-    compaction's rows are gathered into the pinned union buffer, the int8
-    table is computed shard by shard) and it is never materialised; the
-    result is bit-equal to the solve over the same G in memory.  Returns a
-    ``SolveResult`` on the tasks' device, laid out as ``solve_batch``'s, and
-    a ``Stage2StreamStats`` with ``return_stats=True``.  Each task's real
-    rows must be unique; sorted rows (what ``build_ovo_tasks`` gives) make
-    the trajectory the monolithic one.
 
-    ``chain_next[t] = s`` (-1: none) makes task s the warm-start successor
-    of task t over the same rows, the C ladder of
-    ``cv.build_cv_grid_tasks`` (see the module docstring).  A task that
-    never converged, or was never seeded, reports ``max_epochs``.
+class _Stage2Engine:
+    """One worker's streamed stage 2: its share of the tasks, their state on
+    its device, its copy and compute streams, its block ring and its block
+    cache (the reference's ``_Stage2Engine``).
 
-    With ``stream_config.cache_blocks`` (the default) the cheap epochs look
-    each compacted block up in a ``block_cache.HotRowBlockCache`` on the
-    card (``stage2_cache_budget`` bytes), planned at each compaction; the
-    result is bit-equal to the uncached solve's.  With ``checkpoint_dir`` a
-    ``resilience.StreamGuard`` snapshots the solver every
-    ``checkpoint_every`` full passes, and ``resume`` continues from the
-    newest snapshot: after a kill the result is bit-equal to an
-    uninterrupted run's, and the cache restarts cold.  With ``fail_fast``
-    off a transient H2D fault is retried (``_Ring``); on one card a lost
-    device has no survivor to move to, and its error is raised."""
-    t_start = time.perf_counter()
-    cfg = stream_config or StreamConfig()
-    dev = tasks.idx.device
-    view = shards.is_shard_view(G)     # a spilled G: read, never whole
-    if not view:
-        if not isinstance(G, torch.Tensor):
-            G = torch.as_tensor(np.asarray(G, np.float32))
-        elif G.is_cuda:                # a device factor, streamed on request
-            G = host_buffer(tuple(G.shape), G.dtype, dev).copy_(G)
-        check_host(G, dev, "G")
-        if G.dtype != torch.float32:
-            raise TypeError(f"G must be fp32, got {G.dtype}")
-    n, rank = G.shape
-    T, n_pad = tasks.idx.shape
-    tile = auto_tile_rows(n, rank, T, cfg)
-    n_blocks = -(-n // tile)
-    st = Stage2StreamStats(tile_rows=tile, block_dtype=cfg.block_dtype)
-    tr = resolve(cfg.trace)
-    lanes = Lanes(dev, tr)
-    ring = _Ring(tile, rank, cfg.block_dtype, dev, cfg.prefetch, lanes, st, tr,
-                 retries=0 if cfg.fail_fast else cfg.max_retries,
-                 backoff=cfg.retry_backoff)
-    quant = ring.quant
-    group = wire_group(tile, cfg)
-    G_np = shards.numpy_rows(G)        # numpy rows: slices, gathers
+    The driver (``drive_streamed_engines``) owns the epoch schedule and the
+    shared reader; per pass it calls ``begin_pass``, ``feed_block`` with
+    each block the reader staged and ``end_pass``, or ``cheap_epoch`` over
+    the engine's own compacted union, then ``finish_epoch``.  A farm runs
+    each engine's calls on a host thread of its own (``own_stream``: a
+    compute stream of its own, so that workers sharing a card overlap, and
+    ``tag``, its rows on the tracer); a lone engine runs on the caller's
+    thread and stream.  ``task_ids`` are the solve's task indices of this
+    engine's tasks, the key of the snapshots."""
 
-    def g_rows(s: int, e: int):
-        """G's rows [s, e) for the ring: pinned G's own (copied as they are),
-        or a view's, read into the ring's pinned staging."""
-        return _ViewRows(G, s, e) if view else G[s:e]
+    def __init__(self, G, tasks: TaskBatch, config: SolverConfig, cfg: StreamConfig, *,
+                 tile: int, chain_next=None, name: Optional[str] = None,
+                 tag: Optional[str] = None, task_ids=None,
+                 scales: Optional[_Scales] = None, own_stream: bool = False):
+        dev = tasks.idx.device
+        self.dev = dev
+        self.config, self.cfg, self.tile = config, cfg, tile
+        self.name = name if name is not None else f"{dev}/w0"
+        self.tag = tag
+        self.tr = tr = resolve(cfg.trace)
+        self.cuda = dev.type == "cuda"
+        self.stream = None
+        if own_stream and self.cuda:
+            self.stream = torch.cuda.Stream(dev)
+            self.stream.wait_stream(torch.cuda.current_stream(dev))
+        self.G, self.G_np = G, shards.numpy_rows(G)
+        n, rank = G.shape
+        T, n_pad = tasks.idx.shape
+        self.n, self.rank, self.T, self.n_pad = n, rank, T, n_pad
+        self.task_ids = (np.arange(T, dtype=np.int64) if task_ids is None
+                         else np.asarray(task_ids, np.int64))
+        self.scales = scales if scales is not None else _Scales()
+        n_blocks = -(-n // tile)
+        self.st = st = Stage2StreamStats(tile_rows=tile, block_dtype=cfg.block_dtype)
+        with self.on():
+            self.lanes = Lanes(dev, tr)
+            self.ring = _Ring(tile, rank, cfg.block_dtype, dev, cfg.prefetch, self.lanes,
+                              st, tr, retries=0 if cfg.fail_fast else cfg.max_retries,
+                              backoff=cfg.retry_backoff, name=self.name)
+            self.quant = self.ring.quant
+            self.group = wire_group(tile, cfg)
+            self.cache = (HotRowBlockCache(stage2_cache_budget(rank, T, tile,
+                                                               cfg.prefetch, cfg))
+                          if cfg.cache_blocks else None)
 
-    cache = (HotRowBlockCache(stage2_cache_budget(rank, T, tile, cfg.prefetch, cfg))
-             if cfg.cache_blocks else None)
+            # one-time host bookkeeping: the sorted layout and the window tables
+            idx_h = tasks.idx.cpu().numpy().astype(np.int64)
+            c_h = tasks.c.cpu().numpy()
+            real = c_h > 0.0
+            if real.any() and (idx_h[real].min() < 0 or idx_h[real].max() >= n):
+                raise ValueError(f"task indices must lie in [0, {n})")
+            perm_h, m = _sorted_layout(idx_h, c_h)
+            self.m = m
+            self.sidx_h = sidx_h = np.take_along_axis(idx_h, perm_h, axis=1)
+            self.nxt_h = _chain(chain_next, T, perm_h, m, sidx_h)
+            self.bounds_h = np.stack([block_windows(sidx_h[t, :m[t]], tile, n_blocks)
+                                      for t in range(T)], axis=1).astype(np.int32)
+            self.perm = perm = _upload(perm_h, dev, st)
+            self.bounds = _upload(self.bounds_h, dev, st)
+            # B2 lists a block's active rows in a scratch sized by the widest
+            # window of the shared passes; a wider compacted window is swept
+            # in segments
+            self.scratch = smo_epoch_scratch(
+                T, int(np.diff(self.bounds_h, axis=0).max(initial=1)), dev)
+            st.scratch_bytes = 0 if self.scratch is None else self.scratch.numel()
+            self.sidx = torch.gather(tasks.idx.to(torch.int32), 1, perm).contiguous()
+            self.y = torch.gather(tasks.y.to(torch.float32), 1, perm).contiguous()
+            self.c = c = torch.gather(tasks.c.to(torch.float32), 1, perm).contiguous()
+            self.alpha = alpha = torch.gather(tasks.alpha0.to(torch.float32), 1,
+                                              perm).contiguous()
+            self.unchanged = torch.zeros_like(self.sidx)
+            self.w = torch.zeros((T, rank), dtype=torch.float32, device=dev)
+            # the task states, on the host: B2 sees only ``live`` (its copy on
+            # the card); a pending task sums its w0 in the next pass over all
+            # of G; a dormant successor (no flag set) waits for its predecessor
+            nxt_h = self.nxt_h
+            self.chained = bool((nxt_h >= 0).any())
+            succ = np.zeros((T,), bool)
+            succ[nxt_h[nxt_h >= 0]] = True
+            warm = ((alpha != 0) & (c > 0)).any(1).cpu().numpy()
+            self.pending_h = ~succ & warm
+            self.live_h = ~succ & ~warm
+            self.done_h = np.zeros((T,), bool)
+            self.live = torch.as_tensor(self.live_h, device=dev)
+            self.q = torch.empty((n,), dtype=torch.float32, device=dev)  # from pass one
+            self.epochs = torch.zeros((T,), dtype=torch.int32, device=dev)
+            self.violation = torch.full((T,), float("inf"), dtype=torch.float32,
+                                        device=dev)
+        self.q_summed = False
+        self.period = config.full_pass_period if config.shrink else 1
+        self.shrink_k = config.shrink_k if config.shrink else INT32_MAX
+        self.comp: Optional[_Compacted] = None
+        self.act_buf = None
+        self.tuned = not cfg.autotune_prefetch
+        self.finished = False
+        self._pend = _NO_TASKS
+        self._w0 = None
 
-    # one-time host bookkeeping: the sorted layout and the window tables
-    idx_h = tasks.idx.cpu().numpy().astype(np.int64)
-    c_h = tasks.c.cpu().numpy()
-    real = c_h > 0.0
-    if real.any() and (idx_h[real].min() < 0 or idx_h[real].max() >= n):
-        raise ValueError(f"task indices must lie in [0, {n})")
-    perm_h, m = _sorted_layout(idx_h, c_h)
-    sidx_h = np.take_along_axis(idx_h, perm_h, axis=1)
-    nxt_h = _chain(chain_next, T, perm_h, m, sidx_h)
-    bounds_h = np.stack([block_windows(sidx_h[t, :m[t]], tile, n_blocks)
-                         for t in range(T)], axis=1).astype(np.int32)
-    perm = _upload(perm_h, dev, st)
-    bounds = _upload(bounds_h, dev, st)
-    # B2 lists a block's active rows in a scratch sized by the widest window
-    # of the shared passes; a wider compacted window is swept in segments
-    scratch = smo_epoch_scratch(T, int(np.diff(bounds_h, axis=0).max(initial=1)), dev)
-    st.scratch_bytes = 0 if scratch is None else scratch.numel()
-    sidx = torch.gather(tasks.idx.to(torch.int32), 1, perm).contiguous()
-    y = torch.gather(tasks.y.to(torch.float32), 1, perm).contiguous()
-    c = torch.gather(tasks.c.to(torch.float32), 1, perm).contiguous()
-    alpha = torch.gather(tasks.alpha0.to(torch.float32), 1, perm).contiguous()
-    unchanged = torch.zeros_like(sidx)
-    w = torch.zeros((T, rank), dtype=torch.float32, device=dev)
-    # the task states, on the host: B2 sees only ``live`` (its copy on the
-    # card); a pending task sums its w0 in the next pass over all of G; a
-    # dormant successor (no flag set) waits for its predecessor
-    chained = bool((nxt_h >= 0).any())
-    succ = np.zeros((T,), bool)
-    succ[nxt_h[nxt_h >= 0]] = True
-    warm = ((alpha != 0) & (c > 0)).any(1).cpu().numpy()
-    pending_h = ~succ & warm
-    live_h = ~succ & ~warm
-    done_h = np.zeros((T,), bool)
-    live = torch.as_tensor(live_h, device=dev)
-    q = torch.empty((n,), dtype=torch.float32, device=dev)   # from pass one
-    q_summed = False
-    epochs = torch.zeros((T,), dtype=torch.int32, device=dev)
-    violation = torch.full((T,), float("inf"), dtype=torch.float32, device=dev)
-    period = config.full_pass_period if config.shrink else 1
-    shrink_k = config.shrink_k if config.shrink else INT32_MAX
-    no_tasks = np.zeros((0,), np.int64)
+    def on(self):
+        """The engine's stream and tracer rows, around each of its calls."""
+        return worker_context(self.stream, self.tr, self.tag)
 
-    def init_sums(pend: np.ndarray, ps: torch.Tensor, w0: torch.Tensor, b: int,
-                  gb: torch.Tensor, s: int) -> None:
+    def _sync(self) -> None:
+        if self.stream is not None:
+            self.stream.synchronize()
+        elif self.cuda:
+            torch.cuda.synchronize(self.dev)
+
+    # -- a shared pass: begin_pass, feed_block per block, end_pass ---------
+    def begin_pass(self, kind: str) -> None:
+        """A pass over all of G: the pending tasks (on "init" and "full"
+        passes) sum their w0 (in fp64, as ``dual_solver._init_w``) from its
+        blocks, and on "full" and "cheap" passes the live tasks sweep them.
+        The first pass sums q.  The block cache is not consulted."""
+        with self.on():
+            T, dev = self.T, self.dev
+            self._kind = kind
+            self._pend = (np.flatnonzero(self.pending_h) if kind in ("init", "full")
+                          else _NO_TASKS)
+            pend = self._pend
+            self._viol = torch.zeros((T,), dtype=torch.float32, device=dev)
+            self._w0 = torch.zeros((-(-len(pend) // INIT_TASKS) * INIT_TASKS, self.rank),
+                                   dtype=torch.float64, device=dev)
+            self._ps = _upload(pend, dev, self.st) if len(pend) else None
+            self._sweep = kind != "init" and bool(self.live_h.any())
+
+    def _init_sums(self, b: int, gb: torch.Tensor, s: int) -> None:
         """w0 += (alpha * y) @ G over the pending tasks' windows of block b:
         a coefficient matrix, zero off each task's rows, times the block in
         fp64.  The products run ``INIT_ROWS`` rows of the block by
         ``INIT_TASKS`` tasks at a time (the last group zero-padded), so every
         product has one shape and a task's sum does not depend on which
         other tasks are pending with it."""
-        width = int((bounds_h[b + 1, pend] - bounds_h[b, pend]).max(initial=0))
+        pend, ps, w0, dev = self._pend, self._ps, self._w0, self.dev
+        width = int((self.bounds_h[b + 1, pend] - self.bounds_h[b, pend]).max(initial=0))
         if width == 0:
             return
-        pos = bounds[b, ps].long()[:, None] + torch.arange(width, device=dev)
-        inside = pos < bounds[b + 1, ps].long()[:, None]
-        pos = pos.clamp(max=n_pad - 1)
-        rows = torch.where(inside, sidx[ps].gather(1, pos).long() - s, 0)
-        vals = torch.where(inside, (alpha[ps] * y[ps]).gather(1, pos).double(), 0.0)
+        pos = self.bounds[b, ps].long()[:, None] + torch.arange(width, device=dev)
+        inside = pos < self.bounds[b + 1, ps].long()[:, None]
+        pos = pos.clamp(max=self.n_pad - 1)
+        rows = torch.where(inside, self.sidx[ps].gather(1, pos).long() - s, 0)
+        vals = torch.where(inside, (self.alpha[ps] * self.y[ps]).gather(1, pos).double(),
+                           0.0)
         groups = -(-len(pend) // INIT_TASKS)
         coef = torch.zeros((groups * INIT_TASKS, gb.shape[0]), dtype=torch.float64,
                            device=dev)
@@ -729,343 +921,477 @@ def solve_batch_streamed(
             for k in range(groups):
                 sums[k] += coef[k, :, p0:p0 + INIT_ROWS] @ g64
 
-    def shared_pass(kind: str, pend: np.ndarray):
-        """One pass over all of G: the ``pend`` tasks sum their w0 (in fp64,
-        as ``dual_solver._init_w``) from its blocks, and on "full" and
-        "cheap" passes the live tasks sweep them; returns the largest
-        violation per task and the fp64 w0.  The first pass sums q.  The
-        block cache is not consulted."""
-        nonlocal q_summed
-        viol = torch.zeros((T,), dtype=torch.float32, device=dev)
-        w0 = torch.zeros((-(-len(pend) // INIT_TASKS) * INIT_TASKS, rank),
-                         dtype=torch.float64, device=dev)
-        ps = _upload(pend, dev, st) if len(pend) else None
-        sweep = kind != "init" and bool(live_h.any())
-        full = kind == "full"
-        for b in range(n_blocks):
-            s, e = b * tile, min((b + 1) * tile, n)
-            if quant:
-                t0 = tr.begin()
-                qb = encode_block(G_np[s:e], tile, group)
-                st.encode_seconds += tr.end("encode", "stage2_quant", t0, rows=e - s)
-                gb, slot, _ = ring.load((torch.from_numpy(qb.values),
-                                         torch.from_numpy(qb.scales)), e - s, group,
-                                        block=b)
-            else:
-                gb, slot, _ = ring.load(g_rows(s, e), block=b)
-            if not q_summed:
+    def feed_block(self, blk):
+        """One block the shared reader staged, ``(b, s, e, src, group)``:
+        copied into this engine's ring and swept.  Returns the event of its
+        copy (None on the CPU), after which the reader may reuse ``src``."""
+        b, s, e, src, group = blk
+        tr, dev = self.tr, self.dev
+        with self.on():
+            gb, slot, _ = self.ring.load(src, e - s, group, block=b, shared=True)
+            if not self.q_summed:
                 with tr.device_span("kernel", "row_sq", dev, rows=e - s):
-                    _row_sq(gb, q[s:e])
-            if ps is not None:
-                with tr.device_span("kernel", "init_sums", dev, tasks=len(pend)):
-                    init_sums(pend, ps, w0, b, gb, s)
-            if sweep:
-                swept = int((bounds_h[b + 1] - bounds_h[b])[live_h].sum())
+                    _row_sq(gb, self.q[s:e])
+            if self._ps is not None:
+                with tr.device_span("kernel", "init_sums", dev, tasks=len(self._pend)):
+                    self._init_sums(b, gb, s)
+            if self._sweep:
+                bh = self.bounds_h
+                swept = int((bh[b + 1] - bh[b])[self.live_h].sum())
                 with tr.device_span("kernel", "smo_block", dev, rows=swept,
-                                    tasks=int(live_h.sum())):
-                    v = smo_epoch(gb, q[s:e], sidx, y, c, alpha,
-                                  unchanged, w, live, full_pass=full,
-                                  shrink_k=shrink_k, lo=bounds[b], hi=bounds[b + 1],
-                                  row0=s, scratch=scratch)
-                st.kernel_calls += 1
-                st.coord_visits += swept
-                if full:
-                    viol = torch.maximum(viol, v)
-            ring.release(slot)
-        q_summed = True
-        return viol, w0
+                                    tasks=int(self.live_h.sum())):
+                    v = smo_epoch(gb, self.q[s:e], self.sidx, self.y, self.c, self.alpha,
+                                  self.unchanged, self.w, self.live,
+                                  full_pass=self._kind == "full", shrink_k=self.shrink_k,
+                                  lo=self.bounds[b], hi=self.bounds[b + 1], row0=s,
+                                  scratch=self.scratch)
+                self.st.kernel_calls += 1
+                self.st.coord_visits += swept
+                if self._kind == "full":
+                    self._viol = torch.maximum(self._viol, v)
+            self.ring.release(slot)
+            return self.lanes.last_copy()
 
-    def compacted_pass(comp: _Compacted):
+    def end_pass(self) -> None:
+        self.q_summed = True
+
+    def finish_init(self) -> None:
+        """After the init pass: the warm tasks take their w0 and go live."""
+        with self.on():
+            self.promote(self._pend, self._w0)
+            self._w0 = None
+            self.live.copy_(torch.from_numpy(self.live_h))
+            self._sync()
+
+    # -- a cheap epoch over the engine's own compacted union ----------------
+    def cheap_epoch(self) -> None:
         """A cheap epoch over the compacted union: each block is a cache hit
         (decoded on the card, no G byte on the bus) or a miss (shipped, and
         kept when the plan wants it)."""
-        U = comp.q.shape[0]
-        for b in range(comp.visits.shape[0]):
-            s, e = b * tile, min((b + 1) * tile, U)
-            key = None if comp.keys is None else comp.keys[b]
-            hit = None if key is None else cache.lookup(key)
-            slot = None
-            if hit is not None:
-                st.bytes_hit += hit.nbytes
-                st.cache_hits += 1
-                tr.instant("cache", "hit", bytes=hit.nbytes, block=b)
-                gb = ring.decode(hit.payload, e - s, 1)
-            else:
-                src = ((comp.act[0][s:s + tile], comp.act[1][s:s + tile]) if quant
-                       else comp.act[s:e])   # int8: whole tiles, a row an entry
-                keep = key is not None and cache.wants(key, comp.sizes[b])
-                gb, slot, wire = ring.load(src, e - s, 1, block=b, keep=keep)
-                nbytes = sum(a.nbytes for a in wire)
-                st.bytes_miss += nbytes
-                if cache is not None:
-                    st.cache_misses += 1
-                    tr.instant("cache", "miss", bytes=nbytes, block=b)
-                    if keep and cache.put(key, wire, nbytes):
-                        st.cache_resident_bytes = cache.peak_resident_bytes
-            swept = int(comp.visits[b][live_h].sum())
-            with tr.device_span("kernel", "smo_block", dev, rows=swept,
-                                tasks=int(live_h.sum())):
-                smo_epoch(gb, comp.q[s:e], comp.cidx, y, c, alpha, unchanged, w,
-                          live, full_pass=False, shrink_k=shrink_k,
-                          lo=comp.bounds[b], hi=comp.bounds[b + 1], row0=s,
-                          scratch=scratch)
-            st.kernel_calls += 1
-            st.coord_visits += swept
-            ring.release(slot)
+        comp, st, tr, tile, cache = self.comp, self.st, self.tr, self.tile, self.cache
+        with self.on():
+            U = comp.q.shape[0]
+            for b in range(comp.visits.shape[0]):
+                s, e = b * tile, min((b + 1) * tile, U)
+                key = None if comp.keys is None else comp.keys[b]
+                hit = None if key is None else cache.lookup(key)
+                slot = None
+                if hit is not None:
+                    st.bytes_hit += hit.nbytes
+                    st.cache_hits += 1
+                    tr.instant("cache", "hit", bytes=hit.nbytes, block=b)
+                    gb = self.ring.decode(hit.payload, e - s, 1)
+                else:
+                    src = ((comp.act[0][s:s + tile], comp.act[1][s:s + tile])
+                           if self.quant else comp.act[s:e])   # int8: whole tiles
+                    keep = key is not None and cache.wants(key, comp.sizes[b])
+                    gb, slot, wire = self.ring.load(src, e - s, 1, block=b, keep=keep)
+                    nbytes = sum(a.nbytes for a in wire)
+                    st.bytes_miss += nbytes
+                    if cache is not None:
+                        st.cache_misses += 1
+                        tr.instant("cache", "miss", bytes=nbytes, block=b)
+                        if keep and cache.put(key, wire, nbytes):
+                            st.cache_resident_bytes = cache.peak_resident_bytes
+                swept = int(comp.visits[b][self.live_h].sum())
+                with tr.device_span("kernel", "smo_block", self.dev, rows=swept,
+                                    tasks=int(self.live_h.sum())):
+                    smo_epoch(gb, comp.q[s:e], comp.cidx, self.y, self.c, self.alpha,
+                              self.unchanged, self.w, self.live, full_pass=False,
+                              shrink_k=self.shrink_k, lo=comp.bounds[b],
+                              hi=comp.bounds[b + 1], row0=s, scratch=self.scratch)
+                st.kernel_calls += 1
+                st.coord_visits += swept
+                self.ring.release(slot)
 
-    act_buf = None
-    gscales = None
+    # -- epoch bookkeeping ---------------------------------------------------
+    def start_epoch(self, epoch: int, full: bool) -> None:
+        st = self.st
+        self.ring.epoch = epoch
+        self._full = full
+        self._marks = (st.bytes_g, st.bytes_hit, st.bytes_miss, st.put_seconds,
+                       st.drain_seconds)
+        self.cv0 = st.coord_visits
+        self.act_rows = self.n if self.comp is None or full else self.comp.q.shape[0]
 
-    def drop_cache(record: bool = True) -> None:
+    @property
+    def shares(self) -> bool:
+        """This epoch reads G through the shared reader (a full pass, or a
+        cheap one with nothing compacted)."""
+        return self._full or self.comp is None
+
+    def finish_epoch(self, epoch: int) -> None:
+        """After the epoch's pass: epoch counts; on a full pass the tol test
+        (one host sync), ladder seeds and w0 promotions, then the compaction
+        and the autotune; ``finished`` once no task is live or pending."""
+        st, full = self.st, self._full
+        mark, hit0, miss0, put0, drain0 = self._marks
+        with self.on():
+            self.epochs += self.live.to(torch.int32)
+            st.epochs = epoch + 1
+            if full:
+                st.full_passes += 1
+                self.violation = torch.where(self.live, self._viol, self.violation)
+                flags = [self.live & (self._viol < self.config.tol)]
+                if self.chained:            # would a task seed nonzero alphas?
+                    flags.append(((self.alpha > 0.0) & (self.c > 0.0)).any(1))
+                t0 = self.tr.begin()
+                flags_h = torch.stack(flags).cpu().numpy()   # one host sync per full pass
+                st.drain_seconds += self.tr.end("drain", "flags", t0)
+                st.bytes_d2h += flags_h.nbytes
+                self.live_h &= ~flags_h[0]
+                self.done_h |= flags_h[0]
+                if self.chained:
+                    self.seed(flags_h[0], flags_h[1])
+                self.promote(self._pend, self._w0)
+                self._w0 = None
+                self.live.copy_(torch.from_numpy(self.live_h))
+            st.epoch_bytes.append(st.bytes_g - mark)
+            st.epoch_hit_bytes.append(st.bytes_hit - hit0)
+            st.epoch_miss_bytes.append(st.bytes_miss - miss0)
+            if not full:
+                return
+            if not (self.live_h.any() or self.pending_h.any()):
+                self.finished = True
+                return
+            if self.config.shrink:
+                self.comp = self.recompact() if self.live_h.any() else self.drop_cache()
+            if not self.tuned:
+                self.tuned = True
+                comp, cache = self.comp, self.cache
+                planned = (cache.planned_fraction(comp.keys, comp.sizes)
+                           if cache is not None and comp is not None else 0.0)
+                _autotune(self.ring, self.cfg, self.rank, self.T, self.tile,
+                          st.put_seconds - put0, st.drain_seconds - drain0, planned)
+
+    def drop_cache(self, record: bool = True) -> None:
         """Nothing compacted to serve (the union is all of G, or no task is
         live): the cache lets go of every payload.  Called after a full
         pass's flags were read back, so no queued launch still reads one."""
-        if cache is not None:
-            cache.invalidate()
-            st.cache_evictions = cache.evictions
+        if self.cache is not None:
+            self.cache.invalidate()
+            self.st.cache_evictions = self.cache.evictions
             if record:
-                tr.instant("cache", "invalidate", evictions=cache.evictions)
+                self.tr.instant("cache", "invalidate", evictions=self.cache.evictions)
 
-    def recompact(record: bool = True) -> Optional[_Compacted]:
+    def recompact(self, record: bool = True) -> Optional[_Compacted]:
         """After a full pass: the union of rows active for a live task,
         gathered once into pinned memory, on the int8 wire encoded there,
         and the cache's plan for its blocks (None: stream all of G).
         ``record=False`` (a restore) leaves ``active_history`` and the trace
         as the snapshot's boundary left them."""
-        nonlocal act_buf, gscales
+        st, tr, tile, rank, dev = self.st, self.tr, self.tile, self.rank, self.dev
+        cache, m, sidx_h = self.cache, self.m, self.sidx_h
         t0 = tr.begin()
-        u = unchanged.cpu().numpy()          # syncs: no launch reads an evictee
+        u = self.unchanged.cpu().numpy()     # syncs: no launch reads an evictee
         st.bytes_d2h += u.nbytes
-        active = (u < shrink_k) & live_h[:, None]
+        active = (u < self.shrink_k) & self.live_h[:, None]
         union, cidx_h, cb_h, visits = _compaction(sidx_h, m, active, tile)
         U = len(union)
         if record:
             st.active_history.append(U)
-        if U == n:
-            drop_cache(record)
+        if U == self.n:
+            self.drop_cache(record)
             st.compact_seconds += tr.end("compact", "recompact", t0, union=U)
             return None
-        if quant:
+        if self.quant:
             u_pad = -(-max(U, 1) // tile) * tile
-            if act_buf is None or act_buf[0].shape[0] < u_pad:
-                act_buf = (host_buffer((u_pad, rank), torch.int8, dev),
-                           host_buffer((u_pad, 2), torch.float32, dev))
+            if self.act_buf is None or self.act_buf[0].shape[0] < u_pad:
+                self.act_buf = (host_buffer((u_pad, rank), torch.int8, dev),
+                                host_buffer((u_pad, 2), torch.float32, dev))
             t1 = tr.begin()
-            if gscales is None:              # the shared passes' groups, once
-                gscales = shards.group_scales(G, group)
-            encode_compacted(G_np, gscales, group, union, tile, act_buf[0].numpy(),
-                             act_buf[1].numpy())
+            gscales = self.scales.get(self.G, self.group)   # the shared passes' groups
+            encode_compacted(self.G_np, gscales, self.group, union, tile,
+                             self.act_buf[0].numpy(), self.act_buf[1].numpy())
             st.encode_seconds += tr.end("encode", "stage2_quant", t1, rows=U)
-            act = act_buf
+            act = self.act_buf
         else:
-            if act_buf is None or act_buf.shape[0] < U:
-                act_buf = host_buffer((max(U, 1), rank), ring.wire, dev)
-            act = shards.gather_into(G, union, act_buf[:U])
+            if self.act_buf is None or self.act_buf.shape[0] < U:
+                self.act_buf = host_buffer((max(U, 1), rank), self.ring.wire, dev)
+            act = shards.gather_into(self.G, union, self.act_buf[:U])
         keys = sizes = None
         if cache is not None:
             # keys are the blocks' global rows; violation recency ranks them
             # from the counters this compaction reads anyway
             nb = -(-U // tile)
-            keys = [block_key(union[b * tile:(b + 1) * tile], cfg.block_dtype)
+            keys = [block_key(union[b * tile:(b + 1) * tile], self.cfg.block_dtype)
                     for b in range(nb)]
-            sizes = [block_wire_nbytes(tile if quant else min(tile, U - b * tile),
-                                       rank, cfg.block_dtype, 1) for b in range(nb)]
+            sizes = [block_wire_nbytes(tile if self.quant else min(tile, U - b * tile),
+                                       rank, self.cfg.block_dtype, 1) for b in range(nb)]
             scores = violation_recency_scores_tasks(
-                union, tile, [u[t, :m[t]][active[t, :m[t]]] for t in range(T)],
-                [sidx_h[t, :m[t]][active[t, :m[t]]] for t in range(T)])
+                union, tile, [u[t, :m[t]][active[t, :m[t]]] for t in range(self.T)],
+                [sidx_h[t, :m[t]][active[t, :m[t]]] for t in range(self.T)])
             cache.plan(keys, sizes, scores)
             st.cache_evictions = cache.evictions
             if record:
                 tr.instant("cache", "plan", blocks=nb, evictions=cache.evictions,
                            resident_bytes=cache.resident_bytes)
-        comp = _Compacted(act, q[_upload(union, dev, st)], _upload(cidx_h, dev, st),
+        comp = _Compacted(act, self.q[_upload(union, dev, st)], _upload(cidx_h, dev, st),
                           _upload(cb_h, dev, st), visits, keys, sizes)
         st.compact_seconds += tr.end("compact", "recompact", t0, union=U)
         return comp
 
-    def promote(pend: np.ndarray, w0: torch.Tensor) -> None:
+    def promote(self, pend: np.ndarray, w0) -> None:
         """The tasks whose w0 a pass summed take it, rounded once, and sweep
         from the next epoch."""
         if len(pend):
-            w[_upload(pend, dev, st)] = w0[:len(pend)].float()
-            pending_h[pend] = False
-            live_h[pend] = True
+            self.w[_upload(pend, self.dev, self.st)] = w0[:len(pend)].float()
+            self.pending_h[pend] = False
+            self.live_h[pend] = True
 
-    def seed(conv_h: np.ndarray, seeds_alpha: np.ndarray) -> None:
+    def seed(self, conv_h: np.ndarray, seeds_alpha: np.ndarray) -> None:
         """Each task that converged in this full pass seeds its dormant
         successor, in task order: its alphas clipped into the successor's
         box, the successor's counters reset.  Seeded with zero alphas, a
         successor sweeps from the next epoch (its w0 is 0); else it first
         sums its w0 in the next pass, which that promotes to a full one."""
         frm, to = [], []
-        for t in np.flatnonzero(conv_h & (nxt_h >= 0)):
-            s = int(nxt_h[t])
-            if live_h[s] or done_h[s] or pending_h[s]:
+        for t in np.flatnonzero(conv_h & (self.nxt_h >= 0)):
+            s = int(self.nxt_h[t])
+            if self.live_h[s] or self.done_h[s] or self.pending_h[s]:
                 continue
             frm.append(t)
             to.append(s)
             if seeds_alpha[t]:
-                pending_h[s] = True
+                self.pending_h[s] = True
             else:
-                live_h[s] = True
+                self.live_h[s] = True
         if to:
-            src = _upload(np.asarray(frm, np.int64), dev, st)
-            dst = _upload(np.asarray(to, np.int64), dev, st)
-            box = c[dst]
-            alpha[dst] = torch.where(box > 0.0,
-                                     torch.minimum(alpha[src].clamp(min=0.0), box),
-                                     alpha[dst])
-            unchanged[dst] = 0
+            src = _upload(np.asarray(frm, np.int64), self.dev, self.st)
+            dst = _upload(np.asarray(to, np.int64), self.dev, self.st)
+            box = self.c[dst]
+            self.alpha[dst] = torch.where(
+                box > 0.0, torch.minimum(self.alpha[src].clamp(min=0.0), box),
+                self.alpha[dst])
+            self.unchanged[dst] = 0
+
+    # -- snapshots -------------------------------------------------------------
+    def state(self) -> dict:
+        """The snapshot's arrays (``resilience.STATE_KEYS``) of this engine's
+        tasks, in the tasks' own layout, as copies."""
+        with self.on():
+            perm = self.perm
+
+            def own(a):
+                return torch.empty_like(a).scatter_(1, perm, a).cpu().numpy()
+            return dict(alpha=own(self.alpha), unchanged=own(self.unchanged),
+                        w=self.w.cpu().numpy().copy(), epochs=self.epochs.cpu().numpy().copy(),
+                        violation=self.violation.cpu().numpy().copy(),
+                        live=self.live_h.astype(np.uint8),
+                        pending=self.pending_h.astype(np.uint8),
+                        done=self.done_h.astype(np.uint8),
+                        q=self.q.cpu().numpy().copy(), q_summed=self.q_summed)
+
+    def restore(self, snap: dict) -> None:
+        """Take this engine's tasks' state from a snapshot of the solve (any
+        split of its tasks), then redo the boundary's compaction (the cache
+        starts cold)."""
+        sv, meta, dev, perm = snap["state"], snap["meta"], self.dev, self.perm
+        ids = self.task_ids
+
+        def ours(a, dtype):
+            return torch.gather(torch.as_tensor(np.asarray(a)[ids], dtype=dtype,
+                                                device=dev), 1, perm)
+        with self.on():
+            self.alpha.copy_(ours(sv["alpha"], torch.float32))
+            self.unchanged.copy_(ours(sv["unchanged"], torch.int32))
+            self.w.copy_(torch.as_tensor(np.asarray(sv["w"])[ids], device=dev))
+            self.epochs.copy_(torch.as_tensor(np.asarray(sv["epochs"])[ids], device=dev))
+            self.violation.copy_(torch.as_tensor(np.asarray(sv["violation"])[ids],
+                                                 device=dev))
+            if bool(int(meta.get("q_summed", 1))):
+                self.q.copy_(torch.as_tensor(sv["q"], device=dev))
+                self.q_summed = True
+            self.live_h[:] = np.asarray(sv["live"])[ids].astype(bool)
+            self.pending_h[:] = np.asarray(sv["pending"])[ids].astype(bool)
+            self.done_h[:] = np.asarray(sv["done"])[ids].astype(bool)
+            self.live.copy_(torch.from_numpy(self.live_h))
+            self.ring.prefetch = int(meta["prefetch"])
+            self.tuned = self.tuned or int(meta["epoch_next"]) > 0   # the first full pass is behind it
+            if self.config.shrink:   # the boundary's compaction; a cold cache
+                self.comp = self.recompact(record=False) if self.live_h.any() else None
+
+    def segment_stats(self) -> Stage2StreamStats:
+        return dataclasses.replace(self.st, h2d_seconds=self.lanes.h2d_seconds(),
+                                   prefetch_final=self.ring.prefetch)
+
+    def result(self):
+        """This engine's ``SolveResult`` on its device, laid out as
+        ``solve_batch``'s, and its stats record."""
+        st, tr = self.st, self.tr
+        with self.on():
+            t0 = tr.begin()
+            epochs = torch.where(torch.as_tensor(self.done_h, device=self.dev), self.epochs,
+                                 self.config.max_epochs).to(torch.int32)
+            out_alpha = torch.empty_like(self.alpha).scatter_(1, self.perm, self.alpha)
+            dual = out_alpha.sum(-1) - 0.5 * (self.w * self.w).sum(-1)
+            n_sv = (out_alpha > 0.0).sum(-1)
+            self._sync()
+            st.drain_seconds += tr.end("drain", "result", t0)
+            st.h2d_seconds = self.lanes.h2d_seconds()
+            st.prefetch_final = self.ring.prefetch
+        return SolveResult(out_alpha, self.w, epochs, self.violation, dual, n_sv), st
+
+
+_NO_TASKS = np.zeros((0,), np.int64)
+
+
+class _Feed:
+    """A worker's job for one staged block: feed it, then release the
+    reader's buffer (also when the job is skipped)."""
+
+    __slots__ = ("engine", "blk", "staged", "attrs")
+
+    def __init__(self, engine: _Stage2Engine, blk):
+        b, s, e, src, group, staged = blk
+        self.engine, self.blk, self.staged = engine, (b, s, e, src, group), staged
+        self.attrs = dict(block=b, epoch=engine.ring.epoch)
+
+    def __call__(self):
+        ev = None
+        try:
+            ev = self.engine.feed_block(self.blk)
+        finally:
+            if self.staged is not None:
+                self.staged.release(ev)
+
+    def skip(self):
+        if self.staged is not None:
+            self.staged.release()
+
+
+class _InlineFanout:
+    """One engine: its calls run on the caller's thread, at once."""
+
+    def submit(self, engine, fn):
+        fn()
+
+    def barrier(self):
+        pass
+
+    def close(self, suppress: bool = False):
+        pass
+
+
+def _snapshot_state(engines: List[_Stage2Engine]) -> dict:
+    """The solve's snapshot arrays assembled from its engines' tasks."""
+    parts = [e.state() for e in engines]
+    if len(engines) == 1:
+        return parts[0]
+    T = sum(e.T for e in engines)
+    out = {}
+    for k in ("alpha", "unchanged", "w", "epochs", "violation", "live", "pending", "done"):
+        a = parts[0][k]
+        out[k] = np.zeros((T,) + a.shape[1:], a.dtype)
+        for e, p in zip(engines, parts):
+            out[k][e.task_ids] = p[k]
+    summed = [p for p in parts if p["q_summed"]]
+    out["q"] = (summed or parts)[0]["q"]
+    out["q_summed"] = bool(summed)
+    return out
+
+
+def drive_streamed_engines(engines: List[_Stage2Engine], reader: _SharedReader,
+                           config: SolverConfig, cfg: StreamConfig, *, fanout=None,
+                           guard=None, start: int = 0) -> None:
+    """The lockstep epoch driver over one or more engines (the reference's
+    ``drive_streamed_engines``): the shared reader stages each block of G
+    once a shared pass (a warm start's init pass, full passes, cheap epochs
+    of engines with nothing compacted) and ``fanout`` hands it to every
+    engine of the pass (inline for one engine, a host worker each on the
+    farm); engines with a compaction run their cheap epochs on their own,
+    concurrently.  ``guard`` (``resilience.StreamGuard``) snapshots at
+    full-pass boundaries; the loop starts at ``start`` (a resume's)."""
+    fan = fanout or _InlineFanout()
+    tr, rst = reader.tr, reader.st
+    period = config.full_pass_period if config.shrink else 1
+
+    def shared_pass(group, kind):
+        for e in group:
+            fan.submit(e, functools.partial(e.begin_pass, kind))
+        g0 = rst.bytes_g
+        for blk in reader.blocks(len(group)):
+            for e in group:
+                fan.submit(e, _Feed(e, blk))
+        for e in group:
+            fan.submit(e, e.end_pass)
+        return rst.bytes_g - g0
 
     def state():
-        """The snapshot's arrays (``resilience.STATE_KEYS``), per task in
-        the tasks' own layout."""
-        def own(a):
-            return torch.empty_like(a).scatter_(1, perm, a).cpu().numpy()
-        return dict(alpha=own(alpha), unchanged=own(unchanged), w=w.cpu().numpy(),
-                    epochs=epochs.cpu().numpy(), violation=violation.cpu().numpy(),
-                    live=live_h.astype(np.uint8), pending=pending_h.astype(np.uint8),
-                    done=done_h.astype(np.uint8), q=q.cpu().numpy())
+        return _snapshot_state(engines)
 
-    def segment_stats() -> Stage2StreamStats:
-        return dataclasses.replace(st, h2d_seconds=lanes.h2d_seconds(),
-                                   prefetch_final=ring.prefetch)
+    def stats():
+        return merge_stream_stats(rst, [e.segment_stats() for e in engines],
+                                  seconds=0.0, n_devices=len(engines))
 
-    comp = None
-    tuned = not cfg.autotune_prefetch
-    start = 0
-    guard = None
-    if cfg.checkpoint_dir:
-        from repro_torch.core.resilience import (StreamGuard, apply_carry,
-                                                 g_fingerprint)
-        guard = StreamGuard(cfg, n=n, rank=rank, sizes=m, g_fp=g_fingerprint(G_np))
-        snap = guard.try_resume() if cfg.resume else None
-        if snap is not None:
-            t0 = tr.begin()
-            guard.adopt(snap)
-            sv = snap["state"]
-            if sv["alpha"].shape != (T, n_pad) or sv["q"].shape != (n,):
-                raise ValueError("checkpoint task layout does not match this solve")
+    def prefetch():
+        return max(e.ring.prefetch for e in engines)
 
-            def ours(a, dtype):
-                return torch.gather(torch.as_tensor(a, dtype=dtype, device=dev), 1, perm)
-            alpha.copy_(ours(sv["alpha"], torch.float32))
-            unchanged.copy_(ours(sv["unchanged"], torch.int32))
-            w.copy_(torch.as_tensor(sv["w"], device=dev))
-            epochs.copy_(torch.as_tensor(sv["epochs"], device=dev))
-            violation.copy_(torch.as_tensor(sv["violation"], device=dev))
-            q.copy_(torch.as_tensor(sv["q"], device=dev))
-            q_summed = True
-            live_h[:] = sv["live"].astype(bool)
-            pending_h[:] = sv["pending"].astype(bool)
-            done_h[:] = sv["done"].astype(bool)
-            live.copy_(torch.from_numpy(live_h))
-            ring.prefetch = int(snap["meta"]["prefetch"])
-            tuned = True              # the first full pass is behind it
-            start = guard.start_epoch
-            if config.shrink:         # the boundary's compaction; a cold cache
-                comp = recompact(record=False) if live_h.any() else None
-            st.resumed_from = start
-            st.resume_seconds = tr.end("recovery", "resume", t0, epoch=start)
-        guard.on_start()
-
-    if pending_h.any() and not (guard is not None and guard.init_done):
-        t0 = tr.begin()           # warm roots: an init pass first
-        pend = np.flatnonzero(pending_h)
-        promote(pend, shared_pass("init", pend)[1])
-        live.copy_(torch.from_numpy(live_h))
-        if lanes.cuda:
-            torch.cuda.synchronize(dev)
-        st.init_seconds = tr.end("init", "init_pass", t0, tasks=len(pend))
-    if guard is not None:
-        guard.mark_init()
-    for epoch in range(start, config.max_epochs):
-        # a pending task needs a pass over all of G: it promotes the epoch
-        full = epoch % period == 0 or bool(pending_h.any())
-        ring.epoch = epoch
-        mark, hit0, miss0 = st.bytes_g, st.bytes_hit, st.bytes_miss
-        put0, drain0 = st.put_seconds, st.drain_seconds
-        te0, cv0 = tr.begin(), st.coord_visits
-        act_rows = n if comp is None or full else comp.q.shape[0]
-        pend = np.flatnonzero(pending_h) if full else no_tasks
-        if full or comp is None:
-            viol, w0 = shared_pass("full" if full else "cheap", pend)
-        else:
-            compacted_pass(comp)
-        epochs += live.to(torch.int32)
-        st.epochs = epoch + 1
-        if full:
-            st.full_passes += 1
-            violation = torch.where(live, viol, violation)
-            flags = [live & (viol < config.tol)]
-            if chained:                 # would a task seed nonzero alphas?
-                flags.append(((alpha > 0.0) & (c > 0.0)).any(1))
-            t0 = tr.begin()
-            flags_h = torch.stack(flags).cpu().numpy()   # one host sync per full pass
-            st.drain_seconds += tr.end("drain", "flags", t0)
-            st.bytes_d2h += flags_h.nbytes
-            live_h &= ~flags_h[0]
-            done_h |= flags_h[0]
-            if chained:
-                seed(flags_h[0], flags_h[1])
-            promote(pend, w0)
-            del w0
-            live.copy_(torch.from_numpy(live_h))
-        st.epoch_bytes.append(st.bytes_g - mark)
-        st.epoch_hit_bytes.append(st.bytes_hit - hit0)
-        st.epoch_miss_bytes.append(st.bytes_miss - miss0)
-        if tr.enabled:
-            _trace_epoch(tr, te0, epoch, full, st, act_rows, cv0,
-                         violation if full else None)
-        if full:
-            if not (live_h.any() or pending_h.any()):
+    ok = False
+    try:
+        if guard is not None:
+            guard.on_start(state, stats, prefetch)
+        init = [e for e in engines if e.pending_h.any()]
+        if init and not (guard is not None and guard.init_done):
+            t0 = tr.begin()           # warm roots: an init pass first
+            n_pend = int(sum(e.pending_h.sum() for e in init))
+            shared_pass(init, "init")
+            for e in init:
+                fan.submit(e, e.finish_init)
+            fan.barrier()
+            rst.init_seconds = tr.end("init", "init_pass", t0, tasks=n_pend)
+        if guard is not None:
+            guard.mark_init(state, stats, prefetch)
+        for epoch in range(start, config.max_epochs):
+            live = [e for e in engines if not e.finished]
+            if not live:
                 break
-            if config.shrink:
-                comp = recompact() if live_h.any() else drop_cache()
-            if not tuned:
-                tuned = True
-                planned = (cache.planned_fraction(comp.keys, comp.sizes)
-                           if cache is not None and comp is not None else 0.0)
-                _autotune(ring, cfg, rank, T, tile, st.put_seconds - put0,
-                          st.drain_seconds - drain0, planned)
-            if guard is not None and guard.on_boundary(
-                    epoch, state, segment_stats, ring.prefetch, tr):
-                st.snapshots += 1
-                st.snapshot_seconds += guard.last_seconds
-                st.snapshot_bytes = guard.last_bytes
-        fault_check("epoch_boundary", epoch=epoch)
-
-    t0 = tr.begin()
-    epochs = torch.where(torch.as_tensor(done_h, device=dev), epochs,
-                         config.max_epochs).to(torch.int32)
-    out_alpha = torch.empty_like(alpha).scatter_(1, perm, alpha)
-    dual = out_alpha.sum(-1) - 0.5 * (w * w).sum(-1)
-    n_sv = (out_alpha > 0.0).sum(-1)
-    if lanes.cuda:
-        torch.cuda.synchronize(dev)
-    st.drain_seconds += tr.end("drain", "result", t0)
-    st.h2d_seconds = lanes.h2d_seconds()
-    st.prefetch_final = ring.prefetch
-    st.seconds = time.perf_counter() - t_start
-    if guard is not None:
-        apply_carry(st, guard.carry)
-    res = SolveResult(out_alpha, w, epochs, violation, dual, n_sv)
-    return (res, st) if return_stats else res
+            # a pending task needs a pass over all of G: it promotes the epoch
+            full = epoch % period == 0 or any(bool(e.pending_h.any()) for e in live)
+            te0 = tr.begin()
+            for e in live:
+                e.start_epoch(epoch, full)
+            cv0 = sum(e.cv0 for e in live)
+            for e in live:
+                if not e.shares:
+                    fan.submit(e, e.cheap_epoch)
+            shared = [e for e in live if e.shares]
+            rst.epoch_bytes.append(shared_pass(shared, "full" if full else "cheap")
+                                   if shared else 0)
+            for e in live:
+                fan.submit(e, functools.partial(e.finish_epoch, epoch))
+            fan.barrier()
+            if tr.enabled:
+                _trace_epoch(tr, te0, epoch, full, rst, live, cv0)
+            if full:
+                if all(e.finished for e in engines):
+                    break
+                if guard is not None and guard.on_boundary(epoch, state, stats,
+                                                           prefetch(), tr):
+                    rst.snapshots += 1
+                    rst.snapshot_seconds += guard.last_seconds
+                    rst.snapshot_bytes = guard.last_bytes
+            fault_check("epoch_boundary", epoch=epoch)
+        ok = True
+    finally:
+        fan.close(suppress=not ok)
 
 
-def _trace_epoch(tr, t0: float, epoch: int, full: bool, st: Stage2StreamStats,
-                 active: int, cv0: int, violation: Optional[torch.Tensor]) -> None:
+def _trace_epoch(tr, t0: float, epoch: int, full: bool, rst: Stage2StreamStats,
+                 live: List[_Stage2Engine], cv0: int) -> None:
     """Close an epoch's span (the ``--verbose`` printer and the trace's epoch
-    row read its attrs) and sample its counters.  ``violation`` is given on
-    full passes only, whose flags have just synced the card."""
-    eb = st.epoch_bytes[-1]
-    rows = st.coord_visits - cv0
+    row read its attrs) and sample its counters: the shared reader's bytes
+    and every live engine's, summed.  The violations are read on full
+    passes only, whose flags have just synced the engines."""
+    eb = rst.epoch_bytes[-1] + sum(e.st.epoch_bytes[-1] for e in live)
+    rows = sum(e.st.coord_visits for e in live) - cv0
+    active = sum(e.act_rows for e in live)
     attrs = dict(epoch=epoch, kind="full" if full else "cheap", bytes=int(eb),
-                 hit_bytes=int(st.epoch_hit_bytes[-1]),
-                 miss_bytes=int(st.epoch_miss_bytes[-1]), rows=int(rows),
-                 active=int(active), devices=1)
-    if violation is not None:
-        v = violation.cpu().numpy()
+                 hit_bytes=int(sum(e.st.epoch_hit_bytes[-1] for e in live)),
+                 miss_bytes=int(sum(e.st.epoch_miss_bytes[-1] for e in live)),
+                 rows=int(rows), active=int(active), devices=len(live))
+    if full:
+        v = np.concatenate([e.violation.cpu().numpy() for e in live])
         v = v[np.isfinite(v)]
         if v.size:
             attrs["viol"] = float(v.max())
@@ -1093,14 +1419,183 @@ def _autotune(ring: _Ring, cfg: StreamConfig, rank: int, T: int, tile: int,
     ring.prefetch = tune_prefetch(put, drain, ring.prefetch, cap)
 
 
-# the streamed stage-2 route of ``LPDSVM.fit`` and of the grid task farm on
-# one card (the reference's multi-device task farm is not ported)
-solve_streamed_auto = solve_batch_streamed
+_SUMMED = ("bytes_h2d", "put_seconds", "drain_seconds", "h2d_seconds", "blocks_streamed",
+           "rows_streamed", "kernel_calls", "coord_visits", "bytes_g", "bytes_d2h",
+           "bytes_scales", "encode_seconds", "compact_seconds", "init_seconds",
+           "scratch_bytes", "bytes_hit", "bytes_miss", "cache_hits", "cache_misses",
+           "cache_evictions", "cache_resident_bytes", "snapshots", "snapshot_seconds",
+           "bytes_put", "resplits")
+
+
+def _elementwise_sum(lists) -> List[int]:
+    out: List[int] = []
+    for li in lists:
+        for i, v in enumerate(li):
+            if i < len(out):
+                out[i] += v
+            else:
+                out.append(v)
+    return out
+
+
+def merge_stream_stats(reader: Stage2StreamStats, per_dev: List[Stage2StreamStats], *,
+                       seconds: float, n_devices: int, carry=None) -> Stage2StreamStats:
+    """The solve's record from the shared reader's and each engine's (the
+    reference's ``merge_stream_stats``): a shared block counts once in
+    ``bytes_h2d`` (the reader's), every copy of it in ``bytes_put`` (the
+    engines'); partitioned traffic (index tables, compactions, the caches)
+    sums over engines, per-epoch lists sum element by element, ``epochs``
+    and ``full_passes`` are the longest engine's.  At one engine this is its
+    record with the shared passes' traffic in it.  ``carry`` (the segments
+    before a resume or a re-split) is folded in last."""
+    out = Stage2StreamStats(tile_rows=reader.tile_rows, block_dtype=reader.block_dtype,
+                            n_devices=n_devices)
+    recs = [reader] + list(per_dev)
+    for f in _SUMMED:
+        setattr(out, f, sum(getattr(s, f) for s in recs))
+    out.epochs = max((s.epochs for s in recs), default=0)
+    out.full_passes = max((s.full_passes for s in recs), default=0)
+    out.prefetch_final = max((s.prefetch_final for s in recs), default=0)
+    out.snapshot_bytes = max((s.snapshot_bytes for s in recs), default=0)
+    out.resumed_from = reader.resumed_from
+    out.resume_seconds = reader.resume_seconds
+    out.epoch_bytes = _elementwise_sum([s.epoch_bytes for s in recs])
+    out.epoch_hit_bytes = _elementwise_sum([s.epoch_hit_bytes for s in per_dev])
+    out.epoch_miss_bytes = _elementwise_sum([s.epoch_miss_bytes for s in per_dev])
+    # engines' unions may share rows: the sum is the rows each cheap epoch
+    # streams farm-wide, an upper bound on the union of the unions
+    out.active_history = _elementwise_sum([s.active_history for s in per_dev])
+    out.seconds = seconds
+    out.per_device = list(per_dev) if n_devices > 1 else None
+    if carry is not None:
+        from repro_torch.core.resilience import apply_carry
+        apply_carry(out, carry)
+    return out
+
+
+def resume_engines(guard, snap: dict, engines: List[_Stage2Engine],
+                   reader: _SharedReader, T: int, n_pad: int, n: int) -> int:
+    """Continue from ``snap`` (a boundary's snapshot of the whole solve):
+    every engine takes its tasks' state; returns the epoch to start at."""
+    tr = reader.tr
+    t0 = tr.begin()
+    guard.adopt(snap)
+    sv = snap["state"]
+    if sv["alpha"].shape != (T, n_pad) or sv["q"].shape != (n,):
+        raise ValueError("checkpoint task layout does not match this solve")
+    for e in engines:
+        e.restore(snap)
+    start = guard.start_epoch
+    reader.st.resumed_from = start
+    reader.st.resume_seconds = tr.end("recovery", "resume", t0, epoch=start)
+    return start
+
+
+@full_fp32()
+def solve_batch_streamed(
+    G,
+    tasks: TaskBatch,
+    config: SolverConfig = SolverConfig(),
+    *,
+    stream_config: Optional[StreamConfig] = None,
+    chain_next=None,
+    return_stats: bool = False,
+):
+    """Drop-in ``solve_batch`` over a host G, on the device of ``tasks``.
+
+    ``G`` is a pinned CPU tensor when the tasks are on the card (pageable
+    memory raises; a G on the card is first copied to pinned memory) and a
+    CPU tensor or array on the CPU, or a ``shards.GShardView`` of a spilled
+    G on either: its rows are read from disk, verified, for every pass (a
+    shared pass's blocks go through the reader's pinned buffers, a
+    compaction's rows are gathered into the pinned union buffer, the int8
+    table is computed shard by shard) and it is never materialised; the
+    result is bit-equal to the solve over the same G in memory.  Returns a
+    ``SolveResult`` on the tasks' device, laid out as ``solve_batch``'s, and
+    a ``Stage2StreamStats`` with ``return_stats=True``.  Each task's real
+    rows must be unique; sorted rows (what ``build_ovo_tasks`` gives) make
+    the trajectory the monolithic one.
+
+    ``chain_next[t] = s`` (-1: none) makes task s the warm-start successor
+    of task t over the same rows, the C ladder of
+    ``cv.build_cv_grid_tasks`` (see the module docstring).  A task that
+    never converged, or was never seeded, reports ``max_epochs``.
+
+    With ``stream_config.cache_blocks`` (the default) the cheap epochs look
+    each compacted block up in a ``block_cache.HotRowBlockCache`` on the
+    card (``stage2_cache_budget`` bytes), planned at each compaction; the
+    result is bit-equal to the uncached solve's.  With ``checkpoint_dir`` a
+    ``resilience.StreamGuard`` snapshots the solver every
+    ``checkpoint_every`` full passes, and ``resume`` continues from the
+    newest snapshot: after a kill the result is bit-equal to an
+    uninterrupted run's, and the cache restarts cold.  With ``fail_fast``
+    off a transient H2D fault is retried (``_Ring``); a lost device has no
+    survivor to move to here, and its error is raised.  This is one engine
+    of the driver; ``solve_streamed_auto`` farms a solve over several
+    devices (``core/distributed.py``)."""
+    t_start = time.perf_counter()
+    cfg = stream_config or StreamConfig()
+    dev = tasks.idx.device
+    G = host_factor(G, [dev])
+    n, rank = G.shape
+    T, n_pad = tasks.idx.shape
+    tile = auto_tile_rows(n, rank, T, cfg)
+    eng = _Stage2Engine(G, tasks, config, cfg, tile=tile, chain_next=chain_next)
+    reader = _SharedReader(G, tile, cfg, eng.cuda, eng.tr, depth=cfg.prefetch + 2)
+    guard = None
+    start = 0
+    if cfg.checkpoint_dir:
+        from repro_torch.core.resilience import StreamGuard, g_fingerprint
+        guard = StreamGuard(cfg, n=n, rank=rank, sizes=eng.m, g_fp=g_fingerprint(eng.G_np))
+        snap = guard.try_resume() if cfg.resume else None
+        if snap is not None:
+            start = resume_engines(guard, snap, [eng], reader, T, n_pad, n)
+    drive_streamed_engines([eng], reader, config, cfg, guard=guard, start=start)
+    res, est = eng.result()
+    st = merge_stream_stats(reader.st, [est], seconds=time.perf_counter() - t_start,
+                            n_devices=1, carry=guard.carry if guard else None)
+    return (res, st) if return_stats else res
+
+
+def local_devices(device) -> list:
+    """The devices a routed streamed stage 2 on ``device`` farms over: every
+    card of the host when ``device`` is a card, else ``[device]``."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def solve_streamed_auto(
+    G,
+    tasks: TaskBatch,
+    config: SolverConfig = SolverConfig(),
+    *,
+    stream_config: Optional[StreamConfig] = None,
+    chain_next=None,
+    return_stats: bool = False,
+    resume: Optional[bool] = None,
+):
+    """The streamed stage-2 entry every routed caller goes through
+    (``LPDSVM.fit``, ``core/cv.py``, the polish ladder's final level, the
+    driver): ``distributed.solve_tasks_streamed`` over the local devices
+    (``local_devices``), which farms where more than one device is listed
+    and there is more than one task (overlapped behind one shared reader, or
+    serial with ``StreamConfig.overlap_devices`` off), and is else the
+    one-device stream.  ``resume`` overrides ``StreamConfig.resume``."""
+    from repro_torch.core.distributed import solve_tasks_streamed
+
+    cfg = stream_config or StreamConfig()
+    if resume is not None and resume != cfg.resume:
+        cfg = dataclasses.replace(cfg, resume=bool(resume))
+    return solve_tasks_streamed(G, tasks, config, devices=local_devices(tasks.idx.device),
+                                stream_config=cfg, overlap=cfg.overlap_devices,
+                                chain_next=chain_next, return_stats=return_stats)
 
 
 __all__ = ["Stage2StreamStats", "auto_tile_rows", "block_windows",
-           "encode_block", "encode_compacted", "pad_quant_block",
-           "route_stage2", "should_stream_stage2", "solve_batch_streamed",
-           "solve_streamed_auto", "wire_group",
-           "stage2_block_bytes", "stage2_monolithic_bytes",
+           "drive_streamed_engines", "encode_block", "encode_compacted", "host_factor",
+           "local_devices", "merge_stream_stats", "pad_quant_block", "route_stage2",
+           "should_stream_stage2", "solve_batch_streamed", "solve_streamed_auto",
+           "wire_group", "stage2_block_bytes", "stage2_monolithic_bytes",
            "stage2_resident_bytes"]

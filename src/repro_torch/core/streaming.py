@@ -37,12 +37,20 @@ come back into a pinned bounce buffer of their slot and go to f32 shards in
 row order, and the factor's G is a ``shards.GShardView`` (no host G of n
 rows exists).
 
+Over several devices (``devices=``, the reference's ``stream_factor_rows(...,
+devices=)``; ``core/distributed.py`` ``stream_factor_over_mesh``): the
+chunks are handed out round-robin, each device entry with its own streams,
+slots and landmark / projector replica, and drained in row order, so G is
+one device's bit for bit.  One card may be listed more than once (two
+entries with a compute stream each).
+
 On the CPU (``device="cpu"``) the same loop runs the kernels' plain versions
 and the copies are plain copies; a CPU-only PyTorch cannot pin.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import os
@@ -80,6 +88,9 @@ class StreamConfig:
     block_dtype: str = "f32"             # stage-2 wire: "f32", "bf16" or "int8"
     stage1_dtype: str = "f32"            # stage-1 wire: "f32" or "int8"
     quant_group_rows: int = GROUP_ROWS   # rows per int8 scale group
+    overlap_devices: bool = True         # more than one device: the farm's
+                                         # workers share one block reader
+                                         # (False: each re-reads G in turn)
     autotune_prefetch: bool = True       # deepen the queue when H2D lags
     prefetch_cap: int = 8                # autotune ceiling on queue depth
     trace: Optional[object] = None       # core.trace.Tracer recording the
@@ -98,9 +109,16 @@ class StreamConfig:
                                          # snapshots (0: never)
     resume: bool = False                 # continue from checkpoint_dir
     fail_fast: bool = True               # False: a transient H2D fault
-                                         # retries with backoff
+                                         # retries with backoff, and the farm
+                                         # re-splits a lost device's tasks
+                                         # over its survivors from the last
+                                         # full-pass boundary
     max_retries: int = 3                 # retries of one copy (fail_fast off)
     retry_backoff: float = 0.05          # seconds, doubled each retry
+    watchdog_seconds: float = 0.0        # the farm's barriers and its reader
+                                         # raise resilience.WatchdogTimeout
+                                         # with the workers' states after
+                                         # this long (0: wait for ever)
     checkpoint_keep: int = 3             # snapshots kept (0: all)
     # -- the disk tier (core/shards.py) -------------------------------------
     shard_dir: Optional[str] = None      # root of the shard stores; None -> off
@@ -138,6 +156,8 @@ class StreamConfig:
             raise ValueError("max_retries must be >= 0")
         if self.retry_backoff < 0:
             raise ValueError("retry_backoff must be >= 0")
+        if self.watchdog_seconds < 0:
+            raise ValueError("watchdog_seconds must be >= 0")
         if self.checkpoint_keep < 0:
             raise ValueError("checkpoint_keep must be >= 0")
         if self.shard_rows < 1 or self.shard_rows % GROUP_ROWS:
@@ -214,6 +234,8 @@ class Stage1StreamStats(StreamTimes):
     alloc_seconds: float = 0.0        # host time allocating (pinning) G
     wire_dtype: str = "f32"
     prefetch_final: int = 0           # queue depth after autotune
+    device_chunks: List[int] = dataclasses.field(default_factory=list)
+    # ^ chunks each device entry computed (one B1 or B3 launch each on the card)
 
 
 def resident_bytes(p: int, budget: int) -> int:
@@ -339,6 +361,12 @@ class Lanes:
         ev.record()
         return ev
 
+    def last_copy(self):
+        """The end event of the newest H2D copy (None on the CPU, where a
+        copy is done when ``put`` returns): once it has passed, the host rows
+        it read may be written again."""
+        return self.copies[-1][1] if self.cuda and self.copies else None
+
     def h2d_seconds(self) -> float:
         """Device time of the H2D copies so far (CPU: host copy time).  On
         the card every copy must have completed."""
@@ -350,6 +378,45 @@ class Lanes:
 def wait(event) -> None:
     if event is not None:
         event.synchronize()
+
+
+@contextlib.contextmanager
+def worker_context(stream, tr, tag: Optional[str]):
+    """A device entry's compute stream (None: the caller's) and tracer rows
+    (``Tracer.row_tag``; None: the untagged rows) around its calls."""
+    with contextlib.ExitStack() as stack:
+        if stream is not None:
+            stack.enter_context(torch.cuda.stream(stream))
+        if tag is not None:
+            stack.enter_context(tr.row_tag(tag))
+        yield
+
+
+class _Lane:
+    """One device entry of a streamed stage 1: its copy streams (``Lanes``),
+    its landmark and projector replica, its free slots and, where several
+    entries stream at once (``own_stream``), a compute stream and tracer
+    rows (``tag``) of its own, so that two entries of one card overlap."""
+
+    def __init__(self, device, landmarks: torch.Tensor, projector: torch.Tensor,
+                 tr, own_stream: bool, tag: Optional[str]):
+        self.device = torch.device(device)
+        self.tr, self.tag = tr, tag
+        self.stream = None
+        if own_stream and self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with self.on():
+            self.lanes = Lanes(self.device, tr)
+            self.landmarks = landmarks.to(self.device)
+            self.projector = projector.to(self.device)
+        if self.landmarks.device != landmarks.device and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)    # the replicas have landed
+        self.free: List[_Slot] = []
+        self.chunks = 0
+
+    def on(self):
+        return worker_context(self.stream, self.tr, self.tag)
 
 
 class _Slot:
@@ -409,6 +476,7 @@ def stream_factor_blocks(
     trace=None,
     progress=None,
     durable: Optional[np.ndarray] = None,
+    devices=None,
 ) -> torch.Tensor:
     """Fill a host G = K(x, landmarks) @ projector from an iterator of
     (rows, p) fp32 row blocks totalling ``n`` rows (see the module
@@ -429,7 +497,14 @@ def stream_factor_blocks(
     ``out`` and not computed (``chunks_skipped``, ``rows_resumed``), and each
     drained chunk is written to ``durable`` and flushed before its log line.
     Each computed chunk passes the fault site "stage1" (``chunk``: its
-    index)."""
+    index).
+
+    ``devices`` (a list of device entries; one device may be listed more
+    than once) hands the chunks out round-robin: each entry has its own
+    streams, slots and landmark / projector replica, and at most
+    ``prefetch`` chunks in flight; chunks are drained in row order whoever
+    computed them, so G (and a spill, and the resume log) fills as with one
+    device, bit for bit."""
     dev = landmarks.device
     rank = projector.shape[1]
     if wire_dtype not in ("f32", "int8"):
@@ -449,12 +524,14 @@ def stream_factor_blocks(
     if tuple(out.shape) != (n, rank):
         raise ValueError(f"out buffer {tuple(out.shape)} != {(n, rank)}")
 
-    lanes = Lanes(dev, tr)
-    free: List[_Slot] = []
-    inflight = collections.deque()        # (slot, done event, first row, end row)
+    entries = [dev] if devices is None else list(devices)
+    many = len(entries) > 1
+    lanes_of = [_Lane(d, landmarks, projector, tr, own_stream=many,
+                      tag=f"w{j}" if many else None) for j, d in enumerate(entries)]
+    inflight = collections.deque()   # (lane, slot, done event, first row, end row)
 
     def drain_one():
-        slot, done, s0, e0 = inflight.popleft()
+        lane, slot, done, s0, e0 = inflight.popleft()
         t0 = tr.begin()
         wait(done)                         # this chunk's G rows are in `out`
         st.drain_seconds += tr.end("drain", "stage1_fetch", t0, rows=e0 - s0,
@@ -464,7 +541,7 @@ def stream_factor_blocks(
         if progress is not None:           # durable before it is logged
             durable[s0:e0] = out[s0:e0].numpy()
             progress.mark(s0, e0, flush=durable.flush)
-        free.append(slot)
+        lane.free.append(slot)
 
     tuned = not autotune_prefetch
     s = 0
@@ -492,6 +569,7 @@ def stream_factor_blocks(
             s = e
             continue
         fault_check("stage1", chunk=i)
+        lane = lanes_of[i % len(lanes_of)]
         group = quant_group_rows
         if pre:                            # the stored codes, as they are
             vals, scales, group = xb.values, xb.scales, xb.group
@@ -505,25 +583,27 @@ def stream_factor_blocks(
             st.bytes_scales += scales.nbytes
         else:
             wire = (xb,)
-        slot = free.pop() if free else _Slot()
+        slot = lane.free.pop() if lane.free else _Slot()
         nbytes = sum(a.nbytes for a in wire)
-        t0 = tr.begin()
-        on_card = slot.put(wire, lanes, dev, "stage1_copy")
-        st.put_seconds += tr.end("h2d", "stage1_put", t0, bytes=nbytes)
-        st.bytes_h2d += nbytes
-        with tr.device_span("kernel", "stage1_chunk", dev, rows=e - s):
-            if quant:
-                k = gram_q8(on_card[0], on_card[1], landmarks, params, group=group)
-            else:
-                k = gram_fn(on_card[0], landmarks, params)
-            g = k @ projector
-        del k
-        dst = slot.rows_back(e - s, rank, dev) if spill else out[s:e]
-        inflight.append((slot, lanes.fetch(dst, g), s, e))
-        del g
+        with lane.on():
+            t0 = tr.begin()
+            on_card = slot.put(wire, lane.lanes, lane.device, "stage1_copy")
+            st.put_seconds += tr.end("h2d", "stage1_put", t0, bytes=nbytes)
+            st.bytes_h2d += nbytes
+            with tr.device_span("kernel", "stage1_chunk", lane.device, rows=e - s):
+                if quant:
+                    k = gram_q8(on_card[0], on_card[1], lane.landmarks, params, group=group)
+                else:
+                    k = gram_fn(on_card[0], lane.landmarks, params)
+                g = k @ lane.projector
+            del k
+            dst = slot.rows_back(e - s, rank, lane.device) if spill else out[s:e]
+            inflight.append((lane, slot, lane.lanes.fetch(dst, g), s, e))
+            del g
+        lane.chunks += 1
         st.chunks += 1
         st.rows += e - s
-        if len(inflight) >= prefetch:
+        if len(inflight) >= prefetch * len(lanes_of):
             drain_one()
             if not tuned:
                 tuned = True
@@ -534,7 +614,8 @@ def stream_factor_blocks(
         drain_one()
     if s != n:
         raise ValueError(f"block iterator produced {s} rows, expected {n}")
-    st.h2d_seconds += lanes.h2d_seconds()
+    st.device_chunks = [lane.chunks for lane in lanes_of]
+    st.h2d_seconds += sum(lane.lanes.h2d_seconds() for lane in lanes_of)
     st.prefetch_final = prefetch
     st.seconds = time.perf_counter() - t_start
     return out
@@ -586,6 +667,7 @@ def compute_factor_streamed(
     config: StreamConfig = StreamConfig(),
     gram_fn: Callable = gram,
     device=None,
+    devices=None,
 ):
     """Out-of-core stage 1: the artifact of ``nystrom.compute_factor``, with
     G a host tensor (pinned for the card) filled by the chunked pipeline.
@@ -593,14 +675,16 @@ def compute_factor_streamed(
     The landmarks are the rows of the same ``torch.Generator`` draw as
     ``nystrom.select_landmarks`` (gathered on the host, so x never goes to
     the card whole), or ``landmark_idx`` when given; K_mm and its eigh are
-    those of the monolithic route.  Only the (n, B) part streams."""
+    those of the monolithic route.  Only the (n, B) part streams, over
+    ``devices`` where given (``stream_factor_blocks``: G bit-equal to one
+    device's)."""
     x = host_rows(x)
     n, p = x.shape
     rows = _landmark_rows(n, budget, seed, landmark_idx)
     return _streamed_factor_from_landmarks(
         x if rows is None else x[rows], lambda chunk: row_blocks(x, chunk), n, p,
         params, eig_rtol=eig_rtol, config=config, gram_fn=gram_fn, device=device,
-        row_provider=lambda s, e: x[s:e])
+        devices=devices, row_provider=lambda s, e: x[s:e])
 
 
 def compute_factor_streamed_csr(
@@ -614,6 +698,7 @@ def compute_factor_streamed_csr(
     config: StreamConfig = StreamConfig(),
     gram_fn: Callable = gram,
     device=None,
+    devices=None,
 ):
     """Out-of-core stage 1 straight from a ``data.CSRData`` (LIBSVM) data set.
 
@@ -631,7 +716,7 @@ def compute_factor_streamed_csr(
     return _streamed_factor_from_landmarks(
         landmarks, lambda chunk: (blk for blk, _ in data.iter_dense_blocks(chunk)),
         n, p, params, eig_rtol=eig_rtol, config=config, gram_fn=gram_fn,
-        device=device, row_provider=lambda s, e: data.densify(s, e))
+        device=device, devices=devices, row_provider=lambda s, e: data.densify(s, e))
 
 
 def compute_factor_streamed_shards(
@@ -645,6 +730,7 @@ def compute_factor_streamed_shards(
     config: StreamConfig = StreamConfig(),
     gram_fn: Callable = gram,
     device=None,
+    devices=None,
 ):
     """Out-of-core stage 1 from a checksummed ``shards.ShardStore``: the
     LIBSVM text was parsed once into the store, and every run streams its
@@ -673,12 +759,12 @@ def compute_factor_streamed_shards(
     return _streamed_factor_from_landmarks(
         landmarks, lambda chunk: store.iter_blocks(wire=wire), n, p, params,
         eig_rtol=eig_rtol, config=dataclasses.replace(config, chunk_rows=store.shard_rows),
-        gram_fn=gram_fn, device=device, row_provider=row_provider)
+        gram_fn=gram_fn, device=device, devices=devices, row_provider=row_provider)
 
 
 def _g_rebuilder(row_provider, chunk: int, n: int, landmarks: torch.Tensor,
                  projector: torch.Tensor, params: KernelParams, config: StreamConfig,
-                 gram_fn: Callable):
+                 gram_fn: Callable, devices=None):
     """The rebuilder of a spilled G's shards: G rows [lo, hi) computed again
     from whole chunks of the first pass (the same rows, wire and groups), so
     the rebuilt shard is bit-equal to the spilled one and its digest holds."""
@@ -689,7 +775,7 @@ def _g_rebuilder(row_provider, chunk: int, n: int, landmarks: torch.Tensor,
         sub = stream_factor_blocks(
             blocks, c1 - c0, landmarks, projector, params, prefetch=config.prefetch,
             wire_dtype=config.stage1_dtype, quant_group_rows=config.quant_group_rows,
-            gram_fn=gram_fn, trace=config.trace)
+            gram_fn=gram_fn, trace=config.trace, devices=devices)
         return sub.numpy()[lo - c0:hi - c0]
 
     return rebuild
@@ -698,7 +784,7 @@ def _g_rebuilder(row_provider, chunk: int, n: int, landmarks: torch.Tensor,
 def _streamed_factor_from_landmarks(landmarks: np.ndarray, make_blocks, n: int, p: int,
                                     params: KernelParams, *, eig_rtol: Optional[float],
                                     config: StreamConfig, gram_fn: Callable, device,
-                                    row_provider=None):
+                                    devices=None, row_provider=None):
     """The shared tail of the streamed stage-1 constructors: the host
     landmark rows go to the card, K_mm and its eigh, then
     ``make_blocks(chunk_rows)``'s row blocks stream into the host G, or with
@@ -706,9 +792,13 @@ def _streamed_factor_from_landmarks(landmarks: np.ndarray, make_blocks, n: int, 
     stage 2 then reads as a ``shards.GShardView`` (the spill takes the place
     of the stage-1 checkpoint copy: the store is G's durable copy).
     ``row_provider(s, e)`` gives the input rows [s, e) again, for the
-    rebuild of a spilled shard that fails its checksum."""
+    rebuild of a spilled shard that fails its checksum.  ``devices`` spreads
+    the chunks over device entries (``stream_factor_blocks``); K_mm and its
+    eigh run on ``device`` (default: the first entry, else the card)."""
     from repro_torch.core import nystrom   # nystrom routes back into here
 
+    if device is None and devices:
+        device = devices[0]
     device = torch.device("cuda" if device is None else device)
     if eig_rtol is None:
         eig_rtol = nystrom.DEFAULT_EIG_RTOL
@@ -738,14 +828,14 @@ def _streamed_factor_from_landmarks(landmarks: np.ndarray, make_blocks, n: int, 
             quant_group_rows=config.quant_group_rows,
             autotune_prefetch=config.autotune_prefetch,
             prefetch_cap=config.prefetch_cap, stats=stats, gram_fn=gram_fn,
-            trace=config.trace, progress=progress, durable=durable)
+            trace=config.trace, progress=progress, durable=durable, devices=devices)
     finally:
         if progress is not None:
             progress.close()
     if sink is not None:
         rebuilder = (None if row_provider is None else
                      _g_rebuilder(row_provider, chunk, n, landmarks, projector, params,
-                                  config, gram_fn))
+                                  config, gram_fn, devices))
         G = sink.finish(rebuilder=rebuilder, verify=config.verify_shards,
                         retries=0 if config.fail_fast else config.max_retries,
                         retry_backoff=config.retry_backoff)

@@ -41,7 +41,7 @@ from repro_torch.core.ovo import (build_ovo_tasks, factor_decisions,
 from repro_torch.core.polish import (PolishSchedule, PolishTrace, make_schedule,
                                      solve_polished)
 from repro_torch.core.solver_stream import (Stage2StreamStats, route_stage2,
-                                            solve_batch_streamed)
+                                            solve_streamed_auto)
 from repro_torch.core.streaming import Stage1StreamStats, StreamConfig, with_trace
 from repro_torch.core.trace import resolve
 
@@ -213,7 +213,9 @@ class LPDSVM:
     def _solve_stage2(self, tasks, trace=None) -> SolveResult:
         """Stage-2 dispatch (``solver_stream.route_stage2``): the polish
         ladder when enabled, the streamed row-block solver when G is
-        host-resident or must be, else ``solve_fn`` on G on the device.
+        host-resident or must be (``solve_streamed_auto``: the multi-device
+        task farm where the host has more than one card), else ``solve_fn``
+        on G on the device.
         Routing reads ``self.stream_config``; ``trace`` only rides along."""
         self.stats.stage2_streamed = False     # a refit must not report the
         self.stats.stage2_stats = None         # previous fit's stream stats
@@ -233,7 +235,7 @@ class LPDSVM:
         G = self.factor.G
         if route_stage2(self.factor, tasks, self.stream, self.stream_config,
                         self.solve_fn, solve_batch):
-            res, self.stats.stage2_stats = solve_batch_streamed(
+            res, self.stats.stage2_stats = solve_streamed_auto(
                 G, tasks, self.config,
                 stream_config=with_trace(self.stream_config, trace),
                 return_stats=True)

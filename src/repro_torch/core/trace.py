@@ -24,8 +24,9 @@ host's clock through one anchor event a device, recorded on an idle device
 (a synchronisation at the first device span of the tracer) beside one
 ``perf_counter`` reading: t = t_anchor + anchor.elapsed_time(start).  Each
 (device, stream role) is a row of its own (``cuda:0 compute``,
-``cuda:0 h2d``), so Perfetto shows the device's rows under the host
-thread's, and ``overlap_efficiency(device=True)`` is the share of the H2D
+``cuda:0 h2d``; a farm worker's under its ``row_tag``, ``cuda:0/w1
+compute``), so Perfetto shows the device's rows under the host threads'
+(each farm worker's thread is a host row of its own), and ``overlap_efficiency(device=True)`` is the share of the H2D
 copies' device time that lies under device compute on another row.  On the
 CPU a device span is a host span: the plain kernels are synchronous there.
 
@@ -113,6 +114,9 @@ class NullTracer:
     def anchor(self, device) -> None:
         pass
 
+    def row_tag(self, tag: str):
+        return _NULL_SPAN
+
     def instant(self, category: str, name: str, **attrs) -> None:
         pass
 
@@ -175,6 +179,24 @@ class _DeviceSpan(_Span):
         return False
 
 
+class _RowTag:
+    """``Tracer.row_tag``'s context manager (thread-local, nestable)."""
+
+    __slots__ = ("_tls", "_tag", "_prev")
+
+    def __init__(self, tls, tag: str):
+        self._tls, self._tag = tls, tag
+
+    def __enter__(self):
+        self._prev = getattr(self._tls, "tag", None)
+        self._tls.tag = self._tag
+        return self
+
+    def __exit__(self, *exc):
+        self._tls.tag = self._prev
+        return False
+
+
 class Tracer:
     """Thread-safe in-memory recorder of host spans, device spans (CUDA
     event pairs), instants and counter samples."""
@@ -189,6 +211,7 @@ class Tracer:
         self._device_rows: Dict[Tuple[int, str], int] = {}
         self._anchors: Dict[int, tuple] = {}  # device index -> (event, t_host)
         self._listeners: List[Callable] = []
+        self._tls = threading.local()        # the calling thread's row tag
         self.pid = os.getpid()
         self.t0 = time.perf_counter()
 
@@ -218,17 +241,27 @@ class Tracer:
             return _Span(self, category, name, attrs)
         return _DeviceSpan(self, category, name, attrs, device, row)
 
+    def row_tag(self, tag: str):
+        """Context manager: the device spans this thread records inside it
+        go to rows of their own, ``cuda:0/<tag> compute`` and ``cuda:0/<tag>
+        h2d`` (a farm worker's, e.g. ``w1``), beside the untagged ones."""
+        return _RowTag(self._tls, tag)
+
     def device_events(self, category: str, name: str, start, end, device,
                       row: str, **attrs) -> None:
         """Record the device work between two timing events the caller has
-        recorded on one stream of ``device`` (row ``row``)."""
+        recorded on one stream of ``device`` (row ``row``, under the calling
+        thread's ``row_tag``)."""
         idx = self.anchor(device)
+        tag = getattr(self._tls, "tag", None)
+        key = row if tag is None else f"{tag} {row}"
         with self._lock:
-            tid = self._device_rows.get((idx, row))
+            tid = self._device_rows.get((idx, key))
             if tid is None:
                 tid = len(self._device_rows) + 1   # thread idents are addresses
-                self._device_rows[(idx, row)] = tid
-                self._thread_names[tid] = f"cuda:{idx} {row}"
+                self._device_rows[(idx, key)] = tid
+                self._thread_names[tid] = (f"cuda:{idx} {row}" if tag is None
+                                           else f"cuda:{idx}/{tag} {row}")
             self._pending.append((category, name, start, end, idx, tid, attrs))
 
     def instant(self, category: str, name: str, **attrs) -> None:

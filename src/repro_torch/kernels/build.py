@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
@@ -29,6 +30,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("gram", "gram_q8", "smo", "flash_attention")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()      # farm workers may reach a first launch at once
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a kernel was launched), also when
+    several host threads launch at once (the task farm's workers)."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def cuda_tool(name: str = "nvcc") -> str:
@@ -99,7 +109,10 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built at first use."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build_all([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                _loaded[name] = lib
     return lib

@@ -167,7 +167,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           int(bool(causal)), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_kernel: launch failed with CUDA error {err}")
-    flash_attention_kernel.launches += 1
+    build.count_launch(flash_attention_kernel)
     return out
 
 

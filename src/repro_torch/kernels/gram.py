@@ -150,7 +150,7 @@ def gram_kernel(x: torch.Tensor, z: torch.Tensor, params) -> torch.Tensor:
             int(params.degree), stream)
     if err != 0:
         raise RuntimeError(f"gram_kernel: launch failed with CUDA error {err}")
-    gram_kernel.launches += 1
+    build.count_launch(gram_kernel)
     return out
 
 
@@ -198,7 +198,7 @@ def gram_q8_kernel(values: torch.Tensor, scales: torch.Tensor, z: torch.Tensor,
             float(params.gamma), float(params.coef0), int(params.degree), stream)
     if err != 0:
         raise RuntimeError(f"gram_q8_kernel: launch failed with CUDA error {err}")
-    gram_q8_kernel.launches += 1
+    build.count_launch(gram_q8_kernel)
     return out
 
 

@@ -177,7 +177,7 @@ def smo_epoch_kernel(G, q, idx, y, c, alpha, unchanged, w, live, *,
             stream)
     if err != 0:
         raise RuntimeError(f"smo_epoch_kernel: launch failed with CUDA error {err}")
-    smo_epoch_kernel.launches += 1
+    build.count_launch(smo_epoch_kernel)
     return viol
 
 

@@ -37,8 +37,11 @@ run (a Chrome-trace file, the summary, a line per streamed stage-2 epoch).
 checksummed shards under ``DIR/data`` (int8 shards with ``--stage1-dtype
 int8``) and every later run streams them with no parse; ``--spill-g``
 writes stage 1's G to shards under ``DIR/g_spill`` and runs stage 2 off
-them.  ``--shard-dir`` forces the streamed pipelines.  The multi-device
-farm's ``--no-overlap`` stops with an error that names it.
+them.  ``--shard-dir`` forces the streamed pipelines.  On a host with
+more than one card the streamed stage 2 runs on the multi-device task farm
+(``core/distributed.py``), its workers behind one shared block reader;
+``--no-overlap`` makes it the serial farm (each card's share re-reads G in
+turn).  The stage-2 line prints the farm's device count.
 """
 from __future__ import annotations
 
@@ -216,7 +219,7 @@ def _report(svm: LPDSVM) -> None:
               f"{s1.bytes_h2d / 2**20:.1f} MiB H2D{scales}")
     if s2 is not None:
         print(f"stage2 stream: tile {s2.tile_rows} rows x {s2.block_dtype} "
-              f"blocks, 1 device, prefetch {s2.prefetch_final}, "
+              f"blocks, {s2.n_devices} device(s), prefetch {s2.prefetch_final}, "
               f"{s2.epochs} epochs, {s2.bytes_h2d / 2**20:.1f} MiB H2D / "
               f"{s2.bytes_d2h / 2**20:.1f} MiB D2H, active {s2.active_history}")
         # bytes_miss accrues with the cache off too; a line only where the
@@ -266,8 +269,7 @@ def _report_grid(res: GridResult, gammas, Cs) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The reference's flags, the multi-device farm's ``--no-overlap``
-    included (``main`` refuses it)."""
+    """The reference's flags."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen3-0.6b", choices=list_configs())
     ap.add_argument("--classes", type=int, default=10)
@@ -358,8 +360,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="check each shard's digest on every read (default on; a "
                          "corrupt shard is quarantined and rebuilt from its "
                          "source; --no-verify-shards trusts the bytes)")
-    # the reference's multi-device farm, not ported yet: refused by main()
-    ap.add_argument("--no-overlap", action="store_true")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="multi-device hosts: serial per-device streams instead "
+                         "of the overlapped stage-2 task farm (each device "
+                         "re-reads G)")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="record the run's timeline (core/trace.py; the card's "
                          "work as CUDA-event spans) and export it as "
@@ -372,17 +376,9 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _unported(args) -> Optional[str]:
-    """The first flag of a route the port does not serve yet, or None."""
-    return "--no-overlap" if args.no_overlap else None
-
-
 def main(argv=None) -> float:
     ap = build_parser()
     args = ap.parse_args(argv)
-    flag = _unported(args)
-    if flag is not None:
-        ap.error(f"{flag} is not ported to repro_torch yet")
     if args.chunk_rows < 0:
         ap.error(f"--chunk-rows must be >= 0, got {args.chunk_rows}")
     if args.tile_rows < 0:
@@ -447,7 +443,8 @@ def stream_args(args):
     is a request to stream, not a hint to the (roomy) default budget;
     ``--stream``, ``--checkpoint-dir`` and ``--shard-dir`` (checkpoints and
     shards exist on the streamed pipelines only) force.
-    ``--cache-budget-mb 0`` is ``--no-cache``."""
+    ``--cache-budget-mb 0`` is ``--no-cache``; ``--no-overlap`` is
+    ``overlap_devices=False``."""
     quant = args.block_dtype != "f32" or args.stage1_dtype != "f32"
     force = args.stream or bool(args.checkpoint_dir) or bool(args.shard_dir) or (
         (args.chunk_rows > 0 or args.tile_rows > 0 or quant)
@@ -455,8 +452,8 @@ def stream_args(args):
     cache_off = args.no_cache or args.cache_budget_mb == 0
     stream_config = None
     if (args.device_budget_mb > 0 or args.chunk_rows > 0 or args.tile_rows > 0
-            or args.stream or quant or cache_off or args.cache_budget_mb > 0
-            or args.checkpoint_dir or args.shard_dir):
+            or args.stream or quant or args.no_overlap or cache_off
+            or args.cache_budget_mb > 0 or args.checkpoint_dir or args.shard_dir):
         stream_config = StreamConfig(
             device_budget_bytes=int(args.device_budget_mb * 2**20) or 2 << 30,
             chunk_rows=args.chunk_rows or None,
@@ -464,6 +461,7 @@ def stream_args(args):
             block_dtype=args.block_dtype,
             stage1_dtype=args.stage1_dtype,
             quant_group_rows=args.quant_group_rows or GROUP_ROWS,
+            overlap_devices=not args.no_overlap,
             cache_blocks=not cache_off,
             cache_budget_bytes=(int(args.cache_budget_mb * 2**20)
                                 if args.cache_budget_mb > 0 else None),

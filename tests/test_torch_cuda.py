@@ -7,7 +7,8 @@ against the CPU's, and the disk tier (an int8 store through B3, stage 2 off
 a spilled G through B2, a corrupt spilled shard rebuilt through B1).
 
 These need a CUDA card and nvcc: each test asks for the ``cuda`` fixture,
-which skips where there is none.  On the machine with the card:
+which skips where there is none.  The task farm (core/distributed.py) runs
+on two workers of one card ([cuda, cuda]).  On the machine with the card:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
@@ -1556,3 +1557,115 @@ def test_corrupt_spilled_shard_rebuilt_through_b1_on_card_is_bit_equal(cuda, tmp
         assert torch.equal(getattr(res, f), getattr(clean, f)), f
     G.store._cache.clear()
     np.testing.assert_array_equal(np.asarray(G), want)
+
+
+# --------------------------------------------------------------------------
+# the multi-device task farm (core/distributed.py) on two workers of one card
+# --------------------------------------------------------------------------
+
+def _farm_problem_on_card(cuda, n=1200, classes=5, seed=3):
+    x, y = make_multiclass(n, p=16, n_classes=classes, seed=seed)
+    _, labels = np.unique(y, return_inverse=True)
+    fac = compute_factor(x, KernelParams("rbf", gamma=0.1), 128, device=cuda)
+    G = host_buffer(tuple(fac.G.shape), torch.float32, cuda).copy_(fac.G)
+    tasks, _ = build_ovo_tasks(labels, classes, 2.0, device=cuda)
+    return G, tasks, x
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("overlap", [True, False])
+def test_two_workers_on_one_card_farm_equals_one_device(cuda, wire, overlap):
+    """[cuda, cuda]: each worker its own streams, ring and cache; the farm
+    is one device's solve bit for bit (B2 sweeps a task a CUDA block, so a
+    task's trajectory does not depend on its worker; the reference holds
+    its farm to rtol 1e-4); the overlapped first pass is one device's
+    bytes."""
+    from repro_torch.core import distributed
+    G, tasks, _ = _farm_problem_on_card(cuda)
+    cfg = SolverConfig(tol=1e-3, max_epochs=400)
+    sc = StreamConfig(tile_rows=256, block_dtype=wire)
+    one, s1 = ss.solve_batch_streamed(G, tasks, cfg, stream_config=sc, return_stats=True)
+    smo_epoch_kernel.launches = 0
+    res, st = distributed.solve_tasks_streamed(G, tasks, cfg, devices=[cuda, cuda],
+                                               stream_config=sc, overlap=overlap,
+                                               return_stats=True)
+    assert res.alpha.device == tasks.idx.device
+    assert all(torch.equal(getattr(res, f), getattr(one, f))
+               for f in ("alpha", "w", "epochs", "violation"))
+    assert st.n_devices == 2 and min(p.kernel_calls for p in st.per_device) > 0
+    assert smo_epoch_kernel.launches == st.kernel_calls
+    if overlap:
+        assert st.epoch_bytes[0] == s1.epoch_bytes[0] and st.bytes_put > st.bytes_h2d
+    else:
+        assert st.epoch_bytes[0] == 2 * s1.epoch_bytes[0]
+
+
+@pytest.mark.parametrize("wire", ["f32", "int8"])
+def test_stage1_over_two_workers_on_card_is_one_devices_g(cuda, wire):
+    from repro_torch.core.streaming import compute_factor_streamed
+    x, _ = make_multiclass(3000, p=40, n_classes=4, seed=2)
+    cfg = StreamConfig(chunk_rows=512, stage1_dtype=wire)
+    kp = KernelParams("rbf", gamma=0.05)
+    one = compute_factor_streamed(x, kp, 256, config=cfg, device=cuda)
+    two = compute_factor_streamed(x, kp, 256, config=cfg, device=cuda, devices=[cuda, cuda])
+    assert torch.equal(one.G, two.G)
+    assert two.stage1_stats.device_chunks == [3, 3]
+
+
+def test_sharded_farm_on_two_workers_on_card_equals_solve_batch(cuda):
+    """``solve_tasks_sharded`` on [cuda, cuda]: G replicated, each worker's
+    half of the tasks through B2 on a stream of its own, from a thread of
+    its own; bit-equal to ``solve_batch`` on the whole batch, with the B2
+    launches of the two halves solved one after the other."""
+    from repro_torch.core import distributed
+    from repro_torch.core.dual_solver import TaskBatch
+    G, tasks, _ = _farm_problem_on_card(cuda)
+    G = G.to(cuda)
+    cfg = SolverConfig(tol=1e-3, max_epochs=400)
+    whole = solve_batch(G, tasks, cfg)
+    per = tasks.n_tasks // 2
+    smo_epoch_kernel.launches = 0
+    for j in range(2):
+        solve_batch(G, TaskBatch(*(a[j * per:(j + 1) * per] for a in tasks)), cfg)
+    halves = smo_epoch_kernel.launches
+    smo_epoch_kernel.launches = 0
+    res = distributed.solve_tasks_sharded(G, tasks, cfg, [cuda, cuda])
+    assert smo_epoch_kernel.launches == halves > 0
+    assert res.alpha.device == tasks.idx.device
+    assert all(torch.equal(getattr(res, f), getattr(whole, f))
+               for f in ("alpha", "w", "epochs", "violation"))
+
+
+def test_device_loss_on_card_resplits_onto_the_survivor(cuda, capsys):
+    from repro_torch.core import distributed, faults
+    G, tasks, _ = _farm_problem_on_card(cuda)
+    cfg = SolverConfig(tol=1e-3, max_epochs=400)
+    sc = StreamConfig(tile_rows=256)
+    clean = distributed.solve_tasks_streamed(G, tasks, cfg, devices=[cuda, cuda],
+                                             stream_config=sc)
+    name = f"cuda:{torch.cuda.current_device()}/w1"
+    faults.install(faults.FaultPlan().add("h2d", kind="persistent", device=name, epoch=1))
+    try:
+        res, st = distributed.solve_tasks_streamed(
+            G, tasks, cfg, devices=[cuda, cuda], return_stats=True,
+            stream_config=dataclasses.replace(sc, fail_fast=False))
+    finally:
+        faults.uninstall()
+    assert st.resplits == 1 and st.n_devices == 1
+    assert all(torch.equal(getattr(res, f), getattr(clean, f)) for f in ("alpha", "w", "epochs"))
+    assert "re-split" in capsys.readouterr().err
+
+
+def test_traced_farm_on_card_has_a_device_row_a_worker(cuda):
+    from repro_torch.core import distributed
+    from repro_torch.core.trace import Tracer
+    G, tasks, _ = _farm_problem_on_card(cuda)
+    cfg = SolverConfig(tol=1e-3, max_epochs=400)
+    tr = Tracer()
+    plain = distributed.solve_tasks_streamed(G, tasks, cfg, devices=[cuda, cuda],
+                                             stream_config=StreamConfig(tile_rows=256))
+    traced = distributed.solve_tasks_streamed(G, tasks, cfg, devices=[cuda, cuda],
+                                              stream_config=StreamConfig(tile_rows=256, trace=tr))
+    assert all(torch.equal(getattr(plain, f), getattr(traced, f)) for f in ("alpha", "w"))
+    rows = set(tr.device_tids().values())
+    assert {"cuda:0/w0 compute", "cuda:0/w1 compute", "cuda:0/w0 h2d", "cuda:0/w1 h2d"} <= rows

@@ -40,6 +40,7 @@ def test_port_covers_its_layout():
                  "core/solver_stream.py", "core/polish.py", "core/cv.py",
                  "core/compact.py", "core/trace.py", "core/block_cache.py",
                  "core/faults.py", "core/resilience.py", "core/shards.py",
+                 "core/distributed.py",
                  "kernels/build.py", "kernels/gram.py",
                  "kernels/smo.py", "kernels/ops.py", "data/synthetic.py",
                  "convert.py", "kernels/flash_attention.py", "configs/base.py",
@@ -56,7 +57,8 @@ def test_import_leaves_no_jax_in_sys_modules():
     code = ("import sys, repro_torch, repro_torch.convert, repro_torch.data, "
             "repro_torch.checkpoint, repro_torch.core.trace, "
             "repro_torch.core.block_cache, repro_torch.core.faults, "
-            "repro_torch.core.resilience, repro_torch.core.shards; "
+            "repro_torch.core.resilience, repro_torch.core.shards, "
+            "repro_torch.core.distributed; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'xxhash')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

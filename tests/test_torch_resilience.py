@@ -478,3 +478,227 @@ def test_grid_search_checkpoints_a_directory_a_gamma_and_a_cell(tmp_path):
                        sc, checkpoint_dir=str(tmp_path / "serial")),
                    config=SolverConfig(tol=1e-2))
     assert {"c0", "c1", "stage1_G.npy"} <= set(os.listdir(str(tmp_path / "serial" / "gamma0")))
+
+
+# --------------------------------------------------------------------------
+# the multi-device farm (core/distributed.py) on CPU workers
+# --------------------------------------------------------------------------
+
+def _farm_problem():
+    """``tests/test_resilience.py``'s farm problem: 4 classes, 6 tasks."""
+    x, y = make_multiclass(400, p=6, n_classes=4, seed=2)
+    _, labels = np.unique(y, return_inverse=True)
+    G = compute_factor(x, KernelParams("rbf", gamma=0.25), 48, device="cpu").G
+    tasks, _ = build_ovo_tasks(labels, 4, 1.0, device="cpu")
+    return G, tasks, SolverConfig(tol=1e-3, max_epochs=30)
+
+
+def test_kill_resume_multidevice_farm(tmp_path):
+    """A farm killed at an epoch boundary and resumed (on the same four
+    workers) is the uninterrupted farm, bit for bit, with its stats."""
+    from repro_torch.core.distributed import solve_tasks_streamed
+    G, tasks, cfg = _farm_problem()
+    devs = ["cpu"] * 4
+    sc = StreamConfig(tile_rows=64)
+    clean, st0 = solve_tasks_streamed(G, tasks, cfg, devices=devs, stream_config=sc,
+                                      return_stats=True)
+    d = str(tmp_path / "ckpt")
+    sck = dataclasses.replace(sc, checkpoint_dir=d, checkpoint_every=1)
+    F.install(F.FaultPlan().add("epoch_boundary", kind="kill", epoch=2))
+    try:
+        with pytest.raises(F.SimulatedKill):
+            solve_tasks_streamed(G, tasks, cfg, devices=devs, stream_config=sck)
+    finally:
+        F.uninstall()
+    assert any(f.startswith("step_") for f in os.listdir(d))
+    res, st = solve_tasks_streamed(G, tasks, cfg, devices=devs, return_stats=True,
+                                   stream_config=dataclasses.replace(sck, resume=True))
+    _assert_same(clean, res)
+    assert st.epochs == st0.epochs and st.epoch_bytes == st0.epoch_bytes
+    assert st.resumed_from >= 1 and st.n_devices == 4
+    # a farm's snapshot is of the whole solve: one engine resumes it too
+    one = ss.solve_batch_streamed(G, tasks, cfg, stream_config=dataclasses.replace(
+        sck, resume=True))
+    _assert_same(clean, one)
+
+
+def test_kill_resume_serial_farm_keeps_a_directory_a_share(tmp_path, monkeypatch):
+    """The serial farm (``overlap=False``) on balanced classes, so that both
+    shares' snapshots have the same task structure: killed at an epoch
+    boundary of its second share, after the first share has checkpointed to
+    its end, and resumed, it is the uninterrupted serial farm bit for bit,
+    with its counters; each share writes and resumes its own directory."""
+    from repro_torch.core import distributed as D
+    x, y = make_multiclass(480, p=6, n_classes=4, seed=2)
+    _, labels = np.unique(y, return_inverse=True)
+    keep = np.sort(np.concatenate([np.flatnonzero(labels == k)[:100] for k in range(4)]))
+    G = compute_factor(x[keep], KernelParams("rbf", gamma=0.25), 48, device="cpu").G
+    tasks, _ = build_ovo_tasks(labels[keep], 4, 1.0, device="cpu")
+    cfg = SolverConfig(tol=1e-3, max_epochs=30)
+    devs = ["cpu"] * 2
+    sc = StreamConfig(tile_rows=64)
+    clean, st0 = D.solve_tasks_streamed(G, tasks, cfg, devices=devs, stream_config=sc,
+                                        overlap=False, return_stats=True)
+    d = str(tmp_path / "ckpt")
+    sck = dataclasses.replace(sc, checkpoint_dir=d, checkpoint_every=1)
+    real = D.solve_batch_streamed
+    shares = []
+
+    def second_share_killed(G, sub, *a, **kw):
+        assert (sub.c > 0).sum(1).tolist() == [200] * 3    # the same task structure
+        shares.append(kw["stream_config"].checkpoint_dir)
+        if len(shares) == 2:
+            F.install(F.FaultPlan().add("epoch_boundary", kind="kill", epoch=2))
+        return real(G, sub, *a, **kw)
+
+    monkeypatch.setattr(D, "solve_batch_streamed", second_share_killed)
+    try:
+        with pytest.raises(F.SimulatedKill):
+            D.solve_tasks_streamed(G, tasks, cfg, devices=devs, stream_config=sck,
+                                   overlap=False)
+    finally:
+        F.uninstall()
+    monkeypatch.setattr(D, "solve_batch_streamed", real)
+    assert shares == [os.path.join(d, "w0of2"), os.path.join(d, "w1of2")]
+    assert all(any(f.startswith("step_") for f in os.listdir(s)) for s in shares)
+    res, st = D.solve_tasks_streamed(G, tasks, cfg, devices=devs, overlap=False,
+                                     return_stats=True,
+                                     stream_config=dataclasses.replace(sck, resume=True))
+    _assert_same(clean, res)
+    assert (st.epochs, st.full_passes, st.kernel_calls, st.epoch_bytes) == \
+        (st0.epochs, st0.full_passes, st0.kernel_calls, st0.epoch_bytes)
+    assert st.n_devices == 2
+    assert all(p.resumed_from >= 1 for p in st.per_device)
+
+
+def test_device_loss_degrades_to_clean_survivor_run(capsys):
+    """A persistent loss of one of four workers: the farm re-splits onto the
+    three survivors from the last boundary's in-memory snapshot and ends
+    with a clean three-worker run's model, and the shared reader's per-pass
+    bytes are unchanged through the re-split."""
+    from repro_torch.core.distributed import solve_tasks_streamed
+    G, tasks, cfg = _farm_problem()
+    clean, st_clean = solve_tasks_streamed(G, tasks, cfg, devices=["cpu"] * 3,
+                                           stream_config=StreamConfig(tile_rows=64),
+                                           return_stats=True)
+    tr = Tracer()
+    sc = StreamConfig(tile_rows=64, fail_fast=False, trace=tr)
+    plan = F.install(F.FaultPlan().add("h2d", kind="persistent", device="cpu/w3", epoch=1))
+    res, st = solve_tasks_streamed(G, tasks, cfg, devices=["cpu"] * 4, stream_config=sc,
+                                   return_stats=True)
+    assert len(plan.fired) == 1
+    _assert_same(clean, res)
+    assert st.epoch_bytes == st_clean.epoch_bytes
+    assert st.n_devices == 3 and st.resplits == 1
+    assert "lost cpu/w3 (DeviceLostError); re-split 6 tasks over 3 worker(s)" in \
+        capsys.readouterr().err
+    inst = [e[2] for e in tr.events() if e[0] == "i"]
+    assert "quarantine" in inst and "worker_error" in inst
+
+
+def test_device_loss_without_survivor_or_under_fail_fast_raises():
+    from repro_torch.core.distributed import solve_tasks_streamed
+    G, tasks, cfg = _farm_problem()
+    F.install(F.FaultPlan().add("h2d", kind="persistent", device="cpu/w1", epoch=1))
+    with pytest.raises(F.DeviceLostError, match="cpu/w1"):
+        solve_tasks_streamed(G, tasks, cfg, devices=["cpu"] * 2,
+                             stream_config=StreamConfig(tile_rows=64))
+    F.install(F.FaultPlan().add("h2d", kind="persistent", epoch=1, times=2))
+    with pytest.raises(F.DeviceLostError):
+        solve_tasks_streamed(G, tasks, cfg, devices=["cpu"] * 2,
+                             stream_config=StreamConfig(tile_rows=64, fail_fast=False))
+    # a fatal error is raised, not re-split
+    F.install(F.FaultPlan().add("reader", kind="io", block=1))
+    with pytest.raises(F.InjectedIOError):
+        solve_tasks_streamed(G, tasks, cfg, devices=["cpu"] * 2,
+                             stream_config=StreamConfig(tile_rows=64, fail_fast=False))
+
+
+def test_transient_fault_at_one_worker_retries_bit_exactly():
+    from repro_torch.core.distributed import solve_tasks_streamed
+    G, tasks, cfg = _farm_problem()
+    clean = solve_tasks_streamed(G, tasks, cfg, devices=["cpu"] * 2,
+                                 stream_config=StreamConfig(tile_rows=64))
+    plan = F.install(F.FaultPlan().add("h2d", kind="transient", times=2, device="cpu/w0",
+                                       epoch=1))
+    res = solve_tasks_streamed(G, tasks, cfg, devices=["cpu"] * 2, stream_config=StreamConfig(
+        tile_rows=64, fail_fast=False, retry_backoff=0.0))
+    assert len(plan.fired) == 2
+    _assert_same(clean, res)
+
+
+def test_watchdog_raises_diagnostics_instead_of_hanging():
+    import threading
+    from repro_torch.core.distributed import _DeviceWorkers
+
+    class E:   # engines are only the workers' keys here
+        pass
+
+    engines = [E(), E()]
+    gate = threading.Event()
+    w = _DeviceWorkers(engines, depth=2, names=["dev0", "dev1"], watchdog=0.25,
+                       join_timeout=5.0)
+    try:
+        w.submit(engines[0], gate.wait)   # dev0 starves the barrier
+        w.submit(engines[1], lambda: None)
+        with pytest.raises(R.WatchdogTimeout) as ei:
+            w.barrier()
+        assert "dev0" in str(ei.value)
+    finally:
+        gate.set()
+        w.close()
+
+
+def test_stalled_reader_hand_off_trips_the_farm_watchdog():
+    """A worker parked at fault site "stall" (its hand-off from the shared
+    reader, block 1): the reader's queue and buffer waits raise
+    ``WatchdogTimeout`` naming the workers, within the watchdog and the
+    close's second."""
+    from repro_torch.core.distributed import solve_tasks_streamed
+    G, tasks, cfg = _farm_problem()
+    F.install(F.FaultPlan().add("stall", kind="stall", block=1))
+    t0 = time.monotonic()
+    with pytest.warns(RuntimeWarning, match="still alive"):
+        with pytest.raises(R.WatchdogTimeout, match="worker/cpu/w"):
+            solve_tasks_streamed(G, tasks, cfg, devices=["cpu"] * 2,
+                                 stream_config=StreamConfig(tile_rows=32, prefetch=1,
+                                                            watchdog_seconds=0.5))
+    assert time.monotonic() - t0 < 0.5 + 5.0
+    F.uninstall()
+
+
+def test_close_reports_stuck_worker_threads():
+    import threading
+    from repro_torch.core.distributed import _DeviceWorkers
+
+    class E:
+        pass
+
+    gate = threading.Event()
+    e = E()
+    w = _DeviceWorkers([e], depth=2, names=["dev0"], join_timeout=0.1)
+    try:
+        w.submit(e, gate.wait)
+        with pytest.raises(R.WorkerStuckError):
+            w.close()
+    finally:
+        gate.set()
+    gate2 = threading.Event()
+    e2 = E()
+    w2 = _DeviceWorkers([e2], depth=2, names=["dev0"], join_timeout=0.1)
+    try:
+        w2.submit(e2, gate2.wait)
+        with pytest.warns(RuntimeWarning):
+            w2.close(suppress=True)
+    finally:
+        gate2.set()
+
+
+def test_stream_config_farm_fields_are_the_references():
+    from repro.core.streaming import StreamConfig as JStreamConfig
+    mine, ref = StreamConfig(), JStreamConfig()
+    for f in ("overlap_devices", "watchdog_seconds"):
+        assert getattr(mine, f) == getattr(ref, f), f
+    for mod in (StreamConfig, JStreamConfig):
+        with pytest.raises(ValueError):
+            mod(watchdog_seconds=-1.0)

@@ -406,6 +406,53 @@ def test_stage1_shard_parity(tmp_path, wire):
         (shrd.stage1_stats.chunks, shrd.stage1_stats.bytes_h2d)
 
 
+@pytest.mark.parametrize("wire", ["f32", "int8"])
+def test_stage1_csr_and_shard_routes_over_three_entries_are_one_devices_g(tmp_path, wire):
+    """``compute_factor_streamed_csr`` and ``compute_factor_streamed_shards``
+    with ``devices=["cpu"] * 3``: the chunks go round-robin over the
+    entries, and G (with its landmarks and projector) is one device's bit
+    for bit, on either wire."""
+    from repro_torch.data.libsvm_format import read_libsvm
+    path, _, _, store = _parity_problem(tmp_path)
+    params = KernelParams("rbf", gamma=0.5)
+    cfg = StreamConfig(chunk_rows=64, stage1_dtype=wire)
+    data = read_libsvm(path, n_features=9)
+    routes = {"csr": lambda **kw: ts.compute_factor_streamed_csr(data, params, 48, config=cfg,
+                                                                 device="cpu", **kw),
+              "shards": lambda **kw: compute_factor_streamed_shards(store, params, 48,
+                                                                    config=cfg, device="cpu",
+                                                                    **kw)}
+    for name, route in routes.items():
+        one, three = route(), route(devices=["cpu"] * 3)
+        for k in ("G", "landmarks", "projector"):
+            assert torch.equal(getattr(one, k), getattr(three, k)), (name, k)
+        st = three.stage1_stats
+        assert st.device_chunks == [2, 2, 1] and st.chunks == 5, name
+        assert st.bytes_h2d == one.stage1_stats.bytes_h2d, name
+
+
+def test_spilled_g_over_entries_is_one_devices_and_rebuilds_over_them(tmp_path, monkeypatch):
+    """A spilled G streamed over three entries is one device's, and a
+    corrupt shard's rebuild runs over the same entries and gives it back
+    bit for bit."""
+    _, _, _, store = _parity_problem(tmp_path)
+    want = np.asarray(_spilled_factor(tmp_path / "one", store).G).copy()
+    G = _spilled_factor(tmp_path, store, devices=["cpu"] * 3).G
+    np.testing.assert_array_equal(np.asarray(G), want)
+    seen = []
+    real = ts.stream_factor_blocks
+
+    def spy(*a, **kw):
+        seen.append(kw.get("devices"))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ts, "stream_factor_blocks", spy)
+    _flip(sorted(glob.glob(str(tmp_path / "spill" / "g_spill" / "shard_*.bin")))[2])
+    G.store._cache.clear()
+    np.testing.assert_array_equal(np.asarray(G), want)
+    assert G.store.stats.rebuilt == 1 and seen == [["cpu"] * 3]
+
+
 def test_stage1_int8_store_passthrough_deterministic(tmp_path):
     """An int8 store's stored codes go to the int8 wire as they are: no host
     encode, and its chunks give the host int8 path's G on the same
@@ -428,11 +475,11 @@ def test_stage1_int8_store_passthrough_deterministic(tmp_path):
 # the spilled G: stage 2 off the disk tier, bit-equal on every wire
 # --------------------------------------------------------------------------
 
-def _spilled_factor(tmp_path, store, gamma=0.5, **kw):
+def _spilled_factor(tmp_path, store, gamma=0.5, devices=None, **kw):
     cfg = StreamConfig(chunk_rows=64, shard_dir=str(tmp_path / "spill"), shard_rows=64,
                        spill_g=True, **kw)
     return compute_factor_streamed_shards(store, KernelParams("rbf", gamma=gamma), 48,
-                                          config=cfg, device="cpu")
+                                          config=cfg, device="cpu", devices=devices)
 
 
 def _host_factor(x, gamma=0.5):
@@ -862,3 +909,38 @@ def test_shard_flags_make_the_references_stream_config():
     mine, ref = StreamConfig(), JStreamConfig()
     for f in ("shard_dir", "shard_rows", "spill_g", "verify_shards"):
         assert getattr(mine, f) == getattr(ref, f), f
+
+
+@pytest.mark.parametrize("wire", ["f32", "int8"])
+def test_multidevice_farm_from_shard_view(tmp_path, wire):
+    """The farm on two CPU workers off a spilled G (the reference's
+    ``test_multidevice_farm_from_shard_view``): the shared reader stages the
+    view's rows once a pass; the same model as off the host G, and the same
+    per-pass bytes."""
+    from repro_torch.core.distributed import solve_tasks_streamed
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(240, 7)).astype(np.float32)
+    y = rng.integers(0, 3, size=240)
+    path = str(tmp_path / "t.svm")
+    write_libsvm(path, x, y.astype(float))
+    xt, yt = read_libsvm_rows_range(path, 0, 240, 7)
+    store = ingest_libsvm_shards(path, str(tmp_path / "s"), n_features=7, shard_rows=64)
+    kp = KernelParams("rbf", gamma=0.5)
+    host = compute_factor_streamed(xt, kp, 40, config=StreamConfig(chunk_rows=64),
+                                   device="cpu")
+    spill = compute_factor_streamed_shards(
+        store, kp, 40, device="cpu",
+        config=StreamConfig(chunk_rows=64, shard_dir=str(tmp_path / "sp"), shard_rows=64,
+                            spill_g=True))
+    assert isinstance(spill.G, GShardView)
+    _, labels = np.unique(yt, return_inverse=True)
+    tasks, _ = build_ovo_tasks(labels, 3, 1.0, device="cpu")
+    cfg = SolverConfig(tol=1e-3, max_epochs=25)
+    sc = StreamConfig(tile_rows=64, block_dtype=wire)
+    a, sa = solve_tasks_streamed(host.G, tasks, cfg, devices=["cpu"] * 2, stream_config=sc,
+                                 return_stats=True)
+    b, sb = solve_tasks_streamed(spill.G, tasks, cfg, devices=["cpu"] * 2, stream_config=sc,
+                                 return_stats=True)
+    _same(a, b)
+    assert sa.epoch_bytes == sb.epoch_bytes and sb.n_devices == 2
+    _same(a, ss.solve_batch_streamed(spill.G, tasks, cfg, stream_config=sc))

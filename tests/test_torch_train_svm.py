@@ -5,6 +5,8 @@ The reference's backbone weights are carried across by
 ``convert.model_from_reference``; the tests draw nothing from the session
 ``rng`` fixture.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -131,15 +133,15 @@ def test_stream_args_are_the_references(argv, want):
 
 
 @pytest.mark.parametrize("argv,flag", [
-    # the LIBSVM route's own flags and the shard flags are served; the
-    # multi-device farm's --no-overlap beside them still stops
+    # the LIBSVM route's own flags and the shard flags are served, and the
+    # multi-device farm's --no-overlap beside them is served too
     (["--libsvm", "data.txt", "--shard-dir", "sh", "--no-overlap"], "--no-overlap"),
     (["--libsvm", "data.txt", "--n-features", "5", "--spill-g", "--no-overlap"],
      "--no-overlap"),
     (["--libsvm", "data.txt", "--on-bad-row", "skip", "--checkpoint-dir", "ck",
       "--no-overlap"], "--no-overlap"),
-    # the block cache's and the checkpoints' flags are served; an unported
-    # flag beside them still stops
+    # the block cache's and the checkpoints' flags are served, --no-overlap
+    # beside them too
     (["--checkpoint-dir", "ck", "--shard-dir", "sh", "--no-overlap"], "--no-overlap"),
     (["--checkpoint-every", "2", "--spill-g", "--no-overlap"], "--no-overlap"),
     (["--resume", "--shard-rows", "64", "--no-overlap"], "--no-overlap"),
@@ -147,8 +149,8 @@ def test_stream_args_are_the_references(argv, want):
     (["--shard-rows", "64", "--no-overlap"], "--no-overlap"),
     (["--no-overlap", "--spill-g"], "--no-overlap"),
     (["--no-verify-shards", "--no-overlap"], "--no-overlap"),
-    # the trace flags and the int8 stage-2 wire are served; an unported flag
-    # beside them still stops
+    # the trace flags and the int8 stage-2 wire are served, --no-overlap
+    # beside them too
     (["--trace", "t.json", "--no-cache", "--no-overlap"], "--no-overlap"),
     (["--trace-summary", "--resume", "--no-verify-shards", "--no-overlap"], "--no-overlap"),
     (["--verbose", "--no-overlap"], "--no-overlap"),
@@ -157,10 +159,27 @@ def test_stream_args_are_the_references(argv, want):
     (["--no-overlap"], "--no-overlap"),
     (["--block-dtype", "int8", "--spill-g", "--no-overlap"], "--no-overlap")])
 def test_unported_flags_stop_with_their_name(argv, flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        driver.main(argv)
-    assert exc.value.code == 2
-    assert f"{flag} is not ported to repro_torch yet" in capsys.readouterr().err
+    """The multi-device farm is ported: ``flag`` (--no-overlap) no longer
+    stops the driver.  Beside the same flags it parses, and ``stream_args``
+    gives the serial farm, ``overlap_devices=False``, as the reference's
+    driver does; where a flag beside it lacks the flag it needs (--spill-g
+    without --shard-dir, --resume without --checkpoint-dir), the driver stops
+    naming that one, not ``flag``."""
+    args = driver.build_parser().parse_args(argv)
+    assert getattr(args, flag.lstrip("-").replace("-", "_")) is True
+    try:
+        cfg, _ = driver.stream_args(args)
+    except ValueError:
+        with pytest.raises(SystemExit) as exc:
+            driver.main(argv)
+        assert exc.value.code == 2
+        line = capsys.readouterr().err.strip().splitlines()[-1]
+        assert " requires --" in line and flag not in line
+        return
+    assert cfg is not None and cfg.overlap_devices is False
+    rest, _ = driver.stream_args(driver.build_parser().parse_args(
+        [a for a in argv if a != flag]))
+    assert rest in (None, dataclasses.replace(cfg, overlap_devices=True))
 
 
 @pytest.mark.parametrize("argv,levels", [
