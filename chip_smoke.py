@@ -277,6 +277,24 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 routes onto the serial farm: its stage-2 line prints
                 "2 device(s)", each worker launches B2, and the first pass
                 is twice one device's bytes
+  serve, qwen3-0.6b full width    launch/serve.py's serve at 28 layers, d
+                1024 (seeded weights, batch 8, prompt 64, gen 64, kv_len
+                128): its two lines and peak device memory; generate on the
+                same weights gives its tokens, warm: prefill-by-decode
+                seconds, ms a generated step, tok/s; the prefill step
+                (make_prefill_step: forward, B4 once a layer, counted)
+                against decode's logits at the prompt's last position; 8
+                teacher-forced decode steps on the card against the CPU's;
+                the decode step's device kernel time and idle share (the
+                profiler, 4 steps); a ring of 32 slots against the full
+                cache: within the bound for pos < 32, finite beyond, its
+                slots holding the last 32 positions.  Every logit bound is
+                serve_logit_tol, sqrt(2L) bf16 steps of the largest logit
+  serve, dense configurations     tinyllama-1.1b, codeqwen1.5-7b and
+                minitron-4b at full width and depth (batch 4, prompt 64):
+                one prefill step through B4 (launches counted) against
+                decode's logits at the prompt's last position, then 8
+                greedy decode steps; ms a step, peak device memory
 
 Then one JSON line {"kernels": [...]} (``launches_libsvm``: each kernel's
 launches summed over the LIBSVM phases; ``launches_shards`` over the two
@@ -284,7 +302,8 @@ shard phases; ``launches_trace`` over the traced fit,
 ``launches_int8_blocks`` over the int8 stage 2, ``launches_block_cache``
 over the cached one, ``launches_task_farm`` over the task-farm phases,
 ``launches_task_farm_workers`` (B2) and ``launches_stage1_workers`` (B1, B3)
-a worker of the two-worker runs) and, last, the
+a worker of the two-worker runs, ``launches_serving`` (B4) over the serving
+phases' prefill steps) and, last, the
 {"ok": true, ...} line.
 """
 from __future__ import annotations
@@ -293,6 +312,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import re
 import signal
@@ -351,6 +371,7 @@ BF16_ULP = 2.0 ** -7             # bf16 outputs: one ulp of the plain value, rel
 # (batch row, query head): one flipped p moves up to D outputs of its row,
 # and on an H100 8 of a case's 10 lay in one at S 63, D 64.
 BEYOND_ULP_SHARE = 1e-3
+SERVE_REL_STEP = 2.0 ** -7      # one bf16 step of a value, relative (serve_logit_tol)
 LIBRARY_TOL = 3e-2               # SDPA rounds p to bf16: test_flash_bf16's tolerance
 FEATURE_ATOL = 0.05              # bf16 end to end, as tests/test_torch_train_svm.py
 FEATURE_MEAN_ATOL = 0.005
@@ -522,6 +543,237 @@ def host_free_bytes() -> int:
         if line.startswith("MemAvailable:"):
             return int(line.split()[1]) * 1024
     raise RuntimeError("chip_smoke: no MemAvailable in /proc/meminfo")
+
+
+def peak_start() -> int:
+    """Reset the card's peak-memory count; returns what is allocated now."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_since(base: int) -> int:
+    """Peak device memory since ``peak_start`` above its ``base``."""
+    import torch
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def serve_logit_tol(n_layers: int, logits) -> float:
+    """The bound on two logit rows of the same token that round differently:
+    B4's prefill against decode (B4 rounds p to bf16 before p . v, decode
+    keeps it in fp32), or the card's decode against the CPU's (other sums in
+    the bf16 products).  Each of a layer's two sublayer outputs (attention,
+    FFN) is rounded to bf16 on both sides, and the difference can flip that
+    rounding: at most one bf16 step, 2^-7 of the output.  The 2L flips enter
+    the residual stream unrelated to each other, so they add in quadrature
+    (sqrt(2L) steps of the stream); the final norm and the unembedding carry
+    that relative change of the hidden state to every logit, in no
+    vocabulary row's direction, so the largest logit error stays within that
+    share of the largest logit.  At 2 layers (the reduced models, on the
+    CPU) prefill against decode measures half to three quarters of it."""
+    return math.sqrt(2 * n_layers) * SERVE_REL_STEP * logits.abs().max().item()
+
+
+def serve_phases(dev, smi: str) -> dict:
+    """The LM serving path on the card (launch/serve.py, launch/steps.py,
+    decode with a KV cache) at full width; returns B4's launches and the
+    largest logit errors against their bounds."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.launch import serve as serving
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import init_model
+    from repro_torch.models import model as M
+
+    def teacher_forced(m, cfg, toks, kv_len):
+        """Decode toks (B, S) one position at a time from an empty cache of
+        kv_len slots: the logits (S, B, Vp) in fp32, and the state."""
+        state = M.init_decode_state(cfg, toks.shape[0], kv_len, device=toks.device)
+        pos = torch.arange(toks.shape[1], device=toks.device)
+        out = []
+        with torch.no_grad():
+            for t in range(toks.shape[1]):
+                lg, state = M.decode(m, cfg, toks[:, t:t + 1], state, pos[t])
+                out.append(lg[:, 0].float())
+        return torch.stack(out), state
+
+    def held(got, want, n_layers, label):
+        """got against want (B, Vp), within serve_logit_tol; argmaxes equal
+        where want's top-two margin exceeds twice the bound.  Returns (err,
+        bound, the line that says so)."""
+        tol = serve_logit_tol(n_layers, want)
+        err = (got - want).abs().max().item()
+        top2 = torch.topk(want, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        agree = bool((got.argmax(-1) == want.argmax(-1))[clear].all())
+        line = (f"{label}: max abs err {err:.4e} (bound sqrt(2L) 2^-7 max|logit| = "
+                f"{tol:.4e}, {err / tol:.3f} of it); argmax equal on {int(clear.sum())} of "
+                f"{want.shape[0]} rows, those of clear margin")
+        check(bool(torch.isfinite(got).all()), f"{label}: logits not finite")
+        check(err <= tol and agree, f"{line}: disagrees beyond its rounding")
+        return err, tol, line
+
+    def worst(results):
+        """The result nearest its bound, printed."""
+        err, tol, line = max(results, key=lambda r: r[0] / r[1])
+        print(line)
+        return err, tol
+
+    found = {"b4_launches": {}, "errors": {}}
+    with phase("serve, qwen3-0.6b full width"):
+        arch, B, P, gen = "qwen3-0.6b", 8, 64, 64
+        cfg = get_config(arch)
+        L = cfg.n_layers
+        check(L == 28 and cfg.d_model == 1024, "qwen3-0.6b is not at its published size")
+        base = peak_start()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            tokens = serving.serve(arch, reduced=False, batch=B, prompt_len=P, gen=gen)
+        peak = peak_since(base)
+        print(out.getvalue(), end="")
+        check(tokens.shape == (B, gen) and tokens.dtype == np.int32
+              and 0 <= tokens.min() and tokens.max() < cfg.vocab_size,
+              "serve's tokens are of the wrong shape or outside the vocabulary")
+        print(f"serve {arch} (first call, kv_len {P + gen}): peak device memory {peak} B "
+              f"above what was allocated before [{smi}]")
+        # the same weights (the same seeded generator) and prompts, warm
+        m = init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, P))
+        run = serving.generate(m, cfg, prompts, gen)
+        check(np.array_equal(run.tokens, tokens),
+              "generate on the rebuilt weights gives other tokens than serve")
+        step_ms = 1e3 * (run.seconds - run.prefill_seconds) / gen
+        print(f"serve {arch}, B {B}, prompt {P}, gen {gen}, warm: prefill by decode "
+              f"{run.prefill_seconds:.4f} s ({1e3 * run.prefill_seconds / P:.3f} ms a step), "
+              f"generation {step_ms:.3f} ms a step ({B} tokens), "
+              f"{B * (P + gen) / run.seconds:.1f} tok/s incl. prefill [{smi}]")
+
+        toks = torch.as_tensor(prompts, dtype=torch.int32).to(dev)
+        prefill = make_prefill_step(cfg)
+        flash_attention_kernel.launches = 0
+        with torch.no_grad():
+            pre = prefill(m, {"tokens": toks}).float()
+        torch.cuda.synchronize()
+        b4 = flash_attention_kernel.launches
+        found["b4_launches"][arch] = b4
+        print(f"prefill step (B4): {b4} launches")
+        check(b4 == L, "the prefill step did not launch B4 once a layer")
+        dec, _ = teacher_forced(m, cfg, toks, P + gen)
+        check(torch.equal(dec[-1].argmax(-1).to(torch.int32).cpu(),
+                          torch.from_numpy(tokens[:, 0])),
+              "decode's argmax at the prompt's end is not serve's first token")
+        found["errors"]["prefill " + arch] = worst([held(
+            pre, dec[-1], L, f"{arch} prefill step (B4, p in bf16) vs decode at position "
+            f"{P - 1}")])
+        # 8 teacher-forced steps on the CPU, on a copy of the weights
+        cpu_m = init_model(None, cfg, device="cpu")
+        cpu_m.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+        t0 = time.perf_counter()
+        dec_cpu, _ = teacher_forced(cpu_m, cfg, toks[:, :8].cpu(), P + gen)
+        t_cpu = time.perf_counter() - t0
+        found["errors"]["card vs cpu " + arch] = worst(
+            [held(dec[t].cpu(), dec_cpu[t], L, f"{arch} decode, card vs CPU, the worst of "
+                  f"8 steps (pos {t})") for t in range(8)])
+        print(f"CPU decode: 8 steps in {t_cpu:.3f} s")
+        del cpu_m, dec_cpu
+        # the decode step's device time: the profiler's kernel time over 4
+        # greedy steps against the unprofiled step's wall from generate
+        _, st = teacher_forced(m, cfg, toks[:, :8], P + gen)
+        step, pos = make_serve_step(cfg), torch.arange(8, 12, device=dev)
+        tok = toks[:, 8:9]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with torch.no_grad():
+                for t in range(4):
+                    tok, st = step(m, tok, st, pos[t])
+            torch.cuda.synchronize()
+        # the kernels' own rows (an operator's row repeats its kernels' time)
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                      for e in events) / 1e3 / 4
+        kernels_a_step = sum(e.count for e in events) / 4
+        if busy_ms > 0:
+            found["decode_step"] = {"ms": step_ms, "device_busy_ms": busy_ms,
+                                    "kernels": kernels_a_step}
+            print(f"decode step (B {B}, kv_len {P + gen}): {step_ms:.3f} ms of wall, "
+                  f"{busy_ms:.4f} ms of device kernel time over {kernels_a_step:.0f} "
+                  f"kernels (the profiler, 4 steps): device idle share "
+                  f"{1 - busy_ms / step_ms:.3f} [{smi}]")
+        else:
+            print("decode step's device time: not measured (the profiler saw no device time)")
+        del st
+        # a ring of 32 slots against the full cache of P + gen
+        ring, rstate = teacher_forced(m, cfg, toks, 32)
+        found["errors"]["ring " + arch] = worst(
+            [held(ring[t], dec[t], L, f"{arch} ring W 32 vs full cache, the worst of pos "
+                  f"0-31 (pos {t})") for t in range(32)])
+        check(bool(torch.isfinite(ring[32:]).all()), "the ring's logits beyond W not finite")
+        want_pos = torch.arange(32, 64, device=dev)
+        check(all(torch.equal(c["kv"]["pos"], want_pos) for c in rstate),
+              "the ring does not hold the last 32 positions")
+        print("ring W 32: positions 32-63 finite, the slots hold positions 32-63")
+        del m, dec, ring, rstate, pre
+        torch.cuda.empty_cache()
+
+    with phase("serve, dense configurations"):
+        B, P, n_gen = 4, 64, 8
+        for arch in ("tinyllama-1.1b", "codeqwen1.5-7b", "minitron-4b"):
+            cfg = get_config(arch)
+            L = cfg.n_layers
+            base = peak_start()
+            t0 = time.perf_counter()
+            m = init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+            torch.cuda.synchronize()
+            t_init = time.perf_counter() - t0
+            n_params = sum(p.numel() for p in m.parameters())
+            prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, P))
+            toks = torch.as_tensor(prompts, dtype=torch.int32).to(dev)
+            flash_attention_kernel.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                pre = make_prefill_step(cfg)(m, {"tokens": toks}).float()
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            b4 = flash_attention_kernel.launches
+            found["b4_launches"][arch] = b4
+            check(b4 == L, f"{arch}: the prefill step did not launch B4 once a layer")
+            t0 = time.perf_counter()
+            dec, state = teacher_forced(m, cfg, toks, P + n_gen)
+            torch.cuda.synchronize()
+            t_dec = time.perf_counter() - t0
+            found["errors"]["prefill " + arch] = worst([held(
+                pre, dec[-1], L, f"{arch} prefill step (B4) vs decode at position {P - 1}")])
+            step = make_serve_step(cfg)
+            pos = torch.arange(P, P + n_gen, device=dev)
+            tok = dec[-1].argmax(-1, keepdim=True).to(torch.int32)
+            generated = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                for t in range(n_gen):
+                    generated.append(tok)
+                    tok, state = step(m, tok, state, pos[t])
+                gen_tokens = torch.cat(generated, 1).cpu().numpy()
+            t_gen = time.perf_counter() - t0
+            peak = peak_since(base)
+            check(0 <= gen_tokens.min() and gen_tokens.max() < cfg.vocab_size,
+                  f"{arch}: generated tokens outside the vocabulary")
+            print(f"{arch}: {L} layers (no cut), d {cfg.d_model}, heads {cfg.n_heads}/"
+                  f"{cfg.n_kv_heads} of {cfg.resolved_head_dim}, {n_params} bf16 parameters "
+                  f"in {t_init:.3f} s; prefill step B {B} x {P} {1e3 * t_pre:.3f} ms (first "
+                  f"call), {b4} B4 launches; decode {1e3 * t_dec / P:.3f} ms a step over the "
+                  f"prompt, {1e3 * t_gen / n_gen:.3f} ms a greedy step; row 0 generates "
+                  f"{gen_tokens[0].tolist()}; peak device memory {peak} B [{smi}]")
+            del m, dec, state, pre, tok, generated
+            torch.cuda.empty_cache()
+    return found
 
 
 def main() -> int:
@@ -1312,15 +1564,6 @@ def main() -> int:
               f"split_bf16x3 {same}; their sum times 2^e equal to the landmarks {exact}")
         check(same and exact, "B3's pre-pass does not split z exactly as split_bf16x3")
         del pieces, pow2, want, want_pow2
-
-    def peak_start() -> int:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        return torch.cuda.memory_allocated()
-
-    def peak_since(base: int) -> int:
-        torch.cuda.synchronize()
-        return torch.cuda.max_memory_allocated() - base
 
     with phase("streamed path"):
         # stage 1 alone, for its peak device memory: the byte model counts
@@ -3655,6 +3898,16 @@ def main() -> int:
               "the driver with --no-overlap launched no B2 or no B4")
     print(f"launches in the task-farm phases {farm_counts}")
 
+    # the LM serving path: B4 is its one kernel (the prefill step); decode's
+    # attention is plain tensor ops, as the reference's einsums are
+    reset_counts()
+    served = serve_phases(dev, smi.splitlines()[0])
+    serve_counts = read_counts(add=False)
+    print(f"launches in the serving phases {serve_counts}; B4 a prefill step "
+          f"{served['b4_launches']}")
+    check(serve_counts["gram"] == serve_counts["gram_q8"] == serve_counts["smo_epoch"] == 0,
+          "the serving path launched an SVM kernel")
+
     kernels = [
         {"name": "gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram.cu",
@@ -3702,7 +3955,9 @@ def main() -> int:
          "launches": e2e["flash_attention"], "max_abs_err": flash_err,
          **flash_times["qwen3-0.6b pipeline"],
          "launches_libsvm": lib_launches["flash_attention"],
-         "launches_shards": shard_launches["flash_attention"]},
+         "launches_shards": shard_launches["flash_attention"],
+         "launches_serving": sum(served["b4_launches"].values()),
+         "launches_serving_by_arch": served["b4_launches"]},
     ]
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main paths was launched no time")

@@ -18,6 +18,8 @@ from typing import Optional, Tuple
 ARCH_IDS = (
     "tinyllama-1.1b",
     "qwen3-0.6b",
+    "codeqwen1.5-7b",
+    "minitron-4b",
 )
 
 

@@ -1,13 +1,15 @@
 """Decoder layer assembly, the dense part (PyTorch port of the JAX package's
 ``models/blocks.py``): a pre-norm residual block of an attention mixer and a
-dense FFN (gated silu / gelu, or the non-gated squared ReLU).
+dense FFN (gated silu / gelu, or the non-gated squared ReLU), over a whole
+sequence (``apply_layer_full``) or one token against the layer's KV cache
+(``apply_layer_decode``, ``init_layer_cache``).
 
 SSM mixers, MoE FFNs and cross-attention (encoder-decoder models) are not
 ported yet: their configurations raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -103,3 +105,24 @@ def apply_layer_full(params: DecoderLayer, cfg: ModelConfig, i: int, x: torch.Te
     h2 = rms_norm(x, params.ln2, cfg.norm_eps)
     out = apply_ffn(params.ffn, cfg, h2)
     return x + out, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def apply_layer_decode(params: DecoderLayer, cfg: ModelConfig, i: int, x: torch.Tensor,
+                       cache: Dict, pos) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode.  x (B, 1, d); cache is this layer's ``{"kv": ...}``
+    (``init_layer_cache``), updated in place.  Returns (x, cache)."""
+    _check_dense(cfg, i)
+    h = rms_norm(x, params.ln1, cfg.norm_eps)
+    new_cache = dict(cache)
+    mix, new_cache["kv"] = attn.decode_step(params.mixer, cfg, h, cache["kv"], pos)
+    x = x + mix
+    h2 = rms_norm(x, params.ln2, cfg.norm_eps)
+    out = apply_ffn(params.ffn, cfg, h2)
+    return x + out, new_cache
+
+
+def init_layer_cache(cfg: ModelConfig, i: int, batch: int, kv_len: int,
+                     dtype=torch.bfloat16, device=None) -> Dict:
+    """Decode cache for layer i: its KV cache (``device=None``: the card)."""
+    _check_dense(cfg, i)
+    return {"kv": attn.init_cache(cfg, batch, kv_len, dtype, device)}

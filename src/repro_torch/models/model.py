@@ -9,13 +9,17 @@ those layers (``convert.model_from_reference``).
     init_model(generator, cfg, device=None) -> Model (None: the card)
     forward(model, cfg, {"tokens": t})  -> (logits (B, S, V), aux_loss)
     trunk(model, cfg, tokens)           -> final-normed hidden states (B, S, d)
+    init_decode_state(cfg, B, kv_len)   -> a KV cache a layer, in layer order
+    decode(model, cfg, tokens, state, pos) -> (logits (B, 1, V), state)
 
-Prefix (vision) and encoder (audio) inputs, and decode, are not ported yet.
+The decode state is a list with one cache per layer (the reference's
+``prologue`` / ``groups`` stacking has no counterpart, as for the weights).
+Prefix (vision) and encoder (audio) inputs are not ported yet.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -120,3 +124,29 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict,
     logits = x @ unembed.T                             # (B, S, Vp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _mask_padded_logits(cfg, logits), aux
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, kv_len: int, dtype=torch.bfloat16,
+                      device=None) -> List[Dict]:
+    """One empty decode cache per layer, in ``Model.layers`` order
+    (``device=None``: the card)."""
+    device = resolve_device(device)
+    return [blocks.init_layer_cache(cfg, i, batch, kv_len, dtype, device)
+            for i in range(cfg.n_layers)]
+
+
+def decode(params: Model, cfg: ModelConfig, tokens: torch.Tensor, state: List[Dict],
+           pos) -> Tuple[torch.Tensor, List[Dict]]:
+    """One decode step.  tokens (B, 1) int; pos the step's position, an int
+    or a 0-d integer tensor (on the card, so that the step never waits for
+    it).  Returns (logits (B, 1, Vp), state): the padded vocab masked to
+    -1e30, the state's caches updated in place."""
+    x = params.embed[tokens]
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+    new_state = []
+    for i, layer in enumerate(params.layers):
+        x, c = blocks.apply_layer_decode(layer, cfg, i, x, state[i], pos)
+        new_state.append(c)
+    x = rms_norm(x, params.final_ln, cfg.norm_eps)
+    unembed = params.embed if cfg.tie_embeddings else params.unembed
+    return _mask_padded_logits(cfg, x @ unembed.T), new_state

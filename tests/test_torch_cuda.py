@@ -1241,6 +1241,50 @@ def test_backbone_features_on_card_match_cpu(cuda):
     assert err.max() <= 0.05 and err.mean() <= 0.005, (err.max(), err.mean())
 
 
+def test_decode_on_card_matches_cpu_and_prefill_launches_b4(cuda):
+    """Reduced qwen3-0.6b (head dim 64), one seeded init copied to the CPU:
+    16 teacher-forced decode steps on the card against the CPU's, and the
+    prefill step (B4, once a layer) against decode's last logits, each within
+    0.08 (the reference's decode bound, bf16 end to end)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_model
+    from repro_torch.models import model as M
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    card = init_model(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    cpu = init_model(None, cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (3, 16)))
+    logits = {}
+    for m, dev in ((card, cuda), (cpu, torch.device("cpu"))):
+        state = M.init_decode_state(cfg, 3, 16, device=dev)
+        pos = torch.arange(16, device=dev)
+        with torch.no_grad():
+            logits[dev.type] = torch.cat([M.decode(m, cfg, toks[:, t:t + 1].to(dev), state,
+                                                   pos[t])[0] for t in range(16)], 1)
+    assert (logits["cuda"].float().cpu() - logits["cpu"].float()).abs().max() < 0.08
+    before = flash_attention_kernel.launches
+    with torch.no_grad():
+        pre = make_prefill_step(cfg)(card, {"tokens": toks.to(cuda)})
+    assert flash_attention_kernel.launches == before + cfg.n_layers
+    assert (pre.float() - logits["cuda"][:, -1].float()).abs().max() < 0.08
+
+
+def test_serve_on_card_is_generate(cuda):
+    """``serve`` on the card (its default device): its tokens are
+    ``generate``'s on the same seeded weights and prompts, in range."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_model
+    cfg = get_config("minitron-4b", reduced=True)
+    got = serve.serve("minitron-4b", batch=2, prompt_len=6, gen=5, seed=4)
+    m = init_model(torch.Generator(device=cuda).manual_seed(4), cfg, device=cuda)
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 6))
+    run = serve.generate(m, cfg, prompts, 5)
+    assert got.shape == (2, 5) and np.array_equal(got, run.tokens)
+    assert got.min() >= 0 and got.max() < cfg.vocab_size
+
+
 # --------------------------------------------------------------- the tracer
 
 def _traced_fit(cuda, trace, block_dtype="f32"):

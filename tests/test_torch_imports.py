@@ -45,6 +45,8 @@ def test_port_covers_its_layout():
                  "kernels/smo.py", "kernels/ops.py", "data/synthetic.py",
                  "convert.py", "kernels/flash_attention.py", "configs/base.py",
                  "configs/qwen3_0_6b.py", "configs/tinyllama_1_1b.py",
+                 "configs/codeqwen1_5_7b.py", "configs/minitron_4b.py",
+                 "launch/steps.py", "launch/serve.py",
                  "models/common.py", "models/attention.py", "models/blocks.py",
                  "models/model.py", "launch/train_svm.py",
                  "data/libsvm_format.py", "checkpoint/ckpt.py"):
@@ -58,7 +60,7 @@ def test_import_leaves_no_jax_in_sys_modules():
             "repro_torch.checkpoint, repro_torch.core.trace, "
             "repro_torch.core.block_cache, repro_torch.core.faults, "
             "repro_torch.core.resilience, repro_torch.core.shards, "
-            "repro_torch.core.distributed; "
+            "repro_torch.core.distributed, repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'xxhash')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -24,8 +24,9 @@ from repro_torch.configs import get_config, list_configs
 from repro_torch.convert import model_from_reference, reference_leaves
 from repro_torch.models import attention, blocks, common, model
 
-ARCHS = ("qwen3-0.6b", "tinyllama-1.1b")
+ARCHS = ("qwen3-0.6b", "tinyllama-1.1b", "codeqwen1.5-7b", "minitron-4b")
 NORMS = ("ln1", "ln2", "final_ln", "q_norm", "k_norm")
+BIASES = ("bq", "bk", "bv")
 LOGITS_ATOL = 0.08   # tests/test_decode_matches_forward's, bf16 end to end
 
 
@@ -38,14 +39,18 @@ def _np(t):
 
 
 def _ref_params(arch, seed=0):
-    """The reference's reduced weights, norm gammas seeded in [0.5, 1.5]."""
+    """The reference's reduced weights, norm gammas seeded in [0.5, 1.5] and
+    qkv biases (zero at init) in [-0.5, 0.5]."""
     cfg = ref_config(arch, reduced=True)
     params, _ = ref_model.init_model(jax.random.PRNGKey(seed), cfg)
     rng = np.random.default_rng(seed + 1)
 
     def gamma(path, a):
-        if any(n in jax.tree_util.keystr(path) for n in NORMS):
+        key = jax.tree_util.keystr(path)
+        if any(n in key for n in NORMS):
             return jnp.asarray(rng.uniform(0.5, 1.5, size=a.shape), a.dtype)
+        if any(f"'{n}'" in key for n in BIASES):
+            return jnp.asarray(rng.uniform(-0.5, 0.5, size=a.shape), a.dtype)
         return a
     return cfg, jax.tree_util.tree_map_with_path(gamma, params)
 
@@ -215,7 +220,9 @@ def test_convert_carries_every_leaf(pair):
     own = dict(port.named_parameters())
     leaves = reference_leaves(jax.tree.map(np.asarray, params), cfg)
     assert len(own) == len(leaves) == n_ref
-    per_layer = 11 if cfg.qk_norm else 9
+    # wq wk wv wo, the FFN's (gated: three), ln1 ln2, then qk-norm and bias
+    per_layer = 4 + (3 if cfg.act in ("silu", "gelu") else 2) + 2 \
+        + 2 * cfg.qk_norm + 3 * cfg.qkv_bias
     assert n_ref == cfg.n_layers * per_layer + 2 + (not cfg.tie_embeddings)
     for name, leaf in leaves.items():
         assert torch.equal(own[name], _bf16(leaf)), name
