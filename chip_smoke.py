@@ -7,13 +7,15 @@ Phases, each printed as ``[phase] start`` ... ``[phase] ok in N s``; any
 failure raises and exits non-zero, nothing is caught and carried on:
 
   device        card name and power limit (nvidia-smi), torch and CUDA versions
-  build         nvcc builds kernels B1 (gram.cu), B3 (gram_q8.cu), B2 (smo.cu)
-                and B4 (flash_attention.cu) from src/repro_torch/kernels/csrc,
+  build         nvcc builds kernels B1 (gram.cu), B3 (gram_q8.cu), B2 (smo.cu),
+                B4 (flash_attention.cu) and E1 (exact_epoch.cu) from
+                src/repro_torch/kernels/csrc,
                 in parallel; B4's registers, spills and shared memory (ptxas)
                 and the HGMMA count of each body (cuobjdump -sass): no spills,
                 and the bf16 body on the tensor cores; B1's and B3's
                 registers, spills and HGMMA counts: no spills, on the tensor
-                cores; B2's registers and spills at each ring depth: no spills
+                cores; B2's registers and spills at each ring depth and E1's
+                at each width: no spills
   B4 vs plain   flash-attention kernel against its plain version: causal and
                 not, S in {1, 63, 64, 127, 128, 129, 255, 257, 1000}, (Hq, Hkv)
                 in {(4, 4), (16, 8), (32, 4), (16, 2)}, D in {64, 128}, fp32 and
@@ -295,6 +297,45 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 one prefill step through B4 (launches counted) against
                 decode's logits at the prompt's last position, then 8
                 greedy decode steps; ms a step, peak device memory
+  E1 vs plain                     kernel E1 (the exact solver's epoch) on the
+                binary Table 2 problem's Q (14000 x 14000 from B1, 0.78 GB)
+                against its plain version on the card for 3 epochs from alpha
+                0: alpha, grad, viol and the moving steps equal; the third
+                epoch's ms beside the plain version's and the bound (the
+                moving rows' bytes), an epoch of still steps (C 0) for the
+                split of a step's time; a ragged n and one past the
+                shared-memory limit (grad in global memory), equal too
+  Table 2, binary                 make_checker 20000 rows (3 cells, a 70/30
+                split), RBF gamma 8, C 16: LPD-SVM and LLSVM (budget 1024,
+                chunks of 2000), primal SGD (3000 steps) on LPD's factor and
+                ExactDualSVM on all 14000 training rows, counts reset around
+                each fit and prediction: train and predict seconds, test
+                error, epochs, launches of B1, B2 and E1; LPD within 0.04 of
+                exact's test error, LPD's training error no worse than
+                LLSVM's, LPD's primal objective no worse than SGD's
+  Table 2, multiclass             the main path's generator at 14000 rows
+                (p 784, 10 classes, a 70/30 split), C 1, RBF at the median
+                gamma: LPD-SVM (budget 1024) against ExactDualSVM's 45 pairs,
+                within 0.04; E1 once an epoch, B1 twice a pair
+  B4 gradient vs plain autograd   B4's autograd Function at the driver's
+                shape (B 32, S 256, 16/8 heads of 128) and at D 64: one B4
+                launch forward, the gradient its fp32 recompute rounded once
+                to bf16, against autograd through the fp32 plain version
+                within 2^-8 of the largest element plus the two fp32
+                computations' difference; forward and backward ms
+  train, qwen3-0.6b full width    launch/train.py's train at 28 layers, d 1024
+                (seeded, AdamW, B 8, S 256, 20 steps): its lines, ms a step
+                after the first, peak device memory against the reckoned
+                one, B4 twice a layer a step (forward and remat recompute),
+                the last loss below the first
+  train step profile, qwen3-0.6b  2 steps of the same at full width under
+                torch.profiler after a warm one: device kernel time a step,
+                kernels a step, idle share, B4's time, the largest kernels
+  train, tinyllama-1.1b full width   the same at 22 layers, d 2048, D 64,
+                3 steps
+  train step, card vs cpu, 2 layers   qwen3-0.6b at full width cut to 2
+                layers: the loss and every gradient on the card against the
+                CPU's plain path, within the bf16 bounds argued beside them
 
 Then one JSON line {"kernels": [...]} (``launches_libsvm``: each kernel's
 launches summed over the LIBSVM phases; ``launches_shards`` over the two
@@ -303,7 +344,9 @@ shard phases; ``launches_trace`` over the traced fit,
 over the cached one, ``launches_task_farm`` over the task-farm phases,
 ``launches_task_farm_workers`` (B2) and ``launches_stage1_workers`` (B1, B3)
 a worker of the two-worker runs, ``launches_serving`` (B4) over the serving
-phases' prefill steps) and, last, the
+phases' prefill steps, ``launches_table2`` (B1, B2; E1's ``launches``) over
+the Table 2 fits, ``launches_train`` (B4) over the training runs) and,
+last, the
 {"ok": true, ...} line.
 """
 from __future__ import annotations
@@ -375,6 +418,13 @@ SERVE_REL_STEP = 2.0 ** -7      # one bf16 step of a value, relative (serve_logi
 LIBRARY_TOL = 3e-2               # SDPA rounds p to bf16: test_flash_bf16's tolerance
 FEATURE_ATOL = 0.05              # bf16 end to end, as tests/test_torch_train_svm.py
 FEATURE_MEAN_ATOL = 0.005
+# Table 2 (baselines/) and training (launch/train.py): the held tolerances
+TABLE2_EXACT_MARGIN = 0.04       # LPD-SVM's test error against exact's
+                                 # (tests/test_svm_api.py test_close_to_exact_solver)
+E1_HELD_EPOCHS = 3
+BF16_HALF_STEP = 2.0 ** -8       # one rounding to bf16, relative
+GRAD_FP32_DIFF = 1e-3            # of the largest element: two fp32 computations of one
+                                 # gradient (dS = P (dP - rowsum P dP) cancels)
 
 
 @contextlib.contextmanager
@@ -776,6 +826,433 @@ def serve_phases(dev, smi: str) -> dict:
     return found
 
 
+def table2_phases(dev, smi: str) -> dict:
+    """The paper's Table 2 comparators (baselines/) on the card beside
+    LPD-SVM: kernel E1 against its plain version, then a binary and a
+    multiclass problem; returns E1's numbers and the launches of B1, B2 and
+    E1 over the Table 2 fits."""
+    import numpy as np
+    import torch
+    from repro_torch import LPDSVM, KernelParams, median_gamma
+    from repro_torch.baselines import ExactDualSVM, LLSVMStyle, PrimalSGDSVM
+    from repro_torch.core.dual_solver import primal_objective
+    from repro_torch.data import make_checker, make_multiclass, train_test_split
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.exact import (exact_epoch_kernel, exact_epoch_plain,
+                                           staged_limit)
+    from repro_torch.kernels.gram import gram_kernel
+    from repro_torch.kernels.smo import smo_epoch_kernel
+
+    counted = {"gram": gram_kernel, "smo_epoch": smo_epoch_kernel,
+               "exact_epoch": exact_epoch_kernel}
+    found = {"launches": {k: 0 for k in counted}}
+
+    def run(label, name, solver, data, **fit_kw):
+        """fit and predict one solver with the counts reset just before and
+        read just after; returns (test error, launches)."""
+        xtr, ytr, xte, yte = data
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        solver.fit(xtr, ytr, **fit_kw)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        err = solver.error(xte, yte)
+        t_pred = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counted.items()}
+        for k, v in got.items():
+            found["launches"][k] += v
+        if isinstance(solver, LPDSVM):
+            epochs = f"{int(solver.stats.epochs.max())} (largest of {solver.stats.n_tasks} tasks)"
+        elif isinstance(solver, ExactDualSVM):
+            epochs = (f"{max(solver.epochs_)} (largest of {len(solver.epochs_)} pairs, "
+                      f"{sum(solver.epochs_)} in all)")
+        elif isinstance(solver, LLSVMStyle):
+            epochs = (f"{solver.epochs_per_chunk} a chunk x "
+                      f"{-(-len(xtr) // solver.chunk_size)} chunks")
+        else:
+            epochs = f"{solver.steps} steps of {solver.batch}"
+        print(f"table2 {label} {name}: train {t_fit:.3f} s, predict {t_pred:.3f} s, "
+              f"test error {err:.4f}, epochs {epochs}, launches B1 {got['gram']} B2 "
+              f"{got['smo_epoch']} E1 {got['exact_epoch']} [{smi}]")
+        return err, got
+
+    def pm(y):
+        return torch.as_tensor(np.where(y == 0, 1.0, -1.0), dtype=torch.float32, device=dev)
+
+    x, y = make_checker(20000, cells=3, seed=1)
+    binary = train_test_split(x, y, 0.3, seed=2)
+    kp_bin, C_bin, budget = KernelParams("rbf", gamma=8.0), 16.0, 1024
+
+    with phase("E1 vs plain"):
+        # the binary problem's Q from B1, as ExactDualSVM builds it: E1 and
+        # its plain version (the reference's step in torch ops, on the card)
+        # from alpha 0 for E1_HELD_EPOCHS epochs, equal value for value
+        xtr = torch.as_tensor(binary[0], device=dev)
+        n = xtr.shape[0]
+        yb = pm(binary[1])
+        Q = ops.gram(xtr, xtr, kp_bin).mul_(yb[:, None]).mul_(yb[None, :])
+        qd = torch.diagonal(Q).clamp(min=1e-12).contiguous()
+        a_k = torch.zeros(n, device=dev)
+        g_k = torch.ones(n, device=dev)
+        a_p, g_p = a_k.clone(), g_k.clone()
+        limit = staged_limit()
+        print(f"E1: n {n}, Q {Q.numel() * 4} B; grad, alpha, q_diag in shared memory up "
+              f"to n {limit}")
+
+        def timed(fn):
+            """fn's CUDA-event time (one call alone) and its result"""
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end), out
+        e1_err = 0.0
+        for e in range(E1_HELD_EPOCHS):
+            e1_ms, (vk, mk) = timed(lambda: exact_epoch_kernel(Q, qd, C_bin, a_k, g_k))
+            e1_plain, (vp, mp) = timed(lambda: exact_epoch_plain(Q, qd, C_bin, a_p, g_p))
+            moved = int(mk)
+            same = (torch.equal(a_k, a_p) and torch.equal(g_k, g_p) and torch.equal(vk, vp)
+                    and moved == int(mp))
+            e1_err = max(e1_err, (a_k - a_p).abs().max().item(),
+                         (g_k - g_p).abs().max().item())
+            print(f"E1 epoch {e + 1}: viol {float(vk):.6e}, {moved} of {n} steps moved "
+                  f"alpha; alpha, grad, viol and moved equal to the plain version's: {same}; "
+                  f"E1 {e1_ms:.4f} ms, plain {e1_plain:.1f} ms")
+            check(same, f"E1 differs from its plain version at epoch {e + 1}")
+        # the bytes the last epoch needs: a row of Q a moving step, q_diag,
+        # alpha and grad read, alpha and grad written
+        e1_bound, e1_by = bound_ms(0.0, 4.0 * (moved * n + 5 * n))
+        # an epoch of still steps only (alpha 0 and C 0: every delta is 0)
+        still_ms = cuda_ms(lambda: exact_epoch_kernel(Q, qd, 0.0, torch.zeros_like(a_k),
+                                                      g_k.clone()), 3)
+        still_ns = 1e6 * still_ms / n
+        moving_ns = 1e6 * (e1_ms - still_ms * (n - moved) / n) / moved
+        print(f"E1 epoch {E1_HELD_EPOCHS} (n {n}, {moved} moving steps): {e1_ms:.4f} ms "
+              f"({1e6 * e1_ms / n:.1f} ns a step), plain {e1_plain:.1f} ms, bound "
+              f"{e1_bound:.4f} ms by {e1_by} (the rows it reads at 3.35 TB/s); all of Q "
+              f"once {4.0 * n * n / PEAK_HBM_BYTES * 1e3:.4f} ms; an epoch of still "
+              f"steps {still_ms:.4f} ms ({still_ns:.1f} ns a step), so a moving step "
+              f"{moving_ns:.1f} ns [{smi}]")
+        found["e1"] = {"ms": e1_ms, "plain_ms": e1_plain, "bound_ms": e1_bound,
+                       "bound_by": e1_by, "max_abs_err": e1_err, "n": n, "moved": moved,
+                       "ns_a_step": 1e6 * e1_ms / n, "ns_still_step": still_ns,
+                       "ns_moving_step": moving_ns}
+        del Q, qd, a_k, g_k, a_p, g_p, xtr
+        # a ragged n, and one past the shared-memory limit (grad in global memory)
+        for n_r, epochs in ((1000, 3), (limit + 1, 1)):
+            g = torch.Generator(device=dev).manual_seed(n_r)
+            xr = torch.randn(n_r, 8, generator=g, device=dev)
+            yr = torch.where(torch.rand(n_r, generator=g, device=dev) < 0.5, 1.0, -1.0)
+            Qr = ops.gram(xr, xr, KernelParams("rbf", gamma=1.0 / 16)).mul_(
+                yr[:, None]).mul_(yr[None, :])
+            qr = torch.diagonal(Qr).clamp(min=1e-12).contiguous()
+            ak, gk = torch.zeros(n_r, device=dev), torch.ones(n_r, device=dev)
+            ap, gp = ak.clone(), gk.clone()
+            for _ in range(epochs):
+                vk, mk = exact_epoch_kernel(Qr, qr, 1.0, ak, gk)
+                vp, mp = exact_epoch_plain(Qr, qr, 1.0, ap, gp)
+            same = (torch.equal(ak, ap) and torch.equal(gk, gp) and torch.equal(vk, vp)
+                    and int(mk) == int(mp))
+            print(f"E1 n {n_r} ({'shared' if n_r <= limit else 'global'} memory), "
+                  f"{epochs} epoch(s): equal to the plain version's: {same}")
+            check(same, f"E1 differs from its plain version at n {n_r}")
+            del Qr, qr
+        torch.cuda.empty_cache()
+
+    with phase("Table 2, binary"):
+        xtr, ytr, xte, yte = binary
+        print(f"checker, 3 cells: {len(xtr)} training and {len(xte)} test rows, RBF gamma "
+              f"8, C 16, budget {budget}")
+        lpd = LPDSVM(kp_bin, C=C_bin, budget=budget, tol=1e-2)
+        err_lpd, got = run("binary", "LPD-SVM", lpd, binary)
+        check(got["gram"] >= 3 and got["smo_epoch"] > 0 and got["exact_epoch"] == 0,
+              "LPD-SVM did not run through B1 and B2")
+        ll = LLSVMStyle(kp_bin, C=C_bin, budget=budget, chunk_size=2000)
+        err_ll, got = run("binary", "LLSVM", ll, binary)
+        chunks = -(-len(xtr) // ll.chunk_size)
+        check(got["smo_epoch"] == chunks * ll.epochs_per_chunk and got["gram"] >= 3,
+              "LLSVM's chunk epochs did not launch B2 once each")
+        sgd = PrimalSGDSVM(kp_bin, C=C_bin, budget=budget, steps=3000)
+        err_sgd, got = run("binary", "primal SGD", sgd, binary, factor=lpd.factor)
+        check(got["smo_epoch"] == 0 and got["exact_epoch"] == 0 and got["gram"] >= 1,
+              "primal SGD launched an SMO kernel or no B1")
+        exact = ExactDualSVM(kp_bin, C=C_bin, tol=1e-2)
+        base = peak_start()
+        err_ex, got = run("binary", "exact", exact, binary)
+        peak = peak_since(base)
+        check(got["exact_epoch"] == sum(exact.epochs_) > 0 and got["gram"] == 2
+              and got["smo_epoch"] == 0,
+              "ExactDualSVM did not launch E1 once an epoch, or B1 for K and decisions")
+        print(f"exact: {exact.epochs_[0]} epochs (max_epochs {exact.max_epochs}), final "
+              f"viol {exact.violations_[0]:.3e} (tol {exact.tol}); LPD-SVM's largest "
+              f"violation {float(lpd.stats.violations.max()):.3e} after "
+              f"{int(lpd.stats.epochs.max())} epochs, "
+              f"peak device memory {peak} B (Q {4 * len(xtr) ** 2} B)")
+        tr_lpd, tr_ll = lpd.error(xtr, ytr), ll.error(xtr, ytr)
+        n = len(xtr)
+        idx = torch.arange(n, dtype=torch.int32, device=dev)
+        c = torch.full((n,), C_bin, device=dev)
+        p_lpd = float(primal_objective(lpd.factor.G, idx, pm(ytr), c, lpd.W_[0])[0])
+        p_sgd = float(primal_objective(lpd.factor.G, idx, pm(ytr), c, sgd.w_)[0])
+        print(f"test error: LPD {err_lpd:.4f}, exact {err_ex:.4f} (LPD within "
+              f"{TABLE2_EXACT_MARGIN}: {err_lpd <= err_ex + TABLE2_EXACT_MARGIN}), LLSVM "
+              f"{err_ll:.4f}, SGD {err_sgd:.4f}; training error LPD {tr_lpd:.4f}, LLSVM "
+              f"{tr_ll:.4f}; primal objective on LPD's G: LPD {p_lpd:.6e}, SGD {p_sgd:.6e}")
+        check(err_lpd <= err_ex + TABLE2_EXACT_MARGIN,
+              "LPD-SVM's test error is not within 0.04 of the exact solver's")
+        check(tr_lpd <= tr_ll + 1e-9, "LPD-SVM's training error is worse than LLSVM's")
+        check(p_lpd <= p_sgd + 1e-3 * abs(p_sgd),
+              "LPD-SVM's primal objective is worse than primal SGD's")
+        found["binary"] = {"lpd": err_lpd, "exact": err_ex, "llsvm": err_ll, "sgd": err_sgd}
+        del lpd, ll, sgd, exact
+        torch.cuda.empty_cache()
+
+    with phase("Table 2, multiclass"):
+        x, y = make_multiclass(14000, p=784, n_classes=10, sep=0.07, within=0.06, seed=0)
+        multi = train_test_split(x, y, 0.3, seed=2)
+        kp = KernelParams("rbf", gamma=median_gamma(multi[0]))
+        print(f"the main path's generator: {len(multi[0])} training and {len(multi[2])} "
+              f"test rows, p 784, 10 classes, RBF gamma {kp.gamma:.6e}, C 1, budget {budget}")
+        lpd = LPDSVM(kp, C=1.0, budget=budget, tol=1e-2)
+        err_lpd, got = run("multiclass", "LPD-SVM", lpd, multi)
+        check(got["gram"] >= 3 and got["smo_epoch"] > 0, "LPD-SVM did not run B1 and B2")
+        exact = ExactDualSVM(kp, C=1.0, tol=1e-2)
+        err_ex, got = run("multiclass", "exact", exact, multi)
+        check(got["exact_epoch"] == sum(exact.epochs_) > 0 and got["gram"] == 2 * 45,
+              "ExactDualSVM did not launch E1 once an epoch, or B1 twice a pair")
+        check(max(exact.violations_) < 1e-2, "a pair of ExactDualSVM stopped above tol")
+        print(f"test error: LPD {err_lpd:.4f}, exact {err_ex:.4f}")
+        check(err_lpd <= err_ex + TABLE2_EXACT_MARGIN,
+              "LPD-SVM's test error is not within 0.04 of the exact solver's")
+        found["multiclass"] = {"lpd": err_lpd, "exact": err_ex}
+        del lpd, exact
+        torch.cuda.empty_cache()
+    print(f"launches over the Table 2 fits {found['launches']}")
+    return found
+
+
+def train_phases(dev, smi: str) -> dict:
+    """The LM training path on the card (launch/train.py, make_train_step,
+    B4's autograd Function); returns B4's launches and the measured
+    numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention_grad_plain,
+                                                     flash_attention_kernel,
+                                                     flash_attention_plain)
+    from repro_torch.launch import train as training
+    from repro_torch.models import init_model
+    from repro_torch.models import model as M
+
+    found = {"b4_launches": {}}
+
+    with phase("B4 gradient vs plain autograd"):
+        # the Function's forward is B4, its backward the unrounded attention
+        # recomputed block by block; against autograd through the plain
+        # version in fp32 (p not rounded) on the same bf16 values.  Bound:
+        # the Function's gradient is its fp32 gradient (held equal to
+        # flash_attention_grad_plain on the fp32 values) rounded once to
+        # bf16, half a step: at most 2^-8 of the tensor's largest element;
+        # plus the difference of the two fp32 computations of the same
+        # gradient (the analytic block backward against autograd's chain
+        # through the online softmax), measured and held under
+        # GRAD_FP32_DIFF of the largest element
+        worst = 0.0
+        for B, S, Hq, Hkv, D in ((32, 256, 16, 8, 128), (8, 256, 32, 4, 64)):
+            g = torch.Generator(device=dev).manual_seed(B + D)
+            q, k, v = (torch.randn(B, S, h, D, generator=g, device=dev).to(torch.bfloat16)
+                       for h in (Hq, Hkv, Hkv))
+            dout = torch.randn(B, S, Hq, D, generator=g, device=dev).to(torch.bfloat16)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            before = flash_attention_kernel.launches
+            out = ops.flash_attention(*leaves, causal=True)
+            got = torch.autograd.grad(out, leaves, dout)
+            check(flash_attention_kernel.launches == before + 1,
+                  "the Function's forward did not launch B4 once")
+            ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+            ref = flash_attention_plain(*ref_leaves, causal=True)
+            want = torch.autograd.grad(ref, ref_leaves, dout.float())
+            # the Function's own fp32 gradient, before its one rounding
+            f32 = flash_attention_grad_plain(q.float(), k.float(), v.float(), dout.float())
+            line = []
+            for name, a, f, b in zip("qkv", got, f32, want):
+                scale = b.abs().max()
+                delta = ((f - b).abs().max() / scale).item()
+                rel = ((a.float() - b).abs().max() / scale).item()
+                lim = BF16_HALF_STEP + delta * (1 + BF16_HALF_STEP)
+                worst = max(worst, rel / lim)
+                line.append(f"d{name} max rel err {rel:.3e} (fp32 difference {delta:.2e}, "
+                            f"{rel / lim:.3f} of the bound)")
+                check(torch.equal(a, f.to(torch.bfloat16)),
+                      f"B4's gradient d{name} is not its fp32 gradient rounded once")
+                check(delta <= GRAD_FP32_DIFF and rel <= lim,
+                      f"B4's gradient d{name} strays from autograd's at D {D}")
+            bwd_ms = cuda_ms(lambda: flash_attention_grad_plain(q, k, v, dout), 3)
+            fwd_ms = cuda_ms(lambda: flash_attention_kernel(q, k, v), 10)
+            found.setdefault("grad_ms", {})[f"D{D}"] = {"forward_ms": fwd_ms,
+                                                       "backward_plain_ms": bwd_ms}
+            print(f"B4 Function, B {B} S {S} {Hq}/{Hkv} heads of {D}: {'; '.join(line)} "
+                  f"(relative to the largest |ref|; bound 2^-8 + the fp32 difference); "
+                  f"forward (B4) "
+                  f"{fwd_ms:.4f} ms, backward (plain recompute) {bwd_ms:.4f} ms [{smi}]")
+            del q, k, v, dout, leaves, out, got, ref_leaves, ref, want
+        found["grad_worst"] = worst
+        torch.cuda.empty_cache()
+
+    def run(arch, steps, batch, seq):
+        cfg = get_config(arch)
+        n_params = cfg.param_count()
+        V = cfg.vocab_size
+        print(f"{arch}: {cfg.n_layers} layers (no cut), d {cfg.d_model}, heads "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}; memory reckoned: "
+              f"parameters {2 * n_params / 1e9:.2f} GB bf16, gradients "
+              f"{2 * n_params / 1e9:.2f} GB, AdamW m and v {8 * n_params / 1e9:.2f} GB "
+              f"fp32, logits {4 * batch * seq * V / 1e9:.2f} GB fp32")
+        base = peak_start()
+        flash_attention_kernel.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            losses = training.train(arch, reduced=False, steps=steps, batch=batch, seq=seq,
+                                    log_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = peak_since(base)
+        b4 = flash_attention_kernel.launches
+        print(out.getvalue(), end="")
+        # train prints its tok/s since the loop began after every step: the
+        # seconds to the end of step s are (s + 1) B S / tok/s
+        tok_s = [float(t.replace(",", "")) for t in re.findall(r"tok/s ([\d,]+)",
+                                                               out.getvalue())]
+        ends = [(i + 1) * batch * seq / t for i, t in enumerate(tok_s)]
+        first_ms = 1e3 * ends[0]
+        step_ms = 1e3 * (ends[-1] - ends[0]) / (steps - 1)
+        print(f"train {arch} B {batch} S {seq}, {steps} steps: first loss {losses[0]:.4f}, "
+              f"last {losses[-1]:.4f}; {step_ms:.3f} ms a step after the first "
+              f"({1e3 * batch * seq / step_ms:.0f} tok/s; the first {first_ms:.1f} ms), "
+              f"wall {wall:.3f} s with the model's init; peak device memory {peak} B; B4 "
+              f"{b4} launches ({2 * cfg.n_layers} a step expected: the forward and the "
+              f"recompute) [{smi}]")
+        check(len(losses) == steps and all(np.isfinite(losses)), f"{arch}: a loss not finite")
+        check(b4 == 2 * cfg.n_layers * steps,
+              f"{arch}: B4 did not run twice a layer a step (forward and recompute)")
+        found["b4_launches"][arch] = b4
+        torch.cuda.empty_cache()
+        return losses, step_ms, first_ms, peak
+
+    with phase("train, qwen3-0.6b full width"):
+        losses, step_ms, first_ms, peak = run("qwen3-0.6b", 20, 8, 256)
+        check(losses[-1] < losses[0], "qwen3-0.6b: the last loss is not below the first")
+        found["qwen3"] = {"first": losses[0], "last": losses[-1], "step_ms": step_ms,
+                          "first_step_ms": first_ms, "peak": peak}
+
+    with phase("train step profile, qwen3-0.6b"):
+        # where a full-width step's time goes: the profiler's kernel rows
+        # over 2 steps after a warm one, against the steps' wall
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.optim import cosine_schedule, get_optimizer
+        cfg = get_config("qwen3-0.6b")
+        m = init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+        opt = get_optimizer("adamw", lr=3e-4, schedule=cosine_schedule(3e-4, 2, 20))
+        state = opt.init(dict(m.named_parameters()))
+        step = make_train_step(cfg, opt)
+        it = synthetic_token_batches(cfg.vocab_size, 8, 256, seed=0)
+        batches = [{k: torch.as_tensor(a).to(dev) for k, a in zip(("tokens", "targets"),
+                                                                  next(it))}
+                   for _ in range(3)]
+        m, state, _ = step(m, state, batches[0])
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            for b in batches[1:]:
+                m, state, _ = step(m, state, b)
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / 2
+        rows = [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+
+        def dev_ms(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0)) / 1e3 / 2
+        busy = sum(dev_ms(e) for e in rows)
+        if busy > 0:
+            top = sorted(rows, key=dev_ms, reverse=True)[:6]
+            b4 = sum(dev_ms(e) for e in rows if "flash" in e.key)
+            print(f"qwen3-0.6b train step (B 8, S 256), profiled: {wall_ms:.3f} ms of wall "
+                  f"(profiler on), {busy:.3f} ms of device kernel time over "
+                  f"{sum(e.count for e in rows) / 2:.0f} kernels a step: device idle share "
+                  f"{1 - busy / wall_ms:.3f}; B4 {b4:.3f} ms; the largest: "
+                  + "; ".join(f"{e.key[:48]} {dev_ms(e):.3f} ms" for e in top) + f" [{smi}]")
+            found["qwen3_profile"] = {"wall_ms": wall_ms, "device_ms": busy, "b4_ms": b4,
+                                      "kernels": sum(e.count for e in rows) / 2}
+        else:
+            print("train step's device time: not measured (the profiler saw no device time)")
+        del m, state, step, batches, prof
+        torch.cuda.empty_cache()
+
+    with phase("train, tinyllama-1.1b full width"):
+        losses, step_ms, first_ms, peak = run("tinyllama-1.1b", 3, 8, 256)
+        found["tinyllama"] = {"first": losses[0], "last": losses[-1], "step_ms": step_ms,
+                              "first_step_ms": first_ms, "peak": peak}
+
+    with phase("train step, card vs cpu, 2 layers"):
+        # qwen3-0.6b at full width cut to 2 layers: one step's loss and every
+        # gradient on the card (B4 forward, bf16 products on the tensor
+        # cores) against the CPU's (plain versions).  Bounds: each of a
+        # layer's two sublayer outputs is rounded to bf16 on both sides, and
+        # the difference can flip that rounding, one bf16 step (2^-7);
+        # the 2L flips of the forward add in quadrature (serve_logit_tol) and
+        # the loss moves by at most twice its logits' error; the backward
+        # passes the same 2L sublayers and rounds each gradient again, so a
+        # gradient moves by sqrt(4L) steps of its tensor's largest element
+        cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2)
+        m = init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        cpu_m = init_model(None, cfg, device="cpu")
+        cpu_m.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+        t, y = next(synthetic_token_batches(cfg.vocab_size, 2, 64, seed=0))
+        res = {}
+        for where, model in (("card", m), ("cpu", cpu_m)):
+            model.requires_grad_(True)
+            d = model.embed.device
+            t0 = time.perf_counter()
+            logits, aux = M.forward(model, cfg, {"tokens": torch.as_tensor(t).to(d)},
+                                    remat=True)
+            loss = M.lm_loss(logits, torch.as_tensor(y).to(d))
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            res[where] = (float(loss.detach()), [g.float().cpu() for g in grads],
+                          logits.float().cpu(), time.perf_counter() - t0)
+            del logits, grads
+        names = [n for n, _ in m.named_parameters()]
+        loss_tol = 2 * serve_logit_tol(cfg.n_layers, res["cpu"][2])
+        d_loss = abs(res["card"][0] - res["cpu"][0])
+        grad_bound = math.sqrt(4 * cfg.n_layers) * SERVE_REL_STEP
+        ratios = {}
+        for name, a, b in zip(names, res["card"][1], res["cpu"][1]):
+            ratios[name] = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+        worst = max(ratios, key=ratios.get)
+        print(f"2-layer qwen3-0.6b (d 1024, vocab 151936), B 2 S 64: loss card "
+              f"{res['card'][0]:.6f}, cpu {res['cpu'][0]:.6f}, |diff| {d_loss:.3e} (bound "
+              f"{loss_tol:.3e}, {d_loss / loss_tol:.3f} of it); gradients: the largest "
+              f"relative error {ratios[worst]:.3e} ({worst}; bound sqrt(4L) 2^-7 = "
+              f"{grad_bound:.4f}, {ratios[worst] / grad_bound:.3f} of it); card "
+              f"{res['card'][3]:.3f} s, cpu {res['cpu'][3]:.3f} s")
+        check(d_loss <= loss_tol, "the card's loss strays from the CPU's")
+        check(ratios[worst] <= grad_bound, "a gradient on the card strays from the CPU's")
+        found["card_vs_cpu"] = {"loss": d_loss / loss_tol, "grad": ratios[worst] / grad_bound}
+        del m, cpu_m, res
+        torch.cuda.empty_cache()
+    return found
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -883,6 +1360,17 @@ def main() -> int:
         check(len(b2_build) > 0 and all(r.get("spills") is not None for r in b2_build.values()),
               "B2's ptxas report is missing from the build log")
         check(all(r["spills"] == 0 for r in b2_build.values()), "B2 spills registers")
+        e1_build = ptxas_entries(logs["exact_epoch"], "exact_epoch")
+        for name, r in sorted(e1_build.items()):
+            cols = re.search(r"exact_epochILi(\d+)E", name).group(1)
+            where = (f"{cols} row values a thread in registers, grad in shared memory"
+                     if cols != "0" else "grad in global memory")
+            print(f"E1, {where}: {r.get('registers')} registers, {r.get('spills')} bytes "
+                  "spilled")
+        check(len(e1_build) == 6 and all(r.get("spills") is not None
+                                         for r in e1_build.values()),
+              "E1's ptxas report is missing from the build log")
+        check(all(r["spills"] == 0 for r in e1_build.values()), "E1 spills registers")
 
     # ------------------------------------------------------ kernel B4 alone
     fp32_p_diff = [0.0]    # bf16: the kernel against the plain version with p in fp32
@@ -3908,6 +4396,12 @@ def main() -> int:
     check(serve_counts["gram"] == serve_counts["gram_q8"] == serve_counts["smo_epoch"] == 0,
           "the serving path launched an SVM kernel")
 
+    # the paper's Table 2 comparators (B1, B2, E1) and the LM training path
+    # (B4 and its gradient); each fit and run resets the counts it reads
+    table2 = table2_phases(dev, smi.splitlines()[0])
+    trained = train_phases(dev, smi.splitlines()[0])
+    e1 = table2["e1"]
+
     kernels = [
         {"name": "gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram.cu",
@@ -3921,7 +4415,8 @@ def main() -> int:
          "launches_libsvm": lib_launches["gram"], "launches_trace": t_launches["gram"],
          "launches_shards": shard_launches["gram"],
          "launches_task_farm": farm_counts["gram"],
-         "launches_stage1_workers": s1_workers["gram"]},
+         "launches_stage1_workers": s1_workers["gram"],
+         "launches_table2": table2["launches"]["gram"]},
         {"name": "smo_epoch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/smo.cu",
          "replaces": "src/repro/kernels/smo.py:100",
@@ -3936,7 +4431,8 @@ def main() -> int:
          "launches_block_cache": cache_launches,
          "launches_shards": shard_launches["smo_epoch"],
          "launches_task_farm": farm_counts["smo_epoch"],
-         "launches_task_farm_workers": farm_workers["streamed"]},
+         "launches_task_farm_workers": farm_workers["streamed"],
+         "launches_table2": table2["launches"]["smo_epoch"]},
         {"name": "gram_q8", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram_q8.cu",
          "replaces": "src/repro/kernels/gram.py:157",
@@ -3957,10 +4453,24 @@ def main() -> int:
          "launches_libsvm": lib_launches["flash_attention"],
          "launches_shards": shard_launches["flash_attention"],
          "launches_serving": sum(served["b4_launches"].values()),
-         "launches_serving_by_arch": served["b4_launches"]},
+         "launches_serving_by_arch": served["b4_launches"],
+         "launches_train": sum(trained["b4_launches"].values()),
+         "launches_train_by_arch": trained["b4_launches"],
+         "gradient_of_bound": trained["grad_worst"], "gradient_ms": trained["grad_ms"]},
+        {"name": "exact_epoch", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/exact_epoch.cu",
+         "replaces": "src/repro/baselines/exact_smo.py:29",
+         "launches": table2["launches"]["exact_epoch"], "max_abs_err": e1["max_abs_err"],
+         "ms": e1["ms"], "plain_ms": e1["plain_ms"], "bound_ms": e1["bound_ms"],
+         "bound_by": e1["bound_by"], "library_ms": None, "n": e1["n"],
+         "moving_steps": e1["moved"], "ns_still_step": e1["ns_still_step"],
+         "ns_moving_step": e1["ns_moving_step"]},
     ]
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main paths was launched no time")
+    check(all(table2["launches"][k] > 0 for k in ("gram", "smo_epoch", "exact_epoch"))
+          and min(trained["b4_launches"].values()) > 0,
+          "a kernel of the Table 2 fits or of training was launched no time")
     check(all(lib_launches[k] > 0 for k in ("gram", "gram_q8", "smo_epoch")),
           "a kernel of the LIBSVM route was launched no time")
     check(all(shard_launches[k] > 0 for k in ("gram", "gram_q8", "smo_epoch")),

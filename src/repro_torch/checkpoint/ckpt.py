@@ -5,6 +5,8 @@ Layout: ``<dir>/step_<n>.npz`` (``np.savez``, no pickle), one array per leaf
 under the reference's key: the leaf's path, dict keys and sequence indices
 joined by "/" (dict keys in sorted order, as JAX flattens them).  Restoring
 onto a template checks that every key exists and that its shape matches.
+numpy has no bfloat16: a bf16 tensor is stored as float32 (exact) and
+restored in its template's dtype.
 Writes are atomic: a temporary file in the directory, then ``os.replace``.
 """
 from __future__ import annotations
@@ -30,6 +32,8 @@ def _children(tree: Any):
 
 def _as_array(leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.to(torch.float32)
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
@@ -81,7 +85,8 @@ def read_checkpoint(directory: str, step: int) -> Dict[str, np.ndarray]:
 
 def load_checkpoint(directory: str, step: int, template: Any) -> Any:
     """``template``'s structure with the stored leaves: a tensor leaf comes
-    back as a tensor on its device, any other leaf as a numpy array."""
+    back as a tensor of its dtype on its device, any other leaf as a numpy
+    array."""
     payload = read_checkpoint(directory, step)
 
     def build(tree: Any, prefix: str) -> Any:
@@ -99,7 +104,7 @@ def load_checkpoint(directory: str, step: int, template: Any) -> Any:
         if tuple(arr.shape) != tuple(shape):
             raise ValueError(f"shape mismatch for {prefix}: {arr.shape} vs {shape}")
         if isinstance(tree, torch.Tensor):
-            return torch.from_numpy(arr).to(tree.device)
+            return torch.from_numpy(arr).to(device=tree.device, dtype=tree.dtype)
         return arr
 
     return build(template, "")

@@ -12,11 +12,14 @@ so this module needs nothing of the JAX package:
     inputs;
   * ``model_from_reference``: a backbone ``Model`` from the reference's
     ``init_model`` parameter tree, so the port's layers can be held against
-    the reference on identical weights.
+    the reference on identical weights;
+  * ``opt_state_from_reference``: the port's ``OptState`` from the
+    reference optimizer's (its step, and the m / v, factored or momentum
+    trees), so training can continue from the reference's mid-run state.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +31,7 @@ from repro_torch.core.ovo import class_pairs
 from repro_torch.core.streaming import host_buffer
 from repro_torch.core.svm import LPDSVM, resolve_device
 from repro_torch.models.model import Model, _layout
+from repro_torch.optim import OptState
 
 
 def _kernel_params(meta: Mapping) -> KernelParams:
@@ -124,12 +128,15 @@ def reference_leaves(params: Mapping, cfg) -> Dict[str, object]:
         out.update(_leaves(layer, f"layers.{i}."))
     for j, stacked in enumerate(params.get("groups", [])):
         for name, leaf in _leaves(stacked, ""):
-            leaf = np.asarray(leaf)
-            if leaf.shape[0] != n_groups:
+            # a tuple leaf (Adafactor's (row, col) state) stacks each part
+            parts = [np.asarray(a) for a in (leaf if isinstance(leaf, tuple) else (leaf,))]
+            if any(a.shape[0] != n_groups for a in parts):
                 raise ValueError(f"model_from_reference: groups[{j}].{name} stacks "
-                                 f"{leaf.shape[0]} layers, the layout has {n_groups}")
+                                 f"{parts[0].shape[0]} layers, the layout has {n_groups}")
             for k in range(n_groups):
-                out[f"layers.{pro + k * g + j}.{name}"] = leaf[k]
+                got = tuple(a[k] for a in parts)
+                out[f"layers.{pro + k * g + j}.{name}"] = (
+                    got if isinstance(leaf, tuple) else got[0])
     return out
 
 
@@ -157,3 +164,48 @@ def model_from_reference(params: Mapping, cfg, device=None) -> Model:
         with torch.no_grad():
             p.copy_(src.to(p.dtype))
     return model
+
+
+def opt_state_from_reference(opt_state, cfg, device=None,
+                             optimizer: Optional[str] = None) -> OptState:
+    """The port's ``OptState`` (``repro_torch.optim``) from the reference's
+    ``OptState(step, inner)`` (arrays as numpy) of the optimizer named
+    ``optimizer`` (default ``cfg.optimizer``): AdamW's (m, v) trees,
+    Adafactor's tree of (row, col) or full second moments, SGD's momentum
+    tree, each as fp32 tensors by port parameter name on ``device``
+    (None: the card)."""
+    device = resolve_device(device)
+    name = optimizer or cfg.optimizer
+
+    def named(tree):
+        out = {}
+        for key, leaf in reference_leaves(tree, cfg).items():
+            parts = tuple(_put(a, device) for a in
+                          (leaf if isinstance(leaf, tuple) else (leaf,)))
+            out[key] = parts if isinstance(leaf, tuple) else parts[0]
+        return out
+
+    step, inner = int(np.asarray(opt_state[0])), opt_state[1]
+    if name == "adamw":
+        return OptState(step, (named(inner[0]), named(inner[1])))
+    if name == "adafactor":
+        inner = dict(inner, groups=[{k: _unfactor_stacked_vectors(v) for k, v in
+                                     layer.items()} for layer in inner.get("groups", [])])
+        return OptState(step, named(inner))
+    if name == "sgd":
+        return OptState(step, named(inner))
+    raise ValueError(f"unknown optimizer {name!r}")
+
+
+def _unfactor_stacked_vectors(tree, eps: float = 1e-30):
+    """The reference's Adafactor factors a stack of per-layer vectors (a
+    norm's gain, a bias: (n_groups, d)) as a matrix, into a row statistic
+    (n_groups,) across the layers and a column one (d,); the port keeps each
+    layer's vector's full second moment.  Each layer's is the one the
+    reference's update divides by, squared: vr[k] vc / max(mean(vr), eps)."""
+    if isinstance(tree, Mapping):
+        return {k: _unfactor_stacked_vectors(v, eps) for k, v in tree.items()}
+    if isinstance(tree, tuple) and np.asarray(tree[0]).ndim == 1:
+        vr, vc = (np.asarray(a, np.float32) for a in tree)
+        return vr[:, None] * vc[None, :] / np.maximum(vr.mean(), np.float32(eps))
+    return tree

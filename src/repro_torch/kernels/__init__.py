@@ -6,11 +6,16 @@ PyTorch version:
   * smo.py  + csrc/smo.cu:  stage-2 SMO epoch over all tasks, whole G or
     one streamed row block (kernel B2);
   * flash_attention.py + csrc/flash_attention.cu: the backbone's attention
-    core, online softmax over grouped-query heads (kernel B4).
+    core, online softmax over grouped-query heads (kernel B4), with the
+    autograd Function that training goes through;
+  * exact.py + csrc/exact_epoch.cu: one epoch of the exact dual solver over
+    the full Q, the Table 2 comparator (kernel E1; it replaces a jit loop,
+    not a TPU kernel).
 
 ops.py holds the public wrappers that dispatch by device; build.py compiles
 csrc/ with nvcc at first use.
 """
-from repro_torch.kernels.ops import flash_attention, gram, gram_q8, smo_epoch
+from repro_torch.kernels.ops import (exact_epoch, flash_attention, gram, gram_q8,
+                                     smo_epoch)
 
-__all__ = ["flash_attention", "gram", "gram_q8", "smo_epoch"]
+__all__ = ["exact_epoch", "flash_attention", "gram", "gram_q8", "smo_epoch"]

@@ -21,6 +21,14 @@ The rounded p depends on the running max and so on the kv tile: given
 ``kv_tile=bf16_kv_tile()`` the plain version rounds p as the kernel does.
 ``flash_attention_rounding_slack`` bounds what a p rounded the other way
 (logits that differ in the last bits) can move in the output.
+
+``FlashAttention`` is the autograd Function that training goes through:
+its forward is B4 on CUDA tensors and the plain version on the CPU; its
+backward, ``flash_attention_grad_plain``, recomputes ``_flash``'s function
+(fp32, p not rounded) one block of query rows at a time and differentiates
+it, as the reference's remat does, so no (B, H, S, S) tensor outlives one
+block.  The TPU kernel has no gradient either: the reference trains
+through ``_flash`` (``src/repro/models/attention.py:90``).
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 KV_TILE = 1024                      # the plain version's kv tile (_flash's kv chunk)
+Q_BLOCK = 512                       # query rows a block of the backward (_flash's q chunk)
 HEAD_DIMS = (64, 128)               # the kernel's head widths
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_YZ = 65535                 # Hq and B ride gridDim.y and gridDim.z
@@ -172,3 +181,61 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention_kernel.launches = 0
+
+
+def flash_attention_grad_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               dout: torch.Tensor, *, causal: bool = True,
+                               q_block: int = Q_BLOCK):
+    """(dq, dk, dv) of ``_flash``'s function (fp32 softmax, p not rounded)
+    at q, k, v for the output gradient ``dout`` (B, S, Hq, D), each in its
+    input's dtype.  The scores are recomputed ``q_block`` query rows at a
+    time; per block P = softmax(S), dv += P^T dO, dP = dO V^T,
+    dS = P (dP - rowsum(P dP)), dq = dS K / sqrt(D), dk += dS^T Q / sqrt(D),
+    the kv heads summed over the query heads they serve."""
+    B, S, Hq, Hkv, D = _shapes(q, k, v, "flash_attention_grad_plain")
+    G = Hq // Hkv
+    scale = softmax_scale(D)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    dq = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, S, Hkv, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    cols = torch.arange(S, device=q.device)
+    for s0 in range(0, S, q_block):
+        s1 = min(S, s0 + q_block)
+        qb = q[:, s0:s1].to(torch.float32).reshape(B, s1 - s0, Hkv, G, D)
+        dob = dout[:, s0:s1].to(torch.float32).reshape(B, s1 - s0, Hkv, G, D)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kf) * scale
+        if causal:
+            s = torch.where(cols[s0:s1, None] >= cols[None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)                         # (B, Hkv, G, L, S)
+        del s
+        dv += torch.einsum("bhgqk,bqhgd->bkhd", p, dob)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dob, vf)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        del p, dp
+        dq[:, s0:s1] = (torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+                        ).reshape(B, s1 - s0, Hq, D)
+        dk += torch.einsum("bhgqk,bqhgd->bkhd", ds, qb) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: B4 (or the plain version, on the CPU)
+    forward, ``flash_attention_grad_plain`` backward from the saved inputs.
+    The forward rounds p to the input type (the TPU kernel's function);
+    the gradient is that of the unrounded attention (``_flash``'s)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_kernel(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_grad_plain(q, k, v, dout, causal=ctx.causal,
+                                                q_block=Q_BLOCK)
+        return dq, dk, dv, None

@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+from repro_torch.kernels.exact import exact_epoch_kernel, exact_epoch_plain
+from repro_torch.kernels.flash_attention import (FlashAttention, flash_attention_kernel,
                                                  flash_attention_plain)
 from repro_torch.kernels.gram import (gram_kernel, gram_plain, gram_q8_kernel,
                                       gram_q8_plain)
@@ -97,11 +98,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     v (B, S, Hkv, D), query head h on kv head h // (Hq // Hkv); returns
     (B, S, Hq, D) in q's dtype (see kernels/flash_attention.py).  Ragged S is
     masked, never padded, causal or not.  A sliding window is not ported:
-    ``window > 0`` raises on every device."""
+    ``window > 0`` raises on every device.  Where an input requires a
+    gradient (and grad mode is on) the call goes through the autograd
+    Function ``FlashAttention``: the same forward, and a backward that
+    recomputes the unrounded attention block by block."""
     if window > 0:
         raise NotImplementedError(
             "flash_attention: sliding-window attention (window > 0) is not "
             "ported to repro_torch; no ported configuration has one")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
     if _on_cpu(q):
         return flash_attention_plain(q, k, v, causal=causal)
     return flash_attention_kernel(q, k, v, causal=causal)
+
+
+def exact_epoch(Q: torch.Tensor, q_diag: torch.Tensor, C: float, alpha: torch.Tensor,
+                grad: torch.Tensor):
+    """One sweep of the exact dual solver's coordinate ascent over the full Q,
+    in place on alpha and grad; returns (viol, moved) as 0-d tensors (see
+    kernels/exact.py)."""
+    if _on_cpu(Q):
+        return exact_epoch_plain(Q, q_diag, C, alpha, grad)
+    return exact_epoch_kernel(Q, q_diag, C, alpha, grad)

@@ -7,10 +7,18 @@ how the reference's ``prologue`` / ``groups`` parameter tree maps onto
 those layers (``convert.model_from_reference``).
 
     init_model(generator, cfg, device=None) -> Model (None: the card)
-    forward(model, cfg, {"tokens": t})  -> (logits (B, S, V), aux_loss)
+    forward(model, cfg, {"tokens": t}, remat=False) -> (logits (B, S, V), aux_loss)
     trunk(model, cfg, tokens)           -> final-normed hidden states (B, S, d)
     init_decode_state(cfg, B, kv_len)   -> a KV cache a layer, in layer order
     decode(model, cfg, tokens, state, pos) -> (logits (B, 1, V), state)
+    lm_loss(logits, targets)            -> mean cross-entropy, fp32
+
+Training (``launch/steps.py`` ``make_train_step``) runs ``forward`` with
+``remat=True``: every layer under ``torch.utils.checkpoint`` (non-reentrant),
+as the reference wraps each layer in ``jax.checkpoint``, so a layer's
+activations are recomputed in the backward and only its input is kept.
+The parameters are built with ``requires_grad=False`` (inference and
+serving); training turns them on with ``model.requires_grad_(True)``.
 
 The decode state is a list with one cache per layer (the reference's
 ``prologue`` / ``groups`` stacking has no counterpart, as for the weights).
@@ -23,6 +31,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.svm import resolve_device
@@ -103,23 +112,37 @@ def init_model(generator: Optional[torch.Generator], cfg: ModelConfig,
     return Model(cfg, generator=generator, dtype=dtype, device=device)
 
 
-def trunk(params: Model, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Embedding, every layer, the final norm: hidden states (B, S, d)."""
+def _layers(params: Model, cfg: ModelConfig, tokens: torch.Tensor, remat: bool
+            ) -> torch.Tensor:
+    """Embedding and every layer: hidden states (B, S, d).  Every ported layer
+    is dense (MoE raises), so each layer's aux loss is 0 and is dropped."""
     x = params.embed[tokens]                           # (B, S, d) gather
     positions = torch.arange(x.shape[1], device=x.device)
     for i, layer in enumerate(params.layers):
-        x, _ = blocks.apply_layer_full(layer, cfg, i, x, positions, causal=True)
-    return rms_norm(x, params.final_ln, cfg.norm_eps)
+        if remat:
+            x, _ = checkpoint(blocks.apply_layer_full, layer, cfg, i, x, positions,
+                              use_reentrant=False)
+        else:
+            x, _ = blocks.apply_layer_full(layer, cfg, i, x, positions, causal=True)
+    return x
 
 
-def forward(params: Model, cfg: ModelConfig, batch: Dict,
+def trunk(params: Model, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding, every layer, the final norm: hidden states (B, S, d)."""
+    return rms_norm(_layers(params, cfg, tokens, remat=False), params.final_ln,
+                    cfg.norm_eps)
+
+
+def forward(params: Model, cfg: ModelConfig, batch: Dict, *, remat: bool = False,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: {"tokens" (B, S)}.  Returns (logits (B, S, Vp), aux_loss), the
-    padded vocab masked to -1e30."""
+    padded vocab masked to -1e30; ``remat`` recomputes each layer in the
+    backward (``torch.utils.checkpoint``)."""
     if "prefix" in batch or "frames" in batch:
         raise NotImplementedError("prefix and encoder inputs are not ported to "
                                   "repro_torch yet")
-    x = trunk(params, cfg, batch["tokens"])
+    x = rms_norm(_layers(params, cfg, batch["tokens"], remat), params.final_ln,
+                 cfg.norm_eps)
     unembed = params.embed if cfg.tie_embeddings else params.unembed
     logits = x @ unembed.T                             # (B, S, Vp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -150,3 +173,17 @@ def decode(params: Model, cfg: ModelConfig, tokens: torch.Tensor, state: List[Di
     x = rms_norm(x, params.final_ln, cfg.norm_eps)
     unembed = params.embed if cfg.tie_embeddings else params.unembed
     return _mask_padded_logits(cfg, x @ unembed.T), new_state
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor, *, prefix_len: int = 0
+            ) -> torch.Tensor:
+    """Mean cross-entropy over the text positions, in fp32.  targets
+    (B, S_text); the padded vocab is already masked to -1e30 by ``forward``.
+    The target's logit is gathered (the reference sums a one-hot mask, for
+    its vocab-sharded layout; the value is the same)."""
+    if prefix_len:
+        logits = logits[:, prefix_len:]
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets.to(torch.int64)[..., None])[..., 0]
+    return (lse - tgt).mean()

@@ -1,10 +1,11 @@
-"""Kernels B1, B2 (whole and windowed), B3 and B4 on the card against their
+"""Kernels B1, B2 (whole and windowed), B3, B4 and E1 on the card against their
 plain versions, the streamed route against the monolithic one, the polish
 ladder, the cross-validation cells and grid, the grid task farm and the
 bucket-compaction solver against the CPU's, the LIBSVM route's CSR factor,
 save / load and predict_from_factor, the backbone's features on the card
-against the CPU's, and the disk tier (an int8 store through B3, stage 2 off
-a spilled G through B2, a corrupt spilled shard rebuilt through B1).
+against the CPU's, the disk tier (an int8 store through B3, stage 2 off
+a spilled G through B2, a corrupt spilled shard rebuilt through B1), the
+exact Table 2 solver (E1) against the CPU's, B4's gradient and train steps.
 
 These need a CUDA card and nvcc: each test asks for the ``cuda`` fixture,
 which skips where there is none.  The task farm (core/distributed.py) runs
@@ -1713,3 +1714,111 @@ def test_traced_farm_on_card_has_a_device_row_a_worker(cuda):
     assert all(torch.equal(getattr(plain, f), getattr(traced, f)) for f in ("alpha", "w"))
     rows = set(tr.device_tids().values())
     assert {"cuda:0/w0 compute", "cuda:0/w1 compute", "cuda:0/w0 h2d", "cuda:0/w1 h2d"} <= rows
+
+
+@pytest.mark.parametrize("n,epochs", [(1, 3), (1000, 3), (1025, 3), (9000, 2),
+                                      ("past the limit", 1), (4096, 12)])
+def test_exact_epoch_kernel_matches_plain(cuda, n, epochs):
+    """Kernel E1 against its plain version on the card, epochs from alpha 0:
+    alpha, grad, viol and the moving steps equal.  n ragged against the
+    block's 1024 threads, a width of 9 register-held values a thread, one
+    past the shared-memory limit (grad, alpha in global memory), and twelve
+    epochs, the later ones long runs of still steps (no barrier) between
+    moving ones, where the threads drift apart most."""
+    from repro_torch.kernels.exact import exact_epoch_kernel, exact_epoch_plain, staged_limit
+    if n == "past the limit":
+        n = staged_limit() + 1
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(n, 8, generator=g, device=cuda)
+    y = torch.where(torch.rand(n, generator=g, device=cuda) < 0.5, 1.0, -1.0)
+    Q = ops.gram(x, x, KernelParams("rbf", gamma=1.0 / 16)).mul_(y[:, None]).mul_(y[None, :])
+    qd = torch.diagonal(Q).clamp(min=1e-12).contiguous()
+    ak, gk = torch.zeros(n, device=cuda), torch.ones(n, device=cuda)
+    ap, gp = ak.clone(), gk.clone()
+    before = exact_epoch_kernel.launches
+    for e in range(epochs):
+        vk, mk = exact_epoch_kernel(Q, qd, 2.0, ak, gk)
+        vp, mp = exact_epoch_plain(Q, qd, 2.0, ap, gp)
+        assert torch.equal(ak, ap) and torch.equal(gk, gp), f"epoch {e + 1}"
+        assert torch.equal(vk, vp) and int(mk) == int(mp)
+        assert e > 0 or int(mk) > 0            # the first epoch moves alpha
+    assert exact_epoch_kernel.launches == before + epochs
+
+
+def test_exact_dual_svm_on_card_matches_cpu(cuda):
+    """ExactDualSVM on the card (K from B1, epochs through E1) against the
+    same fit on the CPU: epochs within one and 5%, dual objectives within 5e-3,
+    predictions alike on 99%."""
+    from repro_torch.baselines import ExactDualSVM
+    from repro_torch.data import make_checker, train_test_split
+    from repro_torch.kernels.exact import exact_epoch_kernel
+    x, y = make_checker(1200, cells=2, seed=3)
+    xtr, ytr, xte, _ = train_test_split(x, y, 0.3, seed=1)
+    kp = KernelParams("rbf", gamma=4.0)
+    before = exact_epoch_kernel.launches
+    card = ExactDualSVM(kp, C=4.0).fit(xtr, ytr)
+    assert exact_epoch_kernel.launches - before == card.epochs_[0]
+    cpu = ExactDualSVM(kp, C=4.0, device="cpu").fit(xtr, ytr)
+    assert abs(card.epochs_[0] - cpu.epochs_[0]) <= 1 + 0.05 * cpu.epochs_[0]
+    xt = torch.as_tensor(xtr)
+    K = gram_plain(xt, xt, kp).double()
+    (_, _, _, a_card, yp), (_, _, _, a_cpu, _) = card.models_[0], cpu.models_[0]
+    yp = yp.cpu().double()
+
+    def dual(a):
+        a = a.cpu().double()
+        return (a.sum() - 0.5 * (a * yp) @ K @ (a * yp)).item()
+    assert dual(a_card) == pytest.approx(dual(a_cpu), rel=5e-3)
+    assert np.mean(card.predict(xte) == cpu.predict(xte)) >= 0.99
+
+
+@pytest.mark.parametrize("D,Hq,Hkv", [(64, 32, 4), (128, 16, 8)])
+def test_flash_attention_function_gradients_on_card(cuda, D, Hq, Hkv):
+    """B4's autograd Function: B4 forward (one launch), and gradients its
+    fp32 block recompute rounded once to bf16, within 2^-8 of the largest
+    element (plus the fp32 difference) of autograd's through the fp32 plain
+    version on the same values."""
+    from repro_torch.kernels.flash_attention import flash_attention_grad_plain
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v = (torch.randn(4, 200, h, D, generator=g, device=cuda).to(torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    dout = torch.randn(4, 200, Hq, D, generator=g, device=cuda).to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = flash_attention_kernel.launches
+    out = ops.flash_attention(*leaves, causal=True)
+    assert flash_attention_kernel.launches == before + 1
+    assert torch.equal(out, flash_attention_kernel(q, k, v, causal=True))
+    got = torch.autograd.grad(out, leaves, dout)
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_plain(*ref_leaves, causal=True), ref_leaves,
+                               dout.float())
+    f32 = flash_attention_grad_plain(q.float(), k.float(), v.float(), dout.float())
+    for a, f, b in zip(got, f32, want):
+        scale = b.abs().max()
+        delta = (f - b).abs().max() / scale
+        assert torch.equal(a, f.to(torch.bfloat16)) and delta <= 1e-3
+        assert (a.float() - b).abs().max() / scale <= 2.0 ** -8 + delta * (1 + 2.0 ** -8)
+
+
+def test_train_step_on_card_finite_and_falling(cuda):
+    """Reduced qwen3-0.6b (head dim 64) on the card: three train steps on one
+    batch through B4 (twice a layer a step), losses finite and falling."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_model
+    from repro_torch.optim import get_optimizer
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    m = init_model(torch.Generator(device=cuda).manual_seed(0), cfg)
+    opt = get_optimizer("adamw", lr=1e-3)
+    state = opt.init(dict(m.named_parameters()))
+    t, y = next(synthetic_token_batches(cfg.vocab_size, 4, 64, seed=0))
+    batch = {"tokens": torch.as_tensor(t).to(cuda), "targets": torch.as_tensor(y).to(cuda)}
+    step = make_train_step(cfg, opt)
+    before = flash_attention_kernel.launches
+    losses = []
+    for _ in range(3):
+        m, state, met = step(m, state, batch)
+        losses.append(float(met["loss"]))
+    assert flash_attention_kernel.launches - before == 3 * 2 * cfg.n_layers
+    assert all(np.isfinite(losses)) and losses[0] > losses[1] > losses[2]

@@ -49,9 +49,12 @@ def test_port_covers_its_layout():
                  "launch/steps.py", "launch/serve.py",
                  "models/common.py", "models/attention.py", "models/blocks.py",
                  "models/model.py", "launch/train_svm.py",
-                 "data/libsvm_format.py", "checkpoint/ckpt.py"):
+                 "data/libsvm_format.py", "checkpoint/ckpt.py",
+                 "baselines/exact_smo.py", "baselines/llsvm.py",
+                 "baselines/primal_sgd.py", "kernels/exact.py", "data/lm_data.py",
+                 "optim/optimizers.py", "launch/train.py"):
         assert name in rel
-    for cu in ("gram.cu", "gram_q8.cu", "smo.cu", "flash_attention.cu"):
+    for cu in ("gram.cu", "gram_q8.cu", "smo.cu", "flash_attention.cu", "exact_epoch.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / cu).is_file()
 
 
@@ -60,7 +63,8 @@ def test_import_leaves_no_jax_in_sys_modules():
             "repro_torch.checkpoint, repro_torch.core.trace, "
             "repro_torch.core.block_cache, repro_torch.core.faults, "
             "repro_torch.core.resilience, repro_torch.core.shards, "
-            "repro_torch.core.distributed, repro_torch.launch.serve; "
+            "repro_torch.core.distributed, repro_torch.launch.serve, "
+            "repro_torch.baselines, repro_torch.optim, repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'xxhash')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
