@@ -18,14 +18,20 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 at each width: no spills
   B4 vs plain   flash-attention kernel against its plain version: causal and
                 not, S in {1, 63, 64, 127, 128, 129, 255, 257, 1000}, (Hq, Hkv)
-                in {(4, 4), (16, 8), (32, 4), (16, 2)}, D in {64, 128}, fp32 and
-                bf16; bf16 against the plain version at the kernel's kv tile,
-                and within 3e-2 of it with p in fp32 (_flash's arithmetic);
-                at S 1000 also the plain version on the CPU against the card
-  B4 timing     B4 at the driver's shape (qwen3-0.6b, batch 32, S 256) and two
+                in {(4, 4), (16, 8), (32, 4), (16, 2)}, D in {64, 96, 128}, fp32
+                and bf16; not causal with k, v of their own length, (S, S_kv)
+                in {(37, 16), (64, 1024), (129, 1), (300, 257), (1, 1000),
+                (128, 129)}; bf16 against the plain version at the kernel's
+                kv tile, and within 3e-2 of it with p in fp32 (_flash's
+                arithmetic); at S 1000 also the plain version on the CPU
+                against the card
+  B4 timing     B4 at the driver's shape (qwen3-0.6b, batch 32, S 256), two
                 prefill shapes (qwen3-0.6b 1 x 4096, tinyllama-1.1b 4 x 2048),
-                beside its plain version, SDPA and its bound; back to back
-                (device time) and one call alone (host launch cost included)
+                phi-3-vision's prefixed prefill (4 x 640, 32 heads of 96),
+                seamless-m4t's encoder (4 x 1024, not causal) and its
+                cross-attention (4 x 64 over 1024), beside its plain version,
+                SDPA and its bound; back to back (device time) and one call
+                alone (host launch cost included)
   B1 vs plain   gram kernel against its plain PyTorch version, four kinds at
                 ragged shapes; against fp64: rows of x with one nonzero element
                 (p 100 and 784, 1e-6 relative: fails if a piece product is
@@ -293,10 +299,30 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 slots holding the last 32 positions.  Every logit bound is
                 serve_logit_tol, sqrt(2L) bf16 steps of the largest logit
   serve, dense configurations     tinyllama-1.1b, codeqwen1.5-7b and
-                minitron-4b at full width and depth (batch 4, prompt 64):
+                minitron-4b at full width, tinyllama at full depth, the other
+                two cut to 16 of their 32 layers (batch 4, prompt 64):
                 one prefill step through B4 (launches counted) against
                 decode's logits at the prompt's last position, then 8
                 greedy decode steps; ms a step, peak device memory
+  serve, phi-3-vision-4.2b full width   32 layers, d 3072, head dim 96
+                (seeded): serve at batch 4, prompt 64, gen 16 (text only, as
+                the reference serves it); the text prefill step (B4 once a
+                layer) against decode's logits at the prompt's end; the
+                prefill over the config's 576 patch rows and the prompt (S
+                640, B4 once a layer); B4 against its plain version on layer
+                0's own q, k, v at that shape; the prefixed forward at full
+                width cut to 2 layers, card against CPU at every position
+  serve, seamless-m4t-large-v2 full width   24 encoder + 24 decoder layers, d
+                1024, vocab 256206 padded to 256512 (seeded): serve at batch
+                4, prompt 64, gen 16 (16 frames; B4 once an encoder layer);
+                the prefill step and forward over the config's 1024 frames
+                (B4 once an encoder layer, twice a decoder layer); the
+                encoder's memory, prefill_cross_attention and 64
+                teacher-forced decode steps against the prefill step and
+                forward's logits at every position (sqrt(3L) bf16 steps: a
+                decoder layer's three sublayers); B4 against its plain
+                version on encoder layer 0's q, k, v (4 x 1024) and decoder
+                layer 0's cross-attention (4 x 64 over 1024)
   E1 vs plain                     kernel E1 (the exact solver's epoch) on the
                 binary Table 2 problem's Q (14000 x 14000 from B1, 0.78 GB)
                 against its plain version on the card for 3 epochs from alpha
@@ -333,6 +359,13 @@ failure raises and exits non-zero, nothing is caught and carried on:
                 kernels a step, idle share, B4's time, the largest kernels
   train, tinyllama-1.1b full width   the same at 22 layers, d 2048, D 64,
                 3 steps
+  train, phi-3-vision-4.2b full width   the same at 32 layers, d 3072, D 96,
+                B 2, 576 patch rows ahead of 64 tokens (the loss over the
+                tokens), 3 steps; the last loss below the first
+  train, seamless-m4t-large-v2 full width   the same at 24 + 24 layers, d
+                1024, B 4, S 64 with 32 frames (cross-attention over S_kv 32,
+                B4 four times a decoder layer and twice an encoder layer a
+                step), 3 steps; the last loss below the first
   train step, card vs cpu, 2 layers   qwen3-0.6b at full width cut to 2
                 layers: the loss and every gradient on the card against the
                 CPU's plain path, within the bf16 bounds argued beside them
@@ -344,7 +377,8 @@ shard phases; ``launches_trace`` over the traced fit,
 over the cached one, ``launches_task_farm`` over the task-farm phases,
 ``launches_task_farm_workers`` (B2) and ``launches_stage1_workers`` (B1, B3)
 a worker of the two-worker runs, ``launches_serving`` (B4) over the serving
-phases' prefill steps, ``launches_table2`` (B1, B2; E1's ``launches``) over
+phases' prefill steps and encoders, ``shapes`` (B4) its times at each
+timed shape, ``launches_table2`` (B1, B2; E1's ``launches``) over
 the Table 2 fits, ``launches_train`` (B4) over the training runs) and,
 last, the
 {"ok": true, ...} line.
@@ -524,15 +558,18 @@ def gram_q8_bound_cuda_cores(n: int, m: int, p: int, n_groups: int):
                     q8_bytes(n, m, p, n_groups))
 
 
-def flash_bound(B: int, S: int, Hq: int, Hkv: int, D: int, dtype, causal: bool = True):
+def flash_bound(B: int, S: int, Hq: int, Hkv: int, D: int, dtype, causal: bool = True,
+                S_kv: int = None):
     """4 B Hq D FLOP per unmasked (q, k) pair over the dtype's peak (bf16
-    tensor cores, or fp32), against q, k, v and o moved once."""
+    tensor cores, or fp32), against q and o (S rows) and k and v (S_kv rows,
+    S where not given) moved once."""
     import torch
-    pairs = S * (S + 1) // 2 if causal else S * S
+    S_kv = S if S_kv is None else S_kv
+    pairs = S * (S + 1) // 2 if causal else S * S_kv
     esize = 2 if dtype == torch.bfloat16 else 4
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     ops_ms = 4.0 * B * Hq * D * pairs / peak * 1e3
-    bytes_ms = esize * (2.0 * B * S * Hq * D + 2.0 * B * S * Hkv * D) / PEAK_HBM_BYTES * 1e3
+    bytes_ms = esize * (2.0 * B * S * Hq * D + 2.0 * B * S_kv * Hkv * D) / PEAK_HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -579,7 +616,7 @@ def flash_build_report(log: str, lib: Path, smem_bytes) -> list:
     report = []
     for name, r in ptxas.items():
         tensor_cores = "2tc9flash_fwd" in name
-        D = 128 if "ILi128E" in name else 64
+        D = int(re.search(r"ILi(\d+)E", name).group(1))
         report.append({"body": "bf16, tensor cores" if tensor_cores else "fp32, SIMT",
                        "D": D, "registers": r.get("registers"), "spills": r.get("spills"),
                        "smem": smem_bytes(D, int(tensor_cores)),
@@ -610,7 +647,7 @@ def peak_since(base: int) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
-def serve_logit_tol(n_layers: int, logits) -> float:
+def serve_logit_tol(n_layers: int, logits, sublayers: int = 2) -> float:
     """The bound on two logit rows of the same token that round differently:
     B4's prefill against decode (B4 rounds p to bf16 before p . v, decode
     keeps it in fp32), or the card's decode against the CPU's (other sums in
@@ -622,14 +659,18 @@ def serve_logit_tol(n_layers: int, logits) -> float:
     that relative change of the hidden state to every logit, in no
     vocabulary row's direction, so the largest logit error stays within that
     share of the largest logit.  At 2 layers (the reduced models, on the
-    CPU) prefill against decode measures half to three quarters of it."""
-    return math.sqrt(2 * n_layers) * SERVE_REL_STEP * logits.abs().max().item()
+    CPU) prefill against decode measures half to three quarters of it.  A
+    decoder layer with cross-attention has three sublayers (``sublayers``
+    3: sqrt(3L) steps)."""
+    return math.sqrt(sublayers * n_layers) * SERVE_REL_STEP * logits.abs().max().item()
 
 
-def serve_phases(dev, smi: str) -> dict:
+def serve_phases(dev, smi: str, compare_flash) -> dict:
     """The LM serving path on the card (launch/serve.py, launch/steps.py,
     decode with a KV cache) at full width; returns B4's launches and the
-    largest logit errors against their bounds."""
+    largest logit errors against their bounds.  ``compare_flash(q, k, v,
+    causal, label)`` holds B4 against its plain version (its launches are
+    not counted as the path's)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -638,11 +679,15 @@ def serve_phases(dev, smi: str) -> dict:
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import init_model
     from repro_torch.models import model as M
+    from repro_torch.models.attention import _qkv
+    from repro_torch.models.common import apply_rotary, rms_norm, rotary_cos_sin
 
-    def teacher_forced(m, cfg, toks, kv_len):
+    def teacher_forced(m, cfg, toks, kv_len, state=None):
         """Decode toks (B, S) one position at a time from an empty cache of
-        kv_len slots: the logits (S, B, Vp) in fp32, and the state."""
-        state = M.init_decode_state(cfg, toks.shape[0], kv_len, device=toks.device)
+        kv_len slots (or from ``state``, an encoder-decoder's with its cross
+        k / v): the logits (S, B, Vp) in fp32, and the state."""
+        if state is None:
+            state = M.init_decode_state(cfg, toks.shape[0], kv_len, device=toks.device)
         pos = torch.arange(toks.shape[1], device=toks.device)
         out = []
         with torch.no_grad():
@@ -651,17 +696,19 @@ def serve_phases(dev, smi: str) -> dict:
                 out.append(lg[:, 0].float())
         return torch.stack(out), state
 
-    def held(got, want, n_layers, label):
+    def held(got, want, n_layers, label, sublayers=2):
         """got against want (B, Vp), within serve_logit_tol; argmaxes equal
         where want's top-two margin exceeds twice the bound.  Returns (err,
         bound, the line that says so)."""
-        tol = serve_logit_tol(n_layers, want)
+        check(want.abs().max().item() < 1e29,
+              f"{label}: the padded vocabulary's masked logits are in the rows held")
+        tol = serve_logit_tol(n_layers, want, sublayers)
         err = (got - want).abs().max().item()
         top2 = torch.topk(want, 2, dim=-1).values
         clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
         agree = bool((got.argmax(-1) == want.argmax(-1))[clear].all())
-        line = (f"{label}: max abs err {err:.4e} (bound sqrt(2L) 2^-7 max|logit| = "
-                f"{tol:.4e}, {err / tol:.3f} of it); argmax equal on {int(clear.sum())} of "
+        line = (f"{label}: max abs err {err:.4e} (bound sqrt({sublayers}L) 2^-7 max|logit| "
+                f"= {tol:.4e}, {err / tol:.3f} of it); argmax equal on {int(clear.sum())} of "
                 f"{want.shape[0]} rows, those of clear margin")
         check(bool(torch.isfinite(got).all()), f"{label}: logits not finite")
         check(err <= tol and agree, f"{line}: disagrees beyond its rounding")
@@ -773,8 +820,14 @@ def serve_phases(dev, smi: str) -> dict:
 
     with phase("serve, dense configurations"):
         B, P, n_gen = 4, 64, 8
+        # depth cut to hold the smoke run's time (width never): the two
+        # 32-layer models at 16 layers
+        cut = {"codeqwen1.5-7b": 16, "minitron-4b": 16}
         for arch in ("tinyllama-1.1b", "codeqwen1.5-7b", "minitron-4b"):
             cfg = get_config(arch)
+            depth = (f"cut to {cut[arch]} of {cfg.n_layers} layers" if arch in cut
+                     else f"{cfg.n_layers} layers (no cut)")
+            cfg = dataclasses.replace(cfg, n_layers=cut.get(arch, cfg.n_layers))
             L = cfg.n_layers
             base = peak_start()
             t0 = time.perf_counter()
@@ -815,7 +868,7 @@ def serve_phases(dev, smi: str) -> dict:
             peak = peak_since(base)
             check(0 <= gen_tokens.min() and gen_tokens.max() < cfg.vocab_size,
                   f"{arch}: generated tokens outside the vocabulary")
-            print(f"{arch}: {L} layers (no cut), d {cfg.d_model}, heads {cfg.n_heads}/"
+            print(f"{arch}: {depth}, d {cfg.d_model}, heads {cfg.n_heads}/"
                   f"{cfg.n_kv_heads} of {cfg.resolved_head_dim}, {n_params} bf16 parameters "
                   f"in {t_init:.3f} s; prefill step B {B} x {P} {1e3 * t_pre:.3f} ms (first "
                   f"call), {b4} B4 launches; decode {1e3 * t_dec / P:.3f} ms a step over the "
@@ -823,6 +876,196 @@ def serve_phases(dev, smi: str) -> dict:
                   f"{gen_tokens[0].tolist()}; peak device memory {peak} B [{smi}]")
             del m, dec, state, pre, tok, generated
             torch.cuda.empty_cache()
+
+    def held_b4(q, k, v, causal, label):
+        """B4 against its plain version on a layer's own q, k, v; the
+        launch is the comparison's, not the path's."""
+        n = flash_attention_kernel.launches
+        compare_flash(q, k, v, causal, label)
+        flash_attention_kernel.launches = n
+
+    def self_qkv(mix, cfg, h):
+        """A layer's self-attention q, k, v at positions 0 .. S - 1, rotary
+        applied (what gqa_full hands B4)."""
+        q, k, v = _qkv(mix, cfg, h)
+        cos, sin = rotary_cos_sin(torch.arange(h.shape[1], device=h.device),
+                                  cfg.resolved_head_dim, cfg.rope_theta)
+        return (apply_rotary(q, cos[None, :, None], sin[None, :, None]),
+                apply_rotary(k, cos[None, :, None], sin[None, :, None]), v)
+
+    def serve_seeded(arch, m, B, P, gen):
+        """launch/serve.py's serve on the seeded model m: its lines printed,
+        its tokens checked and returned with the seconds."""
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            tokens = serving.serve(arch, reduced=False, batch=B, prompt_len=P, gen=gen,
+                                   model=m)
+        seconds = time.perf_counter() - t0
+        print(out.getvalue(), end="")
+        check(tokens.shape == (B, gen) and tokens.dtype == np.int32
+              and 0 <= tokens.min() and tokens.max() < m.cfg.vocab_size,
+              f"{arch}: serve's tokens are of the wrong shape or outside the vocabulary")
+        return tokens, seconds
+
+    with phase("serve, phi-3-vision-4.2b full width"):
+        # the vision-prefix family: D 96, the config's 576 patch rows ahead
+        # of the prompt in the prefill; serving is text only, as the
+        # reference's
+        arch, B, P, gen = "phi-3-vision-4.2b", 4, 64, 16
+        cfg = get_config(arch)
+        L, Pn = cfg.n_layers, cfg.num_prefix_embeddings
+        check(L == 32 and cfg.d_model == 3072 and cfg.resolved_head_dim == 96 and Pn == 576,
+              f"{arch} is not at its published size")
+        base = peak_start()
+        t0 = time.perf_counter()
+        m = init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in m.parameters())
+        tokens, t_serve = serve_seeded(arch, m, B, P, gen)
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, P))
+        toks = torch.as_tensor(prompts, dtype=torch.int32).to(dev)
+        prefill = make_prefill_step(cfg)
+        flash_attention_kernel.launches = 0
+        with torch.no_grad():
+            pre = prefill(m, {"tokens": toks}).float()
+        torch.cuda.synchronize()
+        b4_text = flash_attention_kernel.launches
+        check(b4_text == L, f"{arch}: the text prefill did not launch B4 once a layer")
+        dec, _ = teacher_forced(m, cfg, toks, P + gen)
+        check(torch.equal(dec[-1].argmax(-1).to(torch.int32).cpu(),
+                          torch.from_numpy(tokens[:, 0])),
+              f"{arch}: decode's argmax at the prompt's end is not serve's first token")
+        found["errors"]["prefill " + arch] = worst([held(
+            pre, dec[-1], L, f"{arch} prefill step (B4 at D 96) vs decode at position "
+            f"{P - 1}")])
+        # the prefixed prefill: 576 patch embeddings, then the prompt (S 640)
+        g = torch.Generator(device=dev).manual_seed(1)
+        prefix = torch.randn(B, Pn, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+        flash_attention_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            pre_x = prefill(m, {"tokens": toks, "prefix": prefix}).float()
+        torch.cuda.synchronize()
+        t_pre_x = time.perf_counter() - t0
+        b4_prefix = flash_attention_kernel.launches
+        check(b4_prefix == L, f"{arch}: the prefixed prefill did not launch B4 once a layer")
+        check(pre_x.shape == pre.shape and bool(torch.isfinite(pre_x).all()),
+              f"{arch}: the prefixed prefill's logits are not finite")
+        found["b4_launches"][arch] = b4_text + b4_prefix
+        with torch.no_grad():
+            x = torch.cat([prefix, m.embed[toks]], 1)
+            q, k, v = self_qkv(m.layers[0].mixer, cfg, rms_norm(x, m.layers[0].ln1,
+                                                                 cfg.norm_eps))
+        held_b4(q, k, v, True, f"{arch} layer 0, prefixed prefill (B {B}, S {Pn + P}, "
+                f"{cfg.n_heads}/{cfg.n_kv_heads} heads of 96)")
+        del q, k, v, x, dec
+        # the prefixed forward at full width cut to 2 layers: the card (B4,
+        # cuBLAS) against the CPU's plain path, every position's logits
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        m2 = init_model(torch.Generator(device=dev).manual_seed(0), cfg2, device=dev)
+        cpu_m = init_model(None, cfg2, device="cpu")
+        cpu_m.load_state_dict({k: v.cpu() for k, v in m2.state_dict().items()})
+        batch = {"tokens": toks[:1, :32], "prefix": prefix[:1]}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            on_card = M.forward(m2, cfg2, batch)[0][0].float().cpu()
+            on_cpu = M.forward(cpu_m, cfg2, {k: v.cpu() for k, v in batch.items()})[0][0].float()
+        t_cut = time.perf_counter() - t0
+        found["errors"]["card vs cpu " + arch] = worst([held(
+            on_card, on_cpu, 2, f"{arch} cut to 2 layers, prefixed forward (1 x {Pn} + 32), "
+            "card vs CPU, every position")])
+        peak = peak_since(base)
+        print(f"{arch}: {L} layers (no cut), d {cfg.d_model}, heads {cfg.n_heads}/"
+              f"{cfg.n_kv_heads} of {cfg.resolved_head_dim}, {n_params} bf16 parameters in "
+              f"{t_init:.3f} s; serve B {B} prompt {P} gen {gen} {t_serve:.3f} s; prefill "
+              f"step B {B} x ({Pn} + {P}) {1e3 * t_pre_x:.3f} ms (first call); B4 {b4_text} + "
+              f"{b4_prefix} launches (text and prefixed prefill); 2-layer forward card + CPU "
+              f"{t_cut:.3f} s; peak device memory {peak} B [{smi}]")
+        del m, m2, cpu_m, pre, pre_x, prefix, on_card, on_cpu
+        torch.cuda.empty_cache()
+
+    with phase("serve, seamless-m4t-large-v2 full width"):
+        # the encoder-decoder family: 24 encoder and 24 decoder layers, the
+        # decoder cross-attending the encoder's memory of the config's 1024
+        # frames (serve's own loop: 16 frames, as the reference's)
+        arch, B, P, gen = "seamless-m4t-large-v2", 4, 64, 16
+        cfg = get_config(arch)
+        L, Le, F = cfg.n_layers, cfg.n_encoder_layers, cfg.num_prefix_embeddings
+        check(L == Le == 24 and cfg.d_model == 1024 and M.padded_vocab(cfg) == 256512
+              and F == 1024, f"{arch} is not at its published size")
+        base = peak_start()
+        t0 = time.perf_counter()
+        m = init_model(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in m.parameters())
+        flash_attention_kernel.launches = 0
+        tokens, t_serve = serve_seeded(arch, m, B, P, gen)
+        b4_serve = flash_attention_kernel.launches
+        check(b4_serve == Le, f"{arch}: serve's encoder did not launch B4 once a layer")
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, P))
+        toks = torch.as_tensor(prompts, dtype=torch.int32).to(dev)
+        g = torch.Generator(device=dev).manual_seed(2)
+        frames = torch.randn(B, F, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+        batch = {"tokens": toks, "frames": frames}
+        V = cfg.vocab_size          # the logits past it are the padding, masked
+        flash_attention_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            pre = make_prefill_step(cfg)(m, batch)[:, :V].float()
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        b4_pre = flash_attention_kernel.launches
+        with torch.no_grad():
+            logits = M.forward(m, cfg, batch)[0][..., :V]
+            memory = M._run_encoder(m, cfg, frames)
+            state = M.prefill_cross_attention(m, cfg, M.init_decode_state(
+                cfg, B, P, device=dev, enc_len=F), memory)
+        torch.cuda.synchronize()
+        b4 = flash_attention_kernel.launches
+        check(b4_pre == Le + 2 * L and b4 == 2 * b4_pre + Le,
+              f"{arch}: B4 did not run once an encoder layer and twice a decoder layer")
+        found["b4_launches"][arch] = b4_serve + b4
+        t0 = time.perf_counter()
+        dec, _ = teacher_forced(m, cfg, toks, P, state)
+        t_dec = time.perf_counter() - t0
+        dec = dec[..., :V]
+        # the memory is the same on both sides (the same kernels on the same
+        # frames); each decoder layer's three sublayers may round apart
+        found["errors"]["prefill " + arch] = worst([held(
+            pre, dec[-1], L, f"{arch} prefill step (B4, encoder over {F} frames) vs decode "
+            f"with the cross cache at position {P - 1}", sublayers=3)])
+        found["errors"]["forward " + arch] = worst(
+            [held(dec[t], logits[:, t].float(), L, f"{arch} teacher-forced decode with the "
+                  f"cross cache vs forward's logits, the worst of {P} positions (pos {t})",
+                  sublayers=3) for t in range(P)])
+        with torch.no_grad():
+            enc0 = m.encoder.layers[0]
+            q, k, v = self_qkv(enc0.mixer, cfg, rms_norm(frames, enc0.ln1, cfg.norm_eps))
+            held_b4(q, k, v, False, f"{arch} encoder layer 0 (B {B}, S {F}, "
+                    f"{cfg.n_heads}/{cfg.n_kv_heads} heads of 64, not causal)")
+            cross = m.layers[0].cross
+            hx = rms_norm(m.embed[toks], m.layers[0].ln_x, cfg.norm_eps)
+            hd = cfg.resolved_head_dim
+            q = (hx @ cross.wq).reshape(B, P, cfg.n_heads, hd)
+            k = (memory @ cross.wk).reshape(B, F, cfg.n_kv_heads, hd)
+            v = (memory @ cross.wv).reshape(B, F, cfg.n_kv_heads, hd)
+            held_b4(q, k, v, False, f"{arch} decoder layer 0 cross-attention (B {B}, S {P}, "
+                    f"S_kv {F}, not causal)")
+        peak = peak_since(base)
+        print(f"{arch}: {Le} + {L} layers (no cut), d {cfg.d_model}, heads {cfg.n_heads}/"
+              f"{cfg.n_kv_heads} of {cfg.resolved_head_dim}, vocab {cfg.vocab_size} padded "
+              f"to {M.padded_vocab(cfg)}, {n_params} bf16 parameters in {t_init:.3f} s; serve "
+              f"B {B} prompt {P} gen {gen} (16 frames) {t_serve:.3f} s; prefill step B {B} x "
+              f"{P} over {F} frames {1e3 * t_pre:.3f} ms (first call); teacher-forced decode "
+              f"{1e3 * t_dec / P:.3f} ms a step; B4 {b4_serve} (serve's encoder) + {b4} "
+              f"launches; peak device memory {peak} B [{smi}]")
+        del m, pre, logits, memory, state, dec, frames, q, k, v, hx
+        torch.cuda.empty_cache()
     return found
 
 
@@ -1111,11 +1354,14 @@ def train_phases(dev, smi: str) -> dict:
         cfg = get_config(arch)
         n_params = cfg.param_count()
         V = cfg.vocab_size
-        print(f"{arch}: {cfg.n_layers} layers (no cut), d {cfg.d_model}, heads "
+        rows = seq + (cfg.num_prefix_embeddings if cfg.modality == "vision" else 0)
+        layers = (f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers"
+                  if cfg.is_encoder_decoder else f"{cfg.n_layers} layers")
+        print(f"{arch}: {layers} (no cut), d {cfg.d_model}, heads "
               f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.resolved_head_dim}; memory reckoned: "
               f"parameters {2 * n_params / 1e9:.2f} GB bf16, gradients "
               f"{2 * n_params / 1e9:.2f} GB, AdamW m and v {8 * n_params / 1e9:.2f} GB "
-              f"fp32, logits {4 * batch * seq * V / 1e9:.2f} GB fp32")
+              f"fp32, logits {4 * batch * rows * V / 1e9:.2f} GB fp32")
         base = peak_start()
         flash_attention_kernel.launches = 0
         out = io.StringIO()
@@ -1127,6 +1373,11 @@ def train_phases(dev, smi: str) -> dict:
         wall = time.perf_counter() - t0
         peak = peak_since(base)
         b4 = flash_attention_kernel.launches
+        # a step runs each attention twice (the forward and the remat
+        # recompute): a decoder layer's self- and cross-attention, an
+        # encoder layer's self-attention
+        per_step = 2 * (cfg.n_layers * (2 if cfg.is_encoder_decoder else 1)
+                        + cfg.n_encoder_layers)
         print(out.getvalue(), end="")
         # train prints its tok/s since the loop began after every step: the
         # seconds to the end of step s are (s + 1) B S / tok/s
@@ -1139,11 +1390,11 @@ def train_phases(dev, smi: str) -> dict:
               f"last {losses[-1]:.4f}; {step_ms:.3f} ms a step after the first "
               f"({1e3 * batch * seq / step_ms:.0f} tok/s; the first {first_ms:.1f} ms), "
               f"wall {wall:.3f} s with the model's init; peak device memory {peak} B; B4 "
-              f"{b4} launches ({2 * cfg.n_layers} a step expected: the forward and the "
+              f"{b4} launches ({per_step} a step expected: the forward and the "
               f"recompute) [{smi}]")
         check(len(losses) == steps and all(np.isfinite(losses)), f"{arch}: a loss not finite")
-        check(b4 == 2 * cfg.n_layers * steps,
-              f"{arch}: B4 did not run twice a layer a step (forward and recompute)")
+        check(b4 == per_step * steps,
+              f"{arch}: B4 did not run twice an attention a step (forward and recompute)")
         found["b4_launches"][arch] = b4
         torch.cuda.empty_cache()
         return losses, step_ms, first_ms, peak
@@ -1203,6 +1454,23 @@ def train_phases(dev, smi: str) -> dict:
         losses, step_ms, first_ms, peak = run("tinyllama-1.1b", 3, 8, 256)
         found["tinyllama"] = {"first": losses[0], "last": losses[-1], "step_ms": step_ms,
                               "first_step_ms": first_ms, "peak": peak}
+
+    with phase("train, phi-3-vision-4.2b full width"):
+        # the config's 576 patch rows ahead of 64 tokens (S 640), the loss over
+        # the tokens; B4 at D 96 in the forward and the recompute
+        losses, step_ms, first_ms, peak = run("phi-3-vision-4.2b", 3, 2, 64)
+        check(losses[-1] < losses[0], "phi-3-vision-4.2b: the last loss is not below the first")
+        found["phi3"] = {"first": losses[0], "last": losses[-1], "step_ms": step_ms,
+                         "first_step_ms": first_ms, "peak": peak}
+
+    with phase("train, seamless-m4t-large-v2 full width"):
+        # 32 frames a row through the encoder, its gradient through every
+        # decoder layer's cross-attention (B4 over S_kv 32)
+        losses, step_ms, first_ms, peak = run("seamless-m4t-large-v2", 3, 4, 64)
+        check(losses[-1] < losses[0],
+              "seamless-m4t-large-v2: the last loss is not below the first")
+        found["seamless"] = {"first": losses[0], "last": losses[-1], "step_ms": step_ms,
+                             "first_step_ms": first_ms, "peak": peak}
 
     with phase("train step, card vs cpu, 2 layers"):
         # qwen3-0.6b at full width cut to 2 layers: one step's loss and every
@@ -1318,7 +1586,8 @@ def main() -> int:
             print(f"B4 {r['body']} D={r['D']}: {r['registers']} registers, {r['spills']} "
                   f"bytes spilled, {r['smem']} B of dynamic shared memory, {r['hgmma']} "
                   "HGMMA in its SASS")
-        check(len(b4_build) == 4, "B4's ptxas report is missing from the build log")
+        check(len(b4_build) == 6 and sorted({r["D"] for r in b4_build}) == [64, 96, 128],
+              "B4's ptxas report is missing from the build log")
         check(all(r["spills"] == 0 for r in b4_build), "B4 spills registers")
         check(all(r["hgmma"] > 0 for r in b4_build if r["tensor_cores"]),
               "B4's bf16 body has no HGMMA: it does not run on the tensor cores")
@@ -1431,56 +1700,75 @@ def main() -> int:
               f"flash {label}: more than {BEYOND_ULP_SHARE} of the outputs beyond one ulp")
         return err.max().item()
 
-    def qkv(B, S, Hq, Hkv, D, dtype, seed):
+    def qkv(B, S, Hq, Hkv, D, dtype, seed, S_kv=None):
         g = torch.Generator(device=dev).manual_seed(seed)
-        return (torch.randn(B, S, h, D, generator=g, device=dev).to(dtype)
-                for h in (Hq, Hkv, Hkv))
+        return (torch.randn(B, n, h, D, generator=g, device=dev).to(dtype)
+                for n, h in ((S, Hq), (S_kv or S, Hkv), (S_kv or S, Hkv)))
 
     with phase("B4 vs plain"):
         flash_err = 0.0
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
-                for D in (64, 128):
+                for D in (64, 96, 128):
                     for Hq, Hkv in ((4, 4), (16, 8), (32, 4), (16, 2)):
                         for S in (1, 63, 64, 127, 128, 129, 255, 257, 1000):
                             q, k, v = qkv(2, S, Hq, Hkv, D, dtype, S + Hq + D)
                             flash_err = max(flash_err, compare_flash(
                                 q, k, v, causal, f"{str(dtype)[6:]:8s} causal={causal:d} "
                                 f"D={D} Hq/Hkv={Hq}/{Hkv} S={S}"))
+            # not causal, k and v of their own length (cross-attention over
+            # an encoder's memory): shorter and longer than q, ragged
+            for D in (64, 96, 128):
+                for Hq, Hkv in ((16, 16), (16, 4)):
+                    for S, S_kv in ((37, 16), (64, 1024), (129, 1), (300, 257), (1, 1000),
+                                    (128, 129)):
+                        q, k, v = qkv(2, S, Hq, Hkv, D, dtype, S + S_kv + D, S_kv)
+                        flash_err = max(flash_err, compare_flash(
+                            q, k, v, False, f"{str(dtype)[6:]:8s} causal=0 D={D} "
+                            f"Hq/Hkv={Hq}/{Hkv} S={S} S_kv={S_kv}"))
         print(f"bf16: largest difference to the plain version with p in fp32 "
               f"{fp32_p_diff[0]:.3e} (tol {LIBRARY_TOL} abs and rel); largest excess over "
               f"one ulp / rounding slack {slack_ratio[0]:.3f} (limit 1)")
 
     flash_times = {}
     with phase("B4 timing"):
-        shapes = (("qwen3-0.6b pipeline", 32, 256, 16, 8, 128),
-                  ("qwen3-0.6b prefill", 1, 4096, 16, 8, 128),
-                  ("tinyllama-1.1b prefill", 4, 2048, 32, 4, 64))
-        for label, B, S, Hq, Hkv, D in shapes:
-            q, k, v = qkv(B, S, Hq, Hkv, D, torch.bfloat16, S)
-            flash_err = max(flash_err, compare_flash(q, k, v, True, f"{label} B={B} S={S}"))
-            kernel = lambda: flash_attention_kernel(q, k, v, causal=True)  # noqa: E731
+        # (label, B, S, S_kv, Hq, Hkv, D, causal): the driver's shape, two text
+        # prefills, phi-3-vision's prefixed prefill (576 patch rows and a
+        # 64-token prompt, D 96), seamless-m4t's encoder over its 1024 frames
+        # and its decoder's cross-attention over them
+        shapes = (("qwen3-0.6b pipeline", 32, 256, 256, 16, 8, 128, True),
+                  ("qwen3-0.6b prefill", 1, 4096, 4096, 16, 8, 128, True),
+                  ("tinyllama-1.1b prefill", 4, 2048, 2048, 32, 4, 64, True),
+                  ("phi-3-vision-4.2b prefill", 4, 640, 640, 32, 32, 96, True),
+                  ("seamless-m4t-large-v2 encoder", 4, 1024, 1024, 16, 16, 64, False),
+                  ("seamless-m4t-large-v2 cross", 4, 64, 1024, 16, 16, 64, False))
+        for label, B, S, S_kv, Hq, Hkv, D, causal in shapes:
+            q, k, v = qkv(B, S, Hq, Hkv, D, torch.bfloat16, S + S_kv, S_kv)
+            flash_err = max(flash_err, compare_flash(q, k, v, causal,
+                                                     f"{label} B={B} S={S} S_kv={S_kv}"))
+            kernel = lambda: flash_attention_kernel(q, k, v, causal=causal)  # noqa: E731
             k_ms, k_b2b = cuda_ms(kernel, 10), cuda_ms_back_to_back(kernel, 50)
-            p_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True), 3)
+            p_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal), 3)
             qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
 
             def library():    # the yardstick only: the port never calls it
                 return torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
             l_ms, l_b2b = cuda_ms(library, 10), cuda_ms_back_to_back(library, 50)
-            plain = flash_attention_plain(q, k, v).float()
+            plain = flash_attention_plain(q, k, v, causal=causal).float()
             lib_diff = (library().transpose(1, 2).float() - plain).abs()
             lib_err = lib_diff.max().item()
             check(bool((lib_diff <= LIBRARY_TOL + LIBRARY_TOL * plain.abs()).all()),
                   "the SDPA yardstick computes another function")
             del plain, lib_diff
-            b_ms, b_by = flash_bound(B, S, Hq, Hkv, D, torch.bfloat16)
+            b_ms, b_by = flash_bound(B, S, Hq, Hkv, D, torch.bfloat16, causal, S_kv)
             # ms: one call alone, as every kernel's; back to back beside it
             flash_times[label] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                                   "bound_ms": b_ms, "bound_by": b_by,
                                   "ms_back_to_back": k_b2b,
                                   "library_ms_back_to_back": l_b2b}
-            print(f"flash {label} (B {B}, S {S}, Hq/Hkv {Hq}/{Hkv}, D {D}, bf16, causal): "
+            print(f"flash {label} (B {B}, S {S}, S_kv {S_kv}, Hq/Hkv {Hq}/{Hkv}, D {D}, "
+                  f"bf16, causal {causal:d}): "
                   f"{k_ms:.4f} ms alone, {k_b2b:.4f} ms back to back (plain {p_ms:.3f}; "
                   f"SDPA {l_ms:.4f} alone, {l_b2b:.4f} back to back [max abs diff to plain "
                   f"{lib_err:.3e}]; bound {b_ms:.4f} by {b_by}); kernel / bound "
@@ -4389,7 +4677,7 @@ def main() -> int:
     # the LM serving path: B4 is its one kernel (the prefill step); decode's
     # attention is plain tensor ops, as the reference's einsums are
     reset_counts()
-    served = serve_phases(dev, smi.splitlines()[0])
+    served = serve_phases(dev, smi.splitlines()[0], compare_flash)
     serve_counts = read_counts(add=False)
     print(f"launches in the serving phases {serve_counts}; B4 a prefill step "
           f"{served['b4_launches']}")
@@ -4449,7 +4737,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:68",
          "launches": e2e["flash_attention"], "max_abs_err": flash_err,
-         **flash_times["qwen3-0.6b pipeline"],
+         **flash_times["qwen3-0.6b pipeline"], "shapes": flash_times,
          "launches_libsvm": lib_launches["flash_attention"],
          "launches_shards": shard_launches["flash_attention"],
          "launches_serving": sum(served["b4_launches"].values()),

@@ -5,9 +5,10 @@ One file per configuration the port can run lives next to this module; each
 exports ``CONFIG`` (the published widths) and ``reduced()`` (the 2-layer,
 narrow smoke-test variant of the same family).  ``get_config(name)`` /
 ``list_configs()`` are the lookup API of the ``--arch`` flag.  The registry
-holds only the dense GQA decoders the port's modules serve; the reference's
-other configurations need MLA, MoE, SSM, encoder or prefix modules that are
-not ported yet.
+holds only what the port's modules run: the dense GQA decoders, the vision
+prefix model (phi-3-vision) and the encoder-decoder (seamless-m4t); the
+reference's other configurations need MLA, MoE or SSM modules that are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ ARCH_IDS = (
     "qwen3-0.6b",
     "codeqwen1.5-7b",
     "minitron-4b",
+    "phi-3-vision-4.2b",
+    "seamless-m4t-large-v2",
 )
 
 

@@ -11,8 +11,10 @@ so this module needs nothing of the JAX package:
     ``TaskBatch``, so stage 2 can be held against the reference on identical
     inputs;
   * ``model_from_reference``: a backbone ``Model`` from the reference's
-    ``init_model`` parameter tree, so the port's layers can be held against
-    the reference on identical weights;
+    ``init_model`` parameter tree (a prefix model's, an encoder-decoder's
+    with its ``encoder`` subtree and the layers' ``ln_x`` / ``cross``), so
+    the port's layers can be held against the reference on identical
+    weights;
   * ``opt_state_from_reference``: the port's ``OptState`` from the
     reference optimizer's (its step, and the m / v, factored or momentum
     trees), so training can continue from the reference's mid-run state.
@@ -112,31 +114,51 @@ def _leaves(tree, prefix: str) -> Iterator[Tuple[str, object]]:
             yield prefix + key, sub
 
 
+def _unstack(stacked: Mapping, n: int, where: str, name_of) -> Dict[str, object]:
+    """The leaves of a tree stacked over n layers on axis 0, one entry a
+    layer: ``name_of(k, leaf name)`` -> layer k's slice.  A tuple leaf
+    (Adafactor's (row, col) state) stacks each part."""
+    out: Dict[str, object] = {}
+    for name, leaf in _leaves(stacked, ""):
+        parts = [np.asarray(a) for a in (leaf if isinstance(leaf, tuple) else (leaf,))]
+        if any(a.shape[0] != n for a in parts):
+            raise ValueError(f"model_from_reference: {where}.{name} stacks "
+                             f"{parts[0].shape[0]} layers, the layout has {n}")
+        for k in range(n):
+            got = tuple(a[k] for a in parts)
+            out[name_of(k, name)] = got if isinstance(leaf, tuple) else got[0]
+    return out
+
+
 def reference_leaves(params: Mapping, cfg) -> Dict[str, object]:
     """The reference's parameter tree as one array per port parameter name:
-    ``prologue[i]`` is layer i, and leaf ``[k]`` of ``groups[j]`` (stacked
-    over groups) is layer ``n_prologue + k * group + j``."""
+    ``prologue[i]`` is layer i, leaf ``[k]`` of ``groups[j]`` (stacked over
+    groups) is layer ``n_prologue + k * group + j``, and leaf ``[k]`` of
+    ``encoder.layers`` (stacked over the encoder's layers) is
+    ``encoder.layers.k``."""
     pro, g, n_groups = _layout(cfg)
     out: Dict[str, object] = {}
     for key in ("embed", "final_ln", "unembed"):
         if key in params:
             out[key] = params[key]
-    extra = set(params) - {"embed", "final_ln", "unembed", "prologue", "groups"}
+    extra = set(params) - {"embed", "final_ln", "unembed", "prologue", "groups", "encoder"}
     if extra:
         raise KeyError(f"model_from_reference: no port counterpart for {sorted(extra)}")
     for i, layer in enumerate(params.get("prologue", [])):
         out.update(_leaves(layer, f"layers.{i}."))
     for j, stacked in enumerate(params.get("groups", [])):
-        for name, leaf in _leaves(stacked, ""):
-            # a tuple leaf (Adafactor's (row, col) state) stacks each part
-            parts = [np.asarray(a) for a in (leaf if isinstance(leaf, tuple) else (leaf,))]
-            if any(a.shape[0] != n_groups for a in parts):
-                raise ValueError(f"model_from_reference: groups[{j}].{name} stacks "
-                                 f"{parts[0].shape[0]} layers, the layout has {n_groups}")
-            for k in range(n_groups):
-                got = tuple(a[k] for a in parts)
-                out[f"layers.{pro + k * g + j}.{name}"] = (
-                    got if isinstance(leaf, tuple) else got[0])
+        out.update(_unstack(stacked, n_groups, f"groups[{j}]",
+                            lambda k, name: f"layers.{pro + k * g + j}.{name}"))
+    if "encoder" in params:
+        enc = params["encoder"]
+        extra = set(enc) - {"layers", "final_ln"}
+        if extra or "layers" not in enc:
+            raise KeyError(f"model_from_reference: no port counterpart for encoder "
+                           f"{sorted(extra) or 'without layers'}")
+        out.update(_unstack(enc["layers"], cfg.n_encoder_layers, "encoder.layers",
+                            lambda k, name: f"encoder.layers.{k}.{name}"))
+        if "final_ln" in enc:
+            out["encoder.final_ln"] = enc["final_ln"]
     return out
 
 
@@ -191,6 +213,10 @@ def opt_state_from_reference(opt_state, cfg, device=None,
     if name == "adafactor":
         inner = dict(inner, groups=[{k: _unfactor_stacked_vectors(v) for k, v in
                                      layer.items()} for layer in inner.get("groups", [])])
+        if "encoder" in inner:
+            inner["encoder"] = dict(inner["encoder"], layers={
+                k: _unfactor_stacked_vectors(v)
+                for k, v in inner["encoder"]["layers"].items()})
         return OptState(step, named(inner))
     if name == "sgd":
         return OptState(step, named(inner))

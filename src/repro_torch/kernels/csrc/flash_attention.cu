@@ -7,7 +7,7 @@
 //
 //   s   = (q . k) * scale, fp32 from the inputs, scale = 1/sqrt(D) in fp32
 //   s   = -1e30 where masked (causal: key position > query position; ragged
-//         S: key position >= S)
+//         S_kv: key position >= S_kv)
 //   m'  = max(m, rowmax(s)), a = exp(m - m'), p = exp(s - m')
 //   l   = l * a + rowsum(p)                     (p in fp32)
 //   acc = acc * a + round(p) . v                (p rounded to the input type)
@@ -19,11 +19,13 @@
 // (kernels/flash_attention.py) computes the same function when it is given
 // this kernel's tile (flash_attention_bf16_kv_tile below).
 //
-// Layout: q (B, S, Hq, D), k and v (B, S, Hkv, D), o (B, S, Hq, D), all
+// Layout: q (B, S, Hq, D), k and v (B, S_kv, Hkv, D), o (B, S, Hq, D), all
 // contiguous, so the projections' outputs are read in place and no
 // transposed copy is made.  Query head h reads kv head h / (Hq / Hkv): that
-// is _flash's (Hkv, G) split of the query heads.  D is 64 or 128 (the head
-// widths of the ported configurations).  Ragged S is masked in the kernel,
+// is _flash's (Hkv, G) split of the query heads.  Causal attention has
+// S_kv = S; full attention takes k and v of their own length (an encoder's
+// memory under cross-attention).  D is 64, 96 or 128 (the head widths of the
+// ported configurations).  Ragged S and S_kv are masked in the kernel,
 // never padded; causal kv tiles that lie wholly above the diagonal are not
 // visited (the TPU kernel runs them masked; they change neither m, l nor
 // acc); query tiles are taken longest first.
@@ -40,16 +42,24 @@
 //     128-row k and v tiles into a three-stage ring that runs on across
 //     items (the next item's q and k/v load while the consumers finish the
 //     current one), by TMA over 4-D (D, H, S, B) tensor
-//     maps.  A tile is D/64 boxes of 64 columns (128 bytes, the span of the
-//     128-byte swizzle) by 128 rows; rows past S come back as zeros, never
-//     from the next batch row.  Full and empty mbarriers pace the ring.
+//     maps.  A tile is DP/64 boxes of 64 columns (128 bytes, the span of the
+//     128-byte swizzle) by 128 rows; rows past S (or S_kv) come back as
+//     zeros, never from the next batch row.  Full and empty mbarriers pace
+//     the ring.
+//   - D 96 runs in the D 128 layout (DP 128): the tensor maps' rows are 96
+//     wide (192 bytes), and the second box's columns 96-127 lie past them,
+//     so TMA fills them with zeros (and still counts the whole box towards
+//     the barrier's bytes).  Q K^T steps over the 96 columns only; P V runs
+//     at N 128 over v's zero columns into accumulator columns that stay 0,
+//     and the store writes the first 96.  One instantiation more, with the
+//     shared memory and the registers of D 128.
 //   - warpgroups 1 and 2 consume, 64 query rows each.  S = Q K^T is wgmma
 //     m64n128k16 with both operands in shared memory (k's [kv][D] rows are
 //     K-major); the mask, the running max and sum stay in the accumulator
 //     fragments, the row reductions are quad shuffles, p = 2^(s scale
 //     log2(e) - m scale log2(e)) is one FFMA and ex2.approx; p becomes bf16
 //     pairs in the A-register layout of O += P V, a wgmma m64nDk16 with v
-//     from shared memory (MN-major: the transpose bit).  S_j is issued
+//     from shared memory (MN-major: the transpose bit), N = DP.  S_j is issued
 //     ahead of P_{j-1} V_{j-1}, so the softmax of tile j runs on the CUDA
 //     cores while the tensor cores finish P_{j-1} V_{j-1}.  O, m and l stay
 //     in fp32 registers; the output is normalised, cast and stored from
@@ -57,7 +67,8 @@
 // fp32: nothing on the model's path runs it (the configurations are bf16),
 // so it keeps a SIMT body on the fp32 CUDA cores (67 TFLOP/s): one block
 // per 64-row query tile, q^T, k^T, v and p^T staged in shared memory as
-// fp32, 4 x 4 logits per thread, row max and sum by 16-lane shuffles.  The
+// fp32, 4 x 4 logits per thread, row max and sum by 16-lane shuffles; a
+// thread's D / 16 output columns in float4 groups (float2 groups at D 96).  The
 // wrapper picks the body by dtype; neither gives way to the other.
 #include <cuda.h>            // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -99,9 +110,13 @@ constexpr size_t smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, int S, int Hq, int Hkv,
-          float scale, int causal) {
-  constexpr int CG = D / 64;      // float4 column groups of the accumulator per thread
+          const float* __restrict__ v, float* __restrict__ o, int S, int S_kv, int Hq,
+          int Hkv, float scale, int causal) {
+  // thread tx owns columns g * 16 W + tx W + j (j < W) of the accumulator:
+  // W 4 (float4 groups) where 64 divides D, else W 2 (float2 groups)
+  constexpr int W = D % 64 == 0 ? 4 : 2;
+  constexpr int CG = D / (16 * W);
+  static_assert(CG * 16 * W == D, "D is a multiple of 32");
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);   // [D][LDT]
   float* kt = qt + D * LDT;                       // [D][LDT]
@@ -114,29 +129,29 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const long q_step = (long)Hq * D, kv_step = (long)Hkv * D;   // per position
   const float* qb = q + (long)b * S * q_step + (long)h * D;
-  const float* kb = k + (long)b * S * kv_step + (long)hk * D;
-  const float* vb = v + (long)b * S * kv_step + (long)hk * D;
+  const float* kb = k + (long)b * S_kv * kv_step + (long)hk * D;
+  const float* vb = v + (long)b * S_kv * kv_step + (long)hk * D;
 
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int r = e / D, d = e % D, s = q0 + r;
     qt[d * LDT + r] = s < S ? qb[s * q_step + d] : 0.f;
   }
 
-  float m[4], l[4], acc[4][4 * CG];
+  float m[4], l[4], acc[4][W * CG];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4 * CG; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < W * CG; ++c) acc[i][c] = 0.f;
   }
 
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int kv_end = causal ? min(S, q0 + BQ) : S_kv;
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();              // the previous tile's readers are done
     for (int e = tid; e < BK * D; e += THREADS) {
       const int r = e / D, d = e % D, s = k0 + r;
-      const bool in = s < S;
+      const bool in = s < S_kv;
       kt[d * LDT + r] = in ? kb[s * kv_step + d] : 0.f;
       vs[r * D + d] = in ? vb[s * kv_step + d] : 0.f;
     }
@@ -165,7 +180,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = k0 + tx * 4 + j;
-        const bool keep = c < S && (!causal || c <= r);
+        const bool keep = c < S_kv && (!causal || c <= r);
         sc[i][j] = keep ? sc[i][j] * scale : NEG_INF;
         mt = fmaxf(mt, sc[i][j]);
       }
@@ -180,7 +195,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       l[i] = l[i] * alpha + row_sum16(ps);
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 4 * CG; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < W * CG; ++c) acc[i][c] *= alpha;
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -194,13 +209,20 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
       for (int g = 0; g < CG; ++g) {
-        const float4 c = *reinterpret_cast<const float4*>(&vs[kk * D + g * 64 + tx * 4]);
-        const float cv[4] = {c.x, c.y, c.z, c.w};
+        const float* vp = &vs[kk * D + g * 16 * W + tx * W];
+        float cv[W];
+        if constexpr (W == 4) {
+          const float4 c = *reinterpret_cast<const float4*>(vp);
+          cv[0] = c.x, cv[1] = c.y, cv[2] = c.z, cv[3] = c.w;
+        } else {
+          const float2 c = *reinterpret_cast<const float2*>(vp);
+          cv[0] = c.x, cv[1] = c.y;
+        }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][g * 4 + j] = fmaf(av[i], cv[j], acc[i][g * 4 + j]);
+          for (int j = 0; j < W; ++j)
+            acc[i][g * W + j] = fmaf(av[i], cv[j], acc[i][g * W + j]);
       }
     }
   }
@@ -214,13 +236,14 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int g = 0; g < CG; ++g)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ob[s * q_step + g * 64 + tx * 4 + j] = acc[i][g * 4 + j] / den;
+      for (int j = 0; j < W; ++j)
+        ob[s * q_step + g * 16 * W + tx * W + j] = acc[i][g * W + j] / den;
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Hq,
-           int Hkv, float scale, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int S_kv,
+           int Hq, int Hkv, float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();   // above 48 KB: opt-in
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -228,7 +251,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
   flash_fwd<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, Hq, Hkv, scale, causal);
+      static_cast<const float*>(v), static_cast<float*>(o), S, S_kv, Hq, Hkv, scale,
+      causal);
   return cudaGetLastError();
 }
 
@@ -248,11 +272,18 @@ constexpr uint32_t BOX_BYTES = ROWS * BOX * 2;   // [128][64] bf16, 16 KB
 constexpr uint32_t ATOM = 1024;   // 8 rows of 128 bytes: the swizzle's repeat
 static_assert(BQ == ROWS && BK == ROWS, "q, k and v tiles are 128-row boxes");
 
+// The width a tile of head dim D takes in shared memory and in the P V
+// accumulator: whole 64-column boxes, so D 96 runs in the D 128 layout.
+template <int D>
+__host__ __device__ constexpr int padded() {
+  return (D + BOX - 1) / BOX * BOX;
+}
+
 // Shared memory, in bytes from a 1024-aligned base: q, then the k and v
 // rings, then the barriers q_full, q_empty, full[STAGES] and empty[STAGES].
 template <int D>
 struct Smem {
-  static constexpr uint32_t TILE = (D / BOX) * BOX_BYTES;   // one 128 x D tile
+  static constexpr uint32_t TILE = (padded<D>() / BOX) * BOX_BYTES;   // one 128 x DP tile
   static constexpr uint32_t Q = 0;
   static constexpr uint32_t K = Q + TILE;                   // stage s at K + s * TILE
   static constexpr uint32_t V = K + STAGES * TILE;
@@ -413,15 +444,15 @@ __device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2], const uint32_t (&p
 // from there on.
 __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float (&m)[2],
                                                float (&l)[2], float (&alpha)[2], int k0,
-                                               int r0, int row_lo, int t, int S, int causal,
-                                               float sl2) {
-  if (k0 + BK > S || (causal && k0 + BK - 1 > row_lo)) {
+                                               int r0, int row_lo, int t, int S_kv,
+                                               int causal, float sl2) {
+  if (k0 + BK > S_kv || (causal && k0 + BK - 1 > row_lo)) {
 #pragma unroll
     for (int i = 0; i < BK / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + 8 * i + 2 * t + (e & 1), row = r0 + 8 * (e >> 1);
-        if (col >= S || (causal && col > row)) sc[4 * i + e] = NEG_INF;
+        if (col >= S_kv || (causal && col > row)) sc[4 * i + e] = NEG_INF;
       }
   }
   float mx[2] = {NEG_INF, NEG_INF}, ms[2], sum[2] = {0.f, 0.f};
@@ -471,15 +502,15 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_rows,
   wgmma_commit();
 }
 
-// Issues O += P V for one v tile and commits it.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&pa)[BK / 16][4],
+// Issues O += P V for one v tile (DP columns) and commits it.
+template <int DP>
+__device__ __forceinline__ void issue_pv(float (&acc)[DP / 2], const uint32_t (&pa)[BK / 16][4],
                                          uint32_t v_tile) {
   pin(acc);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_pv<D>(acc, pa[kk], desc_mn_major(v_tile + kk * 16 * 128));
+    wgmma_pv<DP>(acc, pa[kk], desc_mn_major(v_tile + kk * 16 * 128));
   wgmma_commit();
 }
 
@@ -502,15 +533,16 @@ __device__ __forceinline__ int nth_item(int n) {
   return n * G + ((n & 1) ? G - 1 - (int)blockIdx.x : (int)blockIdx.x);
 }
 
-__device__ __forceinline__ int kv_tiles(int q0, int S, int causal) {
-  return ((causal ? min(S, q0 + BQ) : S) + BK - 1) / BK;
+__device__ __forceinline__ int kv_tiles(int q0, int S, int S_kv, int causal) {
+  return ((causal ? min(S, q0 + BQ) : S_kv) + BK - 1) / BK;
 }
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int B,
-          int S, int Hq, int Hkv, float scale, int causal) {
+          int S, int S_kv, int Hq, int Hkv, float scale, int causal) {
+  constexpr int DP = padded<D>();
   using L = Smem<D>;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = (smem_u32(smem) + ATOM - 1) & ~(ATOM - 1);
@@ -539,14 +571,14 @@ flash_fwd(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
         const Item w = item_at(item, n_qt, Hq, B);
         mbar_wait(q_empty, (n & 1) ^ 1);           // the first item passes
         mbar_expect_tx(q_full, L::TILE);
-        for (int c = 0; c < D / BOX; ++c)
+        for (int c = 0; c < DP / BOX; ++c)
           tma_load(base + L::Q + c * BOX_BYTES, &tq, q_full, c * BOX, w.h, w.q0, w.b);
-        const int n_kv = kv_tiles(w.q0, S, causal);
+        const int n_kv = kv_tiles(w.q0, S, S_kv, causal);
         for (int j = 0; j < n_kv; ++j, ++it) {
           const int s = it % STAGES;
           mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);   // the first round passes
           mbar_expect_tx(full + 8 * s, 2 * L::TILE);
-          for (int c = 0; c < D / BOX; ++c) {
+          for (int c = 0; c < DP / BOX; ++c) {
             const uint32_t off = s * L::TILE + c * BOX_BYTES;
             tma_load(base + L::K + off, &tk, full + 8 * s, c * BOX, w.h / group, j * BK, w.b);
             tma_load(base + L::V + off, &tv, full + 8 * s, c * BOX, w.h / group, j * BK, w.b);
@@ -562,7 +594,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
     const int g = lane >> 2, t = lane & 3;
     const uint32_t q_rows = base + L::Q + cw * 64 * 128;   // its 64 rows of each q box
     const float sl2 = scale * 1.4426950408889634f;
-    float acc[D / 2], sc[BK / 2], alpha[2];
+    float acc[DP / 2], sc[BK / 2], alpha[2];
     uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
@@ -572,10 +604,10 @@ flash_fwd(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
       const Item w = item_at(item, n_qt, Hq, B);
       const int row_lo = w.q0 + cw * 64;           // the warpgroup's first row
       const int r0 = row_lo + warp * 16 + g;       // this thread's rows: r0 and r0 + 8
-      const int n_kv = kv_tiles(w.q0, S, causal);
+      const int n_kv = kv_tiles(w.q0, S, S_kv, causal);
       float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
       mbar_wait(q_full, n & 1);
       mbar_wait(full + 8 * (it % STAGES), (it / STAGES) & 1);
@@ -583,7 +615,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
       wgmma_wait<0>();
       pin(sc);
       if (n_kv == 1) mbar_arrive(q_empty);         // q read for the last time
-      online_softmax(sc, m, l, alpha, 0, r0, row_lo, t, S, causal, sl2);
+      online_softmax(sc, m, l, alpha, 0, r0, row_lo, t, S_kv, causal, sl2);
       to_a_fragments(sc, pa);
 
       // Tile j: S_j and then P_{j-1} V_{j-1} go to the tensor cores; the
@@ -594,16 +626,16 @@ flash_fwd(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
         const int s = (it + j) % STAGES, prev = (it + j - 1) % STAGES;
         mbar_wait(full + 8 * s, ((it + j) / STAGES) & 1);
         issue_qk<D>(sc, q_rows, base + L::K + s * L::TILE);
-        issue_pv<D>(acc, pa, base + L::V + prev * L::TILE);
+        issue_pv<DP>(acc, pa, base + L::V + prev * L::TILE);
         wgmma_wait<1>();                           // S_j done; P V may still run
         pin(sc);
         if (j == n_kv - 1) mbar_arrive(q_empty);   // q read for the last time
-        online_softmax(sc, m, l, alpha, j * BK, r0, row_lo, t, S, causal, sl2);
+        online_softmax(sc, m, l, alpha, j * BK, r0, row_lo, t, S_kv, causal, sl2);
         wgmma_wait<0>();
         pin(acc);
         mbar_arrive(empty + 8 * prev);             // this thread is done with tile j - 1
 #pragma unroll
-        for (int i = 0; i < D / 8; ++i) {
+        for (int i = 0; i < DP / 8; ++i) {
           acc[4 * i] *= alpha[0];
           acc[4 * i + 1] *= alpha[0];
           acc[4 * i + 2] *= alpha[1];
@@ -612,13 +644,14 @@ flash_fwd(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
         to_a_fragments(sc, pa);
       }
       const int last = (it + n_kv - 1) % STAGES;
-      issue_pv<D>(acc, pa, base + L::V + last * L::TILE);
+      issue_pv<DP>(acc, pa, base + L::V + last * L::TILE);
       wgmma_wait<0>();
       pin(acc);
       mbar_arrive(empty + 8 * last);
       it += n_kv;
 
-      // the producer loads the next item meanwhile
+      // the producer loads the next item meanwhile; columns D .. DP - 1 of
+      // acc are 0 (v's columns past D came in as zeros) and are not stored
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = r0 + 8 * r;
@@ -660,7 +693,8 @@ EncodeTiled encoder() {
 }
 
 // A (D, H, S, B) bf16 tensor map with 64 x 1 x 128 x 1 boxes in the 128-byte
-// swizzle; positions past S read as zeros.
+// swizzle; positions past S, and columns past D (D 96's second box), read
+// as zeros.
 bool tensor_map(CUtensorMap* map, const void* base, int D, int H, int S, int B) {
   const EncodeTiled encode = encoder();
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
@@ -675,11 +709,11 @@ bool tensor_map(CUtensorMap* map, const void* base, int D, int H, int S, int B) 
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Hq,
-           int Hkv, float scale, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int S_kv,
+           int Hq, int Hkv, float scale, int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!tensor_map(&mq, q, D, Hq, S, B) || !tensor_map(&mk, k, D, Hkv, S, B) ||
-      !tensor_map(&mv, v, D, Hkv, S, B))
+  if (!tensor_map(&mq, q, D, Hq, S, B) || !tensor_map(&mk, k, D, Hkv, S_kv, B) ||
+      !tensor_map(&mv, v, D, Hkv, S_kv, B))
     return cudaErrorInvalidValue;
   constexpr uint32_t smem = Smem<D>::BYTES;   // above 48 KB: opt-in
   cudaError_t err = cudaFuncSetAttribute(
@@ -693,7 +727,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   const long items = (long)((S + BQ - 1) / BQ) * Hq * B;   // one persistent block per SM
   if (items > 0x7fffffff) return cudaErrorInvalidValue;   // the kernel counts items in int
   flash_fwd<D><<<(unsigned)(items < sms ? items : sms), THREADS, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), B, S, Hq, Hkv, scale, causal);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), B, S, S_kv, Hq, Hkv, scale, causal);
   return cudaGetLastError();
 }
 
@@ -701,26 +735,31 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 
 }  // namespace
 
-// q, o (B, S, Hq, D) and k, v (B, S, Hkv, D), contiguous on the current
+// q, o (B, S, Hq, D) and k, v (B, S_kv, Hkv, D), contiguous on the current
 // device, fp32 (dtype 0, the SIMT body) or bf16 (dtype 1, the tensor-core
-// body, whose q, k and v need 16-byte-aligned bases for TMA); D 64 or 128;
-// Hq a multiple of Hkv; B and Hq at most 65535.  Launches on `stream`, does
-// not synchronise, and returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for arguments it does not take (a bf16 base TMA
-// refuses included).
+// body, whose q, k and v need 16-byte-aligned bases for TMA); D 64, 96 or
+// 128; S_kv = S when causal; Hq a multiple of Hkv; B and Hq at most 65535.
+// Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for
+// arguments it does not take (a bf16 base TMA refuses included).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* o, int B, int S, int Hq, int Hkv,
+                                      void* o, int B, int S, int S_kv, int Hq, int Hkv,
                                       int D, int dtype, float scale, int causal,
                                       void* stream) {
   if (B <= 0 || S <= 0 || Hq <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  if (S_kv <= 0 || (causal && S_kv != S) || Hkv <= 0 || Hq % Hkv != 0 ||
+      (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return dtype ? tc::launch<64>(q, k, v, o, B, S, Hq, Hkv, scale, causal, st)
-                 : simt::launch<64>(q, k, v, o, B, S, Hq, Hkv, scale, causal, st);
+    return dtype ? tc::launch<64>(q, k, v, o, B, S, S_kv, Hq, Hkv, scale, causal, st)
+                 : simt::launch<64>(q, k, v, o, B, S, S_kv, Hq, Hkv, scale, causal, st);
+  if (D == 96)
+    return dtype ? tc::launch<96>(q, k, v, o, B, S, S_kv, Hq, Hkv, scale, causal, st)
+                 : simt::launch<96>(q, k, v, o, B, S, S_kv, Hq, Hkv, scale, causal, st);
   if (D == 128)
-    return dtype ? tc::launch<128>(q, k, v, o, B, S, Hq, Hkv, scale, causal, st)
-                 : simt::launch<128>(q, k, v, o, B, S, Hq, Hkv, scale, causal, st);
+    return dtype ? tc::launch<128>(q, k, v, o, B, S, S_kv, Hq, Hkv, scale, causal, st)
+                 : simt::launch<128>(q, k, v, o, B, S, S_kv, Hq, Hkv, scale, causal, st);
   return cudaErrorInvalidValue;
 }
 
@@ -733,6 +772,7 @@ extern "C" int flash_attention_bf16_kv_tile() { return tc::BK; }
 // take.
 extern "C" int flash_attention_smem_bytes(int D, int dtype) {
   if (D == 64) return dtype ? (int)tc::Smem<64>::BYTES : (int)simt::smem_bytes<64>();
+  if (D == 96) return dtype ? (int)tc::Smem<96>::BYTES : (int)simt::smem_bytes<96>();
   if (D == 128) return dtype ? (int)tc::Smem<128>::BYTES : (int)simt::smem_bytes<128>();
   return 0;
 }

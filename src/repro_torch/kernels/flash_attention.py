@@ -12,11 +12,13 @@ CUDA path calls it.
 
 Both take the model's layout, grouped-query heads included:
 
-    q  (B, S, Hq, D)    k, v  (B, S, Hkv, D)    Hq a multiple of Hkv
+    q  (B, S, Hq, D)    k, v  (B, S_kv, Hkv, D)    Hq a multiple of Hkv
 
-query head h attends kv head h // (Hq // Hkv), over positions 0 .. S - 1 of
-the same sequence (causal: key position <= query position).  The logits are
-fp32 from the inputs upcast, times 1/sqrt(D); the output has q's dtype.
+query head h attends kv head h // (Hq // Hkv), over kv positions
+0 .. S_kv - 1 (causal: key position <= query position, and then S_kv = S;
+not causal, S_kv is k and v's own length: an encoder's memory under
+cross-attention).  The logits are fp32 from the inputs upcast, times
+1/sqrt(D); the output has q's dtype.
 The rounded p depends on the running max and so on the kv tile: given
 ``kv_tile=bf16_kv_tile()`` the plain version rounds p as the kernel does.
 ``flash_attention_rounding_slack`` bounds what a p rounded the other way
@@ -42,7 +44,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 KV_TILE = 1024                      # the plain version's kv tile (_flash's kv chunk)
 Q_BLOCK = 512                       # query rows a block of the backward (_flash's q chunk)
-HEAD_DIMS = (64, 128)               # the kernel's head widths
+HEAD_DIMS = (64, 96, 128)           # the kernel's head widths
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_YZ = 65535                 # Hq and B ride gridDim.y and gridDim.z
 TMA_ALIGN = 16                      # bytes: the bf16 body loads q, k, v by TMA
@@ -56,24 +58,30 @@ def softmax_scale(D: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(D)))
 
 
-def _shapes(q, k, v, who: str):
+def _shapes(q, k, v, who: str, causal: bool):
+    """(B, S, S_kv, Hq, Hkv, D); raises on shapes that do not go together,
+    and on a causal call whose k and v are not q's length."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"{who}: q (B, S, Hq, D) and k, v (B, S, Hkv, D), got "
+        raise ValueError(f"{who}: q (B, S, Hq, D) and k, v (B, S_kv, Hkv, D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, S, Hq, D = q.shape
-    Hkv = k.shape[2]
-    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != D or Hkv == 0 \
-            or Hq % Hkv:
+    S_kv, Hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{who}: q {tuple(q.shape)} and k, v {tuple(k.shape)} "
-                         "differ in B, S or D, or Hq is not a multiple of Hkv")
-    return B, S, Hq, Hkv, D
+                         "differ in B or D, or Hq is not a multiple of Hkv")
+    if causal and S_kv != S:
+        raise ValueError(f"{who}: causal attention needs k and v of q's length, got "
+                         f"S {S} and S_kv {S_kv}")
+    if S_kv == 0 and S > 0:
+        raise ValueError(f"{who}: no kv position to attend (S_kv 0)")
+    return B, S, S_kv, Hq, Hkv, D
 
 
 def _online_softmax(q, k, v, causal: bool, kv_tile: int, who: str, weigh):
     """The TPU kernel's online softmax, one kv tile at a time, with an fp32
     running max, normaliser and accumulator; ``weigh(p, v_tile)`` gives the
     two factors of the tile's product.  Returns acc / l as (B, S, Hq, D) fp32."""
-    B, S, Hq, Hkv, D = _shapes(q, k, v, who)
+    B, S, S_kv, Hq, Hkv, D = _shapes(q, k, v, who, causal)
     G = Hq // Hkv
     scale = torch.tensor(softmax_scale(D), dtype=torch.float32, device=q.device)
     qf = q.to(torch.float32).reshape(B, S, Hkv, G, D)
@@ -81,7 +89,7 @@ def _online_softmax(q, k, v, causal: bool, kv_tile: int, who: str, weigh):
     m = torch.full((B, Hkv, G, S, 1), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, Hkv, G, S, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, Hkv, G, S, D), dtype=torch.float32, device=q.device)
-    for k0 in range(0, S, kv_tile):
+    for k0 in range(0, S_kv, kv_tile):
         kb = k[:, k0:k0 + kv_tile].to(torch.float32)
         vb = v[:, k0:k0 + kv_tile].to(torch.float32)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb) * scale
@@ -118,7 +126,7 @@ def flash_attention_rounding_slack(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     A kernel that forms the same logits in another summation order, or p
     by another exp, may round exactly those p the other way."""
     if v.dtype == torch.float32:
-        _shapes(q, k, v, "flash_attention_rounding_slack")
+        _shapes(q, k, v, "flash_attention_rounding_slack", causal)
         return torch.zeros(q.shape, dtype=torch.float32, device=q.device)
 
     def step(p):
@@ -132,7 +140,7 @@ def _launcher():
     fn = build.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -146,10 +154,11 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            causal: bool = True) -> torch.Tensor:
     """Launch kernel B4 on CUDA tensors; returns (B, S, Hq, D) in q's dtype.
 
-    D must be 64 or 128 and q, k, v one dtype, fp32 or bf16; bf16 runs on
-    the tensor cores and needs 16-byte-aligned q, k and v (after
-    ``.contiguous()``), fp32 runs the SIMT body."""
-    B, S, Hq, Hkv, D = _shapes(q, k, v, "flash_attention_kernel")
+    D must be 64, 96 or 128, q, k, v one dtype, fp32 or bf16, and k, v of
+    q's length when causal; bf16 runs on the tensor cores and needs
+    16-byte-aligned q, k and v (after ``.contiguous()``), fp32 runs the
+    SIMT body."""
+    B, S, S_kv, Hq, Hkv, D = _shapes(q, k, v, "flash_attention_kernel", causal)
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention_kernel: head dim {D} not in {HEAD_DIMS}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -158,7 +167,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_kernel: q, k and v must be CUDA tensors "
                          "on one device")
-    if max(B, Hq) > MAX_GRID_YZ or S >= 2 ** 31:
+    if max(B, Hq) > MAX_GRID_YZ or max(S, S_kv) >= 2 ** 31:
         raise ValueError(f"flash_attention_kernel: {tuple(q.shape)} exceeds the "
                          "launch grid")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -172,7 +181,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                          B, S, Hq, Hkv, D, DTYPES[q.dtype], softmax_scale(D),
+                          B, S, S_kv, Hq, Hkv, D, DTYPES[q.dtype], softmax_scale(D),
                           int(bool(causal)), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_kernel: launch failed with CUDA error {err}")
@@ -188,18 +197,19 @@ def flash_attention_grad_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                q_block: int = Q_BLOCK):
     """(dq, dk, dv) of ``_flash``'s function (fp32 softmax, p not rounded)
     at q, k, v for the output gradient ``dout`` (B, S, Hq, D), each in its
-    input's dtype.  The scores are recomputed ``q_block`` query rows at a
-    time; per block P = softmax(S), dv += P^T dO, dP = dO V^T,
-    dS = P (dP - rowsum(P dP)), dq = dS K / sqrt(D), dk += dS^T Q / sqrt(D),
-    the kv heads summed over the query heads they serve."""
-    B, S, Hq, Hkv, D = _shapes(q, k, v, "flash_attention_grad_plain")
+    input's dtype (dk, dv: (B, S_kv, Hkv, D)).  The scores are recomputed
+    ``q_block`` query rows at a time; per block P = softmax(S),
+    dv += P^T dO, dP = dO V^T, dS = P (dP - rowsum(P dP)),
+    dq = dS K / sqrt(D), dk += dS^T Q / sqrt(D), the kv heads summed over
+    the query heads they serve."""
+    B, S, S_kv, Hq, Hkv, D = _shapes(q, k, v, "flash_attention_grad_plain", causal)
     G = Hq // Hkv
     scale = softmax_scale(D)
     kf, vf = k.to(torch.float32), v.to(torch.float32)
     dq = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
-    dk = torch.zeros((B, S, Hkv, D), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, S_kv, Hkv, D), dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
-    cols = torch.arange(S, device=q.device)
+    cols = torch.arange(S_kv, device=q.device)
     for s0 in range(0, S, q_block):
         s1 = min(S, s0 + q_block)
         qb = q[:, s0:s1].to(torch.float32).reshape(B, s1 - s0, Hkv, G, D)
@@ -207,7 +217,7 @@ def flash_attention_grad_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kf) * scale
         if causal:
             s = torch.where(cols[s0:s1, None] >= cols[None, :], s, NEG_INF)
-        p = torch.softmax(s, dim=-1)                         # (B, Hkv, G, L, S)
+        p = torch.softmax(s, dim=-1)                         # (B, Hkv, G, L, S_kv)
         del s
         dv += torch.einsum("bhgqk,bqhgd->bkhd", p, dob)
         dp = torch.einsum("bqhgd,bkhd->bhgqk", dob, vf)

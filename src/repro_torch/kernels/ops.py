@@ -95,13 +95,15 @@ def smo_epoch_scratch(n_tasks: int, positions: int, device):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Online-softmax attention in the model's layout: q (B, S, Hq, D), k and
-    v (B, S, Hkv, D), query head h on kv head h // (Hq // Hkv); returns
-    (B, S, Hq, D) in q's dtype (see kernels/flash_attention.py).  Ragged S is
-    masked, never padded, causal or not.  A sliding window is not ported:
-    ``window > 0`` raises on every device.  Where an input requires a
-    gradient (and grad mode is on) the call goes through the autograd
-    Function ``FlashAttention``: the same forward, and a backward that
-    recomputes the unrounded attention block by block."""
+    v (B, S_kv, Hkv, D), query head h on kv head h // (Hq // Hkv); returns
+    (B, S, Hq, D) in q's dtype (see kernels/flash_attention.py).  Causal
+    attention needs S_kv = S; full attention takes k and v of their own
+    length (cross-attention over an encoder's memory).  Ragged S and S_kv
+    are masked, never padded.  A sliding window is not ported: ``window > 0``
+    raises on every device, as does a causal call with S_kv != S.  Where an
+    input requires a gradient (and grad mode is on) the call goes through
+    the autograd Function ``FlashAttention``: the same forward, and a
+    backward that recomputes the unrounded attention block by block."""
     if window > 0:
         raise NotImplementedError(
             "flash_attention: sliding-window attention (window > 0) is not "

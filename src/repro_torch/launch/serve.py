@@ -9,7 +9,11 @@ The CLI serves on the card (as ``train_svm``'s, it has no device flag);
 ``torch.Generator`` seeded with ``seed`` on the device (other weights than
 the reference's ``jax.random``; ``model=`` takes a model built elsewhere,
 e.g. by ``convert.model_from_reference``), prompts from
-``np.random.default_rng(seed)``, as the reference's.
+``np.random.default_rng(seed)``, as the reference's, and for an
+encoder-decoder model then 16 frames a row from the same generator (bf16):
+the encoder runs over them and ``prefill_cross_attention`` fills every
+layer's cross-attention k / v before the loop.  A vision model serves text
+only (no prefix), as the reference's.
 
 The loop keeps everything on the device: positions are 0-d tensors of one
 ``arange``, each step's slot index is formed there, and the generated
@@ -30,8 +34,10 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.svm import resolve_device
 from repro_torch.launch.steps import make_serve_step
-from repro_torch.models import init_decode_state, init_model
-from repro_torch.models.model import Model
+from repro_torch.models import init_decode_state, init_model, prefill_cross_attention
+from repro_torch.models.model import Model, _run_encoder
+
+ENC_LEN = 16                    # the reference's frames a row for an encoder-decoder
 
 
 @dataclasses.dataclass
@@ -46,16 +52,27 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model: Model, cfg: ModelConfig, prompts: np.ndarray, gen: int) -> Generation:
+def generate(model: Model, cfg: ModelConfig, prompts: np.ndarray, gen: int,
+             frames: Optional[torch.Tensor] = None) -> Generation:
     """Greedy generation of ``gen`` tokens after ``prompts`` (B, P), with a
-    KV cache of P + gen slots on the model's device."""
+    KV cache of P + gen slots on the model's device.  An encoder-decoder
+    model needs ``frames`` (B, F, d): the memory's cross-attention k / v go
+    into the state first (not timed, as in the reference)."""
     device = model.embed.device
     batch, prompt_len = prompts.shape
     step = make_serve_step(cfg)
-    state = init_decode_state(cfg, batch, prompt_len + gen, device=device)
+    if cfg.is_encoder_decoder and frames is None:
+        raise ValueError(f"generate: {cfg.name} is an encoder-decoder model and "
+                         "needs frames")
+    enc_len = frames.shape[1] if cfg.is_encoder_decoder else 0
+    state = init_decode_state(cfg, batch, prompt_len + gen, device=device,
+                              enc_len=enc_len)
     toks = torch.as_tensor(prompts, dtype=torch.int32).to(device)
     positions = torch.arange(prompt_len + gen, device=device)
     with torch.no_grad():
+        if enc_len:
+            memory = _run_encoder(model, cfg, frames.to(device, model.embed.dtype))
+            state = prefill_cross_attention(model, cfg, state, memory)
         t0 = time.perf_counter()
         tok = None
         for t in range(prompt_len):
@@ -85,7 +102,11 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4, prompt_len: int = 
         raise ValueError(f"serve: the model lies on {model.embed.device}, not {device}")
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
-    run = generate(model, cfg, prompts, gen)
+    frames = None
+    if cfg.is_encoder_decoder:
+        frames = torch.from_numpy(rng.normal(size=(batch, ENC_LEN, cfg.d_model))
+                                  ).to(torch.bfloat16)
+    run = generate(model, cfg, prompts, gen, frames)
     gen_arr, dt = run.tokens, run.seconds
     print(f"{arch}: generated {gen_arr.shape} in {dt:.2f}s "
           f"({batch * (prompt_len + gen) / dt:.1f} tok/s incl. prefill)")

@@ -7,8 +7,12 @@ so the factories take the configuration (and the train step its optimizer)
 alone.
 
     make_train_step(cfg, opt)(model, opt_state, batch)  -> (model, opt_state, metrics)
-    make_prefill_step(cfg)(model, {"tokens": t})        -> last logits (B, Vp)
+    make_prefill_step(cfg)(model, batch)                -> last logits (B, Vp)
     make_serve_step(cfg)(model, tokens, state, pos)     -> (next (B, 1) int32, state)
+
+A batch is ``forward``'s: "tokens", and "prefix" (vision) or "frames"
+(encoder-decoder); the train step's also "targets" (B, S), the text
+positions' (a vision model's loss skips its P prefix positions).
 
 The train step is ``forward`` with per-layer remat (B4 on the card, once in
 the forward and once in each layer's recompute), ``lm_loss`` plus
@@ -26,16 +30,19 @@ from repro_torch.models import model as M
 
 
 def make_train_step(cfg: ModelConfig, optimizer, *, remat: bool = True):
-    """batch: {"tokens" (B, S), "targets" (B, S)} on the model's device.  The
-    step turns the model's parameters' gradients on (``requires_grad_``),
-    updates the parameters and ``opt_state`` in place and returns them with
-    the metrics ``loss``, ``aux`` and ``total`` (0-d fp32 tensors on the
-    device: reading one waits for the step)."""
+    """batch: {"tokens" (B, S), "targets" (B, S)} on the model's device, with
+    "prefix" or "frames" where the model takes them.  The step turns the
+    model's parameters' gradients on (``requires_grad_``), updates the
+    parameters and ``opt_state`` in place and returns them with the metrics
+    ``loss``, ``aux`` and ``total`` (0-d fp32 tensors on the device: reading
+    one waits for the step)."""
+    prefix = cfg.num_prefix_embeddings if cfg.modality == "vision" else 0
+
     def train_step(params: M.Model, opt_state, batch):
         params.requires_grad_(True)
         named = dict(params.named_parameters())
         logits, aux = M.forward(params, cfg, batch, remat=remat)
-        loss = M.lm_loss(logits, batch["targets"])
+        loss = M.lm_loss(logits, batch["targets"], prefix_len=prefix)
         total = loss + cfg.router_aux_coef * aux
         grads = torch.autograd.grad(total, list(named.values()))
         del logits

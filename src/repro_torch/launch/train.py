@@ -7,10 +7,13 @@ The CLI trains on the card (as ``serve``'s, it has no device flag);
 ``train(..., device="cpu")`` trains on the CPU.  Weights come from a
 ``torch.Generator`` seeded with ``seed`` on the device (other weights than
 the reference's ``jax.random``), tokens from ``synthetic_token_batches``
-(the reference's tokens for the same seed).  It prints the reference's
+(the reference's tokens for the same seed), and after each token batch,
+from ``np.random.default_rng(seed)`` as the reference draws them, a vision
+model's prefix (``num_prefix_embeddings`` rows) and an encoder-decoder's
+32 frames, standard normal, rounded to bf16.  It prints the reference's
 lines and saves ``{"params": ...}`` through ``checkpoint/ckpt.py`` (a numpy
-archive).  Dense GQA configurations only: prefix inputs, encoders, MoE and
-SSM layers raise ``NotImplementedError`` when the model is built.
+archive).  Dense GQA configurations: MoE, SSM and MLA layers raise
+``NotImplementedError`` when the model is built.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import argparse
 import time
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import save_checkpoint
@@ -48,12 +52,18 @@ def train(arch: str, *, reduced: bool = True, steps: int = 100, batch: int = 8,
     step_fn = make_train_step(cfg, opt)
 
     it = synthetic_token_batches(cfg.vocab_size, batch, seq, seed=seed)
+    rng = np.random.default_rng(seed)
     losses = []
     t0 = time.time()
     for step in range(steps):
         tokens, targets = next(it)
         b = {"tokens": torch.as_tensor(tokens).to(device),
              "targets": torch.as_tensor(targets).to(device)}
+        if cfg.modality == "vision":
+            b["prefix"] = _normal_bf16(rng, (batch, cfg.num_prefix_embeddings,
+                                             cfg.d_model), device)
+        if cfg.is_encoder_decoder:
+            b["frames"] = _normal_bf16(rng, (batch, 32, cfg.d_model), device)
         model, opt_state, metrics = step_fn(model, opt_state, b)
         losses.append(float(metrics["loss"]))
         if step % log_every == 0 or step == steps - 1:
@@ -67,6 +77,13 @@ def train(arch: str, *, reduced: bool = True, steps: int = 100, batch: int = 8,
     print(f"params: {n_params/1e6:.1f}M  first loss {losses[0]:.4f}  "
           f"final loss {losses[-1]:.4f}")
     return losses
+
+
+def _normal_bf16(rng: np.random.Generator, shape, device) -> torch.Tensor:
+    """Standard normal draws from ``rng``, rounded to bf16 on the host (the
+    reference's ``jnp.asarray(rng.normal(...), jnp.bfloat16)``), on
+    ``device``."""
+    return torch.from_numpy(rng.normal(size=shape)).to(torch.bfloat16).to(device)
 
 
 def main(argv=None):

@@ -1,7 +1,9 @@
-"""The backbone models the port runs: dense decoder-only GQA language models
-(PyTorch port of the JAX package's ``models/``, text path)."""
+"""The backbone models the port runs: dense GQA language models, decoder-only,
+with a vision prefix, or encoder-decoder (PyTorch port of the JAX package's
+``models/``)."""
 from repro_torch.models.model import (Model, decode, forward, init_decode_state,
-                                      init_model, lm_loss, trunk)
+                                      init_model, lm_loss, prefill_cross_attention,
+                                      trunk)
 
 __all__ = ["Model", "decode", "forward", "init_decode_state", "init_model", "lm_loss",
-           "trunk"]
+           "prefill_cross_attention", "trunk"]

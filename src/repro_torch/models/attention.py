@@ -17,8 +17,11 @@ einsums are, so decode keeps p in fp32 where B4 rounds it to bf16.
 
 Layout: q stays (B, S, Hq, hd) with query head h = kv head * G + g, which is
 the reference's (B, S, Hkv, G, hd) split flattened, so the kernel reads the
-projections' outputs in place.  MLA is not ported yet; nor is a sliding
-window in the full path, which no ported configuration has.
+projections' outputs in place.  An encoder-decoder's cross-attention holds
+its weights in a ``GQAttention`` too (``models/blocks.py`` applies them:
+no rope, not causal, k and v of the encoder memory's length).  MLA is not
+ported yet; nor is a sliding window in the full path, which no ported
+configuration has.
 """
 from __future__ import annotations
 

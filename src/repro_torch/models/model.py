@@ -1,17 +1,24 @@
-"""Decoder-only language model, the text path (PyTorch port of the JAX
-package's ``models/model.py``).
+"""Language models (PyTorch port of the JAX package's ``models/model.py``):
+decoder-only text models, vision-prefix models (projected patch embeddings
+ahead of the tokens) and encoder-decoder models (a bidirectional encoder
+over frame embeddings, cross-attended by every decoder layer).
 
 The reference scans over stacked layer groups; here every layer is its own
-module (``Model.layers``), run in a Python loop.  ``_layout`` stays: it says
-how the reference's ``prologue`` / ``groups`` parameter tree maps onto
-those layers (``convert.model_from_reference``).
+module (``Model.layers``, and ``Model.encoder.layers``), run in a Python
+loop.  ``_layout`` stays: it says how the reference's ``prologue`` /
+``groups`` parameter tree maps onto those layers
+(``convert.model_from_reference``).
 
     init_model(generator, cfg, device=None) -> Model (None: the card)
-    forward(model, cfg, {"tokens": t}, remat=False) -> (logits (B, S, V), aux_loss)
+    forward(model, cfg, batch, remat=False) -> (logits (B, P + S, V), aux_loss)
+        batch: {"tokens" (B, S), "prefix" (B, P, d) for a vision model,
+                "frames" (B, F, d) for an encoder-decoder}
+    _run_encoder(model, cfg, frames)    -> the encoder's memory (B, F, d)
     trunk(model, cfg, tokens)           -> final-normed hidden states (B, S, d)
-    init_decode_state(cfg, B, kv_len)   -> a KV cache a layer, in layer order
+    init_decode_state(cfg, B, kv_len, enc_len=0) -> a cache a layer, in layer order
+    prefill_cross_attention(model, cfg, state, memory) -> state with xk / xv
     decode(model, cfg, tokens, state, pos) -> (logits (B, 1, V), state)
-    lm_loss(logits, targets)            -> mean cross-entropy, fp32
+    lm_loss(logits, targets, prefix_len=0) -> mean cross-entropy, fp32
 
 Training (``launch/steps.py`` ``make_train_step``) runs ``forward`` with
 ``remat=True``: every layer under ``torch.utils.checkpoint`` (non-reentrant),
@@ -22,7 +29,9 @@ serving); training turns them on with ``model.requires_grad_(True)``.
 
 The decode state is a list with one cache per layer (the reference's
 ``prologue`` / ``groups`` stacking has no counterpart, as for the weights).
-Prefix (vision) and encoder (audio) inputs are not ported yet.
+A vision model decodes text only, as the reference's serving does.  SSM
+mixers, MoE FFNs and MLA attention are not ported yet: their
+configurations raise ``NotImplementedError`` when the model is built.
 """
 from __future__ import annotations
 
@@ -74,17 +83,29 @@ def _mask_padded_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
                                                 device=logits.device))
 
 
-class Model(nn.Module):
-    """embed (Vp, d), final_ln (d), unembed (Vp, d) unless tied, and one
-    ``DecoderLayer`` per layer.  ``device=None`` means the card; without one
-    it raises and points to ``device='cpu'``."""
+class Encoder(nn.Module):
+    """An encoder-decoder model's encoder: one ``DecoderLayer`` (no cross)
+    per encoder layer, and its final_ln."""
 
     def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
-        if cfg.is_encoder_decoder or cfg.modality != "text":
-            raise NotImplementedError(f"{cfg.name}: encoder-decoder and prefix "
-                                      "models are not ported to repro_torch yet")
+        self.layers = nn.ModuleList(
+            blocks.init_layer(generator, cfg, i, dtype, device)
+            for i in range(cfg.n_encoder_layers))
+        self.final_ln = nn.Parameter(ones_init((cfg.d_model,), dtype, device),
+                                     requires_grad=False)
+
+
+class Model(nn.Module):
+    """embed (Vp, d), final_ln (d), unembed (Vp, d) unless tied, and one
+    ``DecoderLayer`` per layer (with cross-attention for an encoder-decoder
+    model, which also has an ``Encoder``).  ``device=None`` means the card;
+    without one it raises and points to ``device='cpu'``."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
         for i in range(cfg.n_layers):
             blocks._check_dense(cfg, i)
         device = resolve_device(device)
@@ -98,11 +119,15 @@ class Model(nn.Module):
             self.unembed = nn.Parameter(embed_init(generator, Vp, cfg.d_model, dtype,
                                                    device), requires_grad=False)
         self.layers = nn.ModuleList(
-            blocks.init_layer(generator, cfg, i, dtype, device)
+            blocks.init_layer(generator, cfg, i, dtype, device,
+                              with_cross=cfg.is_encoder_decoder)
             for i in range(cfg.n_layers))
+        if cfg.is_encoder_decoder:
+            self.encoder = Encoder(cfg, generator=generator, dtype=dtype, device=device)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(self, self.cfg, {"tokens": tokens})[0]
+    def forward(self, tokens: torch.Tensor, **inputs: torch.Tensor) -> torch.Tensor:
+        """``forward``'s logits; ``inputs``: "prefix" or "frames"."""
+        return forward(self, self.cfg, {"tokens": tokens, **inputs})[0]
 
 
 def init_model(generator: Optional[torch.Generator], cfg: ModelConfig,
@@ -112,50 +137,93 @@ def init_model(generator: Optional[torch.Generator], cfg: ModelConfig,
     return Model(cfg, generator=generator, dtype=dtype, device=device)
 
 
-def _layers(params: Model, cfg: ModelConfig, tokens: torch.Tensor, remat: bool
-            ) -> torch.Tensor:
-    """Embedding and every layer: hidden states (B, S, d).  Every ported layer
-    is dense (MoE raises), so each layer's aux loss is 0 and is dropped."""
-    x = params.embed[tokens]                           # (B, S, d) gather
+def _apply(layer, cfg: ModelConfig, i: int, x: torch.Tensor, positions: torch.Tensor,
+           causal: bool, memory: Optional[torch.Tensor], remat: bool) -> torch.Tensor:
+    """One layer, under ``torch.utils.checkpoint`` with ``remat``; every
+    ported layer is dense (MoE raises), so its aux loss is 0 and is
+    dropped."""
+    if remat:
+        x, _ = checkpoint(blocks.apply_layer_full, layer, cfg, i, x, positions,
+                          causal=causal, memory=memory, use_reentrant=False)
+    else:
+        x, _ = blocks.apply_layer_full(layer, cfg, i, x, positions, causal=causal,
+                                       memory=memory)
+    return x
+
+
+def _run_encoder(params: Model, cfg: ModelConfig, frames: torch.Tensor, *,
+                 remat: bool = False) -> torch.Tensor:
+    """The bidirectional encoder over frame embeddings (B, F, d): every
+    encoder layer (as layer 0, the reference's scan body) at positions
+    0 .. F - 1, not causal, then the encoder's final norm: the memory."""
+    x = frames
+    positions = torch.arange(x.shape[1], device=x.device)
+    for layer in params.encoder.layers:
+        x = _apply(layer, cfg, 0, x, positions, False, None, remat)
+    return rms_norm(x, params.encoder.final_ln, cfg.norm_eps)
+
+
+def _layers(params: Model, cfg: ModelConfig, x: torch.Tensor,
+            memory: Optional[torch.Tensor], remat: bool) -> torch.Tensor:
+    """Every decoder layer over the embedded inputs x (B, S, d), causal at
+    positions 0 .. S - 1, cross-attending ``memory``: hidden states."""
     positions = torch.arange(x.shape[1], device=x.device)
     for i, layer in enumerate(params.layers):
-        if remat:
-            x, _ = checkpoint(blocks.apply_layer_full, layer, cfg, i, x, positions,
-                              use_reentrant=False)
-        else:
-            x, _ = blocks.apply_layer_full(layer, cfg, i, x, positions, causal=True)
+        x = _apply(layer, cfg, i, x, positions, True, memory, remat)
     return x
 
 
 def trunk(params: Model, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Embedding, every layer, the final norm: hidden states (B, S, d)."""
-    return rms_norm(_layers(params, cfg, tokens, remat=False), params.final_ln,
-                    cfg.norm_eps)
+    """Embedding, every layer, the final norm: hidden states (B, S, d) of a
+    text model."""
+    return rms_norm(_layers(params, cfg, params.embed[tokens], None, remat=False),
+                    params.final_ln, cfg.norm_eps)
 
 
 def forward(params: Model, cfg: ModelConfig, batch: Dict, *, remat: bool = False,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """batch: {"tokens" (B, S)}.  Returns (logits (B, S, Vp), aux_loss), the
-    padded vocab masked to -1e30; ``remat`` recomputes each layer in the
-    backward (``torch.utils.checkpoint``)."""
-    if "prefix" in batch or "frames" in batch:
-        raise NotImplementedError("prefix and encoder inputs are not ported to "
-                                  "repro_torch yet")
-    x = rms_norm(_layers(params, cfg, batch["tokens"], remat), params.final_ln,
-                 cfg.norm_eps)
+    """batch: {"tokens" (B, S)}, with "prefix" (B, P, d) for a vision model
+    (concatenated ahead of the token embeddings; positions run over it too)
+    and "frames" (B, F, d) for an encoder-decoder model (encoded into the
+    memory every decoder layer cross-attends).  Returns (logits
+    (B, P + S, Vp), aux_loss): the prefix positions included, as the
+    reference's, the padded vocab masked to -1e30.  ``remat`` recomputes
+    each layer, the encoder's too, in the backward
+    (``torch.utils.checkpoint``)."""
+    x = params.embed[batch["tokens"]]                  # (B, S, d) gather
+    if cfg.modality == "vision" and "prefix" in batch:
+        x = torch.cat([batch["prefix"].to(x.dtype), x], dim=1)
+    memory = None
+    if cfg.is_encoder_decoder:
+        memory = _run_encoder(params, cfg, batch["frames"].to(x.dtype), remat=remat)
+    x = rms_norm(_layers(params, cfg, x, memory, remat), params.final_ln, cfg.norm_eps)
     unembed = params.embed if cfg.tie_embeddings else params.unembed
-    logits = x @ unembed.T                             # (B, S, Vp)
+    logits = x @ unembed.T                             # (B, P + S, Vp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _mask_padded_logits(cfg, logits), aux
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, kv_len: int, dtype=torch.bfloat16,
-                      device=None) -> List[Dict]:
+                      device=None, *, enc_len: int = 0) -> List[Dict]:
     """One empty decode cache per layer, in ``Model.layers`` order
-    (``device=None``: the card)."""
+    (``device=None``: the card); an encoder-decoder model's with
+    cross-attention k / v of ``enc_len`` rows where ``enc_len`` is given."""
     device = resolve_device(device)
-    return [blocks.init_layer_cache(cfg, i, batch, kv_len, dtype, device)
+    return [blocks.init_layer_cache(cfg, i, batch, kv_len, dtype, device, enc_len=enc_len)
             for i in range(cfg.n_layers)]
+
+
+def prefill_cross_attention(params: Model, cfg: ModelConfig, state: List[Dict],
+                            memory: torch.Tensor) -> List[Dict]:
+    """Each layer's cross-attention k / v (B, S_enc, Hkv, hd) from the
+    encoder's memory (B, S_enc, d), into the decode state (in place);
+    returns it."""
+    B = memory.shape[0]
+    Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    for layer, cache in zip(params.layers, state):
+        cache["xk"] = (memory @ layer.cross.wk).reshape(B, -1, Hkv, hd)
+        cache["xv"] = (memory @ layer.cross.wv).reshape(B, -1, Hkv, hd)
+    return state
 
 
 def decode(params: Model, cfg: ModelConfig, tokens: torch.Tensor, state: List[Dict],

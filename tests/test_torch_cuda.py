@@ -1140,14 +1140,14 @@ def assert_flash_close(got, q, k, v, causal):
     assert int((err > ulp).sum()) <= 1e-3 * err.numel()
 
 
-def _qkv(cuda, B, S, Hq, Hkv, D, dtype, seed):
+def _qkv(cuda, B, S, Hq, Hkv, D, dtype, seed, S_kv=None):
     gen = torch.Generator().manual_seed(seed)
-    return tuple(torch.randn(B, S, h, D, generator=gen).to(cuda, dtype)
-                 for h in (Hq, Hkv, Hkv))
+    return tuple(torch.randn(B, n, h, D, generator=gen).to(cuda, dtype)
+                 for n, h in ((S, Hq), (S_kv or S, Hkv), (S_kv or S, Hkv)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 96, 128])
 @pytest.mark.parametrize("Hq,Hkv", [(4, 4), (16, 8), (32, 4), (16, 2)])
 @pytest.mark.parametrize("S", [1, 63, 64, 127, 128, 129, 255, 257, 1000])
 @pytest.mark.parametrize("causal", [True, False])
@@ -1172,13 +1172,14 @@ def test_flash_kernel_keeps_batch_rows_apart(cuda, causal, dtype):
     assert bool(torch.isfinite(out.float()).all())
 
 
+@pytest.mark.parametrize("D", [64, 96])
 @pytest.mark.parametrize("dtype,offset", [(torch.bfloat16, 8), (torch.bfloat16, 1),
                                           (torch.float32, 1), (torch.float32, 4)])
-def test_flash_kernel_at_an_element_offset(cuda, dtype, offset):
+def test_flash_kernel_at_an_element_offset(cuda, dtype, offset, D):
     """q, k and v as contiguous views at an element offset into a larger
     buffer: computed right, or refused when the bf16 body's TMA cannot take
     the base (not 16-byte aligned)."""
-    B, S, H, D = 2, 100, 4, 64
+    B, S, H = 2, 100, 4
     q, k, v = _qkv(cuda, B, S, H, H, D, dtype, offset)
     n = q.numel()
     buf = torch.empty(offset + 3 * n, device=cuda, dtype=dtype)
@@ -1192,7 +1193,7 @@ def test_flash_kernel_at_an_element_offset(cuda, dtype, offset):
     assert_flash_close(flash_attention_kernel(*views), q, k, v, True)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 96, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_fp32_inputs_at_model_shapes(cuda, causal, D):
     """fp32 runs the SIMT body: at the driver's head layout (16 query heads
@@ -1204,14 +1205,51 @@ def test_flash_kernel_fp32_inputs_at_model_shapes(cuda, causal, D):
 
 
 def test_flash_on_card_never_reaches_the_plain_version(cuda, monkeypatch):
+    """At D 64, at D 96 and with k, v of another length than q (not causal):
+    the kernel, once a call; a shape it does not take raises."""
     monkeypatch.setattr(ops, "flash_attention_plain",
                         lambda *a, **kw: pytest.fail("plain version on the card path"))
-    q = torch.randn(1, 100, 4, 64, device=cuda)
+    for D in (64, 96):
+        q = torch.randn(1, 100, 4, D, device=cuda)
+        before = flash_attention_kernel.launches
+        out = ops.flash_attention(q, q[:, :, :2].contiguous(), q[:, :, 2:].contiguous())
+        assert flash_attention_kernel.launches == before + 1 and out.is_cuda
+    q = torch.randn(2, 37, 4, 64, device=cuda, dtype=torch.bfloat16)
+    kv = torch.randn(2, 16, 2, 64, device=cuda, dtype=torch.bfloat16)
     before = flash_attention_kernel.launches
-    out = ops.flash_attention(q, q[:, :, :2].contiguous(), q[:, :, 2:].contiguous())
-    assert flash_attention_kernel.launches == before + 1 and out.is_cuda
+    out = ops.flash_attention(q, kv, kv, causal=False)
+    assert flash_attention_kernel.launches == before + 1 and out.shape == q.shape
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(*(torch.zeros(1, 8, 2, 32, device=cuda),) * 3)
+    with pytest.raises(ValueError, match="causal"):
+        ops.flash_attention(q, kv, kv, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("Hq,Hkv", [(16, 16), (16, 4)])
+@pytest.mark.parametrize("S,S_kv", [(37, 16), (64, 100), (1, 1000), (129, 1), (64, 1024),
+                                    (300, 257), (128, 129)])
+def test_flash_kernel_kv_of_another_length(cuda, S, S_kv, Hq, Hkv, D, dtype):
+    """Not causal, k and v of their own length (cross-attention over an
+    encoder's memory): ragged both ways, shorter and longer than q."""
+    q, k, v = _qkv(cuda, 2, S, Hq, Hkv, D, dtype, S * 7 + S_kv + D, S_kv=S_kv)
+    before = flash_attention_kernel.launches
+    got = flash_attention_kernel(q, k, v, causal=False)
+    assert flash_attention_kernel.launches == before + 1 and got.shape == q.shape
+    assert_flash_close(got, q, k, v, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_kv_of_another_length_keeps_batch_rows_apart(cuda, dtype):
+    """S_kv 33 (ragged): keys of +-1e4 in the second batch row leave the
+    first row's output unchanged, bit for bit."""
+    q, k, v = _qkv(cuda, 2, 70, 8, 4, 96, dtype, 70, S_kv=33)
+    first = flash_attention_kernel(q, k, v, causal=False)[0]
+    k[1] = 1e4 * torch.sign(k[1])
+    out = flash_attention_kernel(q, k, v, causal=False)
+    torch.testing.assert_close(out[0], first, rtol=0, atol=0)
+    assert bool(torch.isfinite(out.float()).all())
 
 
 def test_init_model_defaults_to_the_card(cuda):
@@ -1269,6 +1307,49 @@ def test_decode_on_card_matches_cpu_and_prefill_launches_b4(cuda):
         pre = make_prefill_step(cfg)(card, {"tokens": toks.to(cuda)})
     assert flash_attention_kernel.launches == before + cfg.n_layers
     assert (pre.float() - logits["cuda"][:, -1].float()).abs().max() < 0.08
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "seamless-m4t-large-v2"])
+def test_prefix_and_encoder_models_on_card_match_cpu(cuda, arch):
+    """Reduced phi-3-vision (widened to head dim 96, as the full model's) with
+    a prefix, reduced seamless-m4t with frames; one seeded init copied to the
+    CPU.  The card's forward launches B4 once a layer (phi-3), or once an
+    encoder layer and twice a decoder layer, self- and cross-attention
+    (seamless); its logits within 0.08 of the CPU's.  seamless: the memory's
+    cross k / v and teacher-forced decode on the card within 0.08 of the
+    card's forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.models import model as M
+    cfg = get_config(arch, reduced=True)
+    if cfg.modality == "vision":
+        cfg = dataclasses.replace(cfg, d_model=384)          # 4 heads of 96
+    card = init_model(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    cpu = init_model(None, cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)))
+    extra = {"prefix" if cfg.modality == "vision" else "frames": torch.from_numpy(
+        rng.normal(size=(2, cfg.num_prefix_embeddings, cfg.d_model))).to(torch.bfloat16)}
+    before = flash_attention_kernel.launches
+    with torch.no_grad():
+        on_card, _ = M.forward(card, cfg, {"tokens": toks.to(cuda),
+                                           **{k: v.to(cuda) for k, v in extra.items()}})
+        on_cpu, _ = M.forward(cpu, cfg, {"tokens": toks, **extra})
+    want = cfg.n_layers if cfg.modality == "vision" else cfg.n_encoder_layers + 2 * cfg.n_layers
+    assert flash_attention_kernel.launches == before + want
+    assert (on_card.float().cpu() - on_cpu.float()).abs().max() < 0.08
+    if not cfg.is_encoder_decoder:
+        return
+    with torch.no_grad():
+        memory = M._run_encoder(card, cfg, extra["frames"].to(cuda))
+        state = M.prefill_cross_attention(
+            card, cfg, M.init_decode_state(cfg, 2, 24, device=cuda,
+                                           enc_len=memory.shape[1]), memory)
+        pos = torch.arange(24, device=cuda)
+        dec = torch.cat([M.decode(card, cfg, toks[:, t:t + 1].to(cuda), state, pos[t])[0]
+                         for t in range(24)], 1)
+    assert (dec.float() - on_card.float()).abs().max() < 0.08
 
 
 def test_serve_on_card_is_generate(cuda):

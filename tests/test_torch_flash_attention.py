@@ -15,6 +15,7 @@ keeping p in fp32 puts percents of them); against
 ``_flash``, which keeps p in fp32, and against the oracle: 3e-2, as
 ``test_flash_bf16``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -47,6 +48,7 @@ def _port_bh(a, dtype=torch.float32):
     (2, 64, 32, 16, 32),
     (3, 96, 128, 32, 48),
     (1, 256, 64, 256, 64),
+    (2, 96, 96, 32, 48),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_matches_reference_kernel_and_oracle(BH, S, D, bq, bk, causal):
@@ -81,6 +83,7 @@ def test_plain_bf16_matches_reference_kernel():
     (2, 64, 64, 32, 32),
     (3, 128, 128, 64, 128),
     (1, 256, 64, 128, 64),
+    (2, 128, 96, 64, 64),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_bf16_rounds_p_as_the_reference_kernel(BH, S, D, bq, bk, causal):
@@ -146,15 +149,15 @@ def test_rounding_slack_is_zero_for_fp32():
     assert not bool(flash_attention_rounding_slack(q, k, v).any())
 
 
-def _model_layout(rng, B, S, Hkv, G, D):
+def _model_layout(rng, B, S, Hkv, G, D, S_kv=None):
     q = rng.normal(size=(B, S, Hkv, G, D)).astype(np.float32)
-    k = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
-    v = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+    k = rng.normal(size=(B, S_kv or S, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, S_kv or S, Hkv, D)).astype(np.float32)
     return q, k, v
 
 
 @pytest.mark.parametrize("G", [1, 2, 4])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 96, 128])
 @pytest.mark.parametrize("S,causal", [(64, True), (37, True), (37, False),
                                       (130, True), (1, True), (100, False)])
 def test_plain_matches_model_flash(G, D, S, causal):
@@ -186,6 +189,102 @@ def test_plain_bf16_matches_model_flash(S, causal):
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy().reshape(B, S, Hkv, G, D),
                                np.asarray(want, np.float32), **BF16_TOL)
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("D", [64, 96])
+@pytest.mark.parametrize("S,S_kv", [(37, 16), (64, 100), (1, 33), (130, 7), (16, 1)])
+def test_plain_matches_model_flash_with_kv_of_another_length(G, D, S, S_kv):
+    """Not causal, k and v of their own length, as cross-attention calls
+    _flash (q_pos 0 .. S - 1, kv_pos 0 .. S_kv - 1): fp32 within 2e-5."""
+    rng = np.random.default_rng(G * 1000 + D + S * 7 + S_kv)
+    B, Hkv = 2, 2
+    q, k, v = _model_layout(rng, B, S, Hkv, G, D, S_kv)
+    want = _flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.arange(S),
+                  jnp.arange(S_kv), causal=False, window=0)
+    got = flash_attention_plain(torch.from_numpy(q).reshape(B, S, Hkv * G, D),
+                                torch.from_numpy(k), torch.from_numpy(v), causal=False,
+                                kv_tile=48)
+    assert got.shape == (B, S, Hkv * G, D)
+    np.testing.assert_allclose(got.numpy().reshape(B, S, Hkv, G, D), np.asarray(want),
+                               **F32_TOL)
+
+
+@pytest.mark.parametrize("D,S,S_kv,causal", [(96, 77, 77, True), (96, 64, 64, False),
+                                             (64, 37, 16, False), (96, 64, 1024, False),
+                                             (64, 64, 100, False)])
+def test_plain_bf16_matches_model_flash_at_d96_and_kv_of_another_length(D, S, S_kv, causal):
+    """bf16 at head dim 96 and with k, v of their own length: within 3e-2
+    of _flash (which keeps p in fp32), as test_flash_bf16."""
+    rng = np.random.default_rng(D + S + S_kv)
+    B, Hkv, G = 1, 2, 2
+    q, k, v = (jnp.asarray(a, jnp.bfloat16)
+               for a in _model_layout(rng, B, S, Hkv, G, D, S_kv))
+    want = _flash(q, k, v, jnp.arange(S), jnp.arange(S_kv), causal=causal, window=0)
+    as_t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+    got = flash_attention_plain(as_t(q).reshape(B, S, Hkv * G, D), as_t(k), as_t(v),
+                                causal=causal)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy().reshape(B, S, Hkv, G, D),
+                               np.asarray(want, np.float32), **BF16_TOL)
+
+
+@pytest.mark.parametrize("S,S_kv,D,tile", [(37, 16, 64, 128), (64, 300, 96, 128),
+                                           (129, 200, 64, 64)])
+def test_rounding_slack_covers_kv_of_another_length(S, S_kv, D, tile):
+    """The slack at S_kv != S (not causal): the plain version with its logits
+    moved in the last bits stays within one ulp plus the slack."""
+    gen = torch.Generator().manual_seed(S + S_kv)
+    q = torch.randn(2, S, 4, D, generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(2, S_kv, 2, D, generator=gen).to(torch.bfloat16) for _ in range(2))
+    want = flash_attention_plain(q, k, v, causal=False, kv_tile=tile).float()
+    moved = flash_attention_plain(q.float() * (1 + 2.0 ** -20), k, v, causal=False,
+                                  kv_tile=tile).to(torch.bfloat16).float()
+    slack = flash_attention_rounding_slack(q, k, v, causal=False, kv_tile=tile)
+    assert slack.shape == q.shape
+    err = (moved - want).abs()
+    assert bool((err <= 2.0 ** -7 * want.abs() + 2e-5 + slack).all())
+
+
+@pytest.mark.parametrize("S,S_kv,q_block", [(37, 16, 8), (20, 70, 512), (64, 64, 16)])
+def test_grad_plain_with_kv_of_another_length_matches_jax_grad(S, S_kv, q_block):
+    """flash_attention_grad_plain, not causal, k and v of their own length,
+    grouped heads: (dq, dk, dv) against jax.grad of _flash's function
+    (fp32), within 1e-5 of each gradient's largest element."""
+    from repro_torch.kernels.flash_attention import flash_attention_grad_plain
+    rng = np.random.default_rng(S * 100 + S_kv)
+    B, Hkv, G, D = 2, 2, 2, 64
+    q, k, v = _model_layout(rng, B, S, Hkv, G, D, S_kv)
+    dout = rng.normal(size=q.shape).astype(np.float32)
+
+    def f(q, k, v):
+        out = _flash(q, k, v, jnp.arange(S), jnp.arange(S_kv), causal=False, window=0)
+        return jnp.sum(out * dout)
+    want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = flash_attention_grad_plain(
+        torch.from_numpy(q).reshape(B, S, Hkv * G, D), torch.from_numpy(k),
+        torch.from_numpy(v), torch.from_numpy(dout).reshape(B, S, Hkv * G, D),
+        causal=False, q_block=q_block)
+    assert got[1].shape == got[2].shape == (B, S_kv, Hkv, D)
+    for name, a, b in zip("qkv", got, want):
+        b = np.asarray(b).reshape(a.shape)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=1e-5 * np.abs(b).max(),
+                                   err_msg=f"d{name}")
+
+
+def test_causal_with_kv_of_another_length_raises_on_every_path():
+    from repro_torch.kernels.flash_attention import flash_attention_grad_plain
+    q, kv = torch.zeros(1, 8, 2, 64), torch.zeros(1, 5, 2, 64)
+    for call in (lambda: ops.flash_attention(q, kv, kv),
+                 lambda: flash_attention_plain(q, kv, kv),
+                 lambda: flash_attention_rounding_slack(q, kv, kv),
+                 lambda: flash_attention_grad_plain(q, kv, kv, q),
+                 lambda: flash_attention_kernel(q, kv, kv)):
+        with pytest.raises(ValueError, match="causal"):
+            call()
+    assert ops.flash_attention(q, kv, kv, causal=False).shape == q.shape
+    with pytest.raises(ValueError, match="no kv position"):
+        flash_attention_plain(q, kv[:, :0], kv[:, :0], causal=False)
 
 
 @pytest.mark.parametrize("kv_tile", [1, 7, 64, 1024])
@@ -233,7 +332,7 @@ def test_window_raises_on_every_device():
         ops.flash_attention(q, q, q, window=4)
 
 
-@pytest.mark.parametrize("D", [32, 96, 256])
+@pytest.mark.parametrize("D", [32, 112, 256])
 def test_kernel_refuses_other_head_dims(D):
     q = torch.zeros(1, 8, 2, D)
     with pytest.raises(ValueError, match="head dim"):

@@ -24,7 +24,8 @@ from repro_torch.configs import get_config, list_configs
 from repro_torch.convert import model_from_reference, reference_leaves
 from repro_torch.models import attention, blocks, common, model
 
-ARCHS = ("qwen3-0.6b", "tinyllama-1.1b", "codeqwen1.5-7b", "minitron-4b")
+ARCHS = ("qwen3-0.6b", "tinyllama-1.1b", "codeqwen1.5-7b", "minitron-4b",
+         "phi-3-vision-4.2b", "seamless-m4t-large-v2")
 NORMS = ("ln1", "ln2", "final_ln", "q_norm", "k_norm")
 BIASES = ("bq", "bk", "bv")
 LOGITS_ATOL = 0.08   # tests/test_decode_matches_forward's, bf16 end to end
@@ -65,6 +66,17 @@ def pair(request):
 
 def _x(rng, *shape):
     return np.asarray(jnp.asarray(rng.normal(size=shape), jnp.bfloat16), np.float32)
+
+
+def _inputs(cfg, rng, B):
+    """A vision model's prefix and an encoder-decoder's frames (9 a row),
+    bf16 values as fp32 numpy; nothing for a text model."""
+    extra = {}
+    if cfg.modality == "vision":
+        extra["prefix"] = _x(rng, B, cfg.num_prefix_embeddings, cfg.d_model)
+    if cfg.is_encoder_decoder:
+        extra["frames"] = _x(rng, B, 9, cfg.d_model)
+    return extra
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -172,12 +184,19 @@ def test_apply_layer_full(pair):
 
 
 def test_forward_logits(pair):
+    """A vision model's logits over its prefix and the tokens, an
+    encoder-decoder's with frames through the encoder."""
     cfg, ref_cfg, params, port = pair
-    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, size=(2, 40)).astype(np.int32)
-    want, _ = ref_model.forward(params, ref_cfg, {"tokens": jnp.asarray(toks)}, remat=False)
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, cfg.vocab_size, size=(2, 40)).astype(np.int32)
+    extra = _inputs(cfg, rng, 2)
+    want, _ = ref_model.forward(params, ref_cfg, {"tokens": jnp.asarray(toks), **{
+        k: jnp.asarray(a, jnp.bfloat16) for k, a in extra.items()}}, remat=False)
     with torch.no_grad():
-        got, aux = model.forward(port, cfg, {"tokens": torch.from_numpy(toks)})
-    assert got.shape == (2, 40, model.padded_vocab(cfg)) and float(aux) == 0.0
+        got, aux = model.forward(port, cfg, {"tokens": torch.from_numpy(toks), **{
+            k: _bf16(a) for k, a in extra.items()}})
+    P = cfg.num_prefix_embeddings if cfg.modality == "vision" else 0
+    assert got.shape == (2, P + 40, model.padded_vocab(cfg)) and float(aux) == 0.0
     np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), atol=LOGITS_ATOL)
 
 
@@ -185,11 +204,17 @@ def test_modules_call_their_functions(pair):
     """The model's ``forward`` is ``forward``'s logits; the layer modules hold
     weights only, which the free functions apply."""
     cfg, _, _, port = pair
-    toks = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (1, 12)))
+    rng = np.random.default_rng(8)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 12)))
+    extra = {k: _bf16(a) for k, a in _inputs(cfg, rng, 1).items()}
     with torch.no_grad():
-        assert torch.equal(port(toks), model.forward(port, cfg, {"tokens": toks})[0])
+        assert torch.equal(port(toks, **extra),
+                           model.forward(port, cfg, {"tokens": toks, **extra})[0])
     layer = port.layers[0]
-    for module in (layer, layer.mixer, layer.ffn):
+    modules = [layer, layer.mixer, layer.ffn]
+    if cfg.is_encoder_decoder:
+        modules += [layer.cross, port.encoder, port.encoder.layers[0]]
+    for module in modules:
         assert type(module).forward is torch.nn.Module.forward
 
 
@@ -217,13 +242,20 @@ def test_convert_carries_every_leaf(pair):
     n_ref = sum(len(jax.tree.leaves(l)) for l in params["prologue"]) \
         + n_groups * sum(len(jax.tree.leaves(s)) for s in params["groups"]) \
         + sum(1 for k in ("embed", "final_ln", "unembed") if k in params)
+    if "encoder" in params:     # stacked over the encoder's layers, and its final_ln
+        n_ref += cfg.n_encoder_layers * len(jax.tree.leaves(params["encoder"]["layers"])) + 1
     own = dict(port.named_parameters())
     leaves = reference_leaves(jax.tree.map(np.asarray, params), cfg)
     assert len(own) == len(leaves) == n_ref
-    # wq wk wv wo, the FFN's (gated: three), ln1 ln2, then qk-norm and bias
+    # wq wk wv wo, the FFN's (gated: three), ln1 ln2, then qk-norm and bias;
+    # an encoder-decoder's decoder layers also ln_x and the cross wq wk wv wo
+    # (and its biases), its encoder layers the decoder's own, and a final_ln
     per_layer = 4 + (3 if cfg.act in ("silu", "gelu") else 2) + 2 \
         + 2 * cfg.qk_norm + 3 * cfg.qkv_bias
-    assert n_ref == cfg.n_layers * per_layer + 2 + (not cfg.tie_embeddings)
+    cross = (1 + 4 + 2 * cfg.qk_norm + 3 * cfg.qkv_bias) if cfg.is_encoder_decoder else 0
+    encoder = cfg.n_encoder_layers * per_layer + 1 if cfg.is_encoder_decoder else 0
+    assert n_ref == cfg.n_layers * (per_layer + cross) + encoder + 2 \
+        + (not cfg.tie_embeddings)
     for name, leaf in leaves.items():
         assert torch.equal(own[name], _bf16(leaf)), name
 
@@ -281,7 +313,7 @@ def test_seeded_init_has_the_references_distributions():
 
 @pytest.mark.parametrize("change", [dict(n_experts=4, moe_d_ff=64, top_k=2),
                                     dict(attn_layer_period=2, ssm_kind="mamba"),
-                                    dict(is_encoder_decoder=True, n_encoder_layers=1)])
+                                    dict(attention="mla", kv_lora_rank=64)])
 def test_unported_architectures_raise(change):
     cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True), **change)
     with pytest.raises(NotImplementedError):
