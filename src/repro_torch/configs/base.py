@@ -6,9 +6,10 @@ exports ``CONFIG`` (the published widths) and ``reduced()`` (the 2-layer,
 narrow smoke-test variant of the same family).  ``get_config(name)`` /
 ``list_configs()`` are the lookup API of the ``--arch`` flag.  The registry
 holds only what the port's modules run: the dense GQA decoders, the vision
-prefix model (phi-3-vision) and the encoder-decoder (seamless-m4t); the
-reference's other configurations need MLA, MoE or SSM modules that are not
-ported yet.
+prefix model (phi-3-vision), the encoder-decoder (seamless-m4t), the
+attention-free RWKV6 model (rwkv6) and the Mamba / attention hybrid with MoE
+FFNs (jamba); the reference's other two configurations need MLA, which is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ ARCH_IDS = (
     "minitron-4b",
     "phi-3-vision-4.2b",
     "seamless-m4t-large-v2",
+    "rwkv6-1.6b",
+    "jamba-v0.1-52b",
 )
 
 

@@ -12,9 +12,9 @@ so this module needs nothing of the JAX package:
     inputs;
   * ``model_from_reference``: a backbone ``Model`` from the reference's
     ``init_model`` parameter tree (a prefix model's, an encoder-decoder's
-    with its ``encoder`` subtree and the layers' ``ln_x`` / ``cross``), so
-    the port's layers can be held against the reference on identical
-    weights;
+    with its ``encoder`` subtree and the layers' ``ln_x`` / ``cross``, an
+    SSM or MoE model's mixers and experts; fp32 leaves stay fp32), so the
+    port's layers can be held against the reference on identical weights;
   * ``opt_state_from_reference``: the port's ``OptState`` from the
     reference optimizer's (its step, and the m / v, factored or momentum
     trees), so training can continue from the reference's mid-run state.

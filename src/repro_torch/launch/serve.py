@@ -55,7 +55,8 @@ def _synchronize(device: torch.device) -> None:
 def generate(model: Model, cfg: ModelConfig, prompts: np.ndarray, gen: int,
              frames: Optional[torch.Tensor] = None) -> Generation:
     """Greedy generation of ``gen`` tokens after ``prompts`` (B, P), with a
-    KV cache of P + gen slots on the model's device.  An encoder-decoder
+    KV cache of P + gen slots an attention layer (an SSM layer keeps its
+    constant-size recurrent state instead) on the model's device.  An encoder-decoder
     model needs ``frames`` (B, F, d): the memory's cross-attention k / v go
     into the state first (not timed, as in the reference)."""
     device = model.embed.device

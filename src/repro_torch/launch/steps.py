@@ -2,9 +2,9 @@
 package's ``launch/steps.py``).
 
 The reference closes each step over a mesh and picks a MoE strategy for it;
-with no mesh and no MoE its plan is "local", which is all the port runs,
-so the factories take the configuration (and the train step its optimizer)
-alone.
+with no mesh its plan is "local" (``models/moe.py``'s single-device routed
+FFN), which is all the port runs, so the factories take the configuration
+(and the train step its optimizer) alone.
 
     make_train_step(cfg, opt)(model, opt_state, batch)  -> (model, opt_state, metrics)
     make_prefill_step(cfg)(model, batch)                -> last logits (B, Vp)
@@ -15,10 +15,11 @@ A batch is ``forward``'s: "tokens", and "prefix" (vision) or "frames"
 positions' (a vision model's loss skips its P prefix positions).
 
 The train step is ``forward`` with per-layer remat (B4 on the card, once in
-the forward and once in each layer's recompute), ``lm_loss`` plus
-``router_aux_coef`` times the aux loss, the backward (B4's gradient is the
-unrounded attention's, recomputed block by block) and the optimizer's update
-in place.  The prefill step is ``forward``, so on the card its attention is
+the forward and once in each layer's recompute; a Mamba layer's chunks under
+a checkpoint of their own), ``lm_loss`` plus ``router_aux_coef`` times the
+aux loss (the MoE layers' load-balance loss, 0 without MoE), the backward
+(B4's gradient is the unrounded attention's, recomputed block by block) and
+the optimizer's update in place.  The prefill step is ``forward``, so on the card its attention is
 kernel B4; the serve step is one ``decode`` and a greedy argmax.
 """
 from __future__ import annotations

@@ -12,7 +12,8 @@ from ``np.random.default_rng(seed)`` as the reference draws them, a vision
 model's prefix (``num_prefix_embeddings`` rows) and an encoder-decoder's
 32 frames, standard normal, rounded to bf16.  It prints the reference's
 lines and saves ``{"params": ...}`` through ``checkpoint/ckpt.py`` (a numpy
-archive).  Dense GQA configurations: MoE, SSM and MLA layers raise
+archive).  Every registered configuration trains (dense and MoE FFNs,
+attention, RWKV6 and Mamba mixers); MLA is not ported and raises
 ``NotImplementedError`` when the model is built.
 """
 from __future__ import annotations

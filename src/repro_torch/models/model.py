@@ -1,7 +1,9 @@
 """Language models (PyTorch port of the JAX package's ``models/model.py``):
-decoder-only text models, vision-prefix models (projected patch embeddings
-ahead of the tokens) and encoder-decoder models (a bidirectional encoder
-over frame embeddings, cross-attended by every decoder layer).
+decoder-only text models (attention, attention-free RWKV6, or the Mamba /
+attention hybrid, with dense or MoE FFNs), vision-prefix models (projected
+patch embeddings ahead of the tokens) and encoder-decoder models (a
+bidirectional encoder over frame embeddings, cross-attended by every
+decoder layer).
 
 The reference scans over stacked layer groups; here every layer is its own
 module (``Model.layers``, and ``Model.encoder.layers``), run in a Python
@@ -27,11 +29,15 @@ activations are recomputed in the backward and only its input is kept.
 The parameters are built with ``requires_grad=False`` (inference and
 serving); training turns them on with ``model.requires_grad_(True)``.
 
+``forward``'s aux loss is the sum over layers of the MoE layers'
+load-balance losses (0 for a model without MoE).
+
 The decode state is a list with one cache per layer (the reference's
-``prologue`` / ``groups`` stacking has no counterpart, as for the weights).
-A vision model decodes text only, as the reference's serving does.  SSM
-mixers, MoE FFNs and MLA attention are not ported yet: their
-configurations raise ``NotImplementedError`` when the model is built.
+``prologue`` / ``groups`` stacking has no counterpart, as for the weights):
+an attention layer's KV cache, an SSM layer's recurrent state.  A vision
+model decodes text only, as the reference's serving does.  MLA attention is
+not ported yet: its configurations raise ``NotImplementedError`` when the
+model is built.
 """
 from __future__ import annotations
 
@@ -106,8 +112,7 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
-        for i in range(cfg.n_layers):
-            blocks._check_dense(cfg, i)
+        blocks._check_ported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         Vp = padded_vocab(cfg)
@@ -138,17 +143,15 @@ def init_model(generator: Optional[torch.Generator], cfg: ModelConfig,
 
 
 def _apply(layer, cfg: ModelConfig, i: int, x: torch.Tensor, positions: torch.Tensor,
-           causal: bool, memory: Optional[torch.Tensor], remat: bool) -> torch.Tensor:
-    """One layer, under ``torch.utils.checkpoint`` with ``remat``; every
-    ported layer is dense (MoE raises), so its aux loss is 0 and is
-    dropped."""
+           causal: bool, memory: Optional[torch.Tensor], remat: bool
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer, under ``torch.utils.checkpoint`` with ``remat``: (x, its
+    aux loss, None for a dense layer)."""
     if remat:
-        x, _ = checkpoint(blocks.apply_layer_full, layer, cfg, i, x, positions,
+        return checkpoint(blocks.apply_layer_full, layer, cfg, i, x, positions,
                           causal=causal, memory=memory, use_reentrant=False)
-    else:
-        x, _ = blocks.apply_layer_full(layer, cfg, i, x, positions, causal=causal,
-                                       memory=memory)
-    return x
+    return blocks.apply_layer_full(layer, cfg, i, x, positions, causal=causal,
+                                   memory=memory)
 
 
 def _run_encoder(params: Model, cfg: ModelConfig, frames: torch.Tensor, *,
@@ -159,25 +162,33 @@ def _run_encoder(params: Model, cfg: ModelConfig, frames: torch.Tensor, *,
     x = frames
     positions = torch.arange(x.shape[1], device=x.device)
     for layer in params.encoder.layers:
-        x = _apply(layer, cfg, 0, x, positions, False, None, remat)
+        x, _ = _apply(layer, cfg, 0, x, positions, False, None, remat)
     return rms_norm(x, params.encoder.final_ln, cfg.norm_eps)
 
 
 def _layers(params: Model, cfg: ModelConfig, x: torch.Tensor,
-            memory: Optional[torch.Tensor], remat: bool) -> torch.Tensor:
+            memory: Optional[torch.Tensor], remat: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every decoder layer over the embedded inputs x (B, S, d), causal at
-    positions 0 .. S - 1, cross-attending ``memory``: hidden states."""
+    positions 0 .. S - 1, cross-attending ``memory``: (hidden states, the
+    MoE layers' aux losses summed in layer order, fp32: one zero where no
+    layer is MoE, so a dense model adds no launch a layer)."""
     positions = torch.arange(x.shape[1], device=x.device)
+    aux_total = None
     for i, layer in enumerate(params.layers):
-        x = _apply(layer, cfg, i, x, positions, True, memory, remat)
-    return x
+        x, aux = _apply(layer, cfg, i, x, positions, True, memory, remat)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux_total
 
 
 def trunk(params: Model, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding, every layer, the final norm: hidden states (B, S, d) of a
     text model."""
-    return rms_norm(_layers(params, cfg, params.embed[tokens], None, remat=False),
-                    params.final_ln, cfg.norm_eps)
+    x, _ = _layers(params, cfg, params.embed[tokens], None, remat=False)
+    return rms_norm(x, params.final_ln, cfg.norm_eps)
 
 
 def forward(params: Model, cfg: ModelConfig, batch: Dict, *, remat: bool = False,
@@ -187,7 +198,8 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict, *, remat: bool = False
     and "frames" (B, F, d) for an encoder-decoder model (encoded into the
     memory every decoder layer cross-attends).  Returns (logits
     (B, P + S, Vp), aux_loss): the prefix positions included, as the
-    reference's, the padded vocab masked to -1e30.  ``remat`` recomputes
+    reference's, the padded vocab masked to -1e30; aux_loss the MoE
+    layers' load-balance losses summed, fp32.  ``remat`` recomputes
     each layer, the encoder's too, in the backward
     (``torch.utils.checkpoint``)."""
     x = params.embed[batch["tokens"]]                  # (B, S, d) gather
@@ -196,17 +208,18 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict, *, remat: bool = False
     memory = None
     if cfg.is_encoder_decoder:
         memory = _run_encoder(params, cfg, batch["frames"].to(x.dtype), remat=remat)
-    x = rms_norm(_layers(params, cfg, x, memory, remat), params.final_ln, cfg.norm_eps)
+    x, aux = _layers(params, cfg, x, memory, remat)
+    x = rms_norm(x, params.final_ln, cfg.norm_eps)
     unembed = params.embed if cfg.tie_embeddings else params.unembed
     logits = x @ unembed.T                             # (B, P + S, Vp)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _mask_padded_logits(cfg, logits), aux
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, kv_len: int, dtype=torch.bfloat16,
                       device=None, *, enc_len: int = 0) -> List[Dict]:
     """One empty decode cache per layer, in ``Model.layers`` order
-    (``device=None``: the card); an encoder-decoder model's with
+    (``device=None``: the card): an attention layer's KV cache of ``kv_len``
+    slots, an SSM layer's recurrent state; an encoder-decoder model's with
     cross-attention k / v of ``enc_len`` rows where ``enc_len`` is given."""
     device = resolve_device(device)
     return [blocks.init_layer_cache(cfg, i, batch, kv_len, dtype, device, enc_len=enc_len)
@@ -231,7 +244,7 @@ def decode(params: Model, cfg: ModelConfig, tokens: torch.Tensor, state: List[Di
     """One decode step.  tokens (B, 1) int; pos the step's position, an int
     or a 0-d integer tensor (on the card, so that the step never waits for
     it).  Returns (logits (B, 1, Vp), state): the padded vocab masked to
-    -1e30, the state's caches updated in place."""
+    -1e30, the KV caches updated in place, the SSM states replaced."""
     x = params.embed[tokens]
     pos = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
     new_state = []

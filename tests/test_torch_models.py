@@ -2,12 +2,21 @@
 the CPU, module by module, on the reference's own weights.
 
 The reference's ``init_model`` weights (norm gammas replaced by seeded
-non-unit values, so that the norms are exercised) are carried across by
+non-unit values, so that the norms are exercised, and the SSM mixers' zero
+or constant leaves by seeded ones) are carried across by
 ``convert.model_from_reference``; inputs come from numpy generators.  The
 stack is bf16 end to end in both packages; the tolerances say which
 roundings differ.
+
+A MoE layer's router may pick another expert on the two sides for a token
+whose k-th and (k + 1)-th router probabilities nearly tie, since its input
+carries the roundings of the layers below; such a token's output is then a
+different function.  The whole-layer and whole-model comparisons hold every
+row that no flipped route reaches (``test_torch_moe.Routes``: each flip a
+near-tie, and few).
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -23,12 +32,22 @@ from repro.models import model as ref_model
 from repro_torch.configs import get_config, list_configs
 from repro_torch.convert import model_from_reference, reference_leaves
 from repro_torch.models import attention, blocks, common, model
+from test_torch_moe import Routes
 
 ARCHS = ("qwen3-0.6b", "tinyllama-1.1b", "codeqwen1.5-7b", "minitron-4b",
-         "phi-3-vision-4.2b", "seamless-m4t-large-v2")
+         "phi-3-vision-4.2b", "seamless-m4t-large-v2", "rwkv6-1.6b", "jamba-v0.1-52b")
+ATTN_ARCHS = tuple(a for a in ARCHS if a != "rwkv6-1.6b")   # with an attention layer
 NORMS = ("ln1", "ln2", "final_ln", "q_norm", "k_norm")
 BIASES = ("bq", "bk", "bv")
+# the SSM mixers' zero or constant leaves, seeded: (low, high) of a uniform draw
+SSM_LEAVES = {"'decay_base'": (-5.0, -0.5), "'bonus'": (-0.5, 0.5),
+              "'mix_rkvg'": (0.0, 1.0), "'dt_bias'": (-2.0, 0.0),
+              "'d_skip'": (0.5, 1.5), "'conv_b'": (-0.5, 0.5),
+              "['mixer']['ln_x']": (0.5, 1.5)}
 LOGITS_ATOL = 0.08   # tests/test_decode_matches_forward's, bf16 end to end
+# a MoE layer's aux: its router's input rounded to bf16 apart (2^-8 of an
+# element) moves each probability by about 1e-3 of itself
+AUX_RTOL = 1e-3
 
 
 def _bf16(a):
@@ -39,15 +58,19 @@ def _np(t):
     return t.to(torch.float32).numpy()
 
 
-def _ref_params(arch, seed=0):
-    """The reference's reduced weights, norm gammas seeded in [0.5, 1.5] and
-    qkv biases (zero at init) in [-0.5, 0.5]."""
-    cfg = ref_config(arch, reduced=True)
+def _ref_params(arch, seed=0, ref_cfg=None):
+    """The reference's reduced weights (or ``ref_cfg``'s), norm gammas seeded
+    in [0.5, 1.5], qkv biases (zero at init) in [-0.5, 0.5] and the SSM
+    leaves of ``SSM_LEAVES`` in their ranges."""
+    cfg = ref_cfg or ref_config(arch, reduced=True)
     params, _ = ref_model.init_model(jax.random.PRNGKey(seed), cfg)
     rng = np.random.default_rng(seed + 1)
 
     def gamma(path, a):
         key = jax.tree_util.keystr(path)
+        for leaf, (lo, hi) in SSM_LEAVES.items():
+            if leaf in key:
+                return jnp.asarray(rng.uniform(lo, hi, size=a.shape), a.dtype)
         if any(n in key for n in NORMS):
             return jnp.asarray(rng.uniform(0.5, 1.5, size=a.shape), a.dtype)
         if any(f"'{n}'" in key for n in BIASES):
@@ -56,12 +79,25 @@ def _ref_params(arch, seed=0):
     return cfg, jax.tree_util.tree_map_with_path(gamma, params)
 
 
-@pytest.fixture(scope="module", params=ARCHS)
-def pair(request):
-    ref_cfg, params = _ref_params(request.param)
-    cfg = get_config(request.param, reduced=True)
+@functools.lru_cache(maxsize=None)
+def _pair(arch):
+    ref_cfg, params = _ref_params(arch)
+    cfg = get_config(arch, reduced=True)
     port = model_from_reference(jax.tree.map(np.asarray, params), cfg, device="cpu")
     return cfg, ref_cfg, params, port
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    return _pair(request.param)
+
+
+def ref_layer(params, cfg, i):
+    """Layer i's subtree of the reference's stacked parameter tree."""
+    pro, g, _ = ref_model._layout(cfg)
+    if i < pro:
+        return params["prologue"][i]
+    return jax.tree.map(lambda a: a[(i - pro) // g], params["groups"][(i - pro) % g])
 
 
 def _x(rng, *shape):
@@ -146,58 +182,105 @@ def test_apply_ffn(act):
                                rtol=2e-2)
 
 
-def test_gqa_full(pair):
-    cfg, ref_cfg, params, port = pair
-    mix = params["groups"][0]["mixer"]
-    mix0 = jax.tree.map(lambda a: a[0], mix)
+def _seq(cfg, S):
+    """S, or for an RWKV6 model the whole chunks of 16 below it (its chunked
+    form takes a multiple of the chunk, as the reference asserts)."""
+    return S - S % 16 if cfg.ssm_kind == "rwkv6" and cfg.layer_kind(0) == "ssm" else S
+
+
+def _first_attn(cfg):
+    return next(i for i in range(cfg.n_layers) if cfg.layer_kind(i) == "attn")
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_gqa_full(arch):
+    """The first attention layer's mixer (jamba's is layer 1)."""
+    cfg, ref_cfg, params, port = _pair(arch)
+    i = _first_attn(cfg)
+    mix0 = ref_layer(params, ref_cfg, i)["mixer"]
     x = _x(np.random.default_rng(5), 2, 33, cfg.d_model)
     pos = np.arange(33)
     want = ref_attn.gqa_full(mix0, ref_cfg, jnp.asarray(x, jnp.bfloat16), jnp.asarray(pos))
-    got = attention.gqa_full(port.layers[0].mixer, cfg, _bf16(x), torch.from_numpy(pos))
+    got = attention.gqa_full(port.layers[i].mixer, cfg, _bf16(x), torch.from_numpy(pos))
     assert got.dtype == torch.bfloat16 and got.shape == (2, 33, cfg.d_model)
     np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), atol=3e-2,
                                rtol=3e-2)
 
 
-def test_gqa_full_refuses_a_window(pair):
-    cfg, _, _, port = pair
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def test_gqa_full_refuses_a_window(arch):
+    cfg, _, _, port = _pair(arch)
+    mixer = port.layers[_first_attn(cfg)].mixer
     x = torch.zeros(1, 4, cfg.d_model, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="window"):
-        attention.gqa_full(port.layers[0].mixer, cfg, x, torch.arange(4), window=2)
+        attention.gqa_full(mixer, cfg, x, torch.arange(4), window=2)
     with pytest.raises(NotImplementedError, match="MLA"):
-        attention.attend_full(port.layers[0].mixer, dataclasses.replace(cfg, attention="mla"),
+        attention.attend_full(mixer, dataclasses.replace(cfg, attention="mla"),
                               x, torch.arange(4))
 
 
-def test_apply_layer_full(pair):
+def test_apply_layer_full(pair, monkeypatch):
+    """Layer 1 (jamba's: attention and a MoE FFN; rwkv6's: its time-mix and
+    a squared-ReLU FFN), and its aux loss: None for a dense layer, the
+    reference's for a MoE one (a flipped route moves it by E / (T k) at
+    most, and the router's input, rounded to bf16 apart, 1e-3 of it); the
+    rows a flipped route reaches are set apart."""
     cfg, ref_cfg, params, port = pair
-    lp = jax.tree.map(lambda a: a[1], params["groups"][0])
-    x = _x(np.random.default_rng(6), 2, 21, cfg.d_model)
-    pos = np.arange(21)
-    want, _ = ref_blocks.apply_layer_full(lp, ref_cfg, 1, jnp.asarray(x, jnp.bfloat16),
-                                          jnp.asarray(pos))
+    routes = Routes(monkeypatch)
+    B, S = 2, _seq(cfg, 21)
+    x = _x(np.random.default_rng(6), B, S, cfg.d_model)
+    pos = np.arange(S)
+    want, want_aux = ref_blocks.apply_layer_full(ref_layer(params, ref_cfg, 1), ref_cfg, 1,
+                                                 jnp.asarray(x, jnp.bfloat16),
+                                                 jnp.asarray(pos))
     got, aux = blocks.apply_layer_full(port.layers[1], cfg, 1, _bf16(x),
                                        torch.from_numpy(pos))
-    assert float(aux) == 0.0
-    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), atol=5e-2,
-                               rtol=2e-2)
+    keep = np.ones((B, S), bool)
+    if cfg.layer_is_moe(1):
+        keep = routes.held(B, S, cfg)
+        assert abs(float(aux) - float(want_aux)) <= \
+            AUX_RTOL * float(want_aux) + routes.n_flips * cfg.n_experts / (B * S * cfg.top_k)
+    else:
+        assert aux is None
+    np.testing.assert_allclose(_np(got)[keep], np.asarray(want, np.float32)[keep],
+                               atol=5e-2, rtol=2e-2)
 
 
-def test_forward_logits(pair):
-    """A vision model's logits over its prefix and the tokens, an
-    encoder-decoder's with frames through the encoder."""
-    cfg, ref_cfg, params, port = pair
-    rng = np.random.default_rng(7)
-    toks = rng.integers(0, cfg.vocab_size, size=(2, 40)).astype(np.int32)
+def _forward_against_reference(cfg, ref_cfg, params, port, monkeypatch, seed=7, S=40):
+    """forward's logits and aux against the reference's on the same tokens
+    (and prefix or frames), every row no flipped route reaches; returns the
+    rows held."""
+    rng = np.random.default_rng(seed)
+    routes = Routes(monkeypatch)
+    S = _seq(cfg, S)
+    toks = rng.integers(0, cfg.vocab_size, size=(2, S)).astype(np.int32)
     extra = _inputs(cfg, rng, 2)
-    want, _ = ref_model.forward(params, ref_cfg, {"tokens": jnp.asarray(toks), **{
+    want, want_aux = ref_model.forward(params, ref_cfg, {"tokens": jnp.asarray(toks), **{
         k: jnp.asarray(a, jnp.bfloat16) for k, a in extra.items()}}, remat=False)
     with torch.no_grad():
         got, aux = model.forward(port, cfg, {"tokens": torch.from_numpy(toks), **{
             k: _bf16(a) for k, a in extra.items()}})
     P = cfg.num_prefix_embeddings if cfg.modality == "vision" else 0
-    assert got.shape == (2, P + 40, model.padded_vocab(cfg)) and float(aux) == 0.0
-    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), atol=LOGITS_ATOL)
+    assert got.shape == (2, P + S, model.padded_vocab(cfg)) and aux.dtype == torch.float32
+    keep = np.ones((2, P + S), bool)
+    if cfg.n_experts:
+        keep = routes.held(2, S, cfg)
+        n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+        assert abs(float(aux) - float(want_aux)) <= AUX_RTOL * n_moe * float(want_aux) \
+            + routes.n_flips * cfg.n_experts / (2 * S * cfg.top_k)
+        assert float(aux) > 0
+    else:
+        assert float(aux) == 0.0
+    np.testing.assert_allclose(_np(got)[keep], np.asarray(want, np.float32)[keep],
+                               atol=LOGITS_ATOL)
+    return keep
+
+
+def test_forward_logits(pair, monkeypatch):
+    """A vision model's logits over its prefix and the tokens, an
+    encoder-decoder's with frames through the encoder, a MoE model's and its
+    aux loss (the MoE layers' summed)."""
+    _forward_against_reference(*pair, monkeypatch)
 
 
 def test_modules_call_their_functions(pair):
@@ -247,17 +330,27 @@ def test_convert_carries_every_leaf(pair):
     own = dict(port.named_parameters())
     leaves = reference_leaves(jax.tree.map(np.asarray, params), cfg)
     assert len(own) == len(leaves) == n_ref
-    # wq wk wv wo, the FFN's (gated: three), ln1 ln2, then qk-norm and bias;
-    # an encoder-decoder's decoder layers also ln_x and the cross wq wk wv wo
-    # (and its biases), its encoder layers the decoder's own, and a final_ln
-    per_layer = 4 + (3 if cfg.act in ("silu", "gelu") else 2) + 2 \
-        + 2 * cfg.qk_norm + 3 * cfg.qkv_bias
+    # a layer: ln1 ln2; its mixer's (attention: wq wk wv wo, then qk-norm
+    # and bias; RWKV6: 8 matrices and vectors, 3 fp32 leaves; Mamba: 6 and
+    # 3 fp32); its FFN's (gated: three, relu2: two; MoE: router and three
+    # expert stacks, and three shared); an encoder-decoder's decoder layers
+    # also ln_x and the cross wq wk wv wo (and its biases), its encoder
+    # layers the decoder's own, and a final_ln
+    def per_layer(i):
+        mixer = (4 + 2 * cfg.qk_norm + 3 * cfg.qkv_bias if cfg.layer_kind(i) == "attn"
+                 else 11 if cfg.ssm_kind == "rwkv6" else 9)
+        ffn = ((4 + 3 * bool(cfg.n_shared_experts)) if cfg.layer_is_moe(i)
+               else 3 if cfg.act in ("silu", "gelu") else 2)
+        return 2 + mixer + ffn
     cross = (1 + 4 + 2 * cfg.qk_norm + 3 * cfg.qkv_bias) if cfg.is_encoder_decoder else 0
-    encoder = cfg.n_encoder_layers * per_layer + 1 if cfg.is_encoder_decoder else 0
-    assert n_ref == cfg.n_layers * (per_layer + cross) + encoder + 2 \
+    encoder = cfg.n_encoder_layers * per_layer(0) + 1 if cfg.is_encoder_decoder else 0
+    assert n_ref == sum(per_layer(i) + cross for i in range(cfg.n_layers)) + encoder + 2 \
         + (not cfg.tie_embeddings)
     for name, leaf in leaves.items():
-        assert torch.equal(own[name], _bf16(leaf)), name
+        want = torch.from_numpy(np.array(leaf, np.float32))
+        assert own[name].dtype == (torch.float32 if np.asarray(leaf).dtype == np.float32
+                                   else torch.bfloat16), name
+        assert torch.equal(own[name].float(), want), name
 
 
 def test_convert_refuses_a_tree_it_cannot_carry(pair):
@@ -311,10 +404,41 @@ def test_seeded_init_has_the_references_distributions():
     assert torch.equal(m.layers[1].ln2, torch.ones(cfg.d_model, dtype=torch.bfloat16))
 
 
-@pytest.mark.parametrize("change", [dict(n_experts=4, moe_d_ff=64, top_k=2),
-                                    dict(attn_layer_period=2, ssm_kind="mamba"),
-                                    dict(attention="mla", kv_lora_rank=64)])
-def test_unported_architectures_raise(change):
-    cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True), **change)
+def test_unported_architectures_raise():
+    cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True), attention="mla",
+                              kv_lora_rank=64)
     with pytest.raises(NotImplementedError):
         model.init_model(torch.Generator().manual_seed(0), cfg)
+
+
+CHANGES = {"moe": dict(n_experts=4, moe_d_ff=64, top_k=2),
+           "ssm": dict(attn_layer_period=2, ssm_kind="mamba")}
+
+
+@functools.lru_cache(maxsize=None)
+def changed_pair(name):
+    """qwen3-0.6b reduced, changed into a MoE model (every layer's FFN) or a
+    Mamba / attention hybrid (layer 0 attention, layer 1 Mamba): the port's
+    and the reference's configurations, the reference's seeded weights and
+    the port's model carrying them."""
+    cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True), **CHANGES[name])
+    ref_cfg = dataclasses.replace(ref_config("qwen3-0.6b", reduced=True), **CHANGES[name])
+    _, params = _ref_params("qwen3-0.6b", ref_cfg=ref_cfg)
+    port = model_from_reference(jax.tree.map(np.asarray, params), cfg, device="cpu")
+    return cfg, ref_cfg, params, port
+
+
+@pytest.mark.parametrize("name", sorted(CHANGES))
+def test_changed_architectures_against_reference(name, monkeypatch):
+    """The MoE and SSM changes of a dense configuration, which raised before
+    those modules were ported: built, every leaf carried, and their forward
+    logits and aux held against the reference's."""
+    cfg, ref_cfg, params, port = changed_pair(name)
+    layer = port.layers[1]
+    if name == "moe":
+        assert type(layer.ffn).__name__ == "MoE" and layer.ffn.router.dtype == torch.float32
+    else:
+        assert type(layer.mixer).__name__ == "Mamba" and cfg.layer_kind(0) == "attn"
+    assert set(dict(port.named_parameters())) == \
+        set(reference_leaves(jax.tree.map(np.asarray, params), cfg))
+    _forward_against_reference(cfg, ref_cfg, params, port, monkeypatch, seed=8)

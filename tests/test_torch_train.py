@@ -30,6 +30,36 @@ rounding of values of order 1).  Train steps (bf16 parameters), at a rate
 - Losses within 1e-2 relative (B4's plain version rounds p to bf16 where
   the reference's ``_flash`` keeps it in fp32: 3e-2 of the attention
   output, ROADMAP).
+
+The SSM and MoE configurations (rwkv6-1.6b, jamba-v0.1-52b) are held to the
+same bounds, with two things of their own:
+
+- Their recurrences amplify the bf16 rounding of their inputs in the
+  backward (RWKV6's decay through the chunk's division by the cumulative
+  decay, Mamba's through exp(dt A) along the scan): the reference's own bf16
+  gradient lies up to 0.08 from its fp32 one (2^-3 is its bound here,
+  against 2^-5 for the dense models), and on some leaves its signs are off
+  the fp32 gradient's on more than 1% of a leaf, or away from 0.  So the
+  first step's sign rule holds the port against the fp32 gradient, as the
+  reference stands there: signs off it on at most 1% of a leaf (or one
+  element) or GRAD_RATIO times as many as the reference's, each within
+  2^-4 of the leaf's largest |g| of 0 or GRAD_RATIO times the reference's
+  furthest.
+- A MoE router's top-k choice is discrete, and a near-tie flips between the
+  two sides (and between the reference's bf16 and fp32 steps), which moves
+  every gradient below that layer.  The train steps therefore pin the
+  routes on both sides (``pinned_routes``): each token's experts come from
+  one seeded table, skewed so that the load-balance loss and its gradient
+  are not trivial and the capacity drops pairs; the weights and the aux
+  loss are the router's own, as ``_route`` forms them.  The top-k choice
+  itself is held in tests/test_torch_moe.py, and in a train step on the
+  routes' own choice (``test_train_step_routes_against_reference``).
+
+And after three steps, where the reference's own bf16 change lies further
+than a quarter from its fp32 change (the same steps on its weights cast to
+fp32), or moved more than 3% of a leaf the other way, the port's change is
+held within GRAD_RATIO times that distance, and that share, each printed and
+below WIDE_LIMIT (an unchanged leaf is 1 off).
 """
 import functools
 import importlib
@@ -45,6 +75,7 @@ from repro.data.lm_data import TokenStream as RefTokenStream
 from repro.data.lm_data import synthetic_token_batches as ref_batches
 from repro.launch import steps as ref_steps
 from repro.models import model as ref_model
+from repro.models import moe as ref_moe
 from repro.optim import optimizers as ref_optim
 from repro_torch.checkpoint import latest_step, load_checkpoint
 from repro_torch.configs import get_config
@@ -54,11 +85,17 @@ from repro_torch.data import TokenStream, synthetic_token_batches
 from repro_torch.kernels import ops
 from repro_torch.launch import steps, train as train_mod
 from repro_torch.models import model as M
+from repro_torch.models import moe
 from repro_torch.optim import optimizers as P
+
+from test_torch_models import AUX_RTOL
+from test_torch_moe import Routes
+
+PORT_ROUTE, REF_ROUTE = moe._route, ref_moe._route     # before ``pinned_routes``
 
 fa = importlib.import_module("repro_torch.kernels.flash_attention")   # the module,
 # not the package's wrapper of the same name
-ARCHS = ("qwen3-0.6b", "tinyllama-1.1b")
+ARCHS = ("qwen3-0.6b", "tinyllama-1.1b", "rwkv6-1.6b", "jamba-v0.1-52b")
 LR = 1e-2
 STEPS = 3
 B, S = 4, 32
@@ -66,9 +103,13 @@ LOSS_RTOL = 1e-2
 GRAD_RATIO = 1.5        # the port's distance from the fp32 gradient / the reference's
 ADAM_EPS = 1e-8         # AdamW's default eps
 NEAR_ZERO = 2.0 ** -4   # of a leaf's largest |g|: where the first step may flip
+REF_GRAD = 2.0 ** -5    # the reference's own bf16 gradient from its fp32 one ...
+REF_GRAD_SSM = 2.0 ** -3   # ... through an SSM recurrence
+AUX_AFTER_RTOL = 0.05   # the aux loss after an update (the routers' weights moved apart)
 FLIPS = 0.01            # the share of a leaf whose gradient's sign may differ
 FLIPS_AFTER = 0.03      # ... that may have moved the other way after some steps
 CHANGE_RTOL = 0.25      # three steps' change, norm-wise
+WIDE_LIMIT = 0.9        # ... the most any leaf's derived limit may reach (an unchanged leaf: 1)
 STEP_RTOL = 0.1         # one step's change from the reference's state
 
 
@@ -76,6 +117,64 @@ def _schedule(mod):
     """Warm-up of one step, decay to 0 at STEPS + 2: the step after STEPS
     still moves (lr 0.146 LR)."""
     return mod.cosine_schedule(LR, 1, STEPS + 2)
+
+
+def _pinned_ids(T, k, E):
+    """Each of T tokens' k distinct experts, drawn from a seeded table with
+    a skewed load (expert e weighted E - e)."""
+    p = np.arange(E, 0, -1, dtype=np.float64)
+    rng = np.random.default_rng(1000 * E + T)
+    return np.stack([rng.choice(E, size=k, replace=False, p=p / p.sum())
+                     for _ in range(T)]).astype(np.int32)
+
+
+def _ref_pinned_route(router_w, cfg, x):
+    """The reference's ``_route`` with the pinned ids in place of its top-k."""
+    E = cfg.n_experts
+    probs = jax.nn.softmax(x.astype(jnp.float32) @ router_w, axis=-1)
+    ids = jnp.asarray(_pinned_ids(x.shape[0], cfg.top_k, E))
+    weights = jnp.take_along_axis(probs, ids, axis=-1)
+    weights = weights / jnp.sum(weights, axis=-1, keepdims=True)
+    frac = jnp.mean(jax.nn.one_hot(ids, E, dtype=jnp.float32), axis=(0, 1))
+    return ids, weights, E * jnp.sum(frac * jnp.mean(probs, axis=0))
+
+
+def _port_pinned_route(router_w, cfg, x):
+    """The port's ``_route`` with the pinned ids in place of its top-k."""
+    E = cfg.n_experts
+    probs = torch.softmax(x.float() @ router_w, dim=-1)
+    ids = torch.from_numpy(_pinned_ids(x.shape[0], cfg.top_k, E)).long()
+    weights = probs.gather(-1, ids)
+    weights = weights / weights.sum(-1, keepdim=True)
+    frac = (ids[..., None] == torch.arange(E)).float().mean(dim=(0, 1))
+    return ids, weights, E * (frac * probs.mean(0)).sum()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def pinned_routes():
+    """Both sides' MoE routes pinned for this module's train steps."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref_moe, "_route", _ref_pinned_route)
+        mp.setattr(moe, "_route", _port_pinned_route)
+        yield
+
+
+def test_pinned_routes_drop_pairs_and_move_aux():
+    """The pinned table's skew: jamba's reduced MoE layer over a train
+    batch drops pairs for capacity, and its aux loss is not the uniform 1."""
+    cfg = get_config("jamba-v0.1-52b", reduced=True)
+    T, k, E = B * S, cfg.top_k, cfg.n_experts
+    ids = _pinned_ids(T, k, E)
+    load = np.bincount(ids.reshape(-1), minlength=E)
+    assert load.max() > moe._capacity(T * k / E, cfg.capacity_factor)
+    probs = np.full((T, E), 1.0 / E)
+    probs[:, 0] += 0.1
+    probs[:, 1:] -= 0.1 / (E - 1)
+    _, _, aux = _port_pinned_route(torch.zeros(cfg.d_model, E), cfg,
+                                   torch.zeros(T, cfg.d_model))
+    assert float(aux) == pytest.approx(1.0)          # uniform probabilities
+    assert float((torch.from_numpy(load / (T * k)) * torch.from_numpy(probs).mean(0)
+                  ).sum() * E) > 1.0
 
 
 def test_tokens_bit_equal():
@@ -223,11 +322,14 @@ def _to_np(tree):
 
 
 @functools.lru_cache(maxsize=None)
-def _ref_run(arch, name="adamw"):
+def _ref_run(arch, name="adamw", fp32=False):
     """The reference's params, state, gradients and loss at each of STEPS + 1
-    train steps of ``name`` from seed 0 (entry 0: the initial params)."""
+    train steps of ``name`` from seed 0 (entry 0: the initial params); with
+    ``fp32`` on the initial params cast to fp32."""
     rcfg = ref_config(arch, reduced=True)
     params, _ = ref_model.init_model(jax.random.PRNGKey(0), rcfg)
+    if fp32:
+        params = jax.tree.map(lambda p: p.astype(jnp.float32), params)
     opt = ref_optim.get_optimizer(name, lr=LR, schedule=_schedule(ref_optim))
     step = _ref_step(rcfg, opt)
     state = (opt.init(params), jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), params))
@@ -238,7 +340,8 @@ def _ref_run(arch, name="adamw"):
         params, state, m = step(params, state, {"tokens": jnp.asarray(t),
                                                 "targets": jnp.asarray(y)})
         runs.append({"params": _to_np(params), "state": _to_np(state[0]),
-                     "grads": _to_np(state[1]), "loss": float(m["loss"])})
+                     "grads": _to_np(state[1]), "loss": float(m["loss"]),
+                     "aux": float(m["aux"])})
     return runs
 
 
@@ -305,7 +408,7 @@ def _moment(run, cfg):
     return _leaves32(run["state"].inner[0], cfg)
 
 
-def _changes_within(mine, ref, before, moments, rtol, label):
+def _changes_within(mine, ref, before, moments, rtol, label, flips=FLIPS_AFTER):
     """Each leaf's change from ``before`` over the steps of ``moments`` (the
     reference's AdamW first moment m after each step, a dict a step): within
     ``rtol`` of the reference's change (norm-wise).  An element may move the
@@ -322,17 +425,23 @@ def _changes_within(mine, ref, before, moments, rtol, label):
             np.testing.assert_array_equal(dp, 0, err_msg=f"{label} {k}")
             continue
         ratio = np.linalg.norm(dp - dr) / nr
-        assert ratio <= rtol, f"{label} {k}: change {ratio:.4f} off the reference's"
+        lim = rtol[k] if isinstance(rtol, dict) else rtol
+        assert ratio <= lim, f"{label} {k}: change {ratio:.4f} off the reference's ({lim:.4f})"
         flip = dp * dr < 0
         near = np.abs(dr) <= len(moments) * _bf16_ulp(np.abs(p0))
         for m in moments:
             near |= np.abs(m[k]) <= NEAR_ZERO * np.abs(m[k]).max()
         assert not (flip & ~near).any(), \
             f"{label} {k}: {(flip & ~near).sum()} moved the other way, away from m = 0"
-        assert flip.mean() <= FLIPS_AFTER, \
+        assert flip.mean() <= (flips[k] if isinstance(flips, dict) else flips), \
             f"{label} {k}: {flip.sum()} of {flip.size} moved the other way"
         worst = max(worst, ratio)
     return worst
+
+
+def _ref_grad_bound(cfg):
+    ssm = cfg.arch_type == "ssm" or cfg.attn_layer_period > 0
+    return REF_GRAD_SSM if ssm else REF_GRAD
 
 
 def test_train_step_gradients_against_reference(trained):
@@ -347,38 +456,112 @@ def test_train_step_gradients_against_reference(trained):
         assert norm > 0, k
         e_ref = np.linalg.norm(ref[k] - exact[k]) / norm
         e_mine = np.linalg.norm(mine - exact[k]) / norm
-        assert e_ref <= 2.0 ** -5, f"{arch} {k}: the reference's bf16 gradient {e_ref:.4f}"
+        assert e_ref <= _ref_grad_bound(cfg), \
+            f"{arch} {k}: the reference's bf16 gradient {e_ref:.4f}"
         assert e_mine <= GRAD_RATIO * e_ref, \
             f"{arch} {k}: {e_mine:.4f} from the fp32 gradient, the reference's {e_ref:.4f}"
+
+
+def test_train_step_routes_against_reference(monkeypatch):
+    """jamba's first train step on its own routes (the routes unpinned,
+    remat off on both sides, so each MoE layer routes once): the port's
+    top-k as the reference's (test_torch_moe's ``Routes``: a flip a
+    near-tie below ROUTE_MARGIN, on at most ROUTE_FLIPS of the tokens), the
+    loss within LOSS_RTOL and the aux as in test_forward_logits."""
+    arch = "jamba-v0.1-52b"
+    cfg, rcfg = get_config(arch, reduced=True), ref_config(arch, reduced=True)
+    params = _ref_run(arch)[0]["params"]         # cached with the routes pinned
+    monkeypatch.setattr(moe, "_route", PORT_ROUTE)
+    monkeypatch.setattr(ref_moe, "_route", REF_ROUTE)
+    routes = Routes(monkeypatch)
+    t, y = next(ref_batches(rcfg.vocab_size, B, S, seed=0))
+    opt = ref_optim.get_optimizer("adamw", lr=LR, schedule=_schedule(ref_optim))
+    _, _, want = jax.jit(ref_steps.make_train_step(rcfg, opt, remat=False))(
+        params, opt.init(params), {"tokens": jnp.asarray(t), "targets": jnp.asarray(y)})
+    port = model_from_reference(params, cfg, device="cpu")
+    popt = P.get_optimizer("adamw", lr=LR, schedule=_schedule(P))
+    _, _, got = steps.make_train_step(cfg, popt, remat=False)(
+        port, popt.init(dict(port.named_parameters())),
+        {"tokens": torch.from_numpy(t), "targets": torch.from_numpy(y)})
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    assert len(routes.port) == n_moe > 0
+    routes.flips(cfg)
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]), rtol=LOSS_RTOL)
+    assert abs(float(got["aux"]) - float(want["aux"])) <= AUX_RTOL * n_moe * float(
+        want["aux"]) + routes.n_flips * cfg.n_experts / (B * S * cfg.top_k)
 
 
 def test_train_steps_against_reference(trained):
     arch, cfg, runs, rec, state, _, metrics = trained
     for i, m in enumerate(metrics):
         np.testing.assert_allclose(m["loss"], runs[i + 1]["loss"], rtol=LOSS_RTOL)
-        assert m["aux"] == 0.0 and m["total"] == m["loss"]
+        if cfg.n_experts:
+            # the MoE layers' load-balance loss: on the same weights (step 0)
+            # its router's input rounded apart (test_torch_models.AUX_RTOL);
+            # after an update the routers' weights differ too, AdamW moving
+            # each element by lr (+-1e-2 of weights of order 0.06) with the
+            # sign of a gradient that is near 0 on many of them
+            np.testing.assert_allclose(m["aux"], runs[i + 1]["aux"],
+                                       rtol=AUX_RTOL if i == 0 else AUX_AFTER_RTOL)
+            assert m["aux"] > 0
+            np.testing.assert_allclose(m["total"], m["loss"] + cfg.router_aux_coef * m["aux"],
+                                       rtol=1e-6)
+        else:
+            assert m["aux"] == 0.0 and m["total"] == m["loss"]
     assert state.step == STEPS
     p0 = _leaves32(runs[0]["params"], cfg)
     # the first update: AdamW's u = g / (|g| + eps) is the same function of
     # two gradients of one sign, up to eps / min |g| and fp32 rounding; the
     # cast to bf16 adds one ulp of the result
     ref1, g1 = _leaves32(runs[1]["params"], cfg), _leaves32(runs[1]["grads"], cfg)
+    exact = _leaves32(_ref_grads32(arch), cfg)
     for k, mine in rec.params[0].items():
         mine_g, ref_g = rec.grads[0][k], g1[k]
         # (an untied embedding's rows of tokens not in the batch have g = 0)
         assert np.mean((ref1[k] != p0[k])[ref_g != 0]) > 0.9, \
             f"{k}: the reference's step left it"
         flip = np.sign(mine_g) != np.sign(ref_g)
-        assert flip.sum() <= max(1, FLIPS * flip.size), \
-            f"{arch} {k}: {flip.sum()} of {flip.size} signs differ"
-        assert np.all(np.abs(ref_g[flip]) <= NEAR_ZERO * np.abs(ref_g).max()), k
+        exact_g = exact[k]
+        ref_off = np.sign(ref_g) != np.sign(exact_g)
+        allowed = max(1, FLIPS * flip.size)
+        if _ref_grad_bound(cfg) == REF_GRAD:
+            assert flip.sum() <= allowed, f"{arch} {k}: {flip.sum()} of {flip.size} signs differ"
+            assert np.all(np.abs(ref_g[flip]) <= NEAR_ZERO * np.abs(ref_g).max()), k
+        else:   # through a recurrence: the port against the fp32 gradient, as the reference
+            mine_off = np.sign(mine_g) != np.sign(exact_g)
+            assert mine_off.sum() <= max(allowed, GRAD_RATIO * ref_off.sum()), \
+                f"{arch} {k}: {mine_off.sum()} signs off the fp32 gradient, the reference " \
+                f"{ref_off.sum()}"
+            assert np.abs(exact_g[mine_off]).max(initial=0) <= max(
+                NEAR_ZERO * np.abs(exact_g).max(),
+                GRAD_RATIO * np.abs(exact_g[ref_off]).max(initial=0)), k
         least = np.minimum(np.abs(mine_g), np.abs(ref_g))     # 0: g = 0 on both sides
         du = np.where(least > 0, ADAM_EPS / np.where(least > 0, least, 1), 0) + 2.0 ** -20
         bound = LR * du + _bf16_ulp(np.maximum(np.abs(mine), np.abs(ref1[k])))
         off = ~flip & (np.abs(mine - ref1[k]) > bound)
         assert not off.any(), f"{arch} {k}: {off.sum()} outside the first step's bound"
-    _changes_within(rec.params[-1], _leaves32(runs[STEPS]["params"], cfg), p0,
-                    [_moment(r, cfg) for r in runs[1:STEPS + 1]], CHANGE_RTOL, arch)
+    ref3 = _leaves32(runs[STEPS]["params"], cfg)
+    rtol, flips = CHANGE_RTOL, FLIPS_AFTER
+    if _ref_grad_bound(cfg) != REF_GRAD:
+        # through a recurrence: the port within GRAD_RATIO times the
+        # reference's own bf16 change's distance from its fp32 change, and
+        # its share of elements moved the other way
+        own = _leaves32(_ref_run(arch, fp32=True)[STEPS]["params"], cfg)
+        d_own = {k: own[k] - p0[k] for k in p0}
+        d_ref = {k: ref3[k] - p0[k] for k in p0}
+        rtol = {k: max(CHANGE_RTOL, GRAD_RATIO * np.linalg.norm(d_own[k] - d_ref[k])
+                       / max(np.linalg.norm(d_ref[k]), 1e-30)) for k in p0}
+        flips = {k: max(FLIPS_AFTER, GRAD_RATIO * np.mean(d_own[k] * d_ref[k] < 0))
+                 for k in p0}
+        wide = {k: (round(rtol[k], 4), round(flips[k], 4)) for k in p0
+                if rtol[k] > CHANGE_RTOL or flips[k] > FLIPS_AFTER}
+        print(f"{arch}: leaves held wider than {CHANGE_RTOL} / {FLIPS_AFTER} (change, "
+              f"moved the other way): {wide}")
+        # a leaf the port left unchanged is 1 off: every limit stays below it,
+        # and below half of a leaf moved the other way (a change at random)
+        assert max(rtol.values()) < WIDE_LIMIT and max(flips.values()) < 0.5, wide
+    _changes_within(rec.params[-1], ref3, p0,
+                    [_moment(r, cfg) for r in runs[1:STEPS + 1]], rtol, arch, flips)
 
 
 def test_one_more_step_from_the_reference_state(trained):

@@ -62,6 +62,34 @@ def test_extract_features_matches_the_reference(backbone, n, seq, batch):
     assert err.mean() <= FEATURE_MEAN_ATOL, err.mean()
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-v0.1-52b"])
+def test_extract_features_of_the_ssm_and_moe_backbones(arch, monkeypatch):
+    """``--arch rwkv6-1.6b`` and ``--arch jamba-v0.1-52b``: the driver's
+    reduced backbone (the reference's weights from PRNGKey(0), as its driver
+    draws them), mean-pooled features against the reference's
+    ``extract_features``; a document whose MoE route flips on a near-tie
+    (tests/test_torch_moe.py's Routes) is set apart."""
+    from test_torch_moe import Routes
+    ref_cfg = ref_config(arch, reduced=True)
+    params, _ = ref_init_model(jax.random.PRNGKey(0), ref_cfg)
+    cfg = get_config(arch, reduced=True)
+    port = model_from_reference(jax.tree.map(np.asarray, params), cfg, device="cpu")
+    n, seq, batch = 70, 16, 32
+    toks, _ = driver.class_conditioned_tokens(n, 3, seq, cfg.vocab_size, seed=n)
+    routes = Routes(monkeypatch)
+    want = ref_driver.extract_features(ref_cfg, params, toks, batch=batch)
+    got = driver.extract_features(cfg, port, toks, batch=batch)
+    assert got.shape == want.shape == (n, cfg.d_model) and got.dtype == np.float32
+    keep = np.ones(n, bool)
+    if cfg.n_experts:
+        for c, tokens in enumerate(routes.flips(cfg)):
+            keep[c * batch + tokens // seq] = False
+    err = np.abs(got - want)[keep]
+    assert keep.sum() >= n // 2
+    assert err.max() <= FEATURE_ATOL, err.max()
+    assert err.mean() <= FEATURE_MEAN_ATOL, err.mean()
+
+
 ARGV = ["--classes", "3", "--n", "400", "--seq", "16", "--budget", "64"]
 
 
