@@ -1,4 +1,4 @@
-"""Model configurations the port runs (a subset of the JAX package's)."""
+"""Model configurations the port runs (the JAX package's ten)."""
 from repro_torch.configs.base import (ARCH_IDS, ModelConfig, get_config,
                                       list_configs)
 

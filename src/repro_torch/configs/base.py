@@ -5,11 +5,11 @@ One file per configuration the port can run lives next to this module; each
 exports ``CONFIG`` (the published widths) and ``reduced()`` (the 2-layer,
 narrow smoke-test variant of the same family).  ``get_config(name)`` /
 ``list_configs()`` are the lookup API of the ``--arch`` flag.  The registry
-holds only what the port's modules run: the dense GQA decoders, the vision
+holds the reference's ten configurations: the dense GQA decoders, the vision
 prefix model (phi-3-vision), the encoder-decoder (seamless-m4t), the
-attention-free RWKV6 model (rwkv6) and the Mamba / attention hybrid with MoE
-FFNs (jamba); the reference's other two configurations need MLA, which is
-not ported yet.
+attention-free RWKV6 model (rwkv6), the Mamba / attention hybrid with MoE
+FFNs (jamba), MLA with fine-grained MoE (deepseek-v2) and GQA at head dim
+112 with MoE and Adafactor (kimi-k2).
 """
 from __future__ import annotations
 
@@ -26,6 +26,8 @@ ARCH_IDS = (
     "seamless-m4t-large-v2",
     "rwkv6-1.6b",
     "jamba-v0.1-52b",
+    "deepseek-v2-236b",
+    "kimi-k2-1t-a32b",
 )
 
 

@@ -13,11 +13,15 @@ so this module needs nothing of the JAX package:
   * ``model_from_reference``: a backbone ``Model`` from the reference's
     ``init_model`` parameter tree (a prefix model's, an encoder-decoder's
     with its ``encoder`` subtree and the layers' ``ln_x`` / ``cross``, an
-    SSM or MoE model's mixers and experts; fp32 leaves stay fp32), so the
-    port's layers can be held against the reference on identical weights;
+    SSM or MoE model's mixers and experts, an MLA mixer's eight leaves;
+    fp32 leaves stay fp32), so the port's layers can be held against the
+    reference on identical weights;
   * ``opt_state_from_reference``: the port's ``OptState`` from the
     reference optimizer's (its step, and the m / v, factored or momentum
     trees), so training can continue from the reference's mid-run state.
+    Adafactor factors a stacked leaf over its last two axes, so a stacked
+    expert leaf's (n_groups, E, d) rows and (n_groups, E, f) columns split
+    into each layer's (E, d) and (E, f), the port's own.
 """
 from __future__ import annotations
 

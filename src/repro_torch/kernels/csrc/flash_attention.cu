@@ -5,7 +5,7 @@
 // (flash_attention_pallas), the TPU form of the model's
 // models/attention.py::_flash, and computes the TPU kernel's function:
 //
-//   s   = (q . k) * scale, fp32 from the inputs, scale = 1/sqrt(D) in fp32
+//   s   = (q . k) * scale, fp32 from the inputs, scale = 1/sqrt(Dqk) in fp32
 //   s   = -1e30 where masked (causal: key position > query position; ragged
 //         S_kv: key position >= S_kv)
 //   m'  = max(m, rowmax(s)), a = exp(m - m'), p = exp(s - m')
@@ -19,19 +19,22 @@
 // (kernels/flash_attention.py) computes the same function when it is given
 // this kernel's tile (flash_attention_bf16_kv_tile below).
 //
-// Layout: q (B, S, Hq, D), k and v (B, S_kv, Hkv, D), o (B, S, Hq, D), all
-// contiguous, so the projections' outputs are read in place and no
-// transposed copy is made.  Query head h reads kv head h / (Hq / Hkv): that
-// is _flash's (Hkv, G) split of the query heads.  Causal attention has
-// S_kv = S; full attention takes k and v of their own length (an encoder's
-// memory under cross-attention).  D is 64, 96 or 128 (the head widths of the
-// ported configurations).  Ragged S and S_kv are masked in the kernel,
-// never padded; causal kv tiles that lie wholly above the diagonal are not
+// Layout: q (B, S, Hq, Dqk), k (B, S_kv, Hkv, Dqk), v (B, S_kv, Hkv, Dv), o
+// (B, S, Hq, Dv), all contiguous, so the projections' outputs are read in
+// place and no transposed copy is made.  Query head h reads kv head
+// h / (Hq / Hkv): that is _flash's (Hkv, G) split of the query heads.  Causal
+// attention has S_kv = S; full attention takes k and v of their own length
+// (an encoder's memory under cross-attention).  (Dqk, Dv) is one of (64, 64),
+// (96, 96), (112, 112), (128, 128) (the GQA head widths of the ported
+// configurations), (192, 128) (MLA: q and k carry the 64 rope dims beside
+// the head's 128, v the head's 128 only) and (96, 64) (MLA's reduced form);
+// both bodies are templated on the pair.  Ragged S and S_kv are masked in
+// the kernel, never padded; causal kv tiles that lie wholly above the diagonal are not
 // visited (the TPU kernel runs them masked; they change neither m, l nor
 // acc); query tiles are taken longest first.
 //
-// Bound on the H100: operations, 4 D FLOP per unmasked (q, k) pair and head,
-// on the bf16 tensor cores (989 TFLOP/s) against q, k, v and o moved once
+// Bound on the H100: operations, 2 (Dqk + Dv) FLOP per unmasked (q, k) pair
+// and head, on the bf16 tensor cores (989 TFLOP/s) against q, k, v and o moved once
 // (3.35 TB/s), from a few hundred positions on; below that, bytes.
 //
 // bf16 (the model's dtype, configs/base.py): the tensor cores.  One
@@ -39,27 +42,34 @@
 // tile, query head, batch row), longest tiles first:
 //   - warpgroup 0 produces: it gives its registers to the consumers
 //     (setmaxnreg), and one thread loads each item's q tile once, then
-//     128-row k and v tiles into a three-stage ring that runs on across
+//     128-row k and v tiles into a ring that runs on across
 //     items (the next item's q and k/v load while the consumers finish the
 //     current one), by TMA over 4-D (D, H, S, B) tensor
 //     maps.  A tile is DP/64 boxes of 64 columns (128 bytes, the span of the
-//     128-byte swizzle) by 128 rows; rows past S (or S_kv) come back as
+//     128-byte swizzle) by 128 rows (DP: the width padded to whole boxes,
+//     DPQ for q and k, DPV for v); rows past S (or S_kv) come back as
 //     zeros, never from the next batch row.  Full and empty mbarriers pace
-//     the ring.
+//     the ring.  Its depth follows from the shared memory a block may opt
+//     into (227 KB): three stages, two at (192, 128), whose q tile and k / v
+//     stages take 48 + 3 (48 + 32) = 288 KB at three.
 //   - D 96 runs in the D 128 layout (DP 128): the tensor maps' rows are 96
 //     wide (192 bytes), and the second box's columns 96-127 lie past them,
 //     so TMA fills them with zeros (and still counts the whole box towards
 //     the barrier's bytes).  Q K^T steps over the 96 columns only; P V runs
 //     at N 128 over v's zero columns into accumulator columns that stay 0,
 //     and the store writes the first 96.  One instantiation more, with the
-//     shared memory and the registers of D 128.
+//     shared memory and the registers of D 128.  D 112 runs the same way
+//     (rows of 224 bytes, columns 112-127 TMA's zeros, Q K^T over 7 k16
+//     slices); (96, 64) takes q and k in the D 128 layout and v, P V and o
+//     in D 64's; (192, 128) steps Q K^T over 12 k16 slices of three boxes
+//     and runs P V at N 128, with D 128's accumulators.
 //   - warpgroups 1 and 2 consume, 64 query rows each.  S = Q K^T is wgmma
 //     m64n128k16 with both operands in shared memory (k's [kv][D] rows are
 //     K-major); the mask, the running max and sum stay in the accumulator
 //     fragments, the row reductions are quad shuffles, p = 2^(s scale
 //     log2(e) - m scale log2(e)) is one FFMA and ex2.approx; p becomes bf16
 //     pairs in the A-register layout of O += P V, a wgmma m64nDk16 with v
-//     from shared memory (MN-major: the transpose bit), N = DP.  S_j is issued
+//     from shared memory (MN-major: the transpose bit), N = DPV.  S_j is issued
 //     ahead of P_{j-1} V_{j-1}, so the softmax of tile j runs on the CUDA
 //     cores while the tensor cores finish P_{j-1} V_{j-1}.  O, m and l stay
 //     in fp32 registers; the output is normalised, cast and stored from
@@ -68,8 +78,9 @@
 // so it keeps a SIMT body on the fp32 CUDA cores (67 TFLOP/s): one block
 // per 64-row query tile, q^T, k^T, v and p^T staged in shared memory as
 // fp32, 4 x 4 logits per thread, row max and sum by 16-lane shuffles; a
-// thread's D / 16 output columns in float4 groups (float2 groups at D 96).  The
-// wrapper picks the body by dtype; neither gives way to the other.
+// thread's Dv / 16 output columns in float4 groups (float2 groups at Dv 96,
+// single columns at Dv 112).  The wrapper picks the body by dtype; neither
+// gives way to the other, and both take the same pairs.
 #include <cuda.h>            // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,39 +112,42 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-template <int D>
+template <int DQ, int DV>
 constexpr size_t smem_bytes() {
-  // q^T and k^T [D][LDT], v [BK][D], p^T [BK][LDT], all fp32
-  return sizeof(float) * (size_t)(2 * D * LDT + BK * D + BK * LDT);
+  // q^T and k^T [DQ][LDT], v [BK][DV], p^T [BK][LDT], all fp32
+  return sizeof(float) * (size_t)(2 * DQ * LDT + BK * DV + BK * LDT);
 }
 
-template <int D>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o, int S, int S_kv, int Hq,
           int Hkv, float scale, int causal) {
   // thread tx owns columns g * 16 W + tx W + j (j < W) of the accumulator:
-  // W 4 (float4 groups) where 64 divides D, else W 2 (float2 groups)
-  constexpr int W = D % 64 == 0 ? 4 : 2;
-  constexpr int CG = D / (16 * W);
-  static_assert(CG * 16 * W == D, "D is a multiple of 32");
+  // W 4 (float4 groups) where 64 divides DV, W 2 (float2 groups) where 32
+  // does, else W 1 (single columns: DV 112, 7 a thread)
+  constexpr int W = DV % 64 == 0 ? 4 : DV % 32 == 0 ? 2 : 1;
+  constexpr int CG = DV / (16 * W);
+  static_assert(CG * 16 * W == DV, "DV is a multiple of 16");
   extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);   // [D][LDT]
-  float* kt = qt + D * LDT;                       // [D][LDT]
-  float* vs = kt + D * LDT;                       // [BK][D]
-  float* pt = vs + BK * D;                        // [BK][LDT]
+  float* qt = reinterpret_cast<float*>(smem4);   // [DQ][LDT]
+  float* kt = qt + DQ * LDT;                      // [DQ][LDT]
+  float* vs = kt + DQ * LDT;                      // [BK][DV]
+  float* pt = vs + BK * DV;                       // [BK][LDT]
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long q_step = (long)Hq * D, kv_step = (long)Hkv * D;   // per position
-  const float* qb = q + (long)b * S * q_step + (long)h * D;
-  const float* kb = k + (long)b * S_kv * kv_step + (long)hk * D;
-  const float* vb = v + (long)b * S_kv * kv_step + (long)hk * D;
+  // per position: q's, k's and v's rows, and o's
+  const long q_step = (long)Hq * DQ, k_step = (long)Hkv * DQ, v_step = (long)Hkv * DV;
+  const long o_step = (long)Hq * DV;
+  const float* qb = q + (long)b * S * q_step + (long)h * DQ;
+  const float* kb = k + (long)b * S_kv * k_step + (long)hk * DQ;
+  const float* vb = v + (long)b * S_kv * v_step + (long)hk * DV;
 
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D, d = e % D, s = q0 + r;
+  for (int e = tid; e < BQ * DQ; e += THREADS) {
+    const int r = e / DQ, d = e % DQ, s = q0 + r;
     qt[d * LDT + r] = s < S ? qb[s * q_step + d] : 0.f;
   }
 
@@ -149,11 +163,13 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_end = causal ? min(S, q0 + BQ) : S_kv;
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
     __syncthreads();              // the previous tile's readers are done
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int r = e / D, d = e % D, s = k0 + r;
-      const bool in = s < S_kv;
-      kt[d * LDT + r] = in ? kb[s * kv_step + d] : 0.f;
-      vs[r * D + d] = in ? vb[s * kv_step + d] : 0.f;
+    for (int e = tid; e < BK * DQ; e += THREADS) {
+      const int r = e / DQ, d = e % DQ, s = k0 + r;
+      kt[d * LDT + r] = s < S_kv ? kb[s * k_step + d] : 0.f;
+    }
+    for (int e = tid; e < BK * DV; e += THREADS) {
+      const int r = e / DV, d = e % DV, s = k0 + r;
+      vs[r * DV + d] = s < S_kv ? vb[s * v_step + d] : 0.f;
     }
     __syncthreads();
 
@@ -163,7 +179,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQ; ++d) {
       const float4 a = *reinterpret_cast<const float4*>(&qt[d * LDT + ty * 4]);
       const float4 c = *reinterpret_cast<const float4*>(&kt[d * LDT + tx * 4]);
       const float av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
@@ -209,14 +225,16 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
       for (int g = 0; g < CG; ++g) {
-        const float* vp = &vs[kk * D + g * 16 * W + tx * W];
+        const float* vp = &vs[kk * DV + g * 16 * W + tx * W];
         float cv[W];
         if constexpr (W == 4) {
           const float4 c = *reinterpret_cast<const float4*>(vp);
           cv[0] = c.x, cv[1] = c.y, cv[2] = c.z, cv[3] = c.w;
-        } else {
+        } else if constexpr (W == 2) {
           const float2 c = *reinterpret_cast<const float2*>(vp);
           cv[0] = c.x, cv[1] = c.y;
+        } else {
+          cv[0] = *vp;
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -227,7 +245,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float* ob = o + (long)b * S * q_step + (long)h * D;
+  float* ob = o + (long)b * S * o_step + (long)h * DV;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int s = q0 + ty * 4 + i;
@@ -237,19 +255,19 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     for (int g = 0; g < CG; ++g)
 #pragma unroll
       for (int j = 0; j < W; ++j)
-        ob[s * q_step + g * 16 * W + tx * W + j] = acc[i][g * W + j] / den;
+        ob[s * o_step + g * 16 * W + tx * W + j] = acc[i][g * W + j] / den;
   }
 }
 
-template <int D>
+template <int DQ, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int S_kv,
            int Hq, int Hkv, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();   // above 48 KB: opt-in
+  constexpr size_t smem = smem_bytes<DQ, DV>();   // above 48 KB: opt-in
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd<DQ, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
-  flash_fwd<D><<<grid, THREADS, smem, stream>>>(
+  flash_fwd<DQ, DV><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, S_kv, Hq, Hkv, scale,
       causal);
@@ -263,8 +281,9 @@ namespace tc {
 
 constexpr int BQ = 128;           // query rows per block: two consumer warpgroups of 64
 constexpr int BK = 128;           // kv rows per tile
-constexpr int STAGES = 3;         // depth of the k / v ring: v of tile j - 1 is read
+constexpr int MAX_STAGES = 3;     // depth of the k / v ring: v of tile j - 1 is read
                                   // while tile j + 1 loads
+constexpr uint32_t SMEM_OPT_IN = 227 * 1024;   // dynamic shared memory a block may opt into
 constexpr int BOX = 64;           // columns per TMA box: 128 bytes, the swizzle span
 constexpr int ROWS = 128;         // rows per box (BQ and BK)
 constexpr int THREADS = 384;      // producer warpgroup + two consumer warpgroups
@@ -281,14 +300,22 @@ __host__ __device__ constexpr int padded() {
 
 // Shared memory, in bytes from a 1024-aligned base: q, then the k and v
 // rings, then the barriers q_full, q_empty, full[STAGES] and empty[STAGES].
-template <int D>
+// The ring is as deep as the opt-in limit allows, up to MAX_STAGES.
+template <int DQ, int DV>
 struct Smem {
-  static constexpr uint32_t TILE = (padded<D>() / BOX) * BOX_BYTES;   // one 128 x DP tile
+  static constexpr uint32_t QK_TILE = (padded<DQ>() / BOX) * BOX_BYTES;   // 128 x DPQ
+  static constexpr uint32_t V_TILE = (padded<DV>() / BOX) * BOX_BYTES;    // 128 x DPV
+  static constexpr uint32_t SLACK = 8 * (2 + 2 * MAX_STAGES) + ATOM;     // + alignment
+  static constexpr int STAGES =
+      (SMEM_OPT_IN - QK_TILE - SLACK) / (QK_TILE + V_TILE) < MAX_STAGES
+          ? (int)((SMEM_OPT_IN - QK_TILE - SLACK) / (QK_TILE + V_TILE)) : MAX_STAGES;
+  static_assert(STAGES >= 2, "the ring needs two stages");
   static constexpr uint32_t Q = 0;
-  static constexpr uint32_t K = Q + TILE;                   // stage s at K + s * TILE
-  static constexpr uint32_t V = K + STAGES * TILE;
-  static constexpr uint32_t BAR = V + STAGES * TILE;
-  static constexpr uint32_t BYTES = BAR + 8 * (2 + 2 * STAGES) + ATOM;   // + alignment slack
+  static constexpr uint32_t K = Q + QK_TILE;                // stage s at K + s * QK_TILE
+  static constexpr uint32_t V = K + STAGES * QK_TILE;       // stage s at V + s * V_TILE
+  static constexpr uint32_t BAR = V + STAGES * V_TILE;
+  static constexpr uint32_t BYTES = BAR + SLACK;
+  static_assert(BYTES <= SMEM_OPT_IN, "past the shared memory a block may opt into");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -488,14 +515,15 @@ __device__ __forceinline__ void to_a_fragments(const float (&p)[BK / 2],
   }
 }
 
-// Issues S = Q K^T for one k tile (64 x 128 per warpgroup) and commits it.
-template <int D>
+// Issues S = Q K^T for one k tile (64 x 128 per warpgroup) over the DQ
+// columns of q and k and commits it.
+template <int DQ>
 __device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_rows,
                                          uint32_t k_tile) {
   pin(sc);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DQ / 16; ++kk) {
     const uint32_t off = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
     wgmma_ss_n128(sc, desc_k_major(q_rows + off), desc_k_major(k_tile + off), kk > 0);
   }
@@ -537,13 +565,14 @@ __device__ __forceinline__ int kv_tiles(int q0, int S, int S_kv, int causal) {
   return ((causal ? min(S, q0 + BQ) : S_kv) + BK - 1) / BK;
 }
 
-template <int D>
+template <int DQ, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int B,
           int S, int S_kv, int Hq, int Hkv, float scale, int causal) {
-  constexpr int DP = padded<D>();
-  using L = Smem<D>;
+  constexpr int DPQ = padded<DQ>(), DPV = padded<DV>();
+  using L = Smem<DQ, DV>;
+  constexpr int STAGES = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = (smem_u32(smem) + ATOM - 1) & ~(ATOM - 1);
   const uint32_t q_full = base + L::BAR, q_empty = q_full + 8;
@@ -570,19 +599,20 @@ flash_fwd(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
       for (int n = 0, item = nth_item(0); item < n_items; item = nth_item(++n)) {
         const Item w = item_at(item, n_qt, Hq, B);
         mbar_wait(q_empty, (n & 1) ^ 1);           // the first item passes
-        mbar_expect_tx(q_full, L::TILE);
-        for (int c = 0; c < DP / BOX; ++c)
+        mbar_expect_tx(q_full, L::QK_TILE);
+        for (int c = 0; c < DPQ / BOX; ++c)
           tma_load(base + L::Q + c * BOX_BYTES, &tq, q_full, c * BOX, w.h, w.q0, w.b);
         const int n_kv = kv_tiles(w.q0, S, S_kv, causal);
         for (int j = 0; j < n_kv; ++j, ++it) {
           const int s = it % STAGES;
           mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);   // the first round passes
-          mbar_expect_tx(full + 8 * s, 2 * L::TILE);
-          for (int c = 0; c < DP / BOX; ++c) {
-            const uint32_t off = s * L::TILE + c * BOX_BYTES;
-            tma_load(base + L::K + off, &tk, full + 8 * s, c * BOX, w.h / group, j * BK, w.b);
-            tma_load(base + L::V + off, &tv, full + 8 * s, c * BOX, w.h / group, j * BK, w.b);
-          }
+          mbar_expect_tx(full + 8 * s, L::QK_TILE + L::V_TILE);
+          for (int c = 0; c < DPQ / BOX; ++c)
+            tma_load(base + L::K + s * L::QK_TILE + c * BOX_BYTES, &tk, full + 8 * s,
+                     c * BOX, w.h / group, j * BK, w.b);
+          for (int c = 0; c < DPV / BOX; ++c)
+            tma_load(base + L::V + s * L::V_TILE + c * BOX_BYTES, &tv, full + 8 * s,
+                     c * BOX, w.h / group, j * BK, w.b);
         }
       }
     }
@@ -594,7 +624,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
     const int g = lane >> 2, t = lane & 3;
     const uint32_t q_rows = base + L::Q + cw * 64 * 128;   // its 64 rows of each q box
     const float sl2 = scale * 1.4426950408889634f;
-    float acc[DP / 2], sc[BK / 2], alpha[2];
+    float acc[DPV / 2], sc[BK / 2], alpha[2];
     uint32_t pa[BK / 16][4];
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
@@ -607,11 +637,11 @@ flash_fwd(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
       const int n_kv = kv_tiles(w.q0, S, S_kv, causal);
       float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < DPV / 2; ++i) acc[i] = 0.f;
 
       mbar_wait(q_full, n & 1);
       mbar_wait(full + 8 * (it % STAGES), (it / STAGES) & 1);
-      issue_qk<D>(sc, q_rows, base + L::K + (it % STAGES) * L::TILE);
+      issue_qk<DQ>(sc, q_rows, base + L::K + (it % STAGES) * L::QK_TILE);
       wgmma_wait<0>();
       pin(sc);
       if (n_kv == 1) mbar_arrive(q_empty);         // q read for the last time
@@ -625,8 +655,8 @@ flash_fwd(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
       for (int j = 1; j < n_kv; ++j) {
         const int s = (it + j) % STAGES, prev = (it + j - 1) % STAGES;
         mbar_wait(full + 8 * s, ((it + j) / STAGES) & 1);
-        issue_qk<D>(sc, q_rows, base + L::K + s * L::TILE);
-        issue_pv<DP>(acc, pa, base + L::V + prev * L::TILE);
+        issue_qk<DQ>(sc, q_rows, base + L::K + s * L::QK_TILE);
+        issue_pv<DPV>(acc, pa, base + L::V + prev * L::V_TILE);
         wgmma_wait<1>();                           // S_j done; P V may still run
         pin(sc);
         if (j == n_kv - 1) mbar_arrive(q_empty);   // q read for the last time
@@ -635,7 +665,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
         pin(acc);
         mbar_arrive(empty + 8 * prev);             // this thread is done with tile j - 1
 #pragma unroll
-        for (int i = 0; i < DP / 8; ++i) {
+        for (int i = 0; i < DPV / 8; ++i) {
           acc[4 * i] *= alpha[0];
           acc[4 * i + 1] *= alpha[0];
           acc[4 * i + 2] *= alpha[1];
@@ -644,22 +674,22 @@ flash_fwd(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
         to_a_fragments(sc, pa);
       }
       const int last = (it + n_kv - 1) % STAGES;
-      issue_pv<DP>(acc, pa, base + L::V + last * L::TILE);
+      issue_pv<DPV>(acc, pa, base + L::V + last * L::V_TILE);
       wgmma_wait<0>();
       pin(acc);
       mbar_arrive(empty + 8 * last);
       it += n_kv;
 
-      // the producer loads the next item meanwhile; columns D .. DP - 1 of
-      // acc are 0 (v's columns past D came in as zeros) and are not stored
+      // the producer loads the next item meanwhile; columns DV .. DPV - 1 of
+      // acc are 0 (v's columns past DV came in as zeros) and are not stored
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = r0 + 8 * r;
         if (row < S) {
           const float den = fmaxf(l[r], 1e-30f);
-          __nv_bfloat16* orow = o + (((long)w.b * S + row) * Hq + w.h) * D;
+          __nv_bfloat16* orow = o + (((long)w.b * S + row) * Hq + w.h) * DV;
 #pragma unroll
-          for (int i = 0; i < D / 8; ++i)
+          for (int i = 0; i < DV / 8; ++i)
             *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + 2 * t) =
                 __floats2bfloat162_rn(acc[4 * i + 2 * r] / den, acc[4 * i + 2 * r + 1] / den);
         }
@@ -693,8 +723,8 @@ EncodeTiled encoder() {
 }
 
 // A (D, H, S, B) bf16 tensor map with 64 x 1 x 128 x 1 boxes in the 128-byte
-// swizzle; positions past S, and columns past D (D 96's second box), read
-// as zeros.
+// swizzle; positions past S, and columns past D (the second box of D 96 and
+// D 112), read as zeros.
 bool tensor_map(CUtensorMap* map, const void* base, int D, int H, int S, int B) {
   const EncodeTiled encode = encoder();
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
@@ -708,16 +738,16 @@ bool tensor_map(CUtensorMap* map, const void* base, int D, int H, int S, int B) 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DQ, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int S_kv,
            int Hq, int Hkv, float scale, int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!tensor_map(&mq, q, D, Hq, S, B) || !tensor_map(&mk, k, D, Hkv, S_kv, B) ||
-      !tensor_map(&mv, v, D, Hkv, S_kv, B))
+  if (!tensor_map(&mq, q, DQ, Hq, S, B) || !tensor_map(&mk, k, DQ, Hkv, S_kv, B) ||
+      !tensor_map(&mv, v, DV, Hkv, S_kv, B))
     return cudaErrorInvalidValue;
-  constexpr uint32_t smem = Smem<D>::BYTES;   // above 48 KB: opt-in
+  constexpr uint32_t smem = Smem<DQ, DV>::BYTES;   // above 48 KB: opt-in
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd<DQ, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int device, sms;
   if ((err = cudaGetDevice(&device)) != cudaSuccess ||
@@ -726,7 +756,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
     return err;
   const long items = (long)((S + BQ - 1) / BQ) * Hq * B;   // one persistent block per SM
   if (items > 0x7fffffff) return cudaErrorInvalidValue;   // the kernel counts items in int
-  flash_fwd<D><<<(unsigned)(items < sms ? items : sms), THREADS, smem, stream>>>(
+  flash_fwd<DQ, DV><<<(unsigned)(items < sms ? items : sms), THREADS, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), B, S, S_kv, Hq, Hkv, scale, causal);
   return cudaGetLastError();
 }
@@ -735,31 +765,32 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 
 }  // namespace
 
-// q, o (B, S, Hq, D) and k, v (B, S_kv, Hkv, D), contiguous on the current
-// device, fp32 (dtype 0, the SIMT body) or bf16 (dtype 1, the tensor-core
-// body, whose q, k and v need 16-byte-aligned bases for TMA); D 64, 96 or
-// 128; S_kv = S when causal; Hq a multiple of Hkv; B and Hq at most 65535.
+// q (B, S, Hq, Dqk), k (B, S_kv, Hkv, Dqk), v (B, S_kv, Hkv, Dv) and o
+// (B, S, Hq, Dv), contiguous on the current device, fp32 (dtype 0, the SIMT
+// body) or bf16 (dtype 1, the tensor-core body, whose q, k and v need
+// 16-byte-aligned bases for TMA); (Dqk, Dv) one of the pairs of FLASH_PAIRS;
+// S_kv = S when causal; Hq a multiple of Hkv; B and Hq at most 65535.
 // Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for
-// arguments it does not take (a bf16 base TMA refuses included).
+// arguments it does not take (a pair outside the list, and a bf16 base TMA
+// refuses, included).
+#define FLASH_PAIRS(X) X(64, 64) X(96, 96) X(112, 112) X(128, 128) X(192, 128) X(96, 64)
+
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* o, int B, int S, int S_kv, int Hq, int Hkv,
-                                      int D, int dtype, float scale, int causal,
+                                      int Dqk, int Dv, int dtype, float scale, int causal,
                                       void* stream) {
   if (B <= 0 || S <= 0 || Hq <= 0) return 0;
   if (S_kv <= 0 || (causal && S_kv != S) || Hkv <= 0 || Hq % Hkv != 0 ||
       (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return dtype ? tc::launch<64>(q, k, v, o, B, S, S_kv, Hq, Hkv, scale, causal, st)
-                 : simt::launch<64>(q, k, v, o, B, S, S_kv, Hq, Hkv, scale, causal, st);
-  if (D == 96)
-    return dtype ? tc::launch<96>(q, k, v, o, B, S, S_kv, Hq, Hkv, scale, causal, st)
-                 : simt::launch<96>(q, k, v, o, B, S, S_kv, Hq, Hkv, scale, causal, st);
-  if (D == 128)
-    return dtype ? tc::launch<128>(q, k, v, o, B, S, S_kv, Hq, Hkv, scale, causal, st)
-                 : simt::launch<128>(q, k, v, o, B, S, S_kv, Hq, Hkv, scale, causal, st);
+#define FLASH_LAUNCH(DQ, DV)                                                              \
+  if (Dqk == DQ && Dv == DV)                                                            \
+    return dtype ? tc::launch<DQ, DV>(q, k, v, o, B, S, S_kv, Hq, Hkv, scale, causal, st) \
+                 : simt::launch<DQ, DV>(q, k, v, o, B, S, S_kv, Hq, Hkv, scale, causal, st);
+  FLASH_PAIRS(FLASH_LAUNCH)
+#undef FLASH_LAUNCH
   return cudaErrorInvalidValue;
 }
 
@@ -767,12 +798,24 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 // does when it is given the same tile.
 extern "C" int flash_attention_bf16_kv_tile() { return tc::BK; }
 
-// Dynamic shared memory of one block of the body for (D, dtype), in bytes
-// (ptxas reports static shared memory only); 0 for what the kernel does not
-// take.
-extern "C" int flash_attention_smem_bytes(int D, int dtype) {
-  if (D == 64) return dtype ? (int)tc::Smem<64>::BYTES : (int)simt::smem_bytes<64>();
-  if (D == 96) return dtype ? (int)tc::Smem<96>::BYTES : (int)simt::smem_bytes<96>();
-  if (D == 128) return dtype ? (int)tc::Smem<128>::BYTES : (int)simt::smem_bytes<128>();
+// Dynamic shared memory of one block of the body for (Dqk, Dv, dtype), in
+// bytes (ptxas reports static shared memory only); 0 for what the kernel
+// does not take.
+extern "C" int flash_attention_smem_bytes(int Dqk, int Dv, int dtype) {
+#define FLASH_SMEM(DQ, DV)                                                     \
+  if (Dqk == DQ && Dv == DV)                                                   \
+    return dtype ? (int)tc::Smem<DQ, DV>::BYTES : (int)simt::smem_bytes<DQ, DV>();
+  FLASH_PAIRS(FLASH_SMEM)
+#undef FLASH_SMEM
+  return 0;
+}
+
+// The depth of the bf16 body's k / v ring for (Dqk, Dv); 0 for what the
+// kernel does not take.
+extern "C" int flash_attention_bf16_stages(int Dqk, int Dv) {
+#define FLASH_STAGES(DQ, DV) \
+  if (Dqk == DQ && Dv == DV) return tc::Smem<DQ, DV>::STAGES;
+  FLASH_PAIRS(FLASH_STAGES)
+#undef FLASH_STAGES
   return 0;
 }

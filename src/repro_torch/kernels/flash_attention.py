@@ -12,13 +12,16 @@ CUDA path calls it.
 
 Both take the model's layout, grouped-query heads included:
 
-    q  (B, S, Hq, D)    k, v  (B, S_kv, Hkv, D)    Hq a multiple of Hkv
+    q  (B, S, Hq, Dqk)    k  (B, S_kv, Hkv, Dqk)    v  (B, S_kv, Hkv, Dv)
 
-query head h attends kv head h // (Hq // Hkv), over kv positions
-0 .. S_kv - 1 (causal: key position <= query position, and then S_kv = S;
-not causal, S_kv is k and v's own length: an encoder's memory under
-cross-attention).  The logits are fp32 from the inputs upcast, times
-1/sqrt(D); the output has q's dtype.
+Hq a multiple of Hkv; query head h attends kv head h // (Hq // Hkv), over
+kv positions 0 .. S_kv - 1 (causal: key position <= query position, and
+then S_kv = S; not causal, S_kv is k and v's own length: an encoder's
+memory under cross-attention).  v may be narrower than q and k: MLA's q and
+k carry the rope dims beside the head's own (Dqk = head_dim + rope_head_dim),
+its v only the head's (Dv = v_head_dim).  The logits are fp32 from the
+inputs upcast, times 1/sqrt(Dqk); the output, (B, S, Hq, Dv), has q's
+dtype.
 The rounded p depends on the running max and so on the kv tile: given
 ``kv_tile=bf16_kv_tile()`` the plain version rounds p as the kernel does.
 ``flash_attention_rounding_slack`` bounds what a p rounded the other way
@@ -44,7 +47,10 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 KV_TILE = 1024                      # the plain version's kv tile (_flash's kv chunk)
 Q_BLOCK = 512                       # query rows a block of the backward (_flash's q chunk)
-HEAD_DIMS = (64, 96, 128)           # the kernel's head widths
+# the kernel's (Dqk, Dv) pairs: the ported configurations' head widths, D
+# 112 (kimi-k2), and MLA's 192 / 128 (deepseek-v2) and 96 / 64 (its reduced
+# form, the driver's backbone)
+HEAD_DIMS = ((64, 64), (96, 96), (112, 112), (128, 128), (192, 128), (96, 64))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_YZ = 65535                 # Hq and B ride gridDim.y and gridDim.z
 TMA_ALIGN = 16                      # bytes: the bf16 body loads q, k, v by TMA
@@ -59,36 +65,37 @@ def softmax_scale(D: int) -> float:
 
 
 def _shapes(q, k, v, who: str, causal: bool):
-    """(B, S, S_kv, Hq, Hkv, D); raises on shapes that do not go together,
-    and on a causal call whose k and v are not q's length."""
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"{who}: q (B, S, Hq, D) and k, v (B, S_kv, Hkv, D), got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    """(B, S, S_kv, Hq, Hkv, Dqk, Dv); raises on shapes that do not go
+    together, and on a causal call whose k and v are not q's length."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"{who}: q (B, S, Hq, Dqk), k (B, S_kv, Hkv, Dqk) and v "
+                         f"(B, S_kv, Hkv, Dv), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     B, S, Hq, D = q.shape
-    S_kv, Hkv = k.shape[1], k.shape[2]
+    S_kv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or Hq % Hkv:
-        raise ValueError(f"{who}: q {tuple(q.shape)} and k, v {tuple(k.shape)} "
-                         "differ in B or D, or Hq is not a multiple of Hkv")
+        raise ValueError(f"{who}: q {tuple(q.shape)} and k {tuple(k.shape)} "
+                         "differ in B or Dqk, or Hq is not a multiple of Hkv")
     if causal and S_kv != S:
         raise ValueError(f"{who}: causal attention needs k and v of q's length, got "
                          f"S {S} and S_kv {S_kv}")
     if S_kv == 0 and S > 0:
         raise ValueError(f"{who}: no kv position to attend (S_kv 0)")
-    return B, S, S_kv, Hq, Hkv, D
+    return B, S, S_kv, Hq, Hkv, D, Dv
 
 
 def _online_softmax(q, k, v, causal: bool, kv_tile: int, who: str, weigh):
     """The TPU kernel's online softmax, one kv tile at a time, with an fp32
     running max, normaliser and accumulator; ``weigh(p, v_tile)`` gives the
-    two factors of the tile's product.  Returns acc / l as (B, S, Hq, D) fp32."""
-    B, S, S_kv, Hq, Hkv, D = _shapes(q, k, v, who, causal)
+    two factors of the tile's product.  Returns acc / l as (B, S, Hq, Dv) fp32."""
+    B, S, S_kv, Hq, Hkv, D, Dv = _shapes(q, k, v, who, causal)
     G = Hq // Hkv
     scale = torch.tensor(softmax_scale(D), dtype=torch.float32, device=q.device)
     qf = q.to(torch.float32).reshape(B, S, Hkv, G, D)
     rows = torch.arange(S, device=q.device)
     m = torch.full((B, Hkv, G, S, 1), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, Hkv, G, S, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, Hkv, G, S, D), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hkv, G, S, Dv), dtype=torch.float32, device=q.device)
     for k0 in range(0, S_kv, kv_tile):
         kb = k[:, k0:k0 + kv_tile].to(torch.float32)
         vb = v[:, k0:k0 + kv_tile].to(torch.float32)
@@ -102,8 +109,8 @@ def _online_softmax(q, k, v, causal: bool, kv_tile: int, who: str, weigh):
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha + torch.einsum("bhgqk,bkhd->bhgqd", *weigh(p, vb))
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)                  # (B, Hkv, G, S, D)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D)
+    out = acc / torch.clamp(l, min=1e-30)                  # (B, Hkv, G, S, Dv)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, Dv)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -122,12 +129,12 @@ def flash_attention_rounding_slack(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     """How far ``flash_attention_plain``'s bf16 p . v / l can move when its
     logits move in the last bits: one rounding step of every p that lies
     within ``ROUNDING_REL`` (relative) of a rounding midpoint of v's dtype, times
-    |v|, over l; (B, S, Hq, D) fp32, zero for fp32 inputs (p not rounded).
+    |v|, over l; (B, S, Hq, Dv) fp32, zero for fp32 inputs (p not rounded).
     A kernel that forms the same logits in another summation order, or p
     by another exp, may round exactly those p the other way."""
     if v.dtype == torch.float32:
-        _shapes(q, k, v, "flash_attention_rounding_slack", causal)
-        return torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        B, S, _, Hq, _, _, Dv = _shapes(q, k, v, "flash_attention_rounding_slack", causal)
+        return torch.zeros((B, S, Hq, Dv), dtype=torch.float32, device=q.device)
 
     def step(p):
         lo, hi = (p * (1 - ROUNDING_REL)).to(v.dtype), (p * (1 + ROUNDING_REL)).to(v.dtype)
@@ -140,7 +147,7 @@ def _launcher():
     fn = build.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -152,15 +159,18 @@ def bf16_kv_tile() -> int:
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            causal: bool = True) -> torch.Tensor:
-    """Launch kernel B4 on CUDA tensors; returns (B, S, Hq, D) in q's dtype.
+    """Launch kernel B4 on CUDA tensors; returns (B, S, Hq, Dv) in q's dtype.
 
-    D must be 64, 96 or 128, q, k, v one dtype, fp32 or bf16, and k, v of
-    q's length when causal; bf16 runs on the tensor cores and needs
-    16-byte-aligned q, k and v (after ``.contiguous()``), fp32 runs the
-    SIMT body."""
-    B, S, S_kv, Hq, Hkv, D = _shapes(q, k, v, "flash_attention_kernel", causal)
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_kernel: head dim {D} not in {HEAD_DIMS}")
+    (Dqk, Dv) must be a pair of ``HEAD_DIMS`` (refused whatever the tensors'
+    device, before anything else is read), q, k, v one dtype, fp32 or bf16,
+    and k, v of q's length when causal; bf16 runs on the tensor cores and
+    needs 16-byte-aligned q, k and v (after ``.contiguous()``: MLA's v, a
+    strided view of its up-projection, is copied once), fp32 runs the SIMT
+    body."""
+    B, S, S_kv, Hq, Hkv, D, Dv = _shapes(q, k, v, "flash_attention_kernel", causal)
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_kernel: head dims (Dqk {D}, Dv {Dv}) not in "
+                         f"{HEAD_DIMS}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention_kernel: q, k, v must share one dtype of "
                         f"{tuple(DTYPES)}, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -175,13 +185,13 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention_kernel: the bf16 body reads q, k and v by TMA, "
                          f"which needs {TMA_ALIGN}-byte-aligned bases; got byte offsets "
                          f"{[t.data_ptr() % TMA_ALIGN for t in (q, k, v)]}")
-    out = torch.empty_like(q)
+    out = torch.empty((B, S, Hq, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                          B, S, S_kv, Hq, Hkv, D, DTYPES[q.dtype], softmax_scale(D),
+                          B, S, S_kv, Hq, Hkv, D, Dv, DTYPES[q.dtype], softmax_scale(D),
                           int(bool(causal)), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_kernel: launch failed with CUDA error {err}")
@@ -196,24 +206,24 @@ def flash_attention_grad_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                dout: torch.Tensor, *, causal: bool = True,
                                q_block: int = Q_BLOCK):
     """(dq, dk, dv) of ``_flash``'s function (fp32 softmax, p not rounded)
-    at q, k, v for the output gradient ``dout`` (B, S, Hq, D), each in its
-    input's dtype (dk, dv: (B, S_kv, Hkv, D)).  The scores are recomputed
-    ``q_block`` query rows at a time; per block P = softmax(S),
-    dv += P^T dO, dP = dO V^T, dS = P (dP - rowsum(P dP)),
-    dq = dS K / sqrt(D), dk += dS^T Q / sqrt(D), the kv heads summed over
-    the query heads they serve."""
-    B, S, S_kv, Hq, Hkv, D = _shapes(q, k, v, "flash_attention_grad_plain", causal)
+    at q, k, v for the output gradient ``dout`` (B, S, Hq, Dv), each in its
+    input's dtype (dq (B, S, Hq, Dqk), dk (B, S_kv, Hkv, Dqk), dv
+    (B, S_kv, Hkv, Dv)).  The scores are recomputed ``q_block`` query rows at
+    a time; per block P = softmax(S), dv += P^T dO, dP = dO V^T,
+    dS = P (dP - rowsum(P dP)), dq = dS K / sqrt(Dqk), dk += dS^T Q / sqrt(Dqk),
+    the kv heads summed over the query heads they serve."""
+    B, S, S_kv, Hq, Hkv, D, Dv = _shapes(q, k, v, "flash_attention_grad_plain", causal)
     G = Hq // Hkv
     scale = softmax_scale(D)
     kf, vf = k.to(torch.float32), v.to(torch.float32)
     dq = torch.empty((B, S, Hq, D), dtype=torch.float32, device=q.device)
     dk = torch.zeros((B, S_kv, Hkv, D), dtype=torch.float32, device=q.device)
-    dv = torch.zeros_like(dk)
+    dv = torch.zeros((B, S_kv, Hkv, Dv), dtype=torch.float32, device=q.device)
     cols = torch.arange(S_kv, device=q.device)
     for s0 in range(0, S, q_block):
         s1 = min(S, s0 + q_block)
         qb = q[:, s0:s1].to(torch.float32).reshape(B, s1 - s0, Hkv, G, D)
-        dob = dout[:, s0:s1].to(torch.float32).reshape(B, s1 - s0, Hkv, G, D)
+        dob = dout[:, s0:s1].to(torch.float32).reshape(B, s1 - s0, Hkv, G, Dv)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kf) * scale
         if causal:
             s = torch.where(cols[s0:s1, None] >= cols[None, :], s, NEG_INF)

@@ -94,9 +94,11 @@ def smo_epoch_scratch(n_tasks: int, positions: int, device):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Online-softmax attention in the model's layout: q (B, S, Hq, D), k and
-    v (B, S_kv, Hkv, D), query head h on kv head h // (Hq // Hkv); returns
-    (B, S, Hq, D) in q's dtype (see kernels/flash_attention.py).  Causal
+    """Online-softmax attention in the model's layout: q (B, S, Hq, Dqk), k
+    (B, S_kv, Hkv, Dqk) and v (B, S_kv, Hkv, Dv), query head h on kv head
+    h // (Hq // Hkv); returns (B, S, Hq, Dv) in q's dtype (see
+    kernels/flash_attention.py; on the card (Dqk, Dv) is one of its
+    ``HEAD_DIMS``, and another pair raises).  Causal
     attention needs S_kv = S; full attention takes k and v of their own
     length (cross-attention over an encoder's memory).  Ragged S and S_kv
     are masked, never padded.  A sliding window is not ported: ``window > 0``

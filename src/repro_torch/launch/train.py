@@ -13,8 +13,8 @@ model's prefix (``num_prefix_embeddings`` rows) and an encoder-decoder's
 32 frames, standard normal, rounded to bf16.  It prints the reference's
 lines and saves ``{"params": ...}`` through ``checkpoint/ckpt.py`` (a numpy
 archive).  Every registered configuration trains (dense and MoE FFNs,
-attention, RWKV6 and Mamba mixers); MLA is not ported and raises
-``NotImplementedError`` when the model is built.
+GQA and MLA attention, RWKV6 and Mamba mixers) with its own optimizer
+(``cfg.optimizer``: AdamW, or kimi-k2's Adafactor).
 """
 from __future__ import annotations
 

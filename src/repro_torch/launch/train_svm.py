@@ -6,8 +6,10 @@ VGG-16, its mean-pooled final hidden states are the feature vectors, and
 LPD-SVM trains the one-vs-one classifier on top.  The backbone runs kernel
 B4 (flash attention) in every attention layer on the card (an SSM backbone,
 ``--arch rwkv6-1.6b``, has none; jamba's Mamba layers and MoE FFNs are plain
-tensor ops, as the reference's), and the head runs B1 / B2 (and B3 on the
-streamed int8 wire).
+tensor ops, as the reference's; ``--arch deepseek-v2-236b``'s MLA runs B4 at
+its q / k width 96 and v width 64, ``--arch kimi-k2-1t-a32b``'s GQA at its
+reduced head dim 64), and the head runs B1 / B2 (and B3 on the streamed
+int8 wire).
 
     python -m repro_torch.launch.train_svm --arch qwen3-0.6b \
         --classes 10 --n 4000 --budget 256

@@ -1,13 +1,17 @@
 """Decoder / encoder layer assembly (PyTorch port of the JAX package's
-``models/blocks.py``): a pre-norm residual block of a mixer (attention, or an
-SSM: RWKV6 or Mamba, by ``cfg.layer_kind(i)`` and ``cfg.ssm_kind``),
+``models/blocks.py``): a pre-norm residual block of a mixer (attention: GQA
+or MLA by ``cfg.attention``; or an SSM: RWKV6 or Mamba, by
+``cfg.layer_kind(i)`` and ``cfg.ssm_kind``),
 cross-attention over an encoder's memory (encoder-decoder models' decoder
 layers: ``ln_x`` and ``cross``) and an FFN (dense: gated silu / gelu, or the
 non-gated squared ReLU; or routed experts where ``cfg.layer_is_moe(i)``),
 over a whole sequence (``apply_layer_full``, which returns the MoE's aux
 loss) or one token against the layer's caches (``apply_layer_decode``,
 ``init_layer_cache``: an attention layer's KV cache, an SSM layer's
-recurrent state, and the memory's projected ``xk`` / ``xv``).
+recurrent state, and the memory's projected ``xk`` / ``xv``).  An MLA
+layer's cache (``attention.init_cache``) holds the latent ``ckv`` and the
+rope key ``kr`` where a GQA layer's holds ``k`` and ``v``; both sit under
+``"kv"``.
 
 Full-sequence cross-attention (``_cross_attend_full``) goes through
 ``kernels.ops.flash_attention``, not causal, over k and v of the memory's
@@ -16,9 +20,6 @@ length: kernel B4 on the card.  Decode-time cross-attention
 ``xk`` / ``xv``, as ``gqa_decode``'s self-attention is.  The SSM mixers
 and the MoE FFN are plain tensor ops (``models/ssm.py``, ``models/moe.py``),
 as the reference's are.
-
-MLA attention is not ported yet: its configurations raise
-``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -72,15 +73,9 @@ def apply_ffn(params: DenseFFN, cfg: ModelConfig, x: torch.Tensor) -> torch.Tens
     return h @ params.w_down
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.attention == "mla":
-        raise NotImplementedError(f"{cfg.name} has MLA attention, which is not "
-                                  "ported to repro_torch yet")
-
-
 class DecoderLayer(nn.Module):
-    """ln1 and the mixer (a ``GQAttention``, an ``ssm.RWKV6`` or an
-    ``ssm.Mamba``), then with ``with_cross`` ln_x and the cross-attention's
+    """ln1 and the mixer (a ``GQAttention``, an ``MLAttention``, an
+    ``ssm.RWKV6`` or an ``ssm.Mamba``), then with ``with_cross`` ln_x and the cross-attention's
     weights (a ``GQAttention``: wq, wk, wv, wo), then ln2 and the FFN (a
     ``DenseFFN``, or a ``moe.MoE`` on a MoE layer).  ``apply_layer_full``
     applies them.  ``device=None`` means the card."""
@@ -89,7 +84,6 @@ class DecoderLayer(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  dtype=torch.bfloat16, device=None, with_cross: bool = False):
         super().__init__()
-        _check_ported(cfg)
         device = resolve_device(device)
         self.ln1 = nn.Parameter(ones_init((cfg.d_model,), dtype, device),
                                 requires_grad=False)
@@ -213,12 +207,11 @@ def apply_layer_decode(params: DecoderLayer, cfg: ModelConfig, i: int, x: torch.
 def init_layer_cache(cfg: ModelConfig, i: int, batch: int, kv_len: int,
                      dtype=torch.bfloat16, device=None, *, enc_len: int = 0) -> Dict:
     """Decode cache for layer i (``device=None``: the card): an attention
-    layer's KV cache of ``kv_len`` slots, or an SSM layer's recurrent state
+    layer's KV cache of ``kv_len`` slots (MLA's: the latent and rope key), or an SSM layer's recurrent state
     (``ssm.init_rwkv6_state`` / ``ssm.init_mamba_state``, no KV cache), and
     for an encoder-decoder model with ``enc_len`` the cross-attention's
     ``xk`` / ``xv`` (batch, enc_len, Hkv, hd), zeros until
     ``prefill_cross_attention``."""
-    _check_ported(cfg)
     device = resolve_device(device)
     if cfg.layer_kind(i) == "attn":
         cache = {"kv": attn.init_cache(cfg, batch, kv_len, dtype, device)}

@@ -26,7 +26,9 @@ def _normal(generator: Optional[torch.Generator], shape: Sequence[int], std: flo
         return torch.empty(tuple(shape), dtype=dtype, device=device)
     w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
                     device=device)
-    return (w * std).to(dtype)
+    # scaled in place: one fp32 copy of the leaf at a time (kimi-k2's expert
+    # stacks are 22.5 GB each in fp32)
+    return w.mul_(std).to(dtype)
 
 
 def dense_init(generator, shape: Sequence[int], dtype=torch.bfloat16, device=None,

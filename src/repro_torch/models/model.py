@@ -1,6 +1,7 @@
 """Language models (PyTorch port of the JAX package's ``models/model.py``):
-decoder-only text models (attention, attention-free RWKV6, or the Mamba /
-attention hybrid, with dense or MoE FFNs), vision-prefix models (projected
+decoder-only text models (GQA or MLA attention, attention-free RWKV6, or the
+Mamba / attention hybrid, with dense or MoE FFNs, shared experts included),
+vision-prefix models (projected
 patch embeddings ahead of the tokens) and encoder-decoder models (a
 bidirectional encoder over frame embeddings, cross-attended by every
 decoder layer).
@@ -34,10 +35,9 @@ load-balance losses (0 for a model without MoE).
 
 The decode state is a list with one cache per layer (the reference's
 ``prologue`` / ``groups`` stacking has no counterpart, as for the weights):
-an attention layer's KV cache, an SSM layer's recurrent state.  A vision
-model decodes text only, as the reference's serving does.  MLA attention is
-not ported yet: its configurations raise ``NotImplementedError`` when the
-model is built.
+an attention layer's KV cache (MLA's: the latent c_kv and the rope key, the
+absorbed decode's), an SSM layer's recurrent state.  A vision model decodes
+text only, as the reference's serving does.
 """
 from __future__ import annotations
 
@@ -112,7 +112,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
-        blocks._check_ported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         Vp = padded_vocab(cfg)

@@ -5,7 +5,9 @@ bucket-compaction solver against the CPU's, the LIBSVM route's CSR factor,
 save / load and predict_from_factor, the backbone's features on the card
 against the CPU's, the disk tier (an int8 store through B3, stage 2 off
 a spilled G through B2, a corrupt spilled shard rebuilt through B1), the
-exact Table 2 solver (E1) against the CPU's, B4's gradient and train steps.
+exact Table 2 solver (E1) against the CPU's, B4's gradient and train steps,
+B4 at its (Dqk, Dv) pairs (D 112, MLA's (192, 128) and (96, 64)) and the
+reduced MLA and kimi-k2 models on the card against the CPU's.
 
 These need a CUDA card and nvcc: each test asks for the ``cuda`` fixture,
 which skips where there is none.  The task farm (core/distributed.py) runs
@@ -1250,6 +1252,128 @@ def test_flash_kernel_kv_of_another_length_keeps_batch_rows_apart(cuda, dtype):
     out = flash_attention_kernel(q, k, v, causal=False)
     torch.testing.assert_close(out[0], first, rtol=0, atol=0)
     assert bool(torch.isfinite(out.float()).all())
+
+
+def _qkv_pair(cuda, B, S, Hq, Hkv, Dqk, Dv, dtype, seed, S_kv=None, strided_v=False):
+    """q, k of width Dqk and v of width Dv; ``strided_v``: v the second half
+    of a (B, S_kv, Hkv, 2 Dv) tensor, as MLA's v is a view of its
+    up-projection's output."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k = (torch.randn(B, n, h, Dqk, generator=gen).to(cuda, dtype)
+            for n, h in ((S, Hq), (S_kv or S, Hkv)))
+    v = torch.randn(B, S_kv or S, Hkv, 2 * Dv if strided_v else Dv,
+                    generator=gen).to(cuda, dtype)
+    return q, k, (v[..., Dv:] if strided_v else v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dqk,Dv", [(112, 112), (192, 128), (96, 64)])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (16, 8), (8, 1)])
+@pytest.mark.parametrize("S", [1, 63, 129, 257, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_head_pairs_match_plain(cuda, causal, S, Hq, Hkv, Dqk, Dv, dtype):
+    """kimi-k2's D 112 (in D 128's layout), deepseek-v2's MLA at (192, 128)
+    (a two-stage ring) and its reduced form's (96, 64): the kernel against
+    its plain version, output (B, S, Hq, Dv)."""
+    q, k, v = _qkv_pair(cuda, 2, S, Hq, Hkv, Dqk, Dv, dtype, S * 1000 + Hq * 10 + Dqk)
+    before = flash_attention_kernel.launches
+    got = flash_attention_kernel(q, k, v, causal=causal)
+    assert flash_attention_kernel.launches == before + 1
+    assert got.shape == (2, S, Hq, Dv)
+    assert_flash_close(got, q, k, v, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dqk,Dv", [(192, 128), (96, 64)])
+@pytest.mark.parametrize("S,S_kv", [(300, None), (37, 16), (129, 1000)])
+def test_flash_kernel_mla_strided_v(cuda, S, S_kv, Dqk, Dv, dtype):
+    """MLA's layout: v a strided view (the wrapper copies it once); causal
+    at S_kv = S, else not causal over k and v of their own length."""
+    q, k, v = _qkv_pair(cuda, 2, S, 8, 8, Dqk, Dv, dtype, S + Dqk, S_kv=S_kv,
+                        strided_v=True)
+    assert not v.is_contiguous()
+    causal = S_kv is None
+    got = flash_attention_kernel(q, k, v, causal=causal)
+    torch.testing.assert_close(got, flash_attention_kernel(q, k, v.contiguous(),
+                                                           causal=causal), rtol=0, atol=0)
+    assert_flash_close(got, q, k, v, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dqk,Dv", [(192, 192), (80, 80), (128, 64), (64, 128), (32, 32)])
+def test_flash_kernel_refuses_pairs_outside_the_set_on_card(cuda, Dqk, Dv, dtype):
+    """A (Dqk, Dv) pair outside HEAD_DIMS raises on the card, through the
+    wrapper and through ops.flash_attention alike, and launches nothing."""
+    q, k, v = _qkv_pair(cuda, 1, 8, 2, 2, Dqk, Dv, dtype, Dqk + Dv)
+    before = flash_attention_kernel.launches
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_kernel(q, k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, k, v)
+    assert flash_attention_kernel.launches == before
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b"])
+def test_mla_and_kimi_models_on_card_match_cpu(cuda, arch):
+    """Reduced deepseek-v2 (MLA: B4 at (96, 64)) and reduced kimi-k2 widened
+    to head dim 112 (as the full model's), one seeded init copied to the CPU:
+    layer 0 (attention and the dense FFN) on the card within bf16 rounding
+    of the CPU's; the forward launches B4 once a layer, finite; layer 0's
+    teacher-forced decode on the card (MLA: the absorbed form over the
+    latent cache) within two bf16 steps of its full path's largest output;
+    a train step with the configuration's optimizer launches B4 twice a
+    layer, finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import blocks, init_model
+    from repro_torch.models import model as M
+    from repro_torch.optim import get_optimizer
+    cfg = get_config(arch, reduced=True)
+    if cfg.attention == "gqa":
+        cfg = dataclasses.replace(cfg, head_dim=112)
+    card = init_model(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    cpu = init_model(None, cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(2, 40, cfg.d_model))).to(torch.bfloat16)
+    pos = torch.arange(40)
+    before = flash_attention_kernel.launches
+    with torch.no_grad():
+        got, _ = blocks.apply_layer_full(card.layers[0], cfg, 0, x.to(cuda), pos.to(cuda))
+        want, _ = blocks.apply_layer_full(cpu.layers[0], cfg, 0, x, pos)
+    assert flash_attention_kernel.launches == before + 1
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=5e-2, rtol=2e-2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24))).to(cuda)
+    before = flash_attention_kernel.launches
+    with torch.no_grad():
+        logits, aux = M.forward(card, cfg, {"tokens": toks})
+        h0, _ = blocks.apply_layer_full(card.layers[0], cfg, 0, card.embed[toks],
+                                        torch.arange(24, device=cuda))
+        state = M.init_decode_state(cfg, 2, 24, device=cuda)
+        assert set(state[0]["kv"]) == ({"ckv", "kr", "pos"} if cfg.attention == "mla"
+                                       else {"k", "v", "pos"})
+        dec = []
+        for t in range(24):
+            x_t = card.embed[toks[:, t:t + 1]]
+            out, state[0] = blocks.apply_layer_decode(card.layers[0], cfg, 0, x_t, state[0],
+                                                      torch.tensor(t, device=cuda))
+            dec.append(out)
+    assert flash_attention_kernel.launches == before + cfg.n_layers + 1
+    assert bool(torch.isfinite(logits.float()).all()) and float(aux) > 0
+    # two bf16 steps of the largest output: one rounding a sublayer, added
+    # (on the CPU 1.00 step for deepseek-v2, 0.58 for kimi-k2 at D 112)
+    assert (torch.cat(dec, 1).float() - h0.float()).abs().max() <= \
+        2 * 2.0 ** -7 * h0.float().abs().max()
+    opt = get_optimizer(cfg.optimizer, lr=1e-3)
+    ostate = opt.init(dict(card.named_parameters()))
+    t, y = next(synthetic_token_batches(cfg.vocab_size, 2, 32, seed=0))
+    before = flash_attention_kernel.launches
+    card, ostate, met = make_train_step(cfg, opt)(
+        card, ostate, {"tokens": torch.as_tensor(t).to(cuda),
+                       "targets": torch.as_tensor(y).to(cuda)})
+    assert flash_attention_kernel.launches - before == 2 * cfg.n_layers
+    assert np.isfinite(float(met["loss"]))
 
 
 def test_init_model_defaults_to_the_card(cuda):

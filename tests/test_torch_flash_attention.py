@@ -25,7 +25,7 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.ref import flash_attention_ref
 from repro.models.attention import _flash
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention_kernel,
                                                  flash_attention_plain,
                                                  flash_attention_rounding_slack,
                                                  softmax_scale)
@@ -332,11 +332,40 @@ def test_window_raises_on_every_device():
         ops.flash_attention(q, q, q, window=4)
 
 
-@pytest.mark.parametrize("D", [32, 112, 256])
+@pytest.mark.parametrize("D", [32, 80, 256])
 def test_kernel_refuses_other_head_dims(D):
     q = torch.zeros(1, 8, 2, D)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention_kernel(q, q, q)
+
+
+@pytest.mark.parametrize("Dqk,Dv", [(192, 192), (128, 64), (64, 128), (112, 64)])
+def test_kernel_refuses_pairs_outside_the_set(Dqk, Dv):
+    """A (Dqk, Dv) pair outside HEAD_DIMS raises before the device is read:
+    here on CPU tensors, on the card alike (tests/test_torch_cuda.py's
+    test_flash_kernel_refuses_pairs_outside_the_set_on_card); the plain
+    version takes any pair."""
+    assert (Dqk, Dv) not in HEAD_DIMS
+    q, v = torch.zeros(1, 8, 2, Dqk), torch.zeros(1, 8, 2, Dv)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_kernel(q, q, v)
+    assert flash_attention_plain(q, q, v).shape == (1, 8, 2, Dv)
+
+
+def test_v_of_its_own_width():
+    """v narrower than q and k (MLA's): the output takes v's width; every
+    path checks that k and v agree in B, S_kv and Hkv and that q and k share
+    Dqk."""
+    from repro_torch.kernels.flash_attention import flash_attention_grad_plain
+    q, k = torch.randn(1, 6, 2, 96), torch.randn(1, 6, 2, 96)
+    v = torch.randn(1, 6, 2, 64)
+    assert flash_attention_plain(q, k, v).shape == (1, 6, 2, 64)
+    assert flash_attention_rounding_slack(q, k, v).shape == (1, 6, 2, 64)
+    dq, dk, dv = flash_attention_grad_plain(q, k, v, torch.randn(1, 6, 2, 64))
+    assert dq.shape == dk.shape == (1, 6, 2, 96) and dv.shape == (1, 6, 2, 64)
+    for bad_k, bad_v in ((k[..., :64], v), (k, v[:, :5]), (k, v[:, :, :1])):
+        with pytest.raises(ValueError):
+            flash_attention_plain(q, bad_k, bad_v)
 
 
 def test_kernel_refuses_cpu_tensors_and_other_dtypes():

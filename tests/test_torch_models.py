@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as ref_config
+from repro.configs import list_configs as ref_list_configs
 from repro.models import attention as ref_attn
 from repro.models import blocks as ref_blocks
 from repro.models import common as ref_common
@@ -35,8 +36,11 @@ from repro_torch.models import attention, blocks, common, model
 from test_torch_moe import Routes
 
 ARCHS = ("qwen3-0.6b", "tinyllama-1.1b", "codeqwen1.5-7b", "minitron-4b",
-         "phi-3-vision-4.2b", "seamless-m4t-large-v2", "rwkv6-1.6b", "jamba-v0.1-52b")
-ATTN_ARCHS = tuple(a for a in ARCHS if a != "rwkv6-1.6b")   # with an attention layer
+         "phi-3-vision-4.2b", "seamless-m4t-large-v2", "rwkv6-1.6b", "jamba-v0.1-52b",
+         "deepseek-v2-236b", "kimi-k2-1t-a32b")
+# deepseek-v2 (MLA) and kimi-k2 are held whole-model in tests/test_torch_mla.py
+PAIR_ARCHS = ARCHS[:-2]
+ATTN_ARCHS = tuple(a for a in PAIR_ARCHS if a != "rwkv6-1.6b")   # with a GQA layer
 NORMS = ("ln1", "ln2", "final_ln", "q_norm", "k_norm")
 BIASES = ("bq", "bk", "bv")
 # the SSM mixers' zero or constant leaves, seeded: (low, high) of a uniform draw
@@ -87,7 +91,7 @@ def _pair(arch):
     return cfg, ref_cfg, params, port
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=PAIR_ARCHS)
 def pair(request):
     return _pair(request.param)
 
@@ -124,9 +128,10 @@ def test_configs_are_the_references(arch):
 
 
 def test_registry_holds_only_what_the_port_runs():
-    assert list_configs() == tuple(sorted(ARCHS))
+    """The reference's ten configurations, and nothing else."""
+    assert list_configs() == tuple(sorted(ARCHS)) == tuple(sorted(ref_list_configs()))
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("deepseek-v2-236b")
+        get_config("gpt-2-1.5b")
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
@@ -214,9 +219,14 @@ def test_gqa_full_refuses_a_window(arch):
     x = torch.zeros(1, 4, cfg.d_model, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="window"):
         attention.gqa_full(mixer, cfg, x, torch.arange(4), window=2)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        attention.attend_full(mixer, dataclasses.replace(cfg, attention="mla"),
-                              x, torch.arange(4))
+    # an MLA mixer refuses it too
+    mla = get_config("deepseek-v2-236b", reduced=True)
+    mla_mixer = attention.init_attention(torch.Generator().manual_seed(0), mla,
+                                         device="cpu")
+    with pytest.raises(NotImplementedError, match="window"):
+        attention.attend_full(mla_mixer, mla, torch.zeros(1, 4, mla.d_model,
+                                                          dtype=torch.bfloat16),
+                              torch.arange(4), window=2)
 
 
 def test_apply_layer_full(pair, monkeypatch):
@@ -405,10 +415,16 @@ def test_seeded_init_has_the_references_distributions():
 
 
 def test_unported_architectures_raise():
-    cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True), attention="mla",
-                              kv_lora_rank=64)
-    with pytest.raises(NotImplementedError):
-        model.init_model(torch.Generator().manual_seed(0), cfg)
+    """Every reference configuration is built now (MLA included); what the
+    port still does not run, a sliding window on the full path (no
+    configuration sets one), raises when the forward reaches it."""
+    cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True), sliding_window=4)
+    m = model.init_model(torch.Generator().manual_seed(0), cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="window"):
+        model.forward(m, cfg, {"tokens": torch.zeros(1, 8, dtype=torch.int64)})
+    mla = dataclasses.replace(cfg, sliding_window=0, attention="mla", kv_lora_rank=64)
+    assert type(model.init_model(torch.Generator().manual_seed(0), mla,
+                                 device="cpu").layers[0].mixer).__name__ == "MLAttention"
 
 
 CHANGES = {"moe": dict(n_experts=4, moe_d_ff=64, top_k=2),

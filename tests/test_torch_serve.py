@@ -392,19 +392,28 @@ def test_cli_serves_on_the_card(monkeypatch):
 
 @pytest.mark.parametrize("change", [dict(attention="mla", kv_lora_rank=64)], ids=["mla"])
 def test_unported_decode_raises(change):
-    """An MLA configuration raises on decode, as on the full path."""
+    """An MLA change of a dense configuration, which raised on decode before
+    MLA was ported: its decode state holds the latent cache (ckv, kr) in
+    place of k and v, and its layer decodes over it; a layer handed the
+    other attention kind's cache raises rather than misreading it."""
     cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True), **change)
-    with pytest.raises(NotImplementedError):
-        model.init_decode_state(cfg, 1, 4, device="cpu")
-    dense = get_config("qwen3-0.6b", reduced=True)
-    layer = blocks.DecoderLayer(dense, 0, generator=torch.Generator().manual_seed(0),
+    state = model.init_decode_state(cfg, 1, 4, device="cpu")
+    assert set(state[0]["kv"]) == {"ckv", "kr", "pos"}
+    assert state[0]["kv"]["ckv"].shape == (1, 4, 64)
+    layer = blocks.DecoderLayer(cfg, 0, generator=torch.Generator().manual_seed(0),
                                 device="cpu")
-    x = torch.zeros(1, 1, dense.d_model, dtype=torch.bfloat16)
-    cache = blocks.init_layer_cache(dense, 0, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError):
-        blocks.apply_layer_decode(layer, cfg, 0, x, cache, 0)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        attention.decode_step(layer.mixer, cfg, x, cache["kv"], 0)
+    x = torch.ones(1, 1, cfg.d_model, dtype=torch.bfloat16)
+    out, cache = blocks.apply_layer_decode(layer, cfg, 0, x, state[0], 0)
+    assert out.shape == x.shape and bool(torch.isfinite(out.float()).all())
+    assert cache["kv"]["pos"].tolist() == [0, -1, -1, -1]
+    dense = get_config("qwen3-0.6b", reduced=True)
+    dense_layer = blocks.DecoderLayer(dense, 0, generator=torch.Generator().manual_seed(0),
+                                      device="cpu")
+    gqa_cache = blocks.init_layer_cache(dense, 0, 1, 4, device="cpu")
+    with pytest.raises(KeyError):
+        blocks.apply_layer_decode(layer, cfg, 0, x, gqa_cache, 0)
+    with pytest.raises(KeyError):
+        attention.decode_step(dense_layer.mixer, dense, x, state[0]["kv"], 0)
 
 
 @pytest.mark.parametrize("name", ["ssm", "moe"])

@@ -635,6 +635,51 @@ def test_adafactor_state_from_reference_drives_the_same_update(arch):
         np.testing.assert_allclose(p.numpy(), want[k], rtol=0, atol=1e-6, err_msg=k)
 
 
+def test_kimi_adafactor_updates_match_reference():
+    """kimi-k2's own optimizer on its reduced tree (the reference stacks the
+    MoE layer's leaves over its layer groups: the expert stacks (1, E, d, f)
+    against the port's (E, d, f) a layer): two Adafactor updates of fp32
+    parameters on the same seeded fp32 gradients, the reference's state
+    after the first carried across (``opt_state_from_reference``) and the
+    port's own, each against the reference's leaf by leaf within 1e-6, the
+    factored moments of the expert stacks too."""
+    arch = "kimi-k2-1t-a32b"
+    cfg, rcfg = get_config(arch, reduced=True), ref_config(arch, reduced=True)
+    assert cfg.optimizer == "adafactor"
+    params, _ = ref_model.init_model(jax.random.PRNGKey(2), rcfg)
+    p32 = jax.tree.map(lambda p: np.asarray(p, np.float32), params)
+    rng = np.random.default_rng(5)
+    g1, g2 = (jax.tree.map(lambda p: rng.normal(size=p.shape).astype(np.float32), p32)
+              for _ in range(2))
+    ropt = ref_optim.get_optimizer("adafactor", lr=LR, schedule=_schedule(ref_optim))
+    popt = P.get_optimizer("adafactor", lr=LR, schedule=_schedule(P))
+    update = jax.jit(ropt.update)
+    r1, rs1 = update(g1, ropt.init(p32), p32)
+    r2, _ = update(g2, rs1, r1)
+    mine = {k: torch.tensor(v) for k, v in _leaves32(p32, cfg).items()}
+    state = opt_state_from_reference(_to_np(ropt.init(p32)), cfg, device="cpu")
+    mine, state = popt.update({k: torch.tensor(v) for k, v in _leaves32(g1, cfg).items()},
+                              state, mine)
+    want1 = _leaves32(_to_np(r1), cfg)
+    carried = opt_state_from_reference(_to_np(rs1), cfg, device="cpu")
+    experts = [k for k in mine if k.startswith("layers.1.ffn.w_")]
+    assert len(experts) == 3 and all(mine[k].ndim == 3 for k in experts)
+    for k, p in mine.items():
+        np.testing.assert_allclose(p.numpy(), want1[k], rtol=0, atol=1e-6, err_msg=k)
+        own, ref = state.inner[k], carried.inner[k]
+        for a, b in zip(*((own, ref) if isinstance(own, tuple) else ((own,), (ref,)))):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=0, err_msg=k)
+    vr, vc = state.inner["layers.1.ffn.w_gate"]       # (E, d, f): a row and a column a layer
+    assert vr.shape == (cfg.n_experts, cfg.d_model) and vc.shape == (cfg.n_experts,
+                                                                    cfg.moe_d_ff)
+    grads2 = {k: torch.tensor(v) for k, v in _leaves32(g2, cfg).items()}
+    want2 = _leaves32(_to_np(r2), cfg)
+    for start in (state, carried):
+        got, _ = popt.update(grads2, start, {k: v.clone() for k, v in mine.items()})
+        for k, p in got.items():
+            np.testing.assert_allclose(p.numpy(), want2[k], rtol=0, atol=1e-6, err_msg=k)
+
+
 def test_opt_state_from_reference_adafactor_and_sgd():
     cfg = get_config("qwen3-0.6b", reduced=True)
     params, _ = ref_model.init_model(jax.random.PRNGKey(1), ref_config("qwen3-0.6b",

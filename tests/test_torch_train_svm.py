@@ -373,7 +373,7 @@ def test_polish_levels_below_one_stop_with_an_error(capsys):
 
 def test_unknown_arch_stops_with_an_error(capsys):
     with pytest.raises(SystemExit):
-        driver.main(["--arch", "deepseek-v2-236b"])
+        driver.main(["--arch", "gpt-2-1.5b"])
     assert "--arch" in capsys.readouterr().err
 
 
